@@ -1,0 +1,68 @@
+"""Camera-ray generation (``crnerf_tpu/core/rays.py``).
+
+Pixel-corner sampling with no +0.5 centering, the right-up-back camera frame
+d = ((i-cx)/fx, -(j-cy)/fy, -1), world directions normalized to unit length.
+``cam_rays_uv`` is the on-device ray maker of the serving path
+(``crnerf_tpu/render/inference.py`` ``_cam_rays_uv``).
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def get_ray_directions(h: int, w: int, K, device=None) -> torch.Tensor:
+    """(h, w, 3) camera-frame directions for intrinsics K (3, 3)."""
+    fx, fy, cx, cy = (float(K[0][0]), float(K[1][1]), float(K[0][2]),
+                      float(K[1][2]))
+    j, i = torch.meshgrid(
+        torch.arange(h, dtype=torch.float32, device=device),
+        torch.arange(w, dtype=torch.float32, device=device),
+        indexing="ij",
+    )
+    return torch.stack([(i - cx) / fx, -(j - cy) / fy, -torch.ones_like(i)],
+                       dim=-1)
+
+
+def get_rays(directions: torch.Tensor, c2w: torch.Tensor):
+    """directions (h, w, 3), c2w (3, 4) -> rays_o, rays_d each (h*w, 3),
+    rays_d unit length."""
+    rays_d = directions @ c2w[:, :3].T
+    rays_d = rays_d / torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
+    rays_o = c2w[:, 3].expand(rays_d.shape)
+    return rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+
+
+def cam_rays_uv(c2w: torch.Tensor, intr: torch.Tensor, near: float,
+                far: float, hw: Tuple[int, int]):
+    """All rays (h*w, 8) = [o | d | near | far] and pixel-centre uv (h*w, 2)
+    of an (h, w) frame, made on the device of ``c2w``.
+
+    The rotation is written out elementwise, as in the JAX package: nine
+    f32 multiply-adds per ray, not a matrix product whose precision the
+    backend picks (the TPU's default matmul precision moved samples
+    visibly)."""
+    h, w = hw
+    dev = c2w.device
+    idx = torch.arange(h * w, device=dev)
+    jj = torch.div(idx, w, rounding_mode="floor").to(torch.float32)
+    ii = (idx % w).to(torch.float32)
+    d_cam = torch.stack(
+        [(ii - intr[2]) / intr[0], -(jj - intr[3]) / intr[1],
+         -torch.ones_like(ii)], -1,
+    )
+    R = c2w[:, :3]
+    rays_d = (d_cam[:, 0:1] * R[None, :, 0]
+              + d_cam[:, 1:2] * R[None, :, 1]
+              + d_cam[:, 2:3] * R[None, :, 2])
+    rays_d = rays_d / torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
+    n = idx.shape[0]
+    rays = torch.cat(
+        [c2w[:, 3].expand(n, 3), rays_d,
+         torch.full((n, 1), float(near), device=dev),
+         torch.full((n, 1), float(far), device=dev)], 1,
+    )
+    uv = torch.stack([(jj + 0.5) / h, (ii + 0.5) / w], -1)
+    return rays, uv

@@ -1,0 +1,143 @@
+"""The CR-NeRF system at inference (``crnerf_tpu/render/system.py``
+``CrNerfSystem``, the ``train=False`` half of ``forward``).
+
+Submodules carry the checkpoint prefixes: ``nerf_coarse``, ``nerf_fine``,
+``enc_a``, ``decoder``, ``implicit_mask``. ``forward_eval`` runs the
+appearance encoder and the CGNet mask on the style image, the coarse and
+fine passes (``render.renderer``), and one batched StyleNet decode of the
+coarse and fine feature maps.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from crnerf_tpu_torch import Config
+from crnerf_tpu_torch.models.appearance import AppearanceEncoder
+from crnerf_tpu_torch.models.cgnet import ContextGuidedNetwork
+from crnerf_tpu_torch.models.common import sample_bilinear_uv
+from crnerf_tpu_torch.models.decoder import get_renderer
+from crnerf_tpu_torch.models.nerf_mlp import NerfMLP
+from crnerf_tpu_torch.models.style import StyleNet
+from crnerf_tpu_torch.ops.fused_render import (
+    KernelWeights,
+    mlp_params_from_module,
+    prepare_kernel_weights,
+)
+from crnerf_tpu_torch.render.renderer import render_rays_tiled
+
+
+def compute_dtype(cfg: Config) -> torch.dtype:
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+def pixel_uv(hw: Tuple[int, int], device=None) -> torch.Tensor:
+    """(h*w, 2) pixel-centre (v, u) coordinates, row-major."""
+    h, w = hw
+    vv, uu = torch.meshgrid(
+        (torch.arange(h, dtype=torch.float32, device=device) + 0.5) / h,
+        (torch.arange(w, dtype=torch.float32, device=device) + 0.5) / w,
+        indexing="ij",
+    )
+    return torch.stack([vv.reshape(-1), uu.reshape(-1)], -1)
+
+
+class CrNerfSystem(nn.Module):
+    def __init__(self, cfg: Config):
+        super().__init__()
+        self.cfg = cfg
+        dt = compute_dtype(cfg)
+        mk = lambda: NerfMLP(  # noqa: E731
+            depth=cfg.netdepth, width=cfg.netwidth,
+            in_channels_xyz=cfg.in_channels_xyz,
+            in_channels_dir=cfg.in_channels_dir,
+            out_dim=cfg.nerf_out_dim, compute_dtype=dt,
+        )
+        self.nerf_coarse = mk()
+        self.nerf_fine = mk() if cfg.N_importance > 0 else None
+        self.enc_a = (AppearanceEncoder(cfg.nerf_out_dim, dtype=dt)
+                      if cfg.encode_a else None)
+        self.decoder = (StyleNet(cfg.nerf_out_dim, dtype=dt) if cfg.encode_a
+                        else get_renderer(cfg.nerf_out_dim, cfg.model_mode,
+                                          dtype=dt))
+        self.implicit_mask = (
+            ContextGuidedNetwork(classes=1, M=2, N=2, input_channel=3)
+            if cfg.use_mask else None
+        )
+
+    def kernel_weights(self) -> Dict[str, Optional[KernelWeights]]:
+        """The coarse and fine MLPs laid out for the fused render kernel
+        (prepare once, render many frames)."""
+        cfg = self.cfg
+        prep = lambda m: prepare_kernel_weights(  # noqa: E731
+            mlp_params_from_module(m), cfg.N_emb_xyz, cfg.N_emb_dir,
+            compute_dtype(cfg), m.skips,
+        )
+        return {"coarse": prep(self.nerf_coarse),
+                "fine": (prep(self.nerf_fine)
+                         if self.nerf_fine is not None else None)}
+
+    def render_kw(self) -> Dict:
+        cfg = self.cfg
+        bf16 = cfg.compute_dtype == "bfloat16"
+        return dict(
+            n_samples=cfg.N_samples, n_importance=cfg.N_importance,
+            use_disp=cfg.use_disp,
+            # the recurrence only where its ~2e-4 error is below the
+            # compute stream's own rounding (bf16), as in the JAX package
+            exact_encode=not (cfg.fast_sincos and bf16),
+        )
+
+    def encode_appearance(self, whole01: torch.Tensor) -> torch.Tensor:
+        """(1, Ha, Wa, 3) in [0, 1] -> (1, 32, 32, C)."""
+        return self.enc_a(whole01)
+
+    def predict_mask(self, whole01: torch.Tensor) -> torch.Tensor:
+        """CGNet over the style image -> (1, Ha, Wa, 1)."""
+        return self.implicit_mask(whole01)
+
+    def decode(self, fmap: torch.Tensor, style) -> torch.Tensor:
+        if self.cfg.encode_a:
+            return self.decoder(fmap, style)
+        return self.decoder(fmap)
+
+    @torch.no_grad()
+    def forward_eval(self, rays: torch.Tensor, uv: torch.Tensor,
+                     whole_img: torch.Tensor, hw: Tuple[int, int],
+                     kernel_weights: Dict[str, Optional[KernelWeights]],
+                     want_mask: bool = True) -> Dict[str, torch.Tensor]:
+        """rays (h*w, 8), pixel-centre uv (h*w, 2), whole_img (1, Ha, Wa, 3)
+        in [-1, 1], ``kernel_weights()`` -> rgb_fine, rgb_coarse (h*w, 3),
+        depth_fine, depth_coarse (h*w,), out_mask (h*w, 1). A caller that
+        needs only rgb skips CGNet with ``want_mask=False`` (the JAX
+        package's jitted u8 program drops it the same way)."""
+        cfg = self.cfg
+        h, w = hw
+        res: Dict[str, torch.Tensor] = {}
+        whole01 = (whole_img + 1.0) / 2.0
+        a_emb = self.encode_appearance(whole01) if cfg.encode_a else None
+        if cfg.use_mask and want_mask:
+            mask_small = self.predict_mask(whole01)
+            res["out_mask"] = sample_bilinear_uv(mask_small[0], uv)
+        kw = kernel_weights
+        rr = render_rays_tiled(kw["coarse"], kw["fine"], rays,
+                               tile=cfg.chunk, **self.render_kw())
+        res["depth_coarse"] = rr["depth_coarse"]
+        fc_map = rr["feature_coarse"].reshape(1, h, w, -1)
+        has_fine = "feature_fine" in rr
+        if has_fine:
+            res["depth_fine"] = rr["depth_fine"]
+            ff_map = rr["feature_fine"].reshape(1, h, w, -1)
+        if cfg.encode_a and has_fine:
+            imgs = self.decoder.decode_batch(torch.cat([fc_map, ff_map], 0),
+                                             torch.cat([a_emb, a_emb], 0))
+            res["rgb_coarse"] = imgs[0].reshape(-1, 3)
+            res["rgb_fine"] = imgs[1].reshape(-1, 3)
+        else:
+            res["rgb_coarse"] = self.decode(fc_map, a_emb).reshape(-1, 3)
+            if has_fine:
+                res["rgb_fine"] = self.decode(ff_map, a_emb).reshape(-1, 3)
+        return res

@@ -1,0 +1,114 @@
+"""A/B of the bf16 fused render kernel's occupancy hint on the card.
+
+``csrc/fused_render_fwd.cu`` asks ``__launch_bounds__(NTHREADS, BF16 ? 2 :
+1)``: two CTAs per SM for the bf16 variant, which caps it at 128 registers
+(with a small spill). This builds the source as shipped and with the hint
+at one CTA per SM, checks that both give the same outputs bit for bit, and
+times one launch of each at the serve tile (8192 rays x S=512, 8x256,
+C=64, recurrence encode) in alternating pairs.
+
+    python -m crnerf_tpu_torch.tools.launch_bounds_ab     # needs a GPU
+
+Variants are built into ``build/exp/``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+
+import torch
+
+from crnerf_tpu_torch.models.nerf_mlp import NerfMLP
+from crnerf_tpu_torch.ops import _build
+from crnerf_tpu_torch.ops import fused_render as fr
+
+SHIPPED = "__launch_bounds__(NTHREADS, BF16 ? 2 : 1)"
+VARIANTS = {"2_ctas_per_sm": SHIPPED,
+            "1_cta_per_sm": "__launch_bounds__(NTHREADS, 1)"}
+N_RAYS, S, PAIRS, REPS = 8192, 512, 5, 5
+
+
+def build_variant(name: str, bounds: str) -> ctypes.CDLL:
+    src = (_build.CSRC / "fused_render_fwd.cu").read_text()
+    if SHIPPED not in src:
+        raise RuntimeError(f"{SHIPPED!r} not found in the kernel source")
+    out = _build.BUILD_DIR / "exp"
+    out.mkdir(parents=True, exist_ok=True)
+    cu, so = out / f"{name}.cu", out / f"{name}.so"
+    cu.write_text(src.replace(SHIPPED, bounds))
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                           str(so), str(cu)], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}:\n{proc.stderr}")
+    for line in (proc.stdout + proc.stderr).splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[{name}] {line.strip()}")
+    lib = ctypes.CDLL(str(so))
+    fn = getattr(lib, fr._C_FN)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [vp, ci, vp, ci, vp]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+def time_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("launch_bounds_ab: needs a CUDA device")
+        return 1
+    dev = torch.device("cuda", 0)
+    libs = {k: build_variant(k, v) for k, v in VARIANTS.items()}
+    torch.manual_seed(0)
+    params = fr.mlp_params_from_module(NerfMLP(depth=8, width=256,
+                                               out_dim=64).to(dev))
+    kw = fr.prepare_kernel_weights(params, 15, 4, torch.bfloat16)
+    g = torch.Generator().manual_seed(1)
+    o = (torch.randn(N_RAYS, 3, generator=g) * 0.5).to(dev)
+    d = torch.randn(N_RAYS, 3, generator=g)
+    d = (d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)).to(dev)
+    z = torch.sort(torch.rand(N_RAYS, S, generator=g) * 4 + 0.5,
+                   -1).values.to(dev)
+    noise = torch.zeros(N_RAYS, S, device=dev)
+    shipped_lib = fr._lib
+    try:
+        outs, times = {}, {k: [] for k in libs}
+        for k, lib in libs.items():
+            fr._lib = lambda lib=lib: lib
+            outs[k] = fr.fused_render_apply(kw, o, d, z, noise, False)
+        torch.cuda.synchronize()
+        a, b = (outs[k] for k in libs)
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        print(f"outputs bit-identical: {same}")
+        for order in (list(libs), list(libs)[::-1]) * PAIRS:
+            for k in order:
+                fr._lib = lambda lib=libs[k]: lib
+                times[k].append(time_ms(lambda: fr.fused_render_apply(
+                    kw, o, d, z, noise, False), REPS))
+    finally:
+        fr._lib = shipped_lib
+    for k, v in times.items():
+        v = sorted(v)
+        print(f"{k}: median {v[len(v) // 2]:.3f} ms per launch, range "
+              f"{v[0]:.3f}-{v[-1]:.3f} ({len(v)} samples of {REPS})")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(f"card: {card}")
+    return 0 if same else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

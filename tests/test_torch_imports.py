@@ -1,0 +1,60 @@
+"""The port imports torch and never jax, flax or the JAX package: every
+module of crnerf_tpu_torch, and chip_smoke.py, import with all three
+blocked. Its Config keeps the JAX Config's names and defaults."""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CODE = """
+import importlib, pkgutil, sys
+for blocked in ("jax", "flax", "crnerf_tpu"):
+    sys.modules[blocked] = None
+import crnerf_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(crnerf_tpu_torch.__path__,
+                                               "crnerf_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+chip_smoke.serve_config()
+assert not any(k in ("jax", "crnerf_tpu")
+               or k.startswith(("jax.", "flax", "crnerf_tpu."))
+               for k, v in sys.modules.items() if v is not None)
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _CODE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+
+
+def test_config_fields_match_the_jax_config():
+    """Every field of the port's Config is a JAX Config field with the same
+    default, and the derived channel counts agree."""
+    from crnerf_tpu.config import Config as JaxConfig
+    from crnerf_tpu_torch.config import Config
+
+    jax_defaults = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
+    for f in dataclasses.fields(Config):
+        assert f.name in jax_defaults, f.name
+        assert f.default == jax_defaults[f.name], f.name
+    kw = dict(N_emb_xyz=10, N_emb_dir=3)
+    assert Config(**kw).in_channels_xyz == JaxConfig(**kw).in_channels_xyz
+    assert Config(**kw).in_channels_dir == JaxConfig(**kw).in_channels_dir
+
+
+def test_chip_smoke_refuses_without_a_card():
+    """No CUDA device: exit non-zero and print no result line."""
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
