@@ -1,19 +1,36 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (crnerf_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # build, kernel checks, serve
+    python3 chip_smoke.py            # build, kernel checks, serve, train
 
 Phases, each fatal on failure:
   1. versions, the card's name and power limit; no CUDA device -> exit 1
-  2. build every kernel of the serving path from csrc/ with nvcc (sm_90a)
-  3. kernel against its plain PyTorch version at full width (8x256, C=64)
-     on 1024 rays, S=256 and S=512, bf16 and fp32, exact encode and the
-     recurrence; max abs error of weights, fmap and depth against the
-     stated tolerances, and the kernel's time beside the plain version's
-  4. serve at full size: RenderService with seeded random weights
+  2. build every kernel from csrc/ with nvcc (sm_90a), the sources side by
+     side
+  3. the forward kernel against its plain PyTorch version at full width
+     (8x256, C=64) on 1024 rays, S=256 and S=512, bf16 and fp32, exact
+     encode and the recurrence; max abs error of weights, fmap and depth
+     against the stated tolerances, and the kernel's time beside the plain
+     version's; then the same at the serve path's own launch, an 8192-ray
+     tile at S=256 and S=512, bf16 with the recurrence
+  4. the training kernels at full width on 1024 rays, S=64 and S=128, bf16
+     with the recurrence and fp32 with the exact encode: the stash forward
+     (outputs bit-identical to the no-stash forward, stash against the
+     plain version's) and the two backward kernels against the plain
+     backward on the same stash, with random non-zero cotangents; twice on
+     the same inputs gives the same bits; then the same at the train
+     step's own launches, 16,384 rays at S=64 and S=128, bf16 with the
+     recurrence (the plain versions over 1024-ray slices of the inputs)
+  5. serve at full size: RenderService with seeded random weights
      round-tripped through a weights.npz and the weight bridge, ping,
      3 inline 320x240 renders at 256+256 samples, stats; the launch
      counters are zeroed just before and read just after
+  6. train at full size: the flagship config (16 grids of 1024 rays, 64+64
+     samples, 8x256, bf16) on the synthetic scene through make_train_step;
+     warm-up, timed steps, one profiled step, and a small fp32 step on
+     the card against the same step on the CPU; the
+     launch counters are zeroed just before the timed steps and read just
+     after
 Prints a {"kernels": [...]} line, the card line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
 phase fails or no CUDA device is present.
@@ -36,9 +53,16 @@ BUILD = os.path.join(REPO, "build")   # listed in .gitignore
 sys.path.insert(0, REPO)
 
 N_RAYS = 1024
+SERVE_TILE = 8192     # rays per launch on the serve path (Config.chunk)
 FRAME_WH = (320, 240)
 N_RENDERS = 3
 SEED = 0
+TRAIN_GRIDS = 16
+TRAIN_WARMUP, TRAIN_STEPS, TRAIN_STAGED = 2, 10, 2
+# published peaks of one H100 SXM (NVIDIA's data sheet), for the bounds
+PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 class PhaseError(RuntimeError):
@@ -104,76 +128,128 @@ def full_width_params(seed: int, device):
 
 
 def phase_build():
+    """One nvcc per source, all started together."""
+    import threading
+
     from crnerf_tpu_torch.ops import _build, fused_render
 
     t0 = time.perf_counter()
-    fused_render._lib()
+    errors = []
+
+    def build(loader):
+        try:
+            loader()
+        except Exception as e:  # re-raised below, in the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=build, args=(f,))
+               for f in (fused_render._lib, fused_render._lib_bwd)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
     dt = time.perf_counter() - t0
-    log = _build.BUILD_LOG.get("fused_render_fwd.cu", "(cached build)")
-    print(f"[build] fused_render_fwd.cu in {dt:.1f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            print("[build]  " + line.strip())
+    for source in ("fused_render_fwd.cu", "fused_render_bwd.cu"):
+        log = _build.BUILD_LOG.get(source, "(cached build)")
+        print(f"[build] {source} (both sources in {dt:.1f} s)")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print("[build]  " + line.strip())
+
+
+def ray_slices(n: int):
+    """N_RAYS-ray slices of n rays: a plain version holds a dozen fp32
+    copies of its points' activations, so at the main paths' launch shapes
+    it runs slice by slice over the kernel's inputs."""
+    return [slice(i, min(i + N_RAYS, n)) for i in range(0, n, N_RAYS)]
+
+
+def ray_inputs(n: int, s: int, gen, device):
+    """Seeded origins, unit directions, sorted z and sigma noise."""
+    import torch
+
+    o = torch.randn(n, 3, generator=gen, device=device) * 0.5
+    d = torch.randn(n, 3, generator=gen, device=device)
+    d = d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)
+    z = torch.sort(torch.rand(n, s, generator=gen, device=device) * 4.0
+                   + 0.5, -1).values
+    noise = torch.randn(n, s, generator=gen, device=device)
+    return o, d, z, noise
+
+
+def drain(it):
+    for _ in it:
+        pass
+
+
+def forward_case(device, params, gen, n: int, s: int, dt, exact: bool):
+    """The forward kernel on n rays x s samples against render_fwd_plain
+    on the same inputs (slice by slice) -> record."""
+    import torch
+
+    from crnerf_tpu_torch.ops import fused_render as fr
+
+    o, d, z, noise = ray_inputs(n, s, gen, device)
+    kw = fr.prepare_kernel_weights(params, 15, 4, dt)
+
+    def plain():        # one slice's results alive at a time
+        for sl in ray_slices(n):
+            yield sl, fr.render_fwd_plain(params, o[sl], d[sl], z[sl],
+                                          noise[sl], 15, 4, dt, exact)
+
+    err = [0.0, 0.0, 0.0]
+    with full_fp32():
+        blk_k, w_k = fr.fused_render_apply(kw, o, d, z, noise,
+                                           exact_encode=exact)
+        for sl, (blk_p, w_p) in plain():
+            for i, e in enumerate((
+                    (w_k[sl] - w_p).abs().max().item(),
+                    (blk_k[sl, :64] - blk_p[:, :64]).abs().max().item(),
+                    (blk_k[sl, 64] - blk_p[:, 64]).abs().max().item())):
+                err[i] = max(err[i], e)
+    tol = fr.KERNEL_TOL[dt]
+    passed = (bool(torch.isfinite(blk_k).all() and torch.isfinite(w_k).all())
+              and all(e <= t for e, t in zip(err, tol)))
+    ms = time_ms(lambda: fr.fused_render_apply(kw, o, d, z, noise,
+                                               exact_encode=exact))
+    plain_ms = time_ms(lambda: drain(plain()), reps=3 if n == N_RAYS else 1)
+    f_fwd, _, _ = mlp_work(params)
+    # per ray the forward reads [o | d], z, noise and the dir encode and
+    # writes the ray block and the weights, all f32
+    b_ms, b_by = bound(n * s * f_fwd, n * (8 + 2 * s + 27 + 128 + s) * 4,
+                       dt == torch.bfloat16)
+    dt_name = str(dt)[6:]
+    print(f"[kernel] {n} rays x S={s} {dt_name:8s} exact={exact!s:5s} "
+          f"max|dw|={err[0]:.3e} max|dfmap|={err[1]:.3e} "
+          f"max|ddepth|={err[2]:.3e} tol={tol} kernel {ms:.3f} ms "
+          f"({n * s * f_fwd / ms / 1e9:.0f} TFLOP/s) plain {plain_ms:.3f} "
+          f"ms bound {b_ms:.3f} ms ({b_by}) {'ok' if passed else 'FAIL'}")
+    return dict(N=n, S=s, dtype=dt_name, exact=exact, err_weights=err[0],
+                err_fmap=err[1], err_depth=err[2], tol=tol, ms=ms,
+                plain_ms=plain_ms, bound=(b_ms, b_by), ok=passed)
 
 
 def phase_kernel(device, seed: int):
-    """Kernel against render_fwd_plain on the same inputs. Returns the
-    per-case records and the worst case's timing at the serve config
-    (bf16, recurrence encode)."""
+    """The forward kernel against its plain version: 1024 rays at S=256
+    and S=512 in both dtypes and encodes, then the serve path's own launch
+    (SERVE_TILE rays, bf16, recurrence). Returns the per-case records."""
     import torch
 
     from crnerf_tpu_torch.ops import fused_render as fr
 
     params = full_width_params(seed, device)
-    gen = torch.Generator().manual_seed(seed + 1)
-    n = N_RAYS
-    o = (torch.randn(n, 3, generator=gen) * 0.5).to(device)
-    d = torch.randn(n, 3, generator=gen)
-    d = (d / torch.linalg.vector_norm(d, dim=-1, keepdim=True)).to(device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    cases = [(N_RAYS, s, dt, exact) for s in (256, 512)
+             for dt in (torch.bfloat16, torch.float32)
+             for exact in (True, False)]
+    cases += [(SERVE_TILE, s, torch.bfloat16, False) for s in (256, 512)]
     before = fr.LAUNCH_COUNTS["fused_render_fwd"]
-    records = []
-    ok = True
-    for s in (256, 512):
-        z = torch.sort(torch.rand(n, s, generator=gen) * 4.0 + 0.5,
-                       -1).values.to(device)
-        noise = torch.randn(n, s, generator=gen).to(device)
-        for dt_name, dt in (("bfloat16", torch.bfloat16),
-                            ("float32", torch.float32)):
-            kw = fr.prepare_kernel_weights(params, 15, 4, dt)
-            for exact in (True, False):
-                with full_fp32():
-                    blk_k, w_k = fr.fused_render_apply(kw, o, d, z, noise,
-                                                       exact_encode=exact)
-                    blk_p, w_p = fr.render_fwd_plain(params, o, d, z, noise,
-                                                     15, 4, dt, exact)
-                    torch.cuda.synchronize()
-                err = (
-                    (w_k - w_p).abs().max().item(),
-                    (blk_k[:, :64] - blk_p[:, :64]).abs().max().item(),
-                    (blk_k[:, 64] - blk_p[:, 64]).abs().max().item(),
-                )
-                finite = bool(torch.isfinite(blk_k).all()
-                              and torch.isfinite(w_k).all())
-                tol = fr.KERNEL_TOL[dt]
-                passed = finite and all(e <= t for e, t in zip(err, tol))
-                ms = time_ms(lambda: fr.fused_render_apply(
-                    kw, o, d, z, noise, exact_encode=exact))
-                plain_ms = time_ms(lambda: fr.render_fwd_plain(
-                    params, o, d, z, noise, 15, 4, dt, exact))
-                rec = dict(S=s, dtype=dt_name, exact=exact,
-                           err_weights=err[0], err_fmap=err[1],
-                           err_depth=err[2], tol=tol, ms=ms,
-                           plain_ms=plain_ms, ok=passed)
-                records.append(rec)
-                print(f"[kernel] S={s} {dt_name:8s} exact={exact!s:5s} "
-                      f"max|dw|={err[0]:.3e} max|dfmap|={err[1]:.3e} "
-                      f"max|ddepth|={err[2]:.3e} tol={tol} "
-                      f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
-                      f"{'ok' if passed else 'FAIL'}")
-                ok &= passed
+    records = [forward_case(device, params, gen, *case) for case in cases]
     if fr.LAUNCH_COUNTS["fused_render_fwd"] <= before:
         raise PhaseError("kernel launch counter did not rise")
-    if not ok:
+    if not all(r["ok"] for r in records):
         raise PhaseError("kernel disagrees with its plain version")
     return records
 
@@ -391,10 +467,450 @@ def profile_frame(svc, req, out_dir: str):
     print("[profile]\n" + table)
 
 
+def mlp_work(params):
+    """Operations per sample point of one pass, from the weights' shapes:
+    (forward, backward chain, backward weight gradient) in FLOP, products
+    only (2 per multiply-add)."""
+    mats = [*params.trunk_w, params.sigma_w, params.final_w, params.dir_w,
+            params.feat_w]
+    fwd = 2.0 * sum(m.numel() for m in mats)
+    width = params.final_w.shape[0]
+    d_xyz = params.trunk_w[0].shape[0]
+    # the chain: the sigma head once and the feature head twice again (one
+    # pass per phase), then dz @ W^T through the feature head, the dir
+    # layer's hidden rows, the final layer, the sigma head and the hidden
+    # rows of trunk layers 1..L-1
+    hidden = sum(w.shape[0] - (d_xyz if w.shape[0] > width else 0)
+                 for w in params.trunk_w[1:]) * width
+    chain = 2.0 * (2 * params.sigma_w.numel() + 3 * params.feat_w.numel()
+                   + width * params.dir_w.shape[1] + params.final_w.numel()
+                   + hidden)
+    return fwd, chain, fwd
+
+
+def bound(flops, nbytes, bf16=True):
+    """-> (bound_ms, bound_by): the larger of operations over the peak
+    rate of their type and bytes over the memory rate."""
+    t_ops = flops / (PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+# Stash of the kernel against the plain version's, over the largest
+# activation. fp32: summation order only. bf16: equal apart from values
+# whose fp32 sum fell on the other side of a rounding boundary and what
+# those carry downstream: (share of entries that may differ, largest
+# difference).
+STASH_TOL_FP32 = 1e-4
+STASH_TOL_BF16 = (0.02, 1.0 / 64)
+
+
+def train_config(**kw):
+    """The train leg of bench.py at the Config defaults: 16 grids of
+    32x32 rays, 64 + 64 samples, 8x256 MLPs, C=64, bf16, Adam 5e-4."""
+    from crnerf_tpu_torch import Config
+
+    base = dict(appearance_wh=(224, 160), compute_dtype="bfloat16",
+                grids_per_step=TRAIN_GRIDS, N_vocab=1500)
+    base.update(kw)
+    return Config(**base)
+
+
+def make_trainer(cfg, device, seed: int, scene_wh, chunks: int):
+    """Seeded system, optimizer, state, step function and staged batches on
+    ``device``, through the entry points a user would call."""
+    import torch
+
+    from crnerf_tpu_torch.data.pipeline import TrainPipeline
+    from crnerf_tpu_torch.data.synthetic import make_synthetic_scene
+    from crnerf_tpu_torch.render.system import CrNerfSystem
+    from crnerf_tpu_torch.train.optim import make_optimizer
+    from crnerf_tpu_torch.train.state import TrainState
+    from crnerf_tpu_torch.train.step import make_train_step
+
+    scene = make_synthetic_scene(n_train=4, n_test=1, img_wh=scene_wh,
+                                 appearance_wh=cfg.appearance_wh)
+    pipe = TrainPipeline(scene, batch_size=cfg.batch_size)
+    torch.manual_seed(seed)
+    system = CrNerfSystem(cfg).to(device)
+    opt, sched = make_optimizer(cfg, pipe.iterations, system.parameters())
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    state = TrainState.create(system, opt, cfg.N_vocab, 32, cfg.nerf_out_dim,
+                              generator=gen)
+    step = make_train_step(system, opt, sched,
+                           grids_per_step=cfg.grids_per_step,
+                           grad_accum_chunks=chunks)
+    staged = [{k: torch.from_numpy(v).to(device)
+               for k, v in pipe.make_global_batch(
+                   0, i, cfg.grids_per_step).items()}
+              for i in range(TRAIN_STAGED)]
+    return state, step, staged
+
+
+def timed_steps(state, step, staged, n: int, first: int = 0):
+    """-> (ms per step, losses as floats, last metrics)."""
+    import torch
+
+    times, losses, m = [], [], None
+    for i in range(first, first + n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, staged[i % len(staged)])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+    return times, losses, m
+
+
+def profile_step(state, step, batch, out_dir, step_ms: float):
+    """torch.profiler over one step: device time by kind of kernel, and
+    the device's idle share against ``step_ms``, the median step measured
+    without the profiler (tracing ~4,000 launches slows the host several
+    times over, so the profiled step's own wall clock says nothing)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    kinds = (("K1-stash render_fwd_kernel", ("render_fwd_kernel",)),
+             ("K2 chain render_bwd_chain_kernel",
+              ("render_bwd_chain_kernel",)),
+             ("K2 wgrad_bf16_kernel + reduce_partials",
+              ("wgrad_bf16_kernel", "wgrad_f32_kernel",
+               "reduce_partials_kernel")),
+             ("convolutions (cuDNN)", ("conv", "cudnn", "wgrad", "dgrad",
+                                       "implicit_gemm", "xmma", "cutlass")),
+             ("sort", ("sort", "radix", "merge")),
+             ("Adam", ("adam", "multi_tensor_apply")))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_kind = {k: 0.0 for k, _ in kinds}
+    by_kind["everything else"] = 0.0
+    n_kernels = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        n_kernels += 1
+        ms = e.time_range.elapsed_us() / 1e3
+        low = e.name.lower()
+        for kind, words in kinds:
+            if any(w in low for w in words):
+                by_kind[kind] += ms
+                break
+        else:
+            by_kind["everything else"] += ms
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "train_profile.txt"), "w") as f:
+            f.write(prof.key_averages().table(sort_by="cuda_time_total",
+                                              row_limit=40))
+    if n_kernels == 0:
+        print("[train] profiler saw no device events: device time by "
+              "kernel and idle share not measured")
+        return
+    busy = sum(by_kind.values())
+    print(f"[train] one profiled step: {wall_ms:.1f} ms wall under the "
+          f"profiler, {n_kernels} device events, device busy {busy:.1f} ms")
+    for kind, ms in by_kind.items():
+        print(f"[train]   {kind}: {ms:.2f} ms ({100 * ms / busy:.1f}% of "
+              f"device time)")
+    print(f"[train]   device idle share "
+          f"{100 * max(0.0, 1 - busy / step_ms):.1f}% of the {step_ms:.1f} "
+          f"ms median step")
+
+
+# The small fp32 step on the card against the same step on the CPU, same
+# injected draws, SGD so that the parameter delta is linear in the
+# gradient. Bounds, relative: every loss term; every parameter tensor's
+# delta over its largest entry, after allowing each side one ulp of the
+# parameter (a delta is a difference of two roundings). Measured on an
+# H100: 2.7e-7 for the losses, 6e-6 for the deltas (CGNet's; 0 elsewhere).
+SMALL_STEP_TOL = dict(loss=1e-4, delta=1e-3)
+
+
+def small_step_check(device, seed: int):
+    import torch
+
+    cfg = train_config(
+        compute_dtype="float32", grids_per_step=2, batch_size=64,
+        N_samples=8, N_importance=8, netdepth=6, netwidth=64,
+        nerf_out_dim=16, N_emb_xyz=10, N_vocab=8, appearance_wh=(64, 48),
+        optimizer="sgd", momentum=0.0, lr=0.05)
+    g, b, s, i = 2, 64, 8, 8
+    gen = torch.Generator().manual_seed(seed + 3)
+    draws = {"z_u": torch.rand(g, b, s, generator=gen),
+             "noise_coarse": torch.randn(g, b, s, generator=gen),
+             "noise_fine": torch.randn(g, b, s + i, generator=gen),
+             "pdf_e": torch.empty(g, b, i + 1).exponential_(generator=gen)}
+    out = {}
+    for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
+        state, step, staged = make_trainer(cfg, dev, seed, (24, 18), 1)
+        before = {k: v.detach().clone()
+                  for k, v in state.system.named_parameters()}
+        with full_fp32():
+            state, m = step(state, staged[0],
+                            {k: v.to(dev) for k, v in draws.items()})
+        out[where] = (
+            {k: float(v) for k, v in m.items()},
+            {k: (v.detach() - before[k]).cpu()
+             for k, v in state.system.named_parameters()},
+            {k: float(v.abs().max()) for k, v in before.items()})
+    worst = dict(loss=0.0, delta=0.0)
+    for k, v in out["cpu"][0].items():
+        rel = abs(out["card"][0][k] - v) / max(abs(v), 1e-12)
+        worst["loss"] = max(worst["loss"], rel)
+    for k, d_cpu in out["cpu"][1].items():
+        scale = float(d_cpu.abs().max())
+        if scale == 0.0:
+            continue
+        ulps = 2 * torch.finfo(torch.float32).eps * out["cpu"][2][k]
+        diff = float((out["card"][1][k] - d_cpu).abs().max())
+        rel = max(0.0, diff - ulps) / scale
+        worst["delta"] = max(worst["delta"], rel)
+    print(f"[train] small fp32 step, card vs cpu: losses "
+          f"{out['card'][0]['loss']:.6f} vs {out['cpu'][0]['loss']:.6f}; "
+          f"worst relative difference {worst} (bounds {SMALL_STEP_TOL})")
+    bad = [k for k, v in worst.items() if not v <= SMALL_STEP_TOL[k]]
+    if bad:
+        raise PhaseError(f"card step disagrees with the CPU step in {bad}")
+
+
+def phase_train(device, seed: int, profile_dir=None):
+    """The flagship train step on the card through make_train_step.
+    Returns (launch counts of the timed steps, median ms per step)."""
+    import statistics
+
+    import torch
+
+    from crnerf_tpu_torch.ops import fused_render
+
+    cfg = train_config()
+    chunks = cfg.resolved_chunks()
+    state, step, staged = make_trainer(cfg, device, seed, (112, 84), chunks)
+    torch.cuda.reset_peak_memory_stats()
+    _, warm_losses, _ = timed_steps(state, step, staged, TRAIN_WARMUP)
+    for k in fused_render.LAUNCH_COUNTS:
+        fused_render.LAUNCH_COUNTS[k] = 0
+    times, losses, m = timed_steps(state, step, staged, TRAIN_STEPS,
+                                   first=TRAIN_WARMUP)
+    launches = dict(fused_render.LAUNCH_COUNTS)
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    all_losses = warm_losses + losses
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), all_losses)):
+        raise PhaseError(f"non-finite loss: {all_losses}")
+    for k, v in m.items():
+        if not torch.isfinite(torch.as_tensor(v)).all():
+            raise PhaseError(f"metric {k} not finite")
+    for name, p in state.system.named_parameters():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            raise PhaseError(f"gradient of {name} missing or not finite")
+    per_step = 2 * chunks     # coarse + fine pass of every chunk
+    want = {"fused_render_fwd": 0,
+            "fused_render_fwd_stash": per_step * TRAIN_STEPS,
+            "fused_render_bwd": per_step * TRAIN_STEPS,
+            "fused_render_bwd_wgrad": per_step * TRAIN_STEPS}
+    if launches != want:
+        raise PhaseError(f"launch counters {launches}, expected {want}")
+    ts = torch.unique(torch.cat([b["ts"][:, 0] for b in staged]).long())
+    valid = state.embedding_valid
+    if not (valid[ts].all() and int(valid.sum()) == ts.numel()
+            and state.embedding_cache[ts].abs().sum(1).min() > 0):
+        raise PhaseError("the embedding cache did not gain the steps' rows")
+    n = TRAIN_STAGED
+    first, last = sum(all_losses[:n]) / n, sum(all_losses[-n:]) / n
+    if not last < first:
+        raise PhaseError(f"loss did not fall: first {first}, last {last} "
+                         f"({all_losses})")
+    med = statistics.median(times)
+    rays = cfg.grids_per_step * cfg.batch_size
+    print(f"[train] losses {' '.join(f'{x:.5f}' for x in all_losses)}")
+    print(f"[train] {TRAIN_STEPS} steps of {cfg.grids_per_step} x "
+          f"{cfg.batch_size} rays, 64+64 samples, bf16, C={chunks}: median "
+          f"{med:.2f} ms per step (range {min(times):.2f}-{max(times):.2f}), "
+          f"{rays / med * 1e3:.0f} train rays/s, peak memory "
+          f"{peak_gb:.2f} GiB, psnr {float(m['psnr']):.2f} dB")
+    print(f"[train] launches in the timed steps {launches}")
+    profile_step(state, step, staged[0], profile_dir, med)
+
+    small_step_check(device, seed)
+    return launches, med
+
+
+def train_kernel_bounds(params, kw, pts: int, bf16: bool):
+    """Bounds of the training kernels over ``pts`` sample points: each
+    kernel alone (the chain writes the dz buffer and the weight gradient
+    reads it back), and the backward as a whole, the function the two
+    replace: stash in, weight gradients out, no dz in device memory."""
+    from crnerf_tpu_torch.ops import fused_render as fr
+
+    lay = fr.grad_layout(kw.dims)
+    esz = 2 if bf16 else 4
+    f_fwd, f_chain, f_wgrad = mlp_work(params)
+    return dict(
+        fwd_stash=bound(pts * f_fwd, pts * lay.sc * esz, bf16),
+        chain=bound(pts * f_chain,
+                    pts * (lay.o_hf + kw.dims["HP"] + lay.dc) * esz, bf16),
+        wgrad=bound(pts * f_wgrad,
+                    pts * (lay.sc + lay.dc) * esz + lay.wt * 4, bf16),
+        bwd_whole=bound(pts * (f_chain + f_wgrad),
+                        pts * lay.sc * esz + (lay.wt + lay.bt) * 4, bf16),
+    )
+
+
+def train_kernels_case(device, params, gen, n: int, s: int, dt,
+                       exact: bool):
+    """K1-stash and the two K2 kernels on n rays x s samples against their
+    plain versions on the same inputs, stash and random non-zero
+    cotangents. The plain versions run over 1024-ray slices, and the
+    slices' gradients are summed in fp64. -> record."""
+    import torch
+
+    from crnerf_tpu_torch.ops import fused_render as fr
+
+    c = 64
+    bf16 = dt == torch.bfloat16
+    kw = fr.prepare_kernel_weights(params, 15, 4, dt)
+    lay = fr.grad_layout(kw.dims)
+    slices = ray_slices(n)
+    o, d, z, noise = ray_inputs(n, s, gen, device)
+    g_ray = torch.zeros(n, fr._round_up(c + 1, fr.LANE), device=device)
+    g_ray[:, :c + 1] = torch.randn(n, c + 1, generator=gen,
+                                   device=device) * 0.1
+    g_w = torch.randn(n, s, generator=gen, device=device) * 0.1
+    dir_blk = fr.dir_block(kw, d, exact)
+
+    def points(sl):
+        return slice(sl.start * s, sl.stop * s)
+
+    def fwd_plain():        # one slice's results alive at a time
+        for sl in slices:
+            yield fr.render_fwd_plain(params, o[sl], d[sl], z[sl], noise[sl],
+                                      15, 4, dt, exact, stash=True)
+
+    def chain_plain(st):
+        for sl in slices:
+            yield fr.bwd_chain_plain(kw, z[sl], noise[sl], dir_blk[sl],
+                                     st[points(sl)], g_ray[sl], g_w[sl])
+
+    def wgrad_plain(st, dz):
+        gw = torch.zeros(lay.wt, dtype=torch.float64, device=device)
+        for sl in slices:
+            gw += fr.bwd_wgrad_plain(kw, st[points(sl)], dz[points(sl)])
+        return gw
+
+    with full_fp32():
+        blk0, w0, _ = fr.render_fwd(kw, o, d, z, noise, exact, stash=False)
+        blk1, w1, st = fr.render_fwd(kw, o, d, z, noise, exact, stash=True)
+        dz_k, gb_k = fr.bwd_chain(kw, z, noise, dir_blk, st, g_ray, g_w)
+        gw_k = fr.bwd_wgrad(kw, st, dz_k)
+        dz_2, gb_2 = fr.bwd_chain(kw, z, noise, dir_blk, st, g_ray, g_w)
+        gw_2 = fr.bwd_wgrad(kw, st, dz_2)
+        repeat_bits = (torch.equal(dz_k, dz_2) and torch.equal(gb_k, gb_2)
+                       and torch.equal(gw_k, gw_2))
+        del dz_2
+        err_fwd = st_differ = st_max = st_scale = 0.0
+        for sl, (blk_p, w_p, st_p) in zip(slices, fwd_plain()):
+            err_fwd = max(err_fwd, (w1[sl] - w_p).abs().max().item(),
+                          (blk1[sl, :c + 1] - blk_p[:, :c + 1]).abs().max()
+                          .item())
+            diff = (st[points(sl)].float() - st_p.float()).abs()
+            st_differ += (diff > 0).sum().item()
+            st_max = max(st_max, diff.max().item())
+            st_scale = max(st_scale, st_p.float().abs().max().item())
+        gb_p = torch.zeros(lay.bt, dtype=torch.float64, device=device)
+        gw_p = torch.zeros(lay.wt, dtype=torch.float64, device=device)
+        for sl, (dz_p, gb_s) in zip(slices, chain_plain(st)):
+            gb_p += gb_s
+            gw_p += fr.bwd_wgrad_plain(kw, st[points(sl)], dz_p)
+        # each kernel alone against its plain version on the same inputs
+        gw_on_kernel_dz = wgrad_plain(st, dz_k)
+        torch.cuda.synchronize()
+    same_bits = torch.equal(blk0, blk1) and torch.equal(w0, w1)
+    st_frac, st_max = st_differ / st.numel(), st_max / st_scale
+    if bf16:
+        st_ok = st_frac <= STASH_TOL_BF16[0] and st_max <= STASH_TOL_BF16[1]
+    else:
+        st_ok = st_max <= STASH_TOL_FP32
+    got = fr.flatten_params(fr.unpack_grads(kw, gw_k, gb_k))
+    want = fr.flatten_params(fr.unpack_grads(kw, gw_p, gb_p))
+    rel = [((a - b).abs().max() / a.abs().max().clamp_min(1e-30)).item()
+           for a, b in zip(want, got)]
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    abs_chain = (gb_k - gb_p).abs().max().item()
+    abs_wgrad = (gw_k - gw_on_kernel_dz).abs().max().item()
+    err_chain = abs_chain / gb_p.abs().max().item()
+    err_wgrad = abs_wgrad / gw_on_kernel_dz.abs().max().item()
+    passed = (same_bits and repeat_bits and st_ok and finite
+              and max(rel) <= fr.GRAD_TOL[dt]
+              and err_fwd <= max(fr.KERNEL_TOL[dt]))
+    t_nostash = time_ms(lambda: fr.render_fwd(kw, o, d, z, noise, exact,
+                                              stash=False))
+    ms = dict(
+        fwd_stash=time_ms(lambda: fr.render_fwd(kw, o, d, z, noise, exact,
+                                                stash=True)),
+        chain=time_ms(lambda: fr.bwd_chain(kw, z, noise, dir_blk, st, g_ray,
+                                           g_w)),
+        wgrad=time_ms(lambda: fr.bwd_wgrad(kw, st, dz_k)),
+    )
+    reps = 3 if n == N_RAYS else 1
+    plain = dict(fwd_stash=time_ms(lambda: drain(fwd_plain()), reps),
+                 chain=time_ms(lambda: drain(chain_plain(st)), reps),
+                 wgrad=time_ms(lambda: wgrad_plain(st, dz_k), reps))
+    pts = n * s
+    bounds = train_kernel_bounds(params, kw, pts, bf16)
+    work = dict(zip(("fwd_stash", "chain", "wgrad"), mlp_work(params)))
+    each = " ".join(
+        f"{k} {ms[k]:.3f}/{plain[k]:.3f}/{bounds[k][0]:.3f} "
+        f"({pts * work[k] / ms[k] / 1e9:.0f} TFLOP/s)" for k in work)
+    dt_name = str(dt)[6:]
+    print(f"[train-kernel] {n} rays x S={s} {dt_name:8s} no-stash bits "
+          f"equal {same_bits}, repeat bits equal {repeat_bits}; fwd "
+          f"max|d|={err_fwd:.3e}; stash: {st_frac:.2e} of entries differ, "
+          f"max {st_max:.3e} of the largest; grads max rel {max(rel):.3e} "
+          f"(tol {fr.GRAD_TOL[dt]}), chain alone {err_chain:.3e}, wgrad "
+          f"alone {err_wgrad:.3e}; ms kernel/plain/bound: forward no stash "
+          f"{t_nostash:.3f}, {each}; the backward as a whole "
+          f"{ms['chain'] + ms['wgrad']:.3f} ms against a bound of "
+          f"{bounds['bwd_whole'][0]:.3f} ms ({bounds['bwd_whole'][1]}, no dz "
+          f"buffer) {'ok' if passed else 'FAIL'}")
+    return dict(N=n, S=s, dtype=dt_name, ok=passed, err_fwd=err_fwd,
+                err_grad=max(rel), abs_chain=abs_chain, abs_wgrad=abs_wgrad,
+                ms=ms, plain_ms=plain, bound=bounds)
+
+
+def phase_train_kernels(device, seed: int):
+    """K1-stash and K2 against their plain versions: 1024 rays at S=64 and
+    S=128, bf16 with the recurrence and fp32 with the exact encode, then
+    the train step's own launches (16,384 rays, S=64 coarse and S=128
+    fine, bf16, recurrence). Returns the per-case records."""
+    import torch
+
+    params = full_width_params(seed, device)
+    gen = torch.Generator(device=device).manual_seed(seed + 2)
+    cases = [(N_RAYS, s, dt, exact) for s in (64, 128)
+             for dt, exact in ((torch.bfloat16, False),
+                               (torch.float32, True))]
+    cases += [(TRAIN_GRIDS * 1024, s, torch.bfloat16, False)
+              for s in (64, 128)]
+    records = [train_kernels_case(device, params, gen, *case)
+               for case in cases]
+    if not all(r["ok"] for r in records):
+        raise PhaseError("a training kernel disagrees with its plain "
+                         "version")
+    return records
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile_dir", type=str, default="",
-                   help="also profile one serve render into this directory")
+                   help="also profile one serve render, and write the "
+                        "train step's profile table, into this directory")
     args = p.parse_args(argv)
     try:
         import torch
@@ -419,31 +935,63 @@ def main(argv=None) -> int:
     try:
         phase_build()
         records = phase_kernel(device, SEED)
+        train_records = phase_train_kernels(device, SEED)
         os.makedirs(BUILD, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=BUILD) as workdir:
             launches, p50 = phase_serve(device, SEED, workdir,
                                         args.profile_dir or None)
         print(f"[serve] p50 {p50} ms per {FRAME_WH[0]}x{FRAME_WH[1]} "
               f"frame at 256+256 samples, bf16 ({card})")
+        train_launches, step_ms = phase_train(device, SEED,
+                                              args.profile_dir or None)
+        print(f"[train] median {step_ms:.2f} ms per step, "
+              f"{TRAIN_GRIDS * 1024 / step_ms * 1e3:.0f} train rays/s "
+              f"({card})")
     except Exception as e:  # any phase failing fails the run
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
               file=sys.stderr)
         return 1
-    # the serve path's pass at its own shape: S=512, bf16, recurrence
+    # every kernel's entry at the shape its main path gives it: the serve
+    # tile's fine pass (8192 rays x S=512) and the train step's fine pass
+    # (16,384 rays x S=128), bf16, recurrence encode
     main_kernel = next(r for r in records
-                       if r["S"] == 512 and r["dtype"] == "bfloat16"
-                       and not r["exact"])
-    print(json.dumps({"kernels": [{
-        "name": "fused_render_fwd",
-        "route": "cuda",
-        "source": "crnerf_tpu_torch/csrc/fused_render_fwd.cu",
-        "replaces": "crnerf_tpu/ops/fused_render.py:348",
-        "launches": launches,
-        "max_abs_err": max(max(r["err_weights"], r["err_fmap"],
-                               r["err_depth"]) for r in records),
-        "ms": main_kernel["ms"],
-        "plain_ms": main_kernel["plain_ms"],
-    }]}))
+                       if r["N"] == SERVE_TILE and r["S"] == 512)
+    tk = next(r for r in train_records
+              if r["N"] == TRAIN_GRIDS * 1024 and r["S"] == 128)
+
+    def entry(name, source, replaces, n_launch, err, key):
+        b_ms, b_by = tk["bound"][key]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n_launch,
+                "max_abs_err": err, "ms": tk["ms"][key],
+                "plain_ms": tk["plain_ms"][key], "bound_ms": b_ms,
+                "bound_by": b_by, "library_ms": None}
+
+    fwd_cu = "crnerf_tpu_torch/csrc/fused_render_fwd.cu"
+    bwd_cu = "crnerf_tpu_torch/csrc/fused_render_bwd.cu"
+    print(json.dumps({"kernels": [
+        {"name": "fused_render_fwd", "route": "cuda", "source": fwd_cu,
+         "replaces": "crnerf_tpu/ops/fused_render.py:348",
+         "launches": launches,
+         "max_abs_err": max(max(r["err_weights"], r["err_fmap"],
+                                r["err_depth"]) for r in records),
+         "ms": main_kernel["ms"], "plain_ms": main_kernel["plain_ms"],
+         "bound_ms": main_kernel["bound"][0],
+         "bound_by": main_kernel["bound"][1],
+         "library_ms": None},
+        entry("fused_render_fwd_stash", fwd_cu,
+              "crnerf_tpu/ops/fused_render.py:348",
+              train_launches["fused_render_fwd_stash"],
+              max(r["err_fwd"] for r in train_records), "fwd_stash"),
+        entry("fused_render_bwd", bwd_cu,
+              "crnerf_tpu/ops/fused_render.py:648",
+              train_launches["fused_render_bwd"],
+              max(r["abs_chain"] for r in train_records), "chain"),
+        entry("fused_render_bwd_wgrad", bwd_cu,
+              "crnerf_tpu/ops/fused_render.py:648",
+              train_launches["fused_render_bwd_wgrad"],
+              max(r["abs_wgrad"] for r in train_records), "wgrad"),
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

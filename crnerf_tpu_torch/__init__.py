@@ -2,7 +2,10 @@
 
 The JAX package ``crnerf_tpu`` is the reference; this package mirrors its
 module paths so each counterpart is easy to find. It imports ``torch`` and
-never ``jax``, ``flax`` or ``crnerf_tpu``. The serving path runs end to end:
+never ``jax``, ``flax``, ``optax`` or ``crnerf_tpu``. Two paths run end to
+end.
+
+Serving:
 
     apps/serve.py RenderService.handle
       -> render/inference.py Renderer (camera in, rays on the device, u8 out)
@@ -10,6 +13,17 @@ never ``jax``, ``flax`` or ``crnerf_tpu``. The serving path runs end to end:
            appearance encoder + CGNet mask, coarse and fine passes through
            the fused render kernel (ops/fused_render.py, csrc/), StyleNet
            decode.
+
+Training:
+
+    data/pipeline.py TrainPipeline.make_global_batch (numpy, G grids)
+      -> train/step.py make_train_step(state, batch)
+           render/system.py CrNerfSystem.forward_train (stochastic renderer
+           through the fused render forward with its activation stash, the
+           random-appearance branch), train/losses.py crnerf_loss, backward
+           through the fused render backward kernels, train/optim.py
+           optimizer and schedule, train/state.py TrainState (embedding
+           cache, BatchNorm statistics).
 """
 
 from crnerf_tpu_torch.config import Config

@@ -3,13 +3,16 @@
 Pixel-corner sampling with no +0.5 centering, the right-up-back camera frame
 d = ((i-cx)/fx, -(j-cy)/fy, -1), world directions normalized to unit length.
 ``cam_rays_uv`` is the on-device ray maker of the serving path
-(``crnerf_tpu/render/inference.py`` ``_cam_rays_uv``).
+(``crnerf_tpu/render/inference.py`` ``_cam_rays_uv``). The ``*_np``
+functions are the host-side numpy forms the data layer builds its ray
+buffers with.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -66,3 +69,31 @@ def cam_rays_uv(c2w: torch.Tensor, intr: torch.Tensor, near: float,
     )
     uv = torch.stack([(jj + 0.5) / h, (ii + 0.5) / w], -1)
     return rays, uv
+
+
+def get_ray_directions_np(h: int, w: int, K) -> np.ndarray:
+    """``get_ray_directions`` in numpy (float32)."""
+    fx, fy, cx, cy = K[0][0], K[1][1], K[0][2], K[1][2]
+    j, i = np.meshgrid(np.arange(h, dtype=np.float32),
+                       np.arange(w, dtype=np.float32), indexing="ij")
+    return np.stack([(i - cx) / fx, -(j - cy) / fy, -np.ones_like(i)],
+                    axis=-1)
+
+
+def get_rays_np(directions: np.ndarray, c2w: np.ndarray):
+    """``get_rays`` in numpy."""
+    rays_d = directions @ np.swapaxes(c2w[:, :3], -1, -2)
+    rays_d = rays_d / np.linalg.norm(rays_d, axis=-1, keepdims=True)
+    rays_o = np.broadcast_to(c2w[:, 3], rays_d.shape)
+    return rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+
+
+def make_ray_buffer(directions: np.ndarray, c2w: np.ndarray, near: float,
+                    far: float, ts: int) -> np.ndarray:
+    """One image's rays in the flat 9-float layout
+    [o(3), d(3), near, far, ts]."""
+    rays_o, rays_d = get_rays_np(directions, c2w)
+    ones = np.ones((rays_o.shape[0], 1), dtype=np.float32)
+    return np.concatenate(
+        [rays_o, rays_d, near * ones, far * ones, float(ts) * ones], axis=1
+    ).astype(np.float32)

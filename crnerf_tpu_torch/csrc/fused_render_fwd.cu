@@ -5,7 +5,8 @@
 // (N, S) f32.
 //
 // Replaces crnerf_tpu/ops/fused_render.py:_make_render_fwd_kernel (the
-// Pallas TPU kernel, forward, rays_in=True, stash=False).
+// Pallas TPU kernel, forward, rays_in=True; stash=False, and stash=True
+// when a stash pointer is given: the same body with extra stores).
 //
 // What bounds it: ~1.2 MFLOP of matrix products per sample point at 8x256
 // (11 products, ~0.6 M multiply-adds) against ~8 bytes of per-ray input
@@ -32,23 +33,17 @@
 //     with exact power-of-two multipliers, or the anchored double-angle
 //     recurrence; rounding-exact intrinsics keep the compiler from fusing
 //     the recurrence and o + d*z into FMAs the plain version does not use.
+//   * Stash (training): every chunk's encode, trunk ReLU outputs, hf and
+//     dd are copied from shared memory to one row per point of the stash,
+//     [h_0 .. h_{L-1} | hf | dd | encode] at the compute dtype, bit for
+//     bit what the products consumed. ~5 KB per point at 8x256 bf16: with
+//     it the kernel also moves bytes, ~4 KB per MFLOP, still under the
+//     card's operations-per-byte line.
 // Left for later: wgmma, TMA, persistent CTAs, several rays per CTA.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "fused_render_common.cuh"
 
 namespace {
-
-constexpr int CH = 64;          // samples per chunk = GEMM rows
-constexpr int NTHREADS = 256;   // 8 warps
-constexpr int PAD = 8;          // shared-memory row padding (elements)
-constexpr int MAXL = 16;        // trunk layers
-constexpr int MAX_NTW = 8;      // n8 tiles per warp (N <= 256)
-constexpr int ANCHOR_SPAN = 8;
-constexpr float DELTA_INF = 1e2f;
 
 struct KArgs {
   const float* od;      // (N, 8) [o | d | pad]
@@ -65,168 +60,12 @@ struct KArgs {
   const void* wenc[MAXL];             // encode rows of layer i (KE x WP)
   const void* wh[MAXL];               // hidden rows of layer i (WP x WP)
   const float* b[MAXL];
-  int N, S, L, skip_mask, WP, HP, CP, C, KE, F, DK, exact, ldo;
+  void* stash;          // (N*S, SC) at the compute dtype, or null
+  int N, S, L, skip_mask, WP, HP, CP, C, KE, F, DK, exact, ldo, SC;
 };
 
-// ------------------------------------------------------------ matmuls
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc += A[m0:m0+32, :K] @ B[:, nt0*8 : (nt0+ntw)*8]; A bf16 row-major in
-// shared memory, B packed [kstep][ntile][lane] uint2 (see pack_mma_b).
-__device__ __forceinline__ void mma_accumulate(
-    float (&acc)[2][MAX_NTW][4], const __nv_bfloat16* A, int lda, int ksteps,
-    const uint2* __restrict__ Wp, int nt_total, int nt0, int ntw, int m0,
-    int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const uint2* wp = Wp + (size_t)nt0 * 32 + lane;
-  uint2 bcur[MAX_NTW], bnxt[MAX_NTW];
-#pragma unroll
-  for (int j = 0; j < MAX_NTW; ++j) {
-    bnxt[j] = make_uint2(0u, 0u);
-    if (j < ntw) bcur[j] = __ldg(wp + j * 32);
-  }
-  for (int ks = 0; ks < ksteps; ++ks) {
-    if (ks + 1 < ksteps) {
-      const uint2* wn = wp + (size_t)(ks + 1) * nt_total * 32;
-#pragma unroll
-      for (int j = 0; j < MAX_NTW; ++j)
-        if (j < ntw) bnxt[j] = __ldg(wn + j * 32);
-    }
-    uint32_t af[2][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const __nv_bfloat16* p = A + (m0 + mi * 16 + g) * lda + ks * 16 + 2 * t;
-      af[mi][0] = *reinterpret_cast<const uint32_t*>(p);
-      af[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * lda);
-      af[mi][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-      af[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * lda + 8);
-    }
-#pragma unroll
-    for (int j = 0; j < MAX_NTW; ++j) {
-      if (j < ntw) {
-        mma16816(acc[0][j], af[0], bcur[j].x, bcur[j].y);
-        mma16816(acc[1][j], af[1], bcur[j].x, bcur[j].y);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < MAX_NTW; ++j) bcur[j] = bnxt[j];
-  }
-}
-
-// fp32: thread (rg, cg) owns rows rg*4..rg*4+3, columns 32j + 2cg + {0,1}.
-__device__ __forceinline__ void simt_accumulate(
-    float (&acc)[4][MAX_NTW][2], const float* A, int lda, int K,
-    const float* __restrict__ W, int n_pad, int nj, int tid) {
-  const int rg = tid >> 4, cg = tid & 15;
-  for (int k = 0; k < K; ++k) {
-    float a[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(rg * 4 + i) * lda + k];
-    const float* wk = W + (size_t)k * n_pad + 2 * cg;
-#pragma unroll
-    for (int j = 0; j < MAX_NTW; ++j) {
-      if (j < nj) {
-        const float2 bv = __ldg(reinterpret_cast<const float2*>(wk + 32 * j));
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][j][0] += a[i] * bv.x;
-          acc[i][j][1] += a[i] * bv.y;
-        }
-      }
-    }
-  }
-}
-
-// out[:, :n_pad] = epi(A1 @ W1 (+ A2 @ W2)); epi(row, col, v0, v1) gets two
-// adjacent columns (col even).
-template <bool BF16, typename T, class Epi>
-__device__ __forceinline__ void gemm(const T* A1, int lda1, int K1,
-                                     const void* W1, const T* A2, int lda2,
-                                     int K2, const void* W2, int n_pad,
-                                     Epi epi) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if constexpr (BF16) {
-    float acc[2][MAX_NTW][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int j = 0; j < MAX_NTW; ++j)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) acc[mi][j][q] = 0.f;
-    const int nt_total = n_pad >> 3, ntw = nt_total >> 2;
-    const int m0 = (warp & 1) * 32, nt0 = (warp >> 1) * ntw;
-    mma_accumulate(acc, A1, lda1, K1 >> 4, static_cast<const uint2*>(W1),
-                   nt_total, nt0, ntw, m0, lane);
-    if (A2 != nullptr)
-      mma_accumulate(acc, A2, lda2, K2 >> 4, static_cast<const uint2*>(W2),
-                     nt_total, nt0, ntw, m0, lane);
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int j = 0; j < MAX_NTW; ++j)
-        if (j < ntw) {
-          const int row = m0 + mi * 16 + g, col = (nt0 + j) * 8 + 2 * t;
-          epi(row, col, acc[mi][j][0], acc[mi][j][1]);
-          epi(row + 8, col, acc[mi][j][2], acc[mi][j][3]);
-        }
-  } else {
-    float acc[4][MAX_NTW][2];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < MAX_NTW; ++j) acc[i][j][0] = acc[i][j][1] = 0.f;
-    const int nj = n_pad >> 5;
-    simt_accumulate(acc, A1, lda1, K1, static_cast<const float*>(W1), n_pad,
-                    nj, tid);
-    if (A2 != nullptr)
-      simt_accumulate(acc, A2, lda2, K2, static_cast<const float*>(W2), n_pad,
-                      nj, tid);
-    const int rg = tid >> 4, cg = tid & 15;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < MAX_NTW; ++j)
-        if (j < nj) epi(rg * 4 + i, 32 * j + 2 * cg, acc[i][j][0], acc[i][j][1]);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void store2(T* p, float v0, float v1) {
-  if constexpr (std::is_same<T, float>::value) {
-    *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
-  } else {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ T to_t(float v) {
-  if constexpr (std::is_same<T, float>::value) {
-    return v;
-  } else {
-    return __float2bfloat16_rn(v);
-  }
-}
-
-__device__ __forceinline__ float pow2f(int k) {  // exact 2^k
-  return __int_as_float((127 + k) << 23);
-}
-
-// jax.nn.softplus: max(x, 0) + log1p(exp(-|x|))
-__device__ __forceinline__ float softplusf(float x) {
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
-
 // ------------------------------------------------------------- kernel
-template <bool BF16>
+template <bool BF16, bool STASH>
 __global__ void __launch_bounds__(NTHREADS, BF16 ? 2 : 1)
     render_fwd_kernel(const KArgs a) {
   using T = typename std::conditional<BF16, __nv_bfloat16, float>::type;
@@ -268,6 +107,9 @@ __global__ void __launch_bounds__(NTHREADS, BF16 ? 2 : 1)
   float fm = 0.f;       // feature-map accumulator of channel tid (tid < C)
 
   for (int c0 = 0; c0 < S; c0 += CH) {
+    // this chunk's rows of the stash (only dereferenced under STASH)
+    T* srow = static_cast<T*>(a.stash) + ((size_t)ray * S + c0) * a.SC;
+    const int nrows = min(CH, S - c0);
     // per-row scalars; rows past S repeat the last sample and get alpha 0
     if (tid < CH) {
       const int j = c0 + tid;
@@ -320,6 +162,9 @@ __global__ void __launch_bounds__(NTHREADS, BF16 ? 2 : 1)
       }
     }
     __syncthreads();
+    if constexpr (STASH)
+      store_rows<T>(srow + (a.L + 1) * a.WP + a.HP, a.SC, enc, lde, a.KE,
+                    nrows);
 
     // trunk
     const T* h = nullptr;
@@ -343,6 +188,8 @@ __global__ void __launch_bounds__(NTHREADS, BF16 ? 2 : 1)
                       a.WP, epi);
       }
       __syncthreads();
+      if constexpr (STASH)
+        store_rows<T>(srow + i * a.WP, a.SC, out, lda, a.WP, nrows);
       h = out;
     }
     T* spare = (h == act0) ? act1 : act0;
@@ -362,6 +209,8 @@ __global__ void __launch_bounds__(NTHREADS, BF16 ? 2 : 1)
                     a.WP, epi_f);
     }
     __syncthreads();
+    if constexpr (STASH)
+      store_rows<T>(srow + a.L * a.WP, a.SC, spare, lda, a.WP, nrows);
     // dir branch: relu(hf @ W_dh + dir term + b_d) into the trunk buffer
     {
       T* ddb = const_cast<T*>(h);
@@ -374,6 +223,8 @@ __global__ void __launch_bounds__(NTHREADS, BF16 ? 2 : 1)
                     a.HP, epi_d);
     }
     __syncthreads();
+    if constexpr (STASH)
+      store_rows<T>(srow + (a.L + 1) * a.WP, a.SC, h, lda, a.HP, nrows);
     // feature head: sigmoid(dd @ W_c + b_c), fp32
     {
       const float* bc = a.bc;
@@ -442,24 +293,32 @@ size_t smem_bytes(const KArgs& a, bool bf16) {
   return t_elems * esz + f_elems * 4;
 }
 
+template <bool BF16, bool STASH>
+void launch(const KArgs& a, size_t smem, cudaStream_t st) {
+  cudaFuncSetAttribute(render_fwd_kernel<BF16, STASH>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  render_fwd_kernel<BF16, STASH><<<a.N, NTHREADS, smem, st>>>(a);
+}
+
 }  // namespace
 
-// ptrs (host array): od, z, noise, dirb, out, wout, ws, bs, wf, bf, wdh, bd,
-// wde, wc, bc, then per trunk layer (wenc, wh, b); absent operands are 0.
-// dims: N, S, L, skip_mask, WP, HP, CP, C, KE, F, DK, exact, ldo, BF16.
+// ptrs (host array): od, z, noise, dirb, out, wout, stash (0: none), ws, bs,
+// wf, bf, wdh, bd, wde, wc, bc, then per trunk layer (wenc, wh, b); absent
+// operands are 0.
+// dims: N, S, L, skip_mask, WP, HP, CP, C, KE, F, DK, exact, ldo, BF16, SC.
 // Launches on ``stream`` and returns cudaGetLastError() (or
 // cudaErrorInvalidValue for arguments the kernel does not take).
 extern "C" int crnerf_render_fwd(const void* const* ptrs, int n_ptrs,
                                  const int* dims, int n_dims, void* stream) {
-  if (n_dims != 14) return (int)cudaErrorInvalidValue;
+  if (n_dims != 15) return (int)cudaErrorInvalidValue;
   KArgs a = {};
   a.N = dims[0]; a.S = dims[1]; a.L = dims[2]; a.skip_mask = dims[3];
   a.WP = dims[4]; a.HP = dims[5]; a.CP = dims[6]; a.C = dims[7];
   a.KE = dims[8]; a.F = dims[9]; a.DK = dims[10]; a.exact = dims[11];
-  a.ldo = dims[12];
+  a.ldo = dims[12]; a.SC = dims[14];
   const bool bf16 = dims[13] != 0;
   if (a.N < 1 || a.S < 1 || a.L < 1 || a.L > MAXL) return (int)cudaErrorInvalidValue;
-  if (n_ptrs != 15 + 3 * a.L) return (int)cudaErrorInvalidValue;
+  if (n_ptrs != 16 + 3 * a.L) return (int)cudaErrorInvalidValue;
   if (a.WP % 32 || a.WP > 32 * MAX_NTW || a.HP % 32 || a.HP > a.WP ||
       a.CP % 32 || a.CP > 32 * MAX_NTW || a.C > a.CP || a.C >= a.ldo ||
       a.KE % 16 || a.KE < 3 + 6 * a.F || a.F < 1 || a.F > 30)
@@ -467,15 +326,18 @@ extern "C" int crnerf_render_fwd(const void* const* ptrs, int n_ptrs,
   a.od = (const float*)ptrs[0]; a.z = (const float*)ptrs[1];
   a.noise = (const float*)ptrs[2]; a.dirb = (const float*)ptrs[3];
   a.out = (float*)ptrs[4]; a.wout = (float*)ptrs[5];
-  a.ws = ptrs[6]; a.bs = (const float*)ptrs[7];
-  a.wf = ptrs[8]; a.bf = (const float*)ptrs[9];
-  a.wdh = ptrs[10]; a.bd = (const float*)ptrs[11];
-  a.wde = (const float*)ptrs[12];
-  a.wc = ptrs[13]; a.bc = (const float*)ptrs[14];
+  a.stash = const_cast<void*>(ptrs[6]);
+  a.ws = ptrs[7]; a.bs = (const float*)ptrs[8];
+  a.wf = ptrs[9]; a.bf = (const float*)ptrs[10];
+  a.wdh = ptrs[11]; a.bd = (const float*)ptrs[12];
+  a.wde = (const float*)ptrs[13];
+  a.wc = ptrs[14]; a.bc = (const float*)ptrs[15];
+  if (a.stash && a.SC != (a.L + 1) * a.WP + a.HP + a.KE)
+    return (int)cudaErrorInvalidValue;
   for (int i = 0; i < a.L; ++i) {
-    a.wenc[i] = ptrs[15 + 3 * i];
-    a.wh[i] = ptrs[16 + 3 * i];
-    a.b[i] = (const float*)ptrs[17 + 3 * i];
+    a.wenc[i] = ptrs[16 + 3 * i];
+    a.wh[i] = ptrs[17 + 3 * i];
+    a.b[i] = (const float*)ptrs[18 + 3 * i];
     const bool with_enc = i == 0 || ((a.skip_mask >> i) & 1);
     if ((with_enc && !a.wenc[i]) || (i > 0 && !a.wh[i]) || !a.b[i])
       return (int)cudaErrorInvalidValue;
@@ -483,13 +345,11 @@ extern "C" int crnerf_render_fwd(const void* const* ptrs, int n_ptrs,
   const size_t smem = smem_bytes(a, bf16);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {
-    cudaFuncSetAttribute(render_fwd_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    render_fwd_kernel<true><<<a.N, NTHREADS, smem, st>>>(a);
+    if (a.stash) launch<true, true>(a, smem, st);
+    else launch<true, false>(a, smem, st);
   } else {
-    cudaFuncSetAttribute(render_fwd_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    render_fwd_kernel<false><<<a.N, NTHREADS, smem, st>>>(a);
+    if (a.stash) launch<false, true>(a, smem, st);
+    else launch<false, false>(a, smem, st);
   }
   return (int)cudaGetLastError();
 }

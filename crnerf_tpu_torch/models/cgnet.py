@@ -1,15 +1,28 @@
-"""CGNet transient-object mask network, eval mode
+"""CGNet transient-object mask network
 (``crnerf_tpu/models/cgnet.py`` ``ContextGuidedNetwork`` with classes=1,
 M=2, N=2, input_channel=3, norm='batch').
 
-BatchNorm uses its running statistics with eps = 1e-3 (the flax module's;
-torch's default is 1e-5). The depthwise 3x3 convs are ``groups=C`` convs
-with zero padding d and dilation d. Child names follow the flax module
-(``Conv_0``, ``_Norm_0.BatchNorm_0``, ``PReLU_0``, ``FGlo_0``...) so the
-weight bridge is a rename.
+BatchNorm has eps = 1e-3 (the flax module's; torch's default is 1e-5). In
+eval mode it uses its running statistics. In training mode it follows the
+JAX train step, which maps CGNet over the grids of a step one image at a
+time: every sample of the batch is normalised with its own statistics over
+H x W (a plain ``BatchNorm2d`` over the batch would mix the grids), the
+variance is the biased one, E[x^2] - E[x]^2, and the forward leaves the
+running statistics alone. It adds each sample's statistics to a pending sum
+instead; the train step moves the running statistics once per step by
+their mean over all grids, through ``update_running_stats`` (flax momentum 0.9 = torch
+momentum 0.1, and the running variance takes the biased batch variance,
+where ``nn.BatchNorm2d`` would store the unbiased one).
+
+The depthwise 3x3 convs are ``groups=C`` convs with zero padding d and
+dilation d. Child names follow the flax module (``Conv_0``,
+``_Norm_0.BatchNorm_0``, ``PReLU_0``, ``FGlo_0``...) so the weight bridge
+is a rename.
 """
 
 from __future__ import annotations
+
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -18,15 +31,32 @@ from torch import nn
 from crnerf_tpu_torch.models.common import PReLU, nchw, nhwc, resize_bilinear
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.1   # torch convention: new = 0.9 * old + 0.1 * batch
 
 
 class _Norm(nn.Module):
     def __init__(self, channels: int):
         super().__init__()
-        self.BatchNorm_0 = nn.BatchNorm2d(channels, eps=BN_EPS)
+        self.BatchNorm_0 = nn.BatchNorm2d(channels, eps=BN_EPS,
+                                          momentum=BN_MOMENTUM)
+        # sums over the samples seen since update_running_stats of their
+        # (mean, variance), and how many samples: bounded however often
+        # the forward runs
+        self.pending: Optional[Tuple[torch.Tensor, torch.Tensor, int]] = None
 
     def forward(self, x):
-        return self.BatchNorm_0(x)
+        bn = self.BatchNorm_0
+        if not self.training:
+            return bn(x)
+        mean = x.mean(dim=(2, 3), keepdim=True)
+        var = torch.clamp_min((x * x).mean(dim=(2, 3), keepdim=True)
+                              - mean * mean, 0.0)
+        m_sum, v_sum, n = self.pending or (0.0, 0.0, 0)
+        self.pending = (m_sum + mean.detach()[:, :, 0, 0].sum(0),
+                        v_sum + var.detach()[:, :, 0, 0].sum(0),
+                        n + x.shape[0])
+        mul = torch.rsqrt(var + bn.eps) * bn.weight[None, :, None, None]
+        return (x - mean) * mul + bn.bias[None, :, None, None]
 
 
 class ConvBNPReLU(nn.Module):
@@ -136,7 +166,7 @@ class ContextGuidedNetwork(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (N, H, W, 3) -> (N, H, W, classes) sigmoid mask."""
         in_hw = x.shape[1:3]
-        x = nchw(x.float())
+        x = nchw(x.to(self.classifier.weight.dtype))
         out0 = self.level1_2(self.level1_1(self.level1_0(x)))
         inp1 = F.avg_pool2d(x, 3, 2, 1, count_include_pad=True)
         inp2 = F.avg_pool2d(inp1, 3, 2, 1, count_include_pad=True)
@@ -153,3 +183,21 @@ class ContextGuidedNetwork(nn.Module):
         cat2 = self.bn_prelu_3(torch.cat([out2_0, out2], 1))
         logits = nhwc(self.classifier(cat2))
         return torch.sigmoid(resize_bilinear(logits, tuple(in_hw)))
+
+    def norms(self) -> List[_Norm]:
+        return [m for m in self.modules() if isinstance(m, _Norm)]
+
+    @torch.no_grad()
+    def update_running_stats(self) -> None:
+        """Move every BatchNorm's running statistics by the mean, over all
+        samples seen in training-mode forwards since the last call, of the
+        per-sample batch statistics; then forget those. In place."""
+        for m in self.norms():
+            if m.pending is None:
+                continue
+            mean, var = m.pending[0] / m.pending[2], m.pending[1] / m.pending[2]
+            bn = m.BatchNorm_0
+            bn.running_mean.mul_(1 - bn.momentum).add_(bn.momentum * mean)
+            bn.running_var.mul_(1 - bn.momentum).add_(bn.momentum * var)
+            bn.num_batches_tracked += 1
+            m.pending = None

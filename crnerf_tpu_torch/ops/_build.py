@@ -2,8 +2,10 @@
 
 Each source is compiled with nvcc into a shared library with a plain C
 interface and loaded with ctypes. The library goes to ``build/`` at the
-root of the checkout, named by a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is loaded as it is. Nothing
+root of the checkout, named by a hash of the source, the shared headers
+(``*.cuh``) and the flags, so an edited source is rebuilt and an unchanged
+one is loaded as it is. ``load`` may be called from several threads, one
+per source, to build the libraries side by side. Nothing
 is built when a module is imported: the first launch builds.
 """
 
@@ -25,7 +27,8 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
                            "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()                      # guards the two dicts
+_SOURCE_LOCKS: Dict[str, threading.Lock] = {}  # one build per source
 BUILD_LOG: Dict[str, str] = {}  # source name -> nvcc's output (ptxas -v)
 
 
@@ -46,17 +49,21 @@ def load(source: str, argtypes: Dict[str, Sequence]) -> ctypes.CDLL:
     ``argtypes`` maps each exported C function to its ctypes argtypes;
     every exported function returns a cudaError_t as int."""
     with _LOCK:
+        source_lock = _SOURCE_LOCKS.setdefault(source, threading.Lock())
+    with source_lock:
         if source in _LIBS:
             return _LIBS[source]
         src = CSRC / source
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
         digest = hashlib.sha256(
-            src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         so = BUILD_DIR / f"{src.stem}_{digest}.so"
         if not so.exists():
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+                   str(src)]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(

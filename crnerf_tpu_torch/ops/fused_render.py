@@ -1,35 +1,48 @@
 """Fused volume rendering of one pass: posenc + NeRF MLP + compositing in
-ONE CUDA kernel (``csrc/fused_render_fwd.cu``), rays-in mode, forward.
+ONE CUDA kernel (``csrc/fused_render_fwd.cu``), rays-in mode, and its
+backward from an activation stash (``csrc/fused_render_bwd.cu``).
 
 Counterpart of ``crnerf_tpu/ops/fused_render.py`` ``fused_render_apply``
-with ``rays_in=True``: inputs are per ray (origins, directions, z values,
-sigma noise), xyz = o + d*z and the encode are made inside the kernel, and
-only per-ray results leave it:
+and ``make_fused_render_train`` with ``rays_in=True, stash=True``: inputs
+are per ray (origins, directions, z values, sigma noise), xyz = o + d*z and
+the encode are made inside the kernel, and only per-ray results leave it:
 
   ray block (N, round_up(C+1, 128)) f32 = [feature map (:C) | depth (C) | 0]
   weights   (N, S) f32
 
-``render_fwd_plain`` is the plain PyTorch version of the same function with
-the kernel's dtype policy (that of the JAX kernel's ``_mlp_fwd``, which
-differs from the flax ``NerfMLP``): every matmul takes its operands at the
-compute dtype and accumulates in fp32; every ReLU output, ``hf`` and ``dd``
-are cast to the compute dtype; the sigma head runs at the compute dtype;
-biases, softplus, sigmoid and compositing are fp32. ``exact_encode=False``
+In training the forward also writes the stash, one row per sample point at
+the compute dtype, [h_0 .. h_{L-1} | hf | dd | encode] in the kernel's
+padded widths (``grad_layout``): bit for bit the values its products
+consumed. The backward reads it and returns a float32 gradient for every
+weight and bias, summed over all points, and nothing for rays, z or noise.
+It is two kernels: the per-ray chain that writes every layer's dz, and the
+split-K weight gradient dW = A^T dZ; both sum in a fixed order, so the
+gradients of two runs on the same inputs are bit-identical.
+
+``render_fwd_plain`` / ``render_bwd_plain`` are the plain PyTorch versions
+with the kernels' dtype policy (that of the JAX kernels' ``_mlp_fwd`` and
+stash backward, which differs from the flax ``NerfMLP``): every matmul
+takes its operands (activations, weights, dz) at the compute dtype and
+accumulates in fp32; every ReLU output, ``hf`` and ``dd`` are cast to the
+compute dtype; the sigma head runs at the compute dtype; biases, softplus,
+sigmoid, compositing and the bias sums are fp32. ``exact_encode=False``
 selects the anchored double-angle sin/cos recurrence (exact sin/cos every
 ``ANCHOR_SPAN`` octaves), as the bf16 configs do.
 
-``fused_render_apply`` is the wrapper: a CPU tensor goes to the plain
-version; a CUDA tensor launches the kernel or raises.
+``fused_render_apply`` (inference) and ``fused_render_train`` (a
+``torch.autograd.Function``) are the wrappers: a CPU tensor goes to the
+plain versions; a CUDA tensor launches the kernels or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from crnerf_tpu_torch.core.compositing import composite
+from crnerf_tpu_torch.core.compositing import DELTA_INF, composite
 from crnerf_tpu_torch.core.encoding import posenc
 from crnerf_tpu_torch.models.nerf_mlp import NerfMLP, softplus
 
@@ -40,7 +53,12 @@ MAX_WIDTH = 256
 MAX_C = 128
 
 # launches of each kernel, counted by its wrapper where it launches
-LAUNCH_COUNTS: Dict[str, int] = {"fused_render_fwd": 0}
+LAUNCH_COUNTS: Dict[str, int] = {
+    "fused_render_fwd": 0,          # forward, no stash (inference)
+    "fused_render_fwd_stash": 0,    # forward with the stash (training)
+    "fused_render_bwd": 0,          # backward, the per-ray dz chain
+    "fused_render_bwd_wgrad": 0,    # backward, the split-K weight gradient
+}
 
 # Kernel against render_fwd_plain on the same inputs, per compute dtype:
 # max abs error of (weights, fmap, depth). fp32: the JAX package's own
@@ -52,6 +70,23 @@ LAUNCH_COUNTS: Dict[str, int] = {"fused_render_fwd": 0}
 KERNEL_TOL: Dict[torch.dtype, Tuple[float, float, float]] = {
     torch.float32: (1e-4, 1e-4, 2e-4),
     torch.bfloat16: (5e-4, 5e-4, 5e-3),
+}
+
+# The backward kernels against render_bwd_plain on the same stash and
+# cotangents, per compute dtype: max abs error of each gradient tensor over
+# that tensor's largest absolute value. fp32: the order of fp32 sums over
+# ~1e5 points (measured 5.4e-6 at 1024 rays x 128 samples, 8x256). bf16:
+# both sides round every dz to bf16; where an fp32 sum lands on the other
+# side of a rounding boundary that element moves by 2^-8 and carries into
+# the layers below, and a weight-gradient split sums its points in fp32
+# (measured on an H100, 8x256: 3.6e-4 at 1024 rays x 128 samples; at the
+# train step's 16,384 rays, against slices summed in fp64, 2.2e-4 at 64
+# samples and 8.3e-4 at 128, of which the weight-gradient kernel alone is
+# 2.4e-4 with ~190k points per split; small shapes average over fewer
+# points).
+GRAD_TOL: Dict[torch.dtype, float] = {
+    torch.float32: 1e-4,
+    torch.bfloat16: 1e-2,
 }
 
 
@@ -75,9 +110,13 @@ class MlpParams(NamedTuple):
     feat_b: torch.Tensor
 
 
-def mlp_params_from_module(m: NerfMLP) -> MlpParams:
-    t = lambda lin: lin.weight.detach().float().T  # noqa: E731
-    b = lambda lin: lin.bias.detach().float()      # noqa: E731
+def mlp_params_from_module(m: NerfMLP, detach: bool = True) -> MlpParams:
+    """The module's weights as (in, out) views. ``detach=False`` keeps them
+    on the autograd graph, so a gradient for an ``MlpParams`` tensor flows
+    back onto the module's parameter (training)."""
+    keep = (lambda x: x.detach()) if detach else (lambda x: x)
+    t = lambda lin: keep(lin.weight).float().T  # noqa: E731
+    b = lambda lin: keep(lin.bias).float()      # noqa: E731
     return MlpParams(
         trunk_w=tuple(t(m.trunk(i)) for i in range(m.depth)),
         trunk_b=tuple(b(m.trunk(i)) for i in range(m.depth)),
@@ -120,15 +159,18 @@ def render_fwd_plain(params: MlpParams, origins, dirs, z_vals, noise,
                      n_emb_xyz: int = 15, n_emb_dir: int = 4,
                      compute_dtype: torch.dtype = torch.float32,
                      exact_encode: bool = True,
-                     skips: Tuple[int, ...] = (4,)):
+                     skips: Tuple[int, ...] = (4,), stash: bool = False):
     """Plain PyTorch version of the kernel: origins, dirs (N, 3), z_vals,
-    noise (N, S) -> (ray block (N, c_pad) f32, weights (N, S) f32)."""
+    noise (N, S) -> (ray block (N, c_pad) f32, weights (N, S) f32), and
+    with ``stash`` also the activation stash (N*S, SC) at the compute
+    dtype in the kernel's layout (``grad_layout``)."""
     n, s = z_vals.shape
     dt = compute_dtype
     xyz = origins[:, None, :] + dirs[:, None, :] * z_vals[..., None]
     enc = sincos_encode(xyz.reshape(-1, 3), n_emb_xyz, exact_encode)
     d_xyz = enc.shape[1]
     h = None
+    acts = []
     for i, (w, b) in enumerate(zip(params.trunk_w, params.trunk_b)):
         if i == 0:
             acc = _mm(enc, w, dt)
@@ -137,6 +179,7 @@ def render_fwd_plain(params: MlpParams, origins, dirs, z_vals, noise,
         else:
             acc = _mm(h, w, dt)
         h = torch.relu(acc + b).to(dt)
+        acts.append(h)
     z_sig = _mm(h, params.sigma_w, dt) + params.sigma_b
     hf = (_mm(h, params.final_w, dt) + params.final_b).to(dt)
     width = params.final_w.shape[0]
@@ -154,12 +197,22 @@ def render_fwd_plain(params: MlpParams, origins, dirs, z_vals, noise,
                       device=z_vals.device)
     out[:, :c] = fmap
     out[:, c] = depth
-    return out, weights
+    if not stash:
+        return out, weights
+    lay = grad_layout(_dims_of(params, n_emb_xyz, n_emb_dir, dt, skips))
+    wp = _round_up(width, 32)
+    st = torch.zeros((n * s, lay.sc), dtype=dt, device=z_vals.device)
+    for i, a in enumerate(acts):
+        st[:, i * wp:i * wp + width] = a
+    st[:, lay.o_hf:lay.o_hf + width] = hf
+    st[:, lay.o_dd:lay.o_dd + dd.shape[1]] = dd
+    st[:, lay.o_enc:lay.o_enc + d_xyz] = enc.to(dt)
+    return out, weights, st
 
 
 # ------------------------------------------------------- kernel weights
 class KernelWeights(NamedTuple):
-    """Weights laid out for the kernel (``prepare_kernel_weights``)."""
+    """Weights laid out for the kernels (``prepare_kernel_weights``)."""
 
     params: MlpParams
     tensors: Tuple[Optional[torch.Tensor], ...]  # in the C pointer order
@@ -168,6 +221,7 @@ class KernelWeights(NamedTuple):
     n_emb_xyz: int
     n_emb_dir: int
     skips: Tuple[int, ...]
+    padded: Dict[object, torch.Tensor]  # fp32 (K, N) / (N,) in padded widths
 
 
 def pack_mma_b(b: torch.Tensor) -> torch.Tensor:
@@ -177,26 +231,15 @@ def pack_mma_b(b: torch.Tensor) -> torch.Tensor:
     Lane l holds B[2t + {0,1}][g] and B[2t + 8 + {0,1}][g], g = l // 4,
     t = l % 4."""
     k, n = b.shape
-    dev = b.device
-    lane = torch.arange(32, device=dev)
-    g, t = lane // 4, lane % 4
-    j = torch.arange(4, device=dev)
-    krow = t[:, None] * 2 + (j % 2)[None, :] + (j // 2)[None, :] * 8
-    ks = (torch.arange(k // 16, device=dev)[:, None, None, None] * 16
-          + krow[None, None])
-    ns = (torch.arange(n // 8, device=dev)[None, :, None, None] * 8
-          + g[None, None, :, None])
-    return b[ks, ns].to(torch.bfloat16).contiguous()
+    # k = 16 kt + 8 h + 2 t + j0, n = 8 nt + g -> [kt][nt][4 g + t][2 h + j0]
+    v = b.reshape(k // 16, 2, 4, 2, n // 8, 8).permute(0, 4, 5, 2, 1, 3)
+    return v.reshape(k // 16, n // 8, 32, 4).to(torch.bfloat16).contiguous()
 
 
-def prepare_kernel_weights(params: MlpParams, n_emb_xyz: int = 15,
-                           n_emb_dir: int = 4,
-                           compute_dtype: torch.dtype = torch.float32,
-                           skips: Tuple[int, ...] = (4,)) -> KernelWeights:
-    """Pad every dimension to the kernel's granules (zero weights and
-    biases: padded hidden units are exactly 0 after ReLU and meet zero
-    rows downstream) and lay the matrices out for the kernel: bf16 in mma
-    fragment order, or fp32 (K, N) row-major. Biases stay fp32."""
+def _dims_of(params: MlpParams, n_emb_xyz: int, n_emb_dir: int,
+             compute_dtype: torch.dtype,
+             skips: Tuple[int, ...]) -> Dict[str, int]:
+    """The kernels' dimensions: every width padded to its granule."""
     if compute_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"compute dtype {compute_dtype} not supported")
     n_layers = len(params.trunk_w)
@@ -212,88 +255,339 @@ def prepare_kernel_weights(params: MlpParams, n_emb_xyz: int = 15,
         raise ValueError(f"feature width {c} > {MAX_C}")
     if any(i < 1 for i in skips):
         raise ValueError(f"skips {skips}: layer 0 takes the encode alone")
+    skip_mask = 0
+    for i in skips:
+        if i < n_layers:
+            skip_mask |= 1 << i
+    return dict(L=n_layers, skip_mask=skip_mask, WP=_round_up(width, 32),
+                HP=_round_up(half, 32), CP=_round_up(c, 32), C=c,
+                KE=_round_up(3 + 6 * n_emb_xyz, 16), F=n_emb_xyz,
+                DK=3 + 6 * n_emb_dir,
+                BF16=int(compute_dtype == torch.bfloat16))
+
+
+def prepare_kernel_weights(params: MlpParams, n_emb_xyz: int = 15,
+                           n_emb_dir: int = 4,
+                           compute_dtype: torch.dtype = torch.float32,
+                           skips: Tuple[int, ...] = (4,)) -> KernelWeights:
+    """Pad every dimension to the kernel's granules (zero weights and
+    biases: padded hidden units are exactly 0 after ReLU and meet zero
+    rows downstream) and lay the matrices out for the kernel: bf16 in mma
+    fragment order, or fp32 (K, N) row-major. Biases stay fp32. The layout
+    is a snapshot of ``params``: a caller whose weights move (training)
+    prepares again after every update."""
+    dims = _dims_of(params, n_emb_xyz, n_emb_dir, compute_dtype, skips)
+    width = params.final_w.shape[0]
+    half = params.dir_w.shape[1]
     d_xyz = 3 + 6 * n_emb_xyz
-    d_dir = 3 + 6 * n_emb_dir
-    wp, hp, cp = _round_up(width, 32), _round_up(half, 32), _round_up(c, 32)
-    ke = _round_up(d_xyz, 16)
-    bf16 = compute_dtype == torch.bfloat16
+    d_dir = dims["DK"]
+    wp, hp, cp, ke = dims["WP"], dims["HP"], dims["CP"], dims["KE"]
+    bf16 = bool(dims["BF16"])
 
     def mat(w, kp, np_):
         full = torch.zeros((kp, np_), dtype=torch.float32, device=w.device)
-        full[:w.shape[0], :w.shape[1]] = w.float()
-        return pack_mma_b(full) if bf16 else full.contiguous()
+        full[:w.shape[0], :w.shape[1]] = w.detach().float()
+        return full
 
     def vec(b, np_):
         full = torch.zeros((np_,), dtype=torch.float32, device=b.device)
-        full[:b.shape[0]] = b.float()
+        full[:b.shape[0]] = b.detach().float()
         return full
 
-    wde = torch.zeros((d_dir, hp), dtype=torch.float32,
-                      device=params.dir_w.device)
-    wde[:, :half] = params.dir_w[width:].to(compute_dtype).float()
-    tensors = [
-        mat(params.sigma_w, wp, 32), vec(params.sigma_b, 32),
-        mat(params.final_w, wp, wp), vec(params.final_b, wp),
-        mat(params.dir_w[:width], wp, hp), vec(params.dir_b, hp),
-        wde.contiguous(),
-        mat(params.feat_w, hp, cp), vec(params.feat_b, cp),
-    ]
-    skip_mask = 0
+    pad: Dict[object, torch.Tensor] = {
+        "ws": mat(params.sigma_w, wp, 32), "bs": vec(params.sigma_b, 32),
+        "wf": mat(params.final_w, wp, wp), "bf": vec(params.final_b, wp),
+        "wdh": mat(params.dir_w[:width], wp, hp),
+        "bd": vec(params.dir_b, hp),
+        # the dir-encode rows stay fp32 in the kernel: rounded here
+        "wde": mat(params.dir_w[width:].detach().to(compute_dtype), d_dir,
+                   hp),
+        "wc": mat(params.feat_w, hp, cp), "bc": vec(params.feat_b, cp),
+    }
     for i, (w, b) in enumerate(zip(params.trunk_w, params.trunk_b)):
         if i == 0:
-            tensors += [mat(w, ke, wp), None]
-        elif i in skips:
-            skip_mask |= 1 << i
-            tensors += [mat(w[:d_xyz], ke, wp), mat(w[d_xyz:], wp, wp)]
+            pad["wenc", 0] = mat(w, ke, wp)
+        elif (dims["skip_mask"] >> i) & 1:
+            pad["wenc", i] = mat(w[:d_xyz], ke, wp)
+            pad["wh", i] = mat(w[d_xyz:], wp, wp)
         else:
-            tensors += [None, mat(w, wp, wp)]
-        tensors.append(vec(b, wp))
-    dims = dict(L=n_layers, skip_mask=skip_mask, WP=wp, HP=hp, CP=cp, C=c,
-                KE=ke, F=n_emb_xyz, DK=d_dir, BF16=int(bf16))
+            pad["wh", i] = mat(w, wp, wp)
+        pad["b", i] = vec(b, wp)
+    lay = pack_mma_b if bf16 else (lambda m: m)
+    tensors = [lay(pad["ws"]), pad["bs"], lay(pad["wf"]), pad["bf"],
+               lay(pad["wdh"]), pad["bd"], pad["wde"], lay(pad["wc"]),
+               pad["bc"]]
+    for i in range(dims["L"]):
+        for key in (("wenc", i), ("wh", i)):
+            tensors.append(lay(pad[key]) if key in pad else None)
+        tensors.append(pad["b", i])
     return KernelWeights(params, tuple(tensors), dims, compute_dtype,
-                         n_emb_xyz, n_emb_dir, tuple(skips))
+                         n_emb_xyz, n_emb_dir, tuple(skips), pad)
 
 
-# ------------------------------------------------------------- wrapper
-_DIMS_ORDER = ("N", "S", "L", "skip_mask", "WP", "HP", "CP", "C", "KE", "F",
-               "DK", "exact", "ldo", "BF16")
+# ----------------------------------------------------------- grad layout
+class GradLayout(NamedTuple):
+    """Columns of the stash and of the dz buffer, and the flat layouts of
+    the padded gradients. Stash row: h_i at i*WP, then hf, dd, encode. dz
+    row (and the bias gradients, which are its column sums): dz_i at i*WP,
+    then dhf, dz_sigma (32 wide, column 0), ddd, dz_feat; the bias vector
+    carries the (DK, HP) dir-encode weight gradient after them. ``jobs``:
+    one weight gradient each, (key, stash column, K, dz column, N, offset
+    of its (K, N) row-major block in the flat weight gradients)."""
+
+    sc: int
+    dc: int
+    bt: int
+    wt: int
+    o_hf: int
+    o_dd: int
+    o_enc: int
+    d_hf: int
+    d_sig: int
+    d_ddd: int
+    d_feat: int
+    jobs: Tuple[Tuple[object, int, int, int, int, int], ...]
+
+
+def grad_layout(dims: Dict[str, int]) -> GradLayout:
+    return _grad_layout(dims["L"], dims["skip_mask"], dims["WP"], dims["HP"],
+                        dims["CP"], dims["KE"], dims["DK"])
+
+
+@functools.lru_cache(maxsize=None)
+def _grad_layout(n_layers, skip_mask, wp, hp, cp, ke, dk) -> GradLayout:
+    o_hf, o_dd = n_layers * wp, (n_layers + 1) * wp
+    o_enc = o_dd + hp
+    d_hf, d_sig = n_layers * wp, (n_layers + 1) * wp
+    d_ddd = d_sig + 32
+    d_feat = d_ddd + hp
+    dc = d_feat + cp
+    jobs, off = [], 0
+
+    def job(key, a_col, k, b_col, n):
+        nonlocal off
+        jobs.append((key, a_col, k, b_col, n, off))
+        off += k * n
+
+    for i in range(n_layers):
+        if i == 0 or (skip_mask >> i) & 1:
+            job(("wenc", i), o_enc, ke, i * wp, wp)
+        if i > 0:
+            job(("wh", i), (i - 1) * wp, wp, i * wp, wp)
+    job("wf", (n_layers - 1) * wp, wp, d_hf, wp)
+    job("ws", (n_layers - 1) * wp, wp, d_sig, 32)
+    job("wdh", o_hf, wp, d_ddd, hp)
+    job("wc", o_dd, hp, d_feat, cp)
+    return GradLayout(sc=o_enc + ke, dc=dc, bt=dc + dk * hp, wt=off,
+                      o_hf=o_hf, o_dd=o_dd, o_enc=o_enc, d_hf=d_hf,
+                      d_sig=d_sig, d_ddd=d_ddd, d_feat=d_feat,
+                      jobs=tuple(jobs))
+
+
+def unpack_grads(kw: KernelWeights, gw: torch.Tensor,
+                 gb: torch.Tensor) -> MlpParams:
+    """Flat padded gradients (``GradLayout``) -> gradients in the layout of
+    ``MlpParams``: the inverse of ``prepare_kernel_weights``' padding and
+    split of the skip and dir layers. Padded units are dropped (their
+    gradients are exactly zero)."""
+    lay = grad_layout(kw.dims)
+    p = kw.params
+    width, half = p.final_w.shape[0], p.dir_w.shape[1]
+    c, d_xyz = p.feat_w.shape[1], 3 + 6 * kw.n_emb_xyz
+    wp, hp, dk = kw.dims["WP"], kw.dims["HP"], kw.dims["DK"]
+    blocks = {key: gw[off:off + k * n].reshape(k, n)
+              for key, _, k, _, n, off in lay.jobs}
+    trunk_w, trunk_b = [], []
+    for i in range(kw.dims["L"]):
+        parts = []
+        if ("wenc", i) in blocks:
+            parts.append(blocks["wenc", i][:d_xyz, :width])
+        if ("wh", i) in blocks:
+            parts.append(blocks["wh", i][:width, :width])
+        trunk_w.append(torch.cat(parts, 0))
+        trunk_b.append(gb[i * wp:i * wp + width])
+    g_wde = gb[lay.dc:lay.dc + dk * hp].reshape(dk, hp)[:, :half]
+    return MlpParams(
+        trunk_w=tuple(trunk_w), trunk_b=tuple(trunk_b),
+        sigma_w=blocks["ws"][:width, :1],
+        sigma_b=gb[lay.d_sig:lay.d_sig + 1],
+        final_w=blocks["wf"][:width, :width],
+        final_b=gb[lay.d_hf:lay.d_hf + width],
+        dir_w=torch.cat([blocks["wdh"][:width, :half], g_wde], 0),
+        dir_b=gb[lay.d_ddd:lay.d_ddd + half],
+        feat_w=blocks["wc"][:half, :c],
+        feat_b=gb[lay.d_feat:lay.d_feat + c],
+    )
+
+
+# ------------------------------------------------- plain backward (twin)
+def bwd_chain_plain(kw: KernelWeights, z_vals, noise, dir_blk, stash, g_ray,
+                    g_w):
+    """Plain version of the backward's first kernel: the compositing
+    backward and the dh chain from the stash -> (dz buffer (N*S, DC) at
+    the compute dtype, bias / dir-encode gradients (BT,) f32). An explicit
+    backward that rounds where the JAX kernel rounds: every product
+    operand, dz included, at the compute dtype; sums in fp32."""
+    dims, pad, dt = kw.dims, kw.padded, kw.compute_dtype
+    lay = grad_layout(dims)
+    n_layers, wp, hp, cp, c = (dims["L"], dims["WP"], dims["HP"], dims["CP"],
+                               dims["C"])
+    n, s = z_vals.shape
+    r = lambda x: x.to(dt).float()                 # noqa: E731
+    mm = lambda a, w: r(a) @ r(w)                  # noqa: E731
+    mm_bt = lambda dz, w: r(dz) @ r(w).T           # noqa: E731
+    st = stash.float()
+    h = [st[:, i * wp:(i + 1) * wp] for i in range(n_layers)]
+    dd = st[:, lay.o_dd:lay.o_dd + hp]
+    # the cheap heads again, and the compositing forward
+    z_sig = mm(h[-1], pad["ws"])[:, :1] + pad["bs"][:1]
+    feat = torch.sigmoid(mm(dd, pad["wc"]) + pad["bc"])
+    sigma = softplus(z_sig).reshape(n, s)
+    deltas = torch.cat([z_vals[:, 1:] - z_vals[:, :-1],
+                        torch.full_like(z_vals[:, :1], DELTA_INF)], -1)
+    act = torch.relu(sigma + noise)
+    gone = torch.exp(-deltas * act)
+    alphas = 1.0 - gone
+    trans = torch.cumprod(torch.cat([torch.ones_like(alphas[:, :1]),
+                                     1.0 - alphas[:, :-1]], -1), -1)
+    weights = alphas * trans
+    # compositing backward
+    dfmap = torch.zeros((n, cp), dtype=torch.float32, device=z_vals.device)
+    dfmap[:, :c] = g_ray[:, :c]
+    ddepth = g_ray[:, c:c + 1]
+    g_ft = torch.einsum("nc,nsc->ns", dfmap, feat.reshape(n, s, cp))
+    dw = g_w + ddepth * z_vals + g_ft
+    wdw = weights * dw
+    suffix = torch.flip(torch.cumsum(torch.flip(wdw, (-1,)), -1),
+                        (-1,)) - wdw
+    dalpha = trans * dw - suffix / torch.clamp_min(1.0 - alphas, 1e-30)
+    dact = dalpha * deltas * gone
+    dsigma = torch.where(sigma + noise > 0, dact, torch.zeros_like(dact))
+    dfeat = (weights[..., None] * dfmap[:, None, :]).reshape(n * s, cp)
+    # MLP backward
+    dz = {}
+    dz["feat"] = dfeat * feat * (1.0 - feat)
+    ddd = torch.where(dd > 0, mm_bt(dz["feat"], pad["wc"]),
+                      torch.zeros_like(dd))
+    dz["ddd"] = ddd
+    ddd_ray = ddd.reshape(n, s, hp).sum(1)
+    g_wde = r(dir_blk).T @ r(ddd_ray)
+    dz["hf"] = mm_bt(ddd, pad["wdh"])
+    dz_sig = dsigma.reshape(-1, 1) * torch.sigmoid(z_sig)
+    dh = mm_bt(dz["hf"], pad["wf"]) + r(dz_sig) * r(pad["ws"][:, 0])[None]
+    for i in range(n_layers - 1, -1, -1):
+        dz[i] = torch.where(h[i] > 0, dh, torch.zeros_like(dh))
+        if i > 0:
+            dh = mm_bt(dz[i], pad["wh", i])
+    sig_blk = torch.zeros((n * s, 32), dtype=torch.float32,
+                          device=z_vals.device)
+    sig_blk[:, :1] = dz_sig
+    cols = [dz[i] for i in range(n_layers)] + [dz["hf"], sig_blk, dz["ddd"],
+                                                dz["feat"]]
+    full = torch.cat(cols, 1)
+    gb = torch.cat([full.sum(0), g_wde.reshape(-1)])
+    return full.to(dt), gb
+
+
+def bwd_wgrad_plain(kw: KernelWeights, stash, dzbuf) -> torch.Tensor:
+    """Plain version of the backward's second kernel: every weight
+    gradient dW = A^T dZ over all points, A a column block of the stash,
+    dZ of the dz buffer (both already at the compute dtype), summed in
+    fp32 -> flat padded weight gradients (WT,) f32."""
+    lay = grad_layout(kw.dims)
+    st, dz = stash.float(), dzbuf.float()
+    gw = torch.empty((lay.wt,), dtype=torch.float32, device=stash.device)
+    for _, a_col, k, b_col, n, off in lay.jobs:
+        gw[off:off + k * n] = (st[:, a_col:a_col + k].T
+                               @ dz[:, b_col:b_col + n]).reshape(-1)
+    return gw
+
+
+def render_bwd_plain(params: MlpParams, z_vals, noise, dirs, stash, g_ray,
+                     g_w, n_emb_xyz: int = 15, n_emb_dir: int = 4,
+                     compute_dtype: torch.dtype = torch.float32,
+                     exact_encode: bool = True,
+                     skips: Tuple[int, ...] = (4,)) -> MlpParams:
+    """Plain PyTorch version of the backward kernels: the cotangents of
+    the ray block (N, c_pad) and of the weights (N, S), with the forward's
+    stash -> a float32 gradient for every tensor of ``params``."""
+    kw = prepare_kernel_weights(params, n_emb_xyz, n_emb_dir, compute_dtype,
+                                skips)
+    dzbuf, gb = bwd_chain_plain(kw, z_vals, noise,
+                                dir_block(kw, dirs, exact_encode), stash,
+                                g_ray, g_w)
+    return unpack_grads(kw, bwd_wgrad_plain(kw, stash, dzbuf), gb)
+
+
+# ------------------------------------------------------------- wrappers
+_FWD_DIMS = ("N", "S", "L", "skip_mask", "WP", "HP", "CP", "C", "KE", "F",
+             "DK", "exact", "ldo", "BF16", "SC")
+_CHAIN_DIMS = ("N", "S", "L", "WP", "HP", "CP", "C", "DK", "ldo", "SC", "DC",
+               "slices", "BF16", "grid")
+_WGRAD_DIMS = ("M", "SC", "DC", "WT", "n_tiles", "splits", "m_per", "BF16")
 _C_FN = "crnerf_render_fwd"
+_C_ARGS = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+           ctypes.c_void_p)
+# the weight-gradient kernel's output tile and points per step, by dtype
+_WGRAD_TILE = {torch.bfloat16: (128, 64), torch.float32: (64, 32)}
 
 
 def _lib():
     from crnerf_tpu_torch.ops import _build
 
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    return _build.load("fused_render_fwd.cu", {_C_FN: (vp, ci, vp, ci, vp)})
+    return _build.load("fused_render_fwd.cu", {_C_FN: _C_ARGS})
 
 
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
+def _lib_bwd():
+    from crnerf_tpu_torch.ops import _build
+
+    return _build.load("fused_render_bwd.cu",
+                       {"crnerf_render_bwd_chain": _C_ARGS,
+                        "crnerf_render_bwd_wgrad": _C_ARGS})
+
+
+def _call(lib, fn_name: str, tensors, dims: Dict[str, int], order, dev):
+    """One C entry point: pointers of ``tensors`` (None -> 0), the ints of
+    ``dims`` in ``order``, on the current stream of ``dev``."""
+    ptrs = (ctypes.c_void_p * len(tensors))(
+        *[0 if t is None else t.data_ptr() for t in tensors]
+    )
+    dim_arr = (ctypes.c_int * len(order))(*[dims[k] for k in order])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = getattr(lib, fn_name)(ptrs, len(tensors), dim_arr, len(order),
+                               stream)
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} launch failed: cudaError {rc}")
+
+
+def _check(name: str, t: torch.Tensor, shape, device,
+           dtype: torch.dtype = torch.float32) -> None:
     if t.device != device:
         raise ValueError(f"{name} on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {str(dtype)[6:]}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} shape {tuple(t.shape)} != {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
-def fused_render_apply(
-    kw: KernelWeights,
-    origins: torch.Tensor,      # (N, 3) ray origins
-    dirs: torch.Tensor,         # (N, 3) unit ray directions
-    z_vals: torch.Tensor,       # (N, S)
-    noise: torch.Tensor,        # (N, S) sigma noise (zeros at eval)
-    exact_encode: bool = True,
-):
-    """-> (ray block (N, c_pad) f32 [fmap(:C) | depth(C) | 0], weights
-    (N, S) f32) for weights laid out by ``prepare_kernel_weights`` (which
-    fixes the compute dtype, frequencies and skips). CPU tensors take
-    ``render_fwd_plain``; CUDA tensors launch the kernel."""
+def dir_block(kw: KernelWeights, dirs: torch.Tensor,
+               exact_encode: bool) -> torch.Tensor:
+    """(N, DK) direction encode at the compute dtype, held as f32."""
+    enc = sincos_encode(dirs.float(), kw.n_emb_dir, exact_encode)
+    return enc.to(kw.compute_dtype).float().contiguous()
+
+
+def render_fwd(kw: KernelWeights, origins, dirs, z_vals, noise,
+                exact_encode: bool, stash: bool):
+    """-> (ray block, weights, stash or None): the plain version for CPU
+    tensors, the kernel for CUDA tensors."""
     if z_vals.device.type == "cpu":
-        return render_fwd_plain(kw.params, origins, dirs, z_vals, noise,
-                                kw.n_emb_xyz, kw.n_emb_dir, kw.compute_dtype,
-                                exact_encode, kw.skips)
+        res = render_fwd_plain(kw.params, origins, dirs, z_vals, noise,
+                               kw.n_emb_xyz, kw.n_emb_dir, kw.compute_dtype,
+                               exact_encode, kw.skips, stash=stash)
+        return res if stash else (*res, None)
     if z_vals.device.type != "cuda":
         raise ValueError(f"no fused render for device {z_vals.device}")
     dev = z_vals.device
@@ -308,25 +602,201 @@ def fused_render_apply(
         if t is not None and t.device != dev:
             raise ValueError(f"kernel weights on {t.device}, rays on {dev}")
     od = torch.cat([origins, dirs, origins.new_zeros((n, 2))], -1)
-    dir_blk = sincos_encode(dirs, kw.n_emb_dir, exact_encode)
-    dir_blk = dir_blk.to(kw.compute_dtype).float().contiguous()
-    c = kw.dims["C"]
-    ldo = _round_up(c + 1, LANE)
+    dir_blk = dir_block(kw, dirs, exact_encode)
+    ldo = _round_up(kw.dims["C"] + 1, LANE)
     out = torch.empty((n, ldo), dtype=torch.float32, device=dev)
     w_out = torch.empty((n, s), dtype=torch.float32, device=dev)
-    ptr_list = [od, z_vals, noise, dir_blk, out, w_out, *kw.tensors]
-    ptrs = (ctypes.c_void_p * len(ptr_list))(
-        *[0 if t is None else t.data_ptr() for t in ptr_list]
-    )
-    dims = dict(kw.dims, N=n, S=s, exact=int(exact_encode), ldo=ldo)
-    dim_arr = (ctypes.c_int * len(_DIMS_ORDER))(
-        *[dims[k] for k in _DIMS_ORDER]
-    )
-    lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = getattr(lib, _C_FN)(ptrs, len(ptr_list), dim_arr, len(_DIMS_ORDER),
-                             stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_render_fwd launch failed: cudaError {rc}")
-    LAUNCH_COUNTS["fused_render_fwd"] += 1
+    sc = grad_layout(kw.dims).sc
+    st = (torch.empty((n * s, sc), dtype=kw.compute_dtype, device=dev)
+          if stash else None)
+    dims = dict(kw.dims, N=n, S=s, exact=int(exact_encode), ldo=ldo, SC=sc)
+    _call(_lib(), _C_FN,
+          [od, z_vals, noise, dir_blk, out, w_out, st, *kw.tensors], dims,
+          _FWD_DIMS, dev)
+    LAUNCH_COUNTS["fused_render_fwd_stash" if stash
+                  else "fused_render_fwd"] += 1
+    return out, w_out, st
+
+
+def fused_render_apply(
+    kw: KernelWeights,
+    origins: torch.Tensor,      # (N, 3) ray origins
+    dirs: torch.Tensor,         # (N, 3) unit ray directions
+    z_vals: torch.Tensor,       # (N, S)
+    noise: torch.Tensor,        # (N, S) sigma noise (zeros at eval)
+    exact_encode: bool = True,
+):
+    """-> (ray block (N, c_pad) f32 [fmap(:C) | depth(C) | 0], weights
+    (N, S) f32) for weights laid out by ``prepare_kernel_weights`` (which
+    fixes the compute dtype, frequencies and skips). CPU tensors take
+    ``render_fwd_plain``; CUDA tensors launch the kernel. No gradient:
+    training goes through ``fused_render_train``."""
+    out, w_out, _ = render_fwd(kw, origins, dirs, z_vals, noise,
+                                exact_encode, stash=False)
     return out, w_out
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_table(lay: GradLayout, tile: int, device_str: str) -> torch.Tensor:
+    """(n_tiles, 6) int32 on the device: a_col, k_valid, b_col, n_valid,
+    out_off, ld_out of every ``tile`` x ``tile`` output tile of ``jobs``."""
+    rows = []
+    for _, a_col, k, b_col, n, off in lay.jobs:
+        for tm in range(0, k, tile):
+            for tn in range(0, n, tile):
+                rows.append([a_col + tm, min(tile, k - tm), b_col + tn,
+                             min(tile, n - tn), off + tm * n + tn, n])
+    return torch.tensor(rows, dtype=torch.int32, device=device_str)
+
+
+def bwd_chain(kw: KernelWeights, z_vals, noise, dir_blk, stash, g_ray, g_w):
+    """The backward's first kernel (``bwd_chain_plain`` on CPU tensors)."""
+    if z_vals.device.type == "cpu":
+        return bwd_chain_plain(kw, z_vals, noise, dir_blk, stash, g_ray, g_w)
+    if z_vals.device.type != "cuda":
+        raise ValueError(f"no fused render for device {z_vals.device}")
+    dev, dt, pad = z_vals.device, kw.compute_dtype, kw.padded
+    lay = grad_layout(kw.dims)
+    n, s = z_vals.shape
+    ldo = _round_up(kw.dims["C"] + 1, LANE)
+    _check("z_vals", z_vals, (n, s), dev)
+    _check("noise", noise, (n, s), dev)
+    _check("dir block", dir_blk, (n, kw.dims["DK"]), dev)
+    _check("g_ray", g_ray, (n, ldo), dev)
+    _check("g_w", g_w, (n, s), dev)
+    _check("stash", stash, (n * s, lay.sc), dev, dt)
+    lay_t = pack_mma_b if kw.dims["BF16"] else (lambda m: m.contiguous())
+    wsv = pad["ws"][:, 0].to(dt).float().contiguous()
+    transposed = [lay_t(pad["wc"].T), lay_t(pad["wdh"].T), lay_t(pad["wf"].T)]
+    transposed += [lay_t(pad["wh", i].T) for i in range(1, kw.dims["L"])]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    # a persistent grid: the bf16 kernel fits two CTAs on an SM, fp32 one
+    grid = min(n, n_sm * (2 if kw.dims["BF16"] else 1))
+    slices = min(n, 32)     # of the rays, in the dir-encode gradient
+    hp, dk = kw.dims["HP"], kw.dims["DK"]
+    dzbuf = torch.empty((n * s, lay.dc), dtype=dt, device=dev)
+    bpart = torch.empty((grid, lay.dc), dtype=torch.float32, device=dev)
+    ddray = torch.empty((n, hp), dtype=torch.float32, device=dev)
+    dpart = torch.empty((slices, dk * hp), dtype=torch.float32, device=dev)
+    gb = torch.empty((lay.bt,), dtype=torch.float32, device=dev)
+    dims = dict(kw.dims, N=n, S=s, ldo=ldo, SC=lay.sc, DC=lay.dc,
+                slices=slices, grid=grid)
+    _call(_lib_bwd(), "crnerf_render_bwd_chain",
+          [z_vals, noise, dir_blk, g_ray, g_w, stash, dzbuf, bpart, ddray,
+           dpart, gb, kw.tensors[0], pad["bs"], kw.tensors[7], pad["bc"],
+           wsv, *transposed], dims, _CHAIN_DIMS, dev)
+    LAUNCH_COUNTS["fused_render_bwd"] += 1
+    return dzbuf, gb
+
+
+def bwd_wgrad(kw: KernelWeights, stash, dzbuf) -> torch.Tensor:
+    """The backward's second kernel (``bwd_wgrad_plain`` on CPU tensors)."""
+    if stash.device.type == "cpu":
+        return bwd_wgrad_plain(kw, stash, dzbuf)
+    if stash.device.type != "cuda":
+        raise ValueError(f"no fused render for device {stash.device}")
+    dev, dt = stash.device, kw.compute_dtype
+    lay = grad_layout(kw.dims)
+    m = stash.shape[0]
+    _check("stash", stash, (m, lay.sc), dev, dt)
+    _check("dz buffer", dzbuf, (m, lay.dc), dev, dt)
+    tile, pts = _WGRAD_TILE[dt]
+    tiles = _tile_table(lay, tile, str(dev))
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    # enough CTAs for a few waves, each with at least four steps of points
+    splits = max(1, min(-(-m // (4 * pts)), -(-4 * n_sm // tiles.shape[0])))
+    m_per = _round_up(-(-m // splits), pts)
+    part = torch.empty((splits, lay.wt), dtype=torch.float32, device=dev)
+    gw = torch.empty((lay.wt,), dtype=torch.float32, device=dev)
+    dims = dict(M=m, SC=lay.sc, DC=lay.dc, WT=lay.wt,
+                n_tiles=tiles.shape[0], splits=splits, m_per=m_per,
+                BF16=kw.dims["BF16"])
+    _call(_lib_bwd(), "crnerf_render_bwd_wgrad",
+          [stash, dzbuf, tiles, part, gw], dims, _WGRAD_DIMS, dev)
+    LAUNCH_COUNTS["fused_render_bwd_wgrad"] += 1
+    return gw
+
+
+def fused_render_bwd(kw: KernelWeights, z_vals, noise, dirs, stash, g_ray,
+                     g_w, exact_encode: bool = True) -> MlpParams:
+    """Gradients of every tensor of ``kw.params`` from the cotangents of
+    the ray block and of the weights and the forward's stash: the two
+    backward kernels on CUDA tensors, their plain versions on CPU
+    tensors."""
+    dir_blk = dir_block(kw, dirs, exact_encode)
+    dzbuf, gb = bwd_chain(kw, z_vals, noise, dir_blk, stash,
+                          g_ray.float().contiguous(),
+                          g_w.float().contiguous())
+    gw = bwd_wgrad(kw, stash, dzbuf)
+    return unpack_grads(kw, gw, gb)
+
+
+def flatten_params(p: MlpParams) -> Tuple[torch.Tensor, ...]:
+    return (*p.trunk_w, *p.trunk_b, *p[2:])
+
+
+def unflatten_params(flat) -> MlpParams:
+    n_layers = (len(flat) - 8) // 2
+    return MlpParams(tuple(flat[:n_layers]),
+                     tuple(flat[n_layers:2 * n_layers]),
+                     *flat[2 * n_layers:])
+
+
+class FusedRenderTrain(torch.autograd.Function):
+    """Counterpart of ``make_fused_render_train(rays_in=True, stash=True)``:
+    forward = the stash forward, backward = the stash backward. Gradients
+    come back for the ``MlpParams`` tensors only; origins, directions, z
+    and noise get none. The stash lives from forward to backward and is
+    freed there."""
+
+    @staticmethod
+    def forward(ctx, origins, dirs, z_vals, noise, opts, *flat):
+        n_emb_xyz, n_emb_dir, compute_dtype, exact_encode, skips = opts
+        kw = prepare_kernel_weights(unflatten_params(flat), n_emb_xyz,
+                                    n_emb_dir, compute_dtype, skips)
+        out, w_out, stash = render_fwd(kw, origins, dirs, z_vals, noise,
+                                        exact_encode, stash=True)
+        ctx.kw, ctx.stash, ctx.exact_encode = kw, stash, exact_encode
+        ctx.save_for_backward(z_vals, noise, dirs)
+        return out, w_out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_ray, g_w):
+        z_vals, noise, dirs = ctx.saved_tensors
+        if ctx.stash is None:
+            raise RuntimeError("the stash was freed by an earlier backward")
+        # a cotangent no loss term reads arrives as None
+        if g_ray is None:
+            ldo = _round_up(ctx.kw.dims["C"] + 1, LANE)
+            g_ray = z_vals.new_zeros((z_vals.shape[0], ldo))
+        if g_w is None:
+            g_w = torch.zeros_like(z_vals)
+        grads = fused_render_bwd(ctx.kw, z_vals, noise, dirs, ctx.stash,
+                                 g_ray, g_w, ctx.exact_encode)
+        ctx.stash = None
+        ctx.kw = None
+        return (None, None, None, None, None, *flatten_params(grads))
+
+
+def fused_render_train(
+    params: MlpParams,
+    origins: torch.Tensor,
+    dirs: torch.Tensor,
+    z_vals: torch.Tensor,
+    noise: torch.Tensor,
+    n_emb_xyz: int = 15,
+    n_emb_dir: int = 4,
+    compute_dtype: torch.dtype = torch.float32,
+    exact_encode: bool = True,
+    skips: Tuple[int, ...] = (4,),
+):
+    """Differentiable fused render of one pass -> (ray block, weights) as
+    ``fused_render_apply``. ``params`` are live tensors on the autograd
+    graph (``mlp_params_from_module(m, detach=False)``): they are laid out
+    for the kernel at every call, and the backward kernel's gradients flow
+    back onto them."""
+    opts = (n_emb_xyz, n_emb_dir, compute_dtype, exact_encode, tuple(skips))
+    return FusedRenderTrain.apply(origins.detach(), dirs.detach(),
+                                  z_vals.detach(), noise.detach(), opts,
+                                  *flatten_params(params))

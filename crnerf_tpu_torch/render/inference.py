@@ -46,7 +46,9 @@ class Renderer:
         self._kernel_weights = None
 
     def kernel_weights(self):
-        """The MLPs in the kernel's layout, prepared on first use."""
+        """The MLPs in the kernel's layout, prepared on first use and kept:
+        a Renderer serves frozen weights (it puts the system in eval mode).
+        Build a new Renderer after the weights have changed."""
         if self._kernel_weights is None:
             self._kernel_weights = self.system.kernel_weights()
         return self._kernel_weights

@@ -1,12 +1,24 @@
-"""Volumetric renderer of the serving path (``crnerf_tpu/render/renderer.py``
-``render_rays`` / ``render_rays_tiled`` at inference).
+"""Volumetric renderer (``crnerf_tpu/render/renderer.py`` ``render_rays`` /
+``render_rays_tiled``), inference and training.
 
 Coarse pass -> inverse-CDF resampling from the coarse weights -> fine pass
 over the sorted union of samples. Each pass is one fused-render call
-(``ops.fused_render``: the CUDA kernel on the card, its plain version on
-the CPU). Inference is deterministic: no z perturbation, no sigma noise,
-``sample_pdf(det=True)``. The JAX package's ``lax.map`` over ray tiles is a
-Python loop over ``chunk``-ray tiles here.
+(``ops.fused_render``: the CUDA kernels on the card, their plain versions
+on the CPU).
+
+Inference (``render_rays``) is deterministic: no z perturbation, no sigma
+noise, ``sample_pdf(det=True)``; it takes weights laid out once, which
+carry no gradient (its callers run under ``torch.no_grad``). Training
+(``render_rays_train``) perturbs the coarse samples, adds
+``noise_std * N(0, 1)`` to sigma (drawn here and fed to the kernel, so
+training and inference share one kernel body), resamples stochastically
+from the detached coarse weights, and is differentiable in the MLP weights
+only: rays, z and noise are detached before each fused call, as in the JAX
+package. It takes the live parameters. Every random input is drawn from a
+``torch.Generator`` or passed in through ``draws``.
+
+The JAX package's ``lax.map`` over ray tiles is a Python loop over
+``chunk``-ray tiles here.
 """
 
 from __future__ import annotations
@@ -17,23 +29,65 @@ import torch
 
 from crnerf_tpu_torch.core.sampling import (
     merge_sorted_zvals,
+    perturb_zvals,
     sample_pdf,
     stratified_zvals,
 )
 from crnerf_tpu_torch.ops.fused_render import (
     KernelWeights,
+    MlpParams,
     fused_render_apply,
+    fused_render_train,
 )
 
 
-def _pass(kw: KernelWeights, rays_o, rays_d, z, exact_encode: bool):
-    blk, w = fused_render_apply(kw, rays_o, rays_d, z, torch.zeros_like(z),
-                                exact_encode)
-    c = kw.dims["C"]
-    return w, blk[:, :c], blk[:, c]
+def _noise(shape, noise_std: float, given, device, generator):
+    if given is not None:
+        return given.to(torch.float32).contiguous()
+    if noise_std <= 0:
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    return noise_std * torch.randn(shape, dtype=torch.float32, device=device,
+                                   generator=generator)
 
 
-@torch.no_grad()
+def _render(run_pass, rays: torch.Tensor, n_samples: int, n_importance: int,
+            use_disp: bool, perturb: float = 0.0, noise_std: float = 0.0,
+            generator: Optional[torch.Generator] = None,
+            draws: Optional[Dict[str, torch.Tensor]] = None
+            ) -> Dict[str, torch.Tensor]:
+    """The two-pass skeleton. ``run_pass(which, rays_o, rays_d, z, noise)``
+    -> (ray block, weights, C) runs the coarse (``which`` 0) or fine (1)
+    MLP over the samples; ``n_importance`` 0 stops after the coarse pass.
+    ``perturb`` 0 and ``noise_std`` 0 give the deterministic render."""
+    draws = draws or {}
+    rays = rays.detach()
+    rays_o = rays[:, 0:3].contiguous()
+    rays_d = rays[:, 3:6].contiguous()
+    near, far = rays[:, 6:7], rays[:, 7:8]
+
+    def outputs(which: int, z, noise_key: str, tag: str):
+        noise = _noise(z.shape, noise_std, draws.get(noise_key), rays.device,
+                       generator)
+        blk, w, c = run_pass(which, rays_o, rays_d, z, noise)
+        return {f"weights_{tag}": w, f"feature_{tag}": blk[:, :c],
+                f"depth_{tag}": blk[:, c]}
+
+    z_vals = stratified_zvals(near, far, n_samples, use_disp)
+    if perturb > 0:
+        z_vals = perturb_zvals(z_vals, perturb, draws.get("z_u"), generator)
+    z_vals = z_vals.contiguous()
+    out = outputs(0, z_vals, "noise_coarse", "coarse")
+    if n_importance <= 0:
+        return out
+    z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
+    z_fine = sample_pdf(z_mid, out["weights_coarse"].detach()[:, 1:-1],
+                        n_importance, det=perturb == 0, e=draws.get("pdf_e"),
+                        generator=generator)
+    z_all = merge_sorted_zvals(z_vals, z_fine).contiguous()
+    out.update(outputs(1, z_all, "noise_fine", "fine"), z_fine=z_all)
+    return out
+
+
 def render_rays(
     coarse: KernelWeights,
     fine: Optional[KernelWeights],
@@ -47,26 +101,15 @@ def render_rays(
     """-> {weights,feature,depth}_coarse and, with a fine pass,
     {weights,feature,depth}_fine and z_fine. ``coarse``/``fine`` come
     from ``prepare_kernel_weights``."""
-    rays_o = rays[:, 0:3].contiguous()
-    rays_d = rays[:, 3:6].contiguous()
-    near, far = rays[:, 6:7], rays[:, 7:8]
-    z_vals = stratified_zvals(near, far, n_samples, use_disp).contiguous()
-    w_c, fmap_c, depth_c = _pass(coarse, rays_o, rays_d, z_vals,
-                                 exact_encode)
-    out = {"weights_coarse": w_c, "feature_coarse": fmap_c,
-           "depth_coarse": depth_c}
-    if n_importance <= 0 or fine is None:
-        return out
-    z_mid = 0.5 * (z_vals[:, :-1] + z_vals[:, 1:])
-    z_fine = sample_pdf(z_mid, w_c[:, 1:-1], n_importance, det=True)
-    z_all = merge_sorted_zvals(z_vals, z_fine).contiguous()
-    w_f, fmap_f, depth_f = _pass(fine, rays_o, rays_d, z_all, exact_encode)
-    out.update(weights_fine=w_f, feature_fine=fmap_f, depth_fine=depth_f,
-               z_fine=z_all)
-    return out
+    def run_pass(which, rays_o, rays_d, z, noise):
+        kw = (coarse, fine)[which]
+        return (*fused_render_apply(kw, rays_o, rays_d, z, noise,
+                                    exact_encode), kw.dims["C"])
+
+    return _render(run_pass, rays, n_samples,
+                   n_importance if fine is not None else 0, use_disp)
 
 
-@torch.no_grad()
 def render_rays_tiled(coarse: KernelWeights, fine: Optional[KernelWeights],
                       rays: torch.Tensor, *, tile: int = 8192,
                       **kw) -> Dict[str, torch.Tensor]:
@@ -76,3 +119,43 @@ def render_rays_tiled(coarse: KernelWeights, fine: Optional[KernelWeights],
     parts = [render_rays(coarse, fine, rays[i:i + tile], **kw)
              for i in range(0, rays.shape[0], tile)]
     return {k: torch.cat([p[k] for p in parts], 0) for k in parts[0]}
+
+
+def render_rays_train(
+    coarse: MlpParams,
+    fine: Optional[MlpParams],
+    rays: torch.Tensor,             # (N, 8): o, d, near, far
+    *,
+    n_samples: int = 64,
+    n_importance: int = 64,
+    n_emb_xyz: int = 15,
+    n_emb_dir: int = 4,
+    use_disp: bool = False,
+    perturb: float = 1.0,
+    noise_std: float = 1.0,
+    compute_dtype: torch.dtype = torch.float32,
+    exact_encode: bool = True,
+    skips=(4,),
+    generator: Optional[torch.Generator] = None,
+    draws: Optional[Dict[str, torch.Tensor]] = None,
+) -> Dict[str, torch.Tensor]:
+    """The training half of ``render_rays``: same keys as the inference
+    result. ``coarse``/``fine`` are live parameter views
+    (``mlp_params_from_module(m, detach=False)``). ``draws`` injects any of
+    the random inputs in place of the generator's: ``z_u`` (N, n_samples)
+    uniforms of the perturbation, ``noise_coarse`` (N, n_samples) and
+    ``noise_fine`` (N, n_samples + n_importance) sigma noise already scaled
+    by ``noise_std``, ``pdf_e`` (N, n_importance + 1) exponential
+    spacings."""
+    opts = dict(n_emb_xyz=n_emb_xyz, n_emb_dir=n_emb_dir,
+                compute_dtype=compute_dtype, exact_encode=exact_encode,
+                skips=tuple(skips))
+
+    def run_pass(which, rays_o, rays_d, z, noise):
+        params = (coarse, fine)[which]
+        return (*fused_render_train(params, rays_o, rays_d, z, noise, **opts),
+                params.feat_w.shape[1])
+
+    return _render(run_pass, rays, n_samples,
+                   n_importance if fine is not None else 0, use_disp,
+                   perturb, noise_std, generator, draws)

@@ -1,11 +1,15 @@
-"""The CR-NeRF system at inference (``crnerf_tpu/render/system.py``
-``CrNerfSystem``, the ``train=False`` half of ``forward``).
+"""The CR-NeRF system (``crnerf_tpu/render/system.py`` ``CrNerfSystem``).
 
 Submodules carry the checkpoint prefixes: ``nerf_coarse``, ``nerf_fine``,
-``enc_a``, ``decoder``, ``implicit_mask``. ``forward_eval`` runs the
-appearance encoder and the CGNet mask on the style image, the coarse and
-fine passes (``render.renderer``), and one batched StyleNet decode of the
-coarse and fine feature maps.
+``enc_a``, ``decoder``, ``implicit_mask``. ``forward_eval`` (the
+``train=False`` half of the JAX ``forward``) runs the appearance encoder
+and the CGNet mask on the style image, the coarse and fine passes
+(``render.renderer``), and one batched StyleNet decode of the coarse and
+fine feature maps. ``forward_train`` (the ``train=True`` half) does the
+same for the G grids of a training step at once, with the stochastic
+renderer, the random-appearance branch and its re-encode; where the JAX
+step maps ``forward`` over the grids, every tensor here carries a leading
+G axis.
 """
 
 from __future__ import annotations
@@ -27,7 +31,10 @@ from crnerf_tpu_torch.ops.fused_render import (
     mlp_params_from_module,
     prepare_kernel_weights,
 )
-from crnerf_tpu_torch.render.renderer import render_rays_tiled
+from crnerf_tpu_torch.render.renderer import (
+    render_rays_tiled,
+    render_rays_train,
+)
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:
@@ -69,8 +76,12 @@ class CrNerfSystem(nn.Module):
         )
 
     def kernel_weights(self) -> Dict[str, Optional[KernelWeights]]:
-        """The coarse and fine MLPs laid out for the fused render kernel
-        (prepare once, render many frames)."""
+        """The coarse and fine MLPs laid out for the fused render kernel:
+        a snapshot of the parameters as they are now. A renderer of frozen
+        weights prepares once and renders many frames; after any update of
+        the parameters the layout is stale and must be made again.
+        Training does not use it: ``forward_train`` hands the renderer the
+        live parameters, which are laid out at every call."""
         cfg = self.cfg
         prep = lambda m: prepare_kernel_weights(  # noqa: E731
             mlp_params_from_module(m), cfg.N_emb_xyz, cfg.N_emb_dir,
@@ -103,6 +114,92 @@ class CrNerfSystem(nn.Module):
         if self.cfg.encode_a:
             return self.decoder(fmap, style)
         return self.decoder(fmap)
+
+    def forward_train(
+        self,
+        batch: Dict[str, torch.Tensor],
+        a_embedded_random: Optional[torch.Tensor] = None,
+        random_has_any: bool = True,
+        generator: Optional[torch.Generator] = None,
+        draws: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """The cross-ray forward pass of training over G grids.
+
+        batch: rays (G, B, 8), rgbs (G, B, 3), whole_img (G, 1, Ha, Wa, 3)
+        in [-1, 1], uv_pix (G, B, 2) pixel-centre coordinates of the
+        sampled pixels; B = grid_hw^2 rays, row-major. a_embedded_random
+        (G, 32, 32, C): the cached style embedding chosen for each grid
+        (the choice is the train step's, where the cache lives); None
+        turns the random branch off. random_has_any False (empty cache):
+        the live embedding takes its place, with gradient. ``draws``: the
+        renderer's random inputs over the G*B rays (``render_rays_train``).
+
+        Returns the results with a leading G axis: rgb_coarse, rgb_fine,
+        rgb_fine_random (G, B, 3), out_mask (G, B, 1), a_embedded,
+        a_embedded_random, a_embedded_random_rec (G, 32, 32, C), and the
+        renderer's per-ray outputs (G, B, ...). The module must be in
+        training mode for CGNet to use batch statistics (``self.train()``).
+        """
+        cfg = self.cfg
+        g, b = batch["rays"].shape[:2]
+        h = w = cfg.grid_hw
+        res: Dict[str, torch.Tensor] = {}
+        whole01 = (batch["whole_img"][:, 0] + 1.0) / 2.0   # (G, Ha, Wa, 3)
+        a_emb = None
+        if cfg.encode_a:
+            a_emb = self.encode_appearance(whole01)
+            res["a_embedded"] = a_emb
+        if cfg.use_mask:
+            mask_small = self.predict_mask(whole01)          # (G, Ha, Wa, 1)
+            res["out_mask"] = torch.stack(
+                [sample_bilinear_uv(mask_small[i], batch["uv_pix"][i])
+                 for i in range(g)], 0)
+        params = lambda m: mlp_params_from_module(m, detach=False)  # noqa: E731
+        bf16 = cfg.compute_dtype == "bfloat16"
+        rr = render_rays_train(
+            params(self.nerf_coarse),
+            params(self.nerf_fine) if self.nerf_fine is not None else None,
+            batch["rays"].reshape(g * b, 8),
+            n_samples=cfg.N_samples, n_importance=cfg.N_importance,
+            n_emb_xyz=cfg.N_emb_xyz, n_emb_dir=cfg.N_emb_dir,
+            use_disp=cfg.use_disp, perturb=cfg.perturb,
+            noise_std=cfg.noise_std, compute_dtype=compute_dtype(cfg),
+            exact_encode=not (cfg.fast_sincos and bf16),
+            skips=self.nerf_coarse.skips, generator=generator, draws=draws,
+        )
+        res.update({k: v.reshape(g, b, *v.shape[1:]) for k, v in rr.items()})
+        has_fine = "feature_fine" in rr
+        fc_map = rr["feature_coarse"].reshape(g, h, w, -1)
+        ff_map = rr["feature_fine"].reshape(g, h, w, -1) if has_fine else None
+        do_random = (cfg.encode_a and cfg.encode_random and has_fine
+                     and a_embedded_random is not None)
+        if do_random:
+            a_rand = (a_embedded_random.to(a_emb.dtype) if random_has_any
+                      else a_emb)
+        if cfg.encode_a and has_fine:
+            # one batched StyleTransform + decoder pass over every styled
+            # map: the style statistics are per sample, so the order of
+            # the batch does not matter
+            maps, styles = [fc_map, ff_map], [a_emb, a_emb]
+            if do_random:
+                maps.append(ff_map)
+                styles.append(a_rand)
+            imgs = self.decoder.decode_batch(torch.cat(maps, 0),
+                                             torch.cat(styles, 0))
+            res["rgb_coarse"] = imgs[:g].reshape(g, b, 3)
+            res["rgb_fine"] = imgs[g:2 * g].reshape(g, b, 3)
+            rgb_rand_img = imgs[2 * g:] if do_random else None
+        else:
+            res["rgb_coarse"] = self.decode(fc_map, a_emb).reshape(g, b, 3)
+            if has_fine:
+                res["rgb_fine"] = self.decode(ff_map, a_emb).reshape(g, b, 3)
+        if do_random:
+            res["a_embedded_random"] = a_rand
+            # re-encode the random-styled render; the loss holds it to the
+            # chosen embedding
+            res["a_embedded_random_rec"] = self.enc_a(rgb_rand_img)
+            res["rgb_fine_random"] = rgb_rand_img.reshape(g, b, 3)
+        return res
 
     @torch.no_grad()
     def forward_eval(self, rays: torch.Tensor, uv: torch.Tensor,

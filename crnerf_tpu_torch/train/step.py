@@ -1,0 +1,162 @@
+"""The training step on one device (``crnerf_tpu/train/step.py``
+``make_train_step`` without ``axis_name``): (state, batch) -> (state,
+metrics), the state updated in place.
+
+A batch carries G independent image grids on a leading axis. Every loss
+term, the PSNR and CGNet's batch statistics are means over the G grids.
+The random-appearance branch draws, for each grid, a cached style embedding
+uniformly from the filled entries of the cache; while the cache is empty
+the live embedding is used, with gradient. After the update, each grid's
+(ts, embedding) is written into the cache in one batched row scatter.
+
+``grad_accum_chunks`` C > 1 runs the G grids as C sequential chunks of G/C
+(a Python loop), each chunk's backward right after its forward, with the
+gradients summed and divided by C: the same mean up to fp order, while the
+activation stash of the fused render kernels lives for one chunk only.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+
+from crnerf_tpu_torch.render.system import CrNerfSystem
+from crnerf_tpu_torch.train.losses import crnerf_loss
+from crnerf_tpu_torch.train.metrics import psnr
+from crnerf_tpu_torch.train.state import TrainState
+
+# injected draws that carry a leading G axis and reach the renderer as
+# per-ray rows of the chunk's grids
+_PER_RAY_DRAWS = ("z_u", "noise_coarse", "noise_fine", "pdf_e")
+
+
+def select_random_embeddings(state: TrainState, n: int,
+                             idx: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """n embeddings (n, hw, hw, C) f32 drawn uniformly, with replacement,
+    from the valid entries of the cache (``idx`` (n,) given, or drawn from
+    the state's generator). With an empty cache: rows of zeros, which the
+    forward replaces by the live embedding."""
+    if idx is None:
+        if state.has_any:
+            idx = torch.multinomial(state.embedding_valid.float(), n,
+                                    replacement=True,
+                                    generator=state.generator)
+        else:
+            idx = torch.zeros((n,), dtype=torch.int64,
+                              device=state.embedding_cache.device)
+    hw, c = state.embed_hw, state.embed_c
+    return state.embedding_cache[idx].reshape(n, hw, hw, c).float()
+
+
+def make_train_step(system: CrNerfSystem, optimizer: torch.optim.Optimizer,
+                    lr_sched: Callable[[int], float],
+                    grids_per_step: int = 1, grad_accum_chunks: int = 1
+                    ) -> Callable:
+    """Build the train-step function ``step(state, batch, draws=None)``.
+
+    batch: rays (G, B, 8), ts (G, B) int, rgbs (G, B, 3), whole_img
+    (G, 1, Ha, Wa, 3) in [-1, 1], uv_pix (G, B, 2), on the system's device
+    (``TrainPipeline.make_global_batch``; a single grid without the
+    leading axis is taken as G = 1). ``draws`` injects the step's random
+    inputs in place of the state's generator (the tests hand both packages
+    the same numbers): ``sel_idx`` (G,) cache rows of the random branch,
+    and the renderer's ``z_u``, ``noise_coarse``, ``noise_fine``,
+    ``pdf_e`` with a leading G axis.
+
+    Returns the state and the metrics ``loss``, ``psnr``,
+    ``annealing_weight``, ``lr`` and ``loss/<term>`` (0-dim tensors on the
+    device, floats for the last two)."""
+    g_total, n_chunks = grids_per_step, max(1, grad_accum_chunks)
+    if g_total % n_chunks:
+        raise ValueError(f"grad_accum_chunks={n_chunks} must divide "
+                         f"grids_per_step={g_total}")
+    cfg = system.cfg
+    gc = g_total // n_chunks
+
+    def chunk_loss(state: TrainState, batch, a_rand, draws):
+        """Forward of one chunk of grids -> (sum over its grids of the
+        total loss, per-term sums, psnr sum, annealing weight, embeddings).
+        """
+        results = system.forward_train(
+            batch,
+            a_embedded_random=(a_rand if cfg.encode_random and cfg.encode_a
+                               else None),
+            random_has_any=state.has_any, generator=state.generator,
+            draws=draws,
+        )
+        loss_d, aw = crnerf_loss(
+            results, batch["rgbs"], state.step,
+            weightKL=cfg.weightKL, weightRecA=cfg.weightRecA,
+            maskrs_max=cfg.maskrs_max, maskrs_min=cfg.maskrs_min,
+            maskrs_k=cfg.maskrs_k, maskrd=cfg.maskrd,
+            mse_on_appearance=cfg.mse_on_appearance,
+        )
+        typ = "rgb_fine" if "rgb_fine" in results else "rgb_coarse"
+        with torch.no_grad():
+            pred = results[typ]
+            psnr_sum = sum(psnr(pred[i], batch["rgbs"][i])
+                           for i in range(pred.shape[0]))
+        sums = {k: v.sum() for k, v in loss_d.items()}
+        return (sum(sums.values()), sums, psnr_sum, aw,
+                results.get("a_embedded"))
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   draws: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Tuple[TrainState, Dict[str, object]]:
+        draws = dict(draws or {})
+        if batch["rays"].dim() == 2:
+            batch = {k: v[None] for k, v in batch.items()}
+        if batch["rays"].shape[0] != g_total:
+            raise ValueError(f"batch of {batch['rays'].shape[0]} grids, "
+                             f"step built for {g_total}")
+        system.train()
+        a_rand = select_random_embeddings(state, g_total,
+                                          draws.pop("sel_idx", None))
+        optimizer.zero_grad(set_to_none=True)
+        term_sums: Dict[str, torch.Tensor] = {}
+        psnr_sum, aw, embeddings = 0.0, 0.0, []
+        for c in range(n_chunks):
+            sl = slice(c * gc, (c + 1) * gc)
+            b_c = {k: v[sl] for k, v in batch.items()}
+            d_c = {k: draws[k][sl].reshape(-1, draws[k].shape[-1])
+                   for k in _PER_RAY_DRAWS if k in draws}
+            total, sums, ps, aw, a_emb = chunk_loss(state, b_c, a_rand[sl],
+                                                    d_c)
+            # d(mean over G grids) accumulates into .grad chunk by chunk
+            (total / g_total).backward()
+            for k, v in sums.items():
+                term_sums[k] = term_sums.get(k, 0.0) + v.detach()
+            psnr_sum = psnr_sum + ps
+            if a_emb is not None:
+                embeddings.append(a_emb.detach())
+        lr = lr_sched(state.step)
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        optimizer.step()
+
+        with torch.no_grad():
+            if cfg.encode_a and cfg.encode_random:
+                # one batched row scatter; duplicate ts in a batch carry
+                # equal embeddings (same image, same parameters)
+                ts = batch["ts"][:, 0].to(torch.int64)
+                rows = torch.cat(embeddings, 0).reshape(g_total, -1)
+                state.embedding_cache[ts] = rows.to(
+                    state.embedding_cache.dtype)
+                state.embedding_valid[ts] = True
+                state.has_any = True
+            if system.implicit_mask is not None:
+                system.implicit_mask.update_running_stats()
+        metrics: Dict[str, object] = {
+            "loss": sum(term_sums.values()) / g_total,
+            "psnr": psnr_sum / g_total,
+            "annealing_weight": aw,
+            "lr": lr,
+        }
+        for k, v in term_sums.items():
+            metrics[f"loss/{k}"] = v / g_total
+        state.step += 1
+        return state, metrics
+
+    return train_step

@@ -14,6 +14,11 @@ transposes layouts:
   batch_stats mean / var              -> running_mean / running_var
   PReLU alpha                         -> weight
 
+``flax_from_state_dict`` also carries the training state back: the
+BatchNorm running statistics after a step (``batch_stats``) and, with
+``grads=True``, every parameter's gradient in the flax tree layout, so a
+test can compare the two packages leaf by leaf.
+
 This module needs numpy and torch only (no jax).
 """
 
@@ -96,28 +101,37 @@ def state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor
     return sd
 
 
-def flax_from_state_dict(module: nn.Module) -> Dict[str, Any]:
+def flax_from_state_dict(module: nn.Module,
+                         grads: bool = False) -> Dict[str, Any]:
     """The port's module -> flax-layout variables of numpy arrays (what
-    ``save_weights_only`` writes), by module type."""
+    ``save_weights_only`` writes), by module type. ``grads=True``: the
+    ``params`` tree holds each parameter's ``.grad`` instead of its value
+    (zeros where a parameter has none). The arrays are copies: a later
+    in-place update of the module (a training step) does not reach them."""
     params: Dict[str, np.ndarray] = {}
     stats: Dict[str, np.ndarray] = {}
+
+    def val(t: torch.Tensor) -> torch.Tensor:
+        if grads:
+            t = t.grad if t.grad is not None else torch.zeros_like(t)
+        return t.detach().cpu().clone()
+
     for prefix, m in module.named_modules():
         p = prefix + "." if prefix else ""
         if isinstance(m, nn.Linear):
-            params[p + "kernel"] = m.weight.detach().cpu().numpy().T
-            params[p + "bias"] = m.bias.detach().cpu().numpy()
+            params[p + "kernel"] = val(m.weight).numpy().T
+            params[p + "bias"] = val(m.bias).numpy()
         elif isinstance(m, nn.Conv2d):
-            params[p + "kernel"] = (m.weight.detach().cpu()
-                                    .permute(2, 3, 1, 0).numpy())
+            params[p + "kernel"] = val(m.weight).permute(2, 3, 1, 0).numpy()
             if m.bias is not None:
-                params[p + "bias"] = m.bias.detach().cpu().numpy()
+                params[p + "bias"] = val(m.bias).numpy()
         elif isinstance(m, nn.BatchNorm2d):
-            params[p + "scale"] = m.weight.detach().cpu().numpy()
-            params[p + "bias"] = m.bias.detach().cpu().numpy()
-            stats[p + "mean"] = m.running_mean.detach().cpu().numpy()
-            stats[p + "var"] = m.running_var.detach().cpu().numpy()
+            params[p + "scale"] = val(m.weight).numpy()
+            params[p + "bias"] = val(m.bias).numpy()
+            stats[p + "mean"] = m.running_mean.detach().cpu().clone().numpy()
+            stats[p + "var"] = m.running_var.detach().cpu().clone().numpy()
         elif isinstance(m, PReLU):
-            params[p + "alpha"] = m.weight.detach().cpu().numpy()
+            params[p + "alpha"] = val(m.weight).numpy()
     return {"params": unflatten({k: np.ascontiguousarray(v)
                                  for k, v in params.items()}),
             "batch_stats": unflatten(stats)}

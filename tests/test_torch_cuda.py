@@ -103,3 +103,123 @@ def test_renderer_on_card_matches_cpu(dev):
                                atol=1e-3)
     np.testing.assert_allclose(out["card"]["mask"], out["cpu"]["mask"],
                                atol=1e-4)
+
+
+def _train_case(dev, dt, exact, depth, width, c, s, n=37, seed=1):
+    torch.manual_seed(seed)
+    params = fr.mlp_params_from_module(
+        NerfMLP(depth=depth, width=width, out_dim=c).to(dev))
+    o, d, z, noise = _inputs(dev, n, s)
+    g = torch.Generator().manual_seed(seed + 7)
+    kw = fr.prepare_kernel_weights(params, 15, 4, dt)
+    ldo = fr._round_up(c + 1, fr.LANE)
+    g_ray = torch.zeros(n, ldo)
+    g_ray[:, :c + 1] = torch.randn(n, c + 1, generator=g) * 0.1
+    g_w = torch.randn(n, s, generator=g) * 0.1
+    return params, kw, (o, d, z, noise), g_ray.to(dev), g_w.to(dev)
+
+
+TRAIN_SHAPES = [(6, 64, 16, 8), (6, 64, 16, 100), (8, 256, 64, 64),
+                (2, 48, 24, 130), (1, 32, 8, 16)]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("depth,width,c,s", TRAIN_SHAPES)
+def test_stash_forward_matches_plain(dev, dt, exact, depth, width, c, s):
+    """The stash forward's outputs are the no-stash forward's, bit for
+    bit; its stash is the plain version's within fp32 summation order
+    (fp32: 1e-4 of the largest activation) or, at bf16, equal apart from
+    values whose fp32 sum fell on the other side of a rounding boundary
+    (and what those carry downstream): at most 2 % of the entries differ,
+    none by more than 2^-6 of the largest activation."""
+    params, kw, rays, _, _ = _train_case(dev, dt, exact, depth, width, c, s)
+    blk0, w0, _ = fr.render_fwd(kw, *rays, exact, stash=False)
+    before = fr.LAUNCH_COUNTS["fused_render_fwd_stash"]
+    blk1, w1, st = fr.render_fwd(kw, *rays, exact, stash=True)
+    torch.cuda.synchronize()
+    assert fr.LAUNCH_COUNTS["fused_render_fwd_stash"] == before + 1
+    assert torch.equal(blk0, blk1) and torch.equal(w0, w1)
+    _, _, st_p = fr.render_fwd_plain(params, *rays, compute_dtype=dt,
+                                     exact_encode=exact, stash=True)
+    assert st.shape == st_p.shape and st.dtype == dt
+    diff = (st.float() - st_p.float()).abs()
+    scale = float(st_p.float().abs().max())
+    if dt == torch.float32:
+        assert float(diff.max()) <= 1e-4 * scale
+    else:
+        assert float((diff > 0).float().mean()) <= 0.02
+        assert float(diff.max()) <= scale / 64
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("depth,width,c,s", TRAIN_SHAPES)
+def test_backward_kernels_match_plain(dev, dt, depth, width, c, s):
+    """Both backward kernels on the stash the forward kernel wrote, against
+    render_bwd_plain on the same stash: GRAD_TOL per tensor. Twice on the
+    same inputs: the same bits (every sum has a fixed order)."""
+    exact = dt == torch.float32
+    params, kw, rays, g_ray, g_w = _train_case(dev, dt, exact, depth, width,
+                                               c, s)
+    o, d, z, noise = rays
+    _, _, st = fr.render_fwd(kw, *rays, exact, stash=True)
+    before = dict(fr.LAUNCH_COUNTS)
+    got = fr.fused_render_bwd(kw, z, noise, d, st, g_ray, g_w, exact)
+    again = fr.fused_render_bwd(kw, z, noise, d, st, g_ray, g_w, exact)
+    torch.cuda.synchronize()
+    assert fr.LAUNCH_COUNTS["fused_render_bwd"] == (
+        before["fused_render_bwd"] + 2)
+    assert fr.LAUNCH_COUNTS["fused_render_bwd_wgrad"] == (
+        before["fused_render_bwd_wgrad"] + 2)
+    want = fr.render_bwd_plain(params, z, noise, d, st, g_ray, g_w,
+                               compute_dtype=dt, exact_encode=exact)
+    for a, b, r in zip(fr.flatten_params(want), fr.flatten_params(got),
+                       fr.flatten_params(again)):
+        assert a.shape == b.shape
+        assert torch.equal(b, r)
+        assert torch.isfinite(b).all()
+        err = float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+        assert err <= fr.GRAD_TOL[dt], err
+
+
+def test_weight_gradient_kernel_alone(dev):
+    """dW = A^T dZ on random buffers, many splits: against the plain
+    product at fp32 summation-order tolerance."""
+    torch.manual_seed(4)
+    params = fr.mlp_params_from_module(
+        NerfMLP(depth=8, width=256, out_dim=64).to(dev))
+    for dt in (torch.bfloat16, torch.float32):
+        kw = fr.prepare_kernel_weights(params, 15, 4, dt)
+        lay = fr.grad_layout(kw.dims)
+        m = 5000
+        st = torch.randn(m, lay.sc, device=dev).to(dt)
+        dz = torch.randn(m, lay.dc, device=dev).to(dt)
+        got = fr.bwd_wgrad(kw, st, dz)
+        want = fr.bwd_wgrad_plain(kw, st, dz)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
+
+
+def test_train_function_on_card_matches_cpu(dev):
+    """fused_render_train end to end (both kernels under autograd) against
+    the same call on CPU tensors (the plain versions), fp32."""
+    torch.manual_seed(5)
+    m_cpu = NerfMLP(depth=6, width=64, out_dim=16)
+    m_dev = NerfMLP(depth=6, width=64, out_dim=16)
+    m_dev.load_state_dict(m_cpu.state_dict())
+    m_dev.to(dev)
+    o, d, z, noise = [t.cpu() for t in _inputs(dev, 21, 24)]
+    # 6 fractional bits: o + d*z is exact on both sides
+    o, d, z = [torch.round(t * 64) / 64 for t in (o, d, z)]
+    z = torch.sort(z, -1).values
+    grads = {}
+    for name, m, to in (("cpu", m_cpu, lambda t: t),
+                        ("card", m_dev, lambda t: t.to(dev))):
+        blk, w = fr.fused_render_train(
+            fr.mlp_params_from_module(m, detach=False), to(o), to(d), to(z),
+            to(noise))
+        ((blk[:, :17] ** 2).sum() + (w * torch.cos(w)).sum()).backward()
+        grads[name] = [p.grad.cpu() for p in m.parameters()]
+    for a, b in zip(grads["cpu"], grads["card"]):
+        assert float((a - b).abs().max()) <= 2e-4 * float(a.abs().max())

@@ -1,6 +1,7 @@
-"""The port imports torch and never jax, flax or the JAX package: every
-module of crnerf_tpu_torch, and chip_smoke.py, import with all three
-blocked. Its Config keeps the JAX Config's names and defaults."""
+"""The port imports torch and never jax, flax, optax or the JAX package:
+every module of crnerf_tpu_torch (the train/ and data/ packages
+included), and chip_smoke.py, import with all four blocked. Its Config
+keeps the JAX Config's names and defaults."""
 
 import dataclasses
 import os
@@ -11,17 +12,22 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CODE = """
 import importlib, pkgutil, sys
-for blocked in ("jax", "flax", "crnerf_tpu"):
+for blocked in ("jax", "flax", "optax", "crnerf_tpu"):
     sys.modules[blocked] = None
 import crnerf_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(crnerf_tpu_torch.__path__,
                                                "crnerf_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+for needed in ("train.step", "train.losses", "train.optim", "train.state",
+               "train.metrics", "data.pipeline", "data.sampler",
+               "data.scene", "data.synthetic"):
+    assert "crnerf_tpu_torch." + needed in names, needed
 import chip_smoke
 chip_smoke.serve_config()
-assert not any(k in ("jax", "crnerf_tpu")
-               or k.startswith(("jax.", "flax", "crnerf_tpu."))
+chip_smoke.train_config()
+assert not any(k in ("jax", "crnerf_tpu", "optax")
+               or k.startswith(("jax.", "flax", "optax.", "crnerf_tpu."))
                for k, v in sys.modules.items() if v is not None)
 print(len(names))
 """
@@ -32,7 +38,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _CODE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+    assert int(out.stdout.strip().splitlines()[-1]) >= 30
 
 
 def test_config_fields_match_the_jax_config():
@@ -42,9 +48,25 @@ def test_config_fields_match_the_jax_config():
     from crnerf_tpu_torch.config import Config
 
     jax_defaults = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
+    names = {f.name for f in dataclasses.fields(Config)}
     for f in dataclasses.fields(Config):
         assert f.name in jax_defaults, f.name
         assert f.default == jax_defaults[f.name], f.name
+    # the fields the training step reads
+    assert names >= {
+        "perturb", "noise_std", "encode_c", "encode_random",
+        "mse_on_appearance", "N_vocab", "maskrs_max", "maskrs_min",
+        "maskrs_k", "maskrd", "weightKL", "weightRecA", "weightMS",
+        "weightcontent", "batch_size", "grids_per_step", "num_epochs",
+        "optimizer", "lr", "momentum", "weight_decay", "lr_scheduler",
+        "warmup_multiplier", "warmup_epochs", "decay_step", "decay_gamma",
+        "poly_exp", "grad_accum_chunks", "seed"}
+    # no TPU-only knob came along
+    assert not any(n.startswith(("pallas_", "s2d_", "slab_"))
+                   or n in ("use_pallas", "fold_heads", "hoist_heads",
+                            "pdf_impl", "chunk_unroll", "eval_tile_pts")
+                   for n in names)
+    assert Config(batch_size=256).grid_hw == JaxConfig(batch_size=256).grid_hw
     kw = dict(N_emb_xyz=10, N_emb_dir=3)
     assert Config(**kw).in_channels_xyz == JaxConfig(**kw).in_channels_xyz
     assert Config(**kw).in_channels_dir == JaxConfig(**kw).in_channels_dir
