@@ -12,7 +12,11 @@ Phases, each fatal on failure:
      encode and the recurrence; max abs error of weights, fmap and depth
      against the stated tolerances, and the kernel's time beside the plain
      version's; then the same at the serve path's own launch, an 8192-ray
-     tile at S=256 and S=512, bf16 with the recurrence
+     tile at S=256 and S=512, bf16 with the recurrence; then its xyz-in
+     form (one jittered coordinate per sample point) on 1024 rays x 128 in
+     both dtypes and encodes and at the pertube_cord step's own launches
+     (16,384 rays, S=64 and 128, bf16), where without jitter it gives the
+     rays-in launch's bits
   4. the training kernels at full width on 1024 rays, S=64 and S=128, bf16
      with the recurrence and fp32 with the exact encode: the stash forward
      (outputs bit-identical to the no-stash forward, stash against the
@@ -21,9 +25,16 @@ Phases, each fatal on failure:
      the same inputs gives the same bits; then the same at the train
      step's own launches, 16,384 rays at S=64 and S=128, bf16 with the
      recurrence (the plain versions over 1024-ray slices of the inputs)
+  4b. the recompute backward (no stash from the forward; rays-in and
+     xyz-in) against its plain version at the same shapes, twice for the
+     same bits, against the stash backward on the same inputs, its scratch
+     rows against the stash route's, and its scratch at two batch sizes
+  4c. the compositing kernel against its plain version at 8192 x 512 x 64
+     and a ragged shape, on the fused forward's own sigma and features
+     against the fused forward's outputs, and once as its users call it
   5. serve at full size: RenderService with seeded random weights
      round-tripped through a weights.npz and the weight bridge, ping,
-     3 inline 320x240 renders at 256+256 samples, stats; the launch
+     2 inline 320x240 renders at 256+256 samples, stats; the launch
      counters are zeroed just before and read just after
   6. train at full size: the flagship config (16 grids of 1024 rays, 64+64
      samples, 8x256, bf16) on the synthetic scene through make_train_step;
@@ -31,6 +42,12 @@ Phases, each fatal on failure:
      the card against the same step on the CPU; the
      launch counters are zeroed just before the timed steps and read just
      after
+  7. the two no-stash routes of the same step, pallas_stash=False (rays-in
+     forward, recompute backward) and pertube_cord=True (xyz-in forward,
+     recompute backward): warm-up, timed steps, launch counters, no stash
+     alive after a forward, peak memory beside the stash route's, a small
+     fp32 step of each on the card against the CPU, and pallas_stash=False
+     against the stash route on the same batch and draws
 Prints a {"kernels": [...]} line, the card line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
 phase fails or no CUDA device is present.
@@ -55,10 +72,10 @@ sys.path.insert(0, REPO)
 N_RAYS = 1024
 SERVE_TILE = 8192     # rays per launch on the serve path (Config.chunk)
 FRAME_WH = (320, 240)
-N_RENDERS = 3
+N_RENDERS = 2
 SEED = 0
 TRAIN_GRIDS = 16
-TRAIN_WARMUP, TRAIN_STEPS, TRAIN_STAGED = 2, 10, 2
+TRAIN_WARMUP, TRAIN_STEPS, TRAIN_STAGED = 2, 6, 2
 # published peaks of one H100 SXM (NVIDIA's data sheet), for the bounds
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
@@ -131,7 +148,7 @@ def phase_build():
     """One nvcc per source, all started together."""
     import threading
 
-    from crnerf_tpu_torch.ops import _build, fused_render
+    from crnerf_tpu_torch.ops import _build, composite, fused_render
 
     t0 = time.perf_counter()
     errors = []
@@ -142,8 +159,12 @@ def phase_build():
         except Exception as e:  # re-raised below, in the main thread
             errors.append(e)
 
+    loaders = {"fused_render_fwd.cu": fused_render._lib,
+               "fused_render_bwd.cu": fused_render._lib_bwd,
+               "fused_render_bwd_recompute.cu": fused_render._lib_recompute,
+               "composite.cu": composite._lib}
     threads = [threading.Thread(target=build, args=(f,))
-               for f in (fused_render._lib, fused_render._lib_bwd)]
+               for f in loaders.values()]
     for t in threads:
         t.start()
     for t in threads:
@@ -151,9 +172,9 @@ def phase_build():
     if errors:
         raise errors[0]
     dt = time.perf_counter() - t0
-    for source in ("fused_render_fwd.cu", "fused_render_bwd.cu"):
+    for source in loaders:
         log = _build.BUILD_LOG.get(source, "(cached build)")
-        print(f"[build] {source} (both sources in {dt:.1f} s)")
+        print(f"[build] {source} (all {len(loaders)} sources in {dt:.1f} s)")
         for line in log.splitlines():
             if "registers" in line or "spill" in line or "error" in line:
                 print("[build]  " + line.strip())
@@ -184,25 +205,54 @@ def drain(it):
         pass
 
 
-def forward_case(device, params, gen, n: int, s: int, dt, exact: bool):
+def jittered_points(o, d, z, gen):
+    """The rays' sample points o + d*z moved by 1e-5 * U[0, 1): (N, S, 3)
+    f32, as the pertube_cord renderer makes them."""
+    import torch
+
+    u = torch.rand((*z.shape, 3), generator=gen, device=z.device)
+    return (o[:, None, :] + d[:, None, :] * z[..., None]
+            + 1e-5 * u).contiguous()
+
+
+def forward_case(device, params, gen, n: int, s: int, dt, exact: bool,
+                 xyz_in: bool = False):
     """The forward kernel on n rays x s samples against render_fwd_plain
-    on the same inputs (slice by slice) -> record."""
+    on the same inputs (slice by slice) -> record. ``xyz_in``: the kernel's
+    xyz-in form on jittered points; and with the unjittered points handed
+    in as xyz it must give the rays-in launch's bits."""
     import torch
 
     from crnerf_tpu_torch.ops import fused_render as fr
 
     o, d, z, noise = ray_inputs(n, s, gen, device)
     kw = fr.prepare_kernel_weights(params, 15, 4, dt)
+    xyz = jittered_points(o, d, z, gen) if xyz_in else None
 
     def plain():        # one slice's results alive at a time
         for sl in ray_slices(n):
-            yield sl, fr.render_fwd_plain(params, o[sl], d[sl], z[sl],
-                                          noise[sl], 15, 4, dt, exact)
+            yield sl, fr.render_fwd_plain(
+                params, o[sl], d[sl], z[sl], noise[sl], 15, 4, dt, exact,
+                xyz=None if xyz is None else xyz[sl])
+
+    def kernel():
+        return fr.fused_render_apply(kw, None if xyz_in else o, d, z, noise,
+                                     exact_encode=exact, xyz=xyz)
 
     err = [0.0, 0.0, 0.0]
+    same_bits = True
     with full_fp32():
-        blk_k, w_k = fr.fused_render_apply(kw, o, d, z, noise,
-                                           exact_encode=exact)
+        blk_k, w_k = kernel()
+        if xyz_in:
+            exact_pts = (o[:, None, :] + d[:, None, :]
+                         * z[..., None]).contiguous()
+            blk_x, w_x = fr.fused_render_apply(kw, None, d, z, noise,
+                                               exact_encode=exact,
+                                               xyz=exact_pts)
+            blk_r, w_r = fr.fused_render_apply(kw, o, d, z, noise,
+                                               exact_encode=exact)
+            same_bits = torch.equal(blk_x, blk_r) and torch.equal(w_x, w_r)
+            del exact_pts, blk_x, w_x, blk_r, w_r
         for sl, (blk_p, w_p) in plain():
             for i, e in enumerate((
                     (w_k[sl] - w_p).abs().max().item(),
@@ -211,30 +261,35 @@ def forward_case(device, params, gen, n: int, s: int, dt, exact: bool):
                 err[i] = max(err[i], e)
     tol = fr.KERNEL_TOL[dt]
     passed = (bool(torch.isfinite(blk_k).all() and torch.isfinite(w_k).all())
-              and all(e <= t for e, t in zip(err, tol)))
-    ms = time_ms(lambda: fr.fused_render_apply(kw, o, d, z, noise,
-                                               exact_encode=exact))
+              and all(e <= t for e, t in zip(err, tol)) and same_bits)
+    ms = time_ms(kernel)
     plain_ms = time_ms(lambda: drain(plain()), reps=3 if n == N_RAYS else 1)
     f_fwd, _, _ = mlp_work(params)
-    # per ray the forward reads [o | d], z, noise and the dir encode and
-    # writes the ray block and the weights, all f32
-    b_ms, b_by = bound(n * s * f_fwd, n * (8 + 2 * s + 27 + 128 + s) * 4,
-                       dt == torch.bfloat16)
+    # per ray the forward reads [o | d] (or 3 coordinates a point), z,
+    # noise and the dir encode and writes the ray block and the weights,
+    # all f32
+    b_ms, b_by = bound(n * s * f_fwd,
+                       n * ((3 * s if xyz_in else 8) + 2 * s + 27 + 128
+                            + s) * 4, dt == torch.bfloat16)
     dt_name = str(dt)[6:]
-    print(f"[kernel] {n} rays x S={s} {dt_name:8s} exact={exact!s:5s} "
+    form = ("xyz-in, no-jitter bits equal rays-in "
+            f"{same_bits}, " if xyz_in else "")
+    print(f"[kernel] {form}{n} rays x S={s} {dt_name:8s} exact={exact!s:5s} "
           f"max|dw|={err[0]:.3e} max|dfmap|={err[1]:.3e} "
           f"max|ddepth|={err[2]:.3e} tol={tol} kernel {ms:.3f} ms "
           f"({n * s * f_fwd / ms / 1e9:.0f} TFLOP/s) plain {plain_ms:.3f} "
           f"ms bound {b_ms:.3f} ms ({b_by}) {'ok' if passed else 'FAIL'}")
-    return dict(N=n, S=s, dtype=dt_name, exact=exact, err_weights=err[0],
-                err_fmap=err[1], err_depth=err[2], tol=tol, ms=ms,
-                plain_ms=plain_ms, bound=(b_ms, b_by), ok=passed)
+    return dict(N=n, S=s, dtype=dt_name, exact=exact, xyz_in=xyz_in,
+                err_weights=err[0], err_fmap=err[1], err_depth=err[2],
+                tol=tol, ms=ms, plain_ms=plain_ms, bound=(b_ms, b_by),
+                ok=passed)
 
 
 def phase_kernel(device, seed: int):
     """The forward kernel against its plain version: 1024 rays at S=256
     and S=512 in both dtypes and encodes, then the serve path's own launch
-    (SERVE_TILE rays, bf16, recurrence). Returns the per-case records."""
+    (SERVE_TILE rays, bf16, recurrence), then the xyz-in form. Returns the
+    per-case records."""
     import torch
 
     from crnerf_tpu_torch.ops import fused_render as fr
@@ -245,9 +300,16 @@ def phase_kernel(device, seed: int):
              for dt in (torch.bfloat16, torch.float32)
              for exact in (True, False)]
     cases += [(SERVE_TILE, s, torch.bfloat16, False) for s in (256, 512)]
-    before = fr.LAUNCH_COUNTS["fused_render_fwd"]
+    # the xyz-in form: 1024 rays, then the pertube_cord step's own launches
+    cases += [(N_RAYS, 128, dt, exact, True)
+              for dt in (torch.bfloat16, torch.float32)
+              for exact in (True, False)]
+    cases += [(TRAIN_GRIDS * 1024, s, torch.bfloat16, False, True)
+              for s in (64, 128)]
+    before = dict(fr.LAUNCH_COUNTS)
     records = [forward_case(device, params, gen, *case) for case in cases]
-    if fr.LAUNCH_COUNTS["fused_render_fwd"] <= before:
+    if any(fr.LAUNCH_COUNTS[k] <= before[k]
+           for k in ("fused_render_fwd", "fused_render_fwd_xyz")):
         raise PhaseError("kernel launch counter did not rise")
     if not all(r["ok"] for r in records):
         raise PhaseError("kernel disagrees with its plain version")
@@ -572,7 +634,7 @@ def profile_step(state, step, batch, out_dir, step_ms: float):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    kinds = (("K1-stash render_fwd_kernel", ("render_fwd_kernel",)),
+    kinds = (("K1 render_fwd_kernel (every form)", ("render_fwd_kernel",)),
              ("K2 chain render_bwd_chain_kernel",
               ("render_bwd_chain_kernel",)),
              ("K2 wgrad_bf16_kernel + reduce_partials",
@@ -632,21 +694,38 @@ def profile_step(state, step, batch, out_dir, step_ms: float):
 # H100: 2.7e-7 for the losses, 6e-6 for the deltas (CGNet's; 0 elsewhere).
 SMALL_STEP_TOL = dict(loss=1e-4, delta=1e-3)
 
+# The training routes: Config fields that select them, and the kernels one
+# pass of a step launches (forward, then backward).
+ROUTES = {
+    "stash": (dict(), ("fused_render_fwd_stash", "fused_render_bwd",
+                       "fused_render_bwd_wgrad")),
+    "pallas_stash=False": (dict(pallas_stash=False),
+                           ("fused_render_fwd",
+                            "fused_render_bwd_recompute")),
+    "pertube_cord=True": (dict(pertube_cord=True),
+                          ("fused_render_fwd_xyz",
+                           "fused_render_bwd_recompute_xyz")),
+}
 
-def small_step_check(device, seed: int):
+
+def small_step_check(device, seed: int, route: str = "stash"):
+    """-> the card's gradients of that step, by parameter name."""
     import torch
 
     cfg = train_config(
         compute_dtype="float32", grids_per_step=2, batch_size=64,
         N_samples=8, N_importance=8, netdepth=6, netwidth=64,
         nerf_out_dim=16, N_emb_xyz=10, N_vocab=8, appearance_wh=(64, 48),
-        optimizer="sgd", momentum=0.0, lr=0.05)
+        optimizer="sgd", momentum=0.0, lr=0.05, **ROUTES[route][0])
     g, b, s, i = 2, 64, 8, 8
     gen = torch.Generator().manual_seed(seed + 3)
     draws = {"z_u": torch.rand(g, b, s, generator=gen),
              "noise_coarse": torch.randn(g, b, s, generator=gen),
              "noise_fine": torch.randn(g, b, s + i, generator=gen),
-             "pdf_e": torch.empty(g, b, i + 1).exponential_(generator=gen)}
+             "pdf_e": torch.empty(g, b, i + 1).exponential_(generator=gen),
+             # read by the pertube_cord route only
+             "pertube_coarse": torch.rand(g, b, s, 3, generator=gen),
+             "pertube_fine": torch.rand(g, b, s + i, 3, generator=gen)}
     out = {}
     for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
         state, step, staged = make_trainer(cfg, dev, seed, (24, 18), 1)
@@ -660,6 +739,9 @@ def small_step_check(device, seed: int):
             {k: (v.detach() - before[k]).cpu()
              for k, v in state.system.named_parameters()},
             {k: float(v.abs().max()) for k, v in before.items()})
+        if where == "card":
+            grads = {k: v.grad.detach().clone()
+                     for k, v in state.system.named_parameters()}
     worst = dict(loss=0.0, delta=0.0)
     for k, v in out["cpu"][0].items():
         rel = abs(out["card"][0][k] - v) / max(abs(v), 1e-12)
@@ -672,26 +754,56 @@ def small_step_check(device, seed: int):
         diff = float((out["card"][1][k] - d_cpu).abs().max())
         rel = max(0.0, diff - ulps) / scale
         worst["delta"] = max(worst["delta"], rel)
-    print(f"[train] small fp32 step, card vs cpu: losses "
+    print(f"[train] {route}: small fp32 step, card vs cpu: losses "
           f"{out['card'][0]['loss']:.6f} vs {out['cpu'][0]['loss']:.6f}; "
           f"worst relative difference {worst} (bounds {SMALL_STEP_TOL})")
     bad = [k for k, v in worst.items() if not v <= SMALL_STEP_TOL[k]]
     if bad:
-        raise PhaseError(f"card step disagrees with the CPU step in {bad}")
+        raise PhaseError(f"{route}: card step disagrees with the CPU step "
+                         f"in {bad}")
+    return grads
 
 
-def phase_train(device, seed: int, profile_dir=None):
-    """The flagship train step on the card through make_train_step.
-    Returns (launch counts of the timed steps, median ms per step)."""
+def stashes_alive_after_forward(state, batch):
+    """One forward of the step's system under autograd -> for each fused
+    render pass on the graph, whether a stash lives on it."""
+    import torch
+
+    state.system.train()
+    with torch.enable_grad():
+        res = state.system.forward_train(batch, generator=state.generator)
+    todo = [res[k].grad_fn for k in ("feature_coarse", "feature_fine")]
+    seen, found = set(), []
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if type(node).__name__ == "FusedRenderTrainBackward":
+            found.append(node.stash is not None)
+            continue
+        todo.extend(fn for fn, _ in node.next_functions)
+    return found
+
+
+def phase_train(device, seed: int, profile_dir=None, route: str = "stash"):
+    """The flagship train step on the card through make_train_step, on
+    one of ``ROUTES``. Returns (launch counts of the timed steps, median
+    ms per step, peak GiB, the small step's gradients on the card)."""
     import statistics
 
     import torch
 
     from crnerf_tpu_torch.ops import fused_render
 
-    cfg = train_config()
+    cfg = train_config(**ROUTES[route][0])
     chunks = cfg.resolved_chunks()
     state, step, staged = make_trainer(cfg, device, seed, (112, 84), chunks)
+    alive = stashes_alive_after_forward(state, staged[0])
+    if alive != [route == "stash"] * 2:
+        raise PhaseError(f"{route}: stash alive after the forward of the "
+                         f"two passes: {alive}")
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _, warm_losses, _ = timed_steps(state, step, staged, TRAIN_WARMUP)
     for k in fused_render.LAUNCH_COUNTS:
@@ -711,12 +823,11 @@ def phase_train(device, seed: int, profile_dir=None):
         if p.grad is None or not torch.isfinite(p.grad).all():
             raise PhaseError(f"gradient of {name} missing or not finite")
     per_step = 2 * chunks     # coarse + fine pass of every chunk
-    want = {"fused_render_fwd": 0,
-            "fused_render_fwd_stash": per_step * TRAIN_STEPS,
-            "fused_render_bwd": per_step * TRAIN_STEPS,
-            "fused_render_bwd_wgrad": per_step * TRAIN_STEPS}
+    want = {k: (per_step * TRAIN_STEPS if k in ROUTES[route][1] else 0)
+            for k in fused_render.LAUNCH_COUNTS}
     if launches != want:
-        raise PhaseError(f"launch counters {launches}, expected {want}")
+        raise PhaseError(f"{route}: launch counters {launches}, expected "
+                         f"{want}")
     ts = torch.unique(torch.cat([b["ts"][:, 0] for b in staged]).long())
     valid = state.embedding_valid
     if not (valid[ts].all() and int(valid.sum()) == ts.numel()
@@ -729,17 +840,47 @@ def phase_train(device, seed: int, profile_dir=None):
                          f"({all_losses})")
     med = statistics.median(times)
     rays = cfg.grids_per_step * cfg.batch_size
+    print(f"[train] route {route}: no stash alive after a forward: "
+          f"{not any(alive)}")
     print(f"[train] losses {' '.join(f'{x:.5f}' for x in all_losses)}")
-    print(f"[train] {TRAIN_STEPS} steps of {cfg.grids_per_step} x "
+    print(f"[train] {route}: {TRAIN_STEPS} steps of {cfg.grids_per_step} x "
           f"{cfg.batch_size} rays, 64+64 samples, bf16, C={chunks}: median "
           f"{med:.2f} ms per step (range {min(times):.2f}-{max(times):.2f}), "
           f"{rays / med * 1e3:.0f} train rays/s, peak memory "
           f"{peak_gb:.2f} GiB, psnr {float(m['psnr']):.2f} dB")
     print(f"[train] launches in the timed steps {launches}")
-    profile_step(state, step, staged[0], profile_dir, med)
+    if route != "pertube_cord=True":     # its kernels are the same two
+        profile_step(state, step, staged[0],
+                     profile_dir if route == "stash" else None, med)
+    del state, step, staged
+    grads = small_step_check(device, seed, route)
+    return launches, med, peak_gb, grads
 
-    small_step_check(device, seed)
-    return launches, med
+
+def routes_agree(a: str, grads_a, b: str, grads_b, tol: float = 1e-5):
+    """Two routes' gradients of the small fp32 step on the card, same
+    batch and draws: per parameter, the difference over the largest
+    entry. The routes differ in the two NeRF MLPs' backward only, where
+    they compute the same dz rows and group the fp32 sums over the points
+    differently: those parameters are held to ``tol``. The other modules'
+    gradients are printed: they run the same code on both routes, and
+    cuDNN's convolution backward does not repeat its own bits (measured
+    1.3e-4 between two such steps on an H100)."""
+    worst = {True: (0.0, ""), False: (0.0, "")}
+    for k, g in grads_a.items():
+        scale = float(g.abs().max())
+        if scale == 0.0:
+            continue
+        rel = float((grads_b[k] - g).abs().max()) / scale
+        nerf = k.startswith(("nerf_coarse.", "nerf_fine."))
+        if rel > worst[nerf][0]:
+            worst[nerf] = (rel, k)
+    print(f"[train] {b} against {a}, small fp32 step on the card: the NeRF "
+          f"MLPs' gradients differ by at most {worst[True][0]:.3e} of a "
+          f"parameter's largest ({worst[True][1]}; bound {tol}), the other "
+          f"modules' by {worst[False][0]:.3e} ({worst[False][1]})")
+    if not worst[True][0] <= tol:
+        raise PhaseError(f"{b} disagrees with {a} in {worst[True][1]}")
 
 
 def train_kernel_bounds(params, kw, pts: int, bf16: bool):
@@ -906,6 +1047,341 @@ def phase_train_kernels(device, seed: int):
     return records
 
 
+# The recompute backward against the stash backward on the same inputs, per
+# gradient tensor over its largest value: the dz rows are the same bits, the
+# fp32 sums over the points are grouped by slab.
+RECOMPUTE_VS_STASH = {"float32": 1e-5, "bfloat16": 5e-4}
+# The recompute backward against its plain version from the same INPUTS,
+# same measure. Each side recomputes its own forward, and the backward is
+# not continuous in it: a ReLU whose input lies within the two forwards'
+# difference of zero (fp32: order of sums, sinf against torch.sin; bf16: an
+# fp32 sum on the other side of a rounding boundary, 0.16% of the stash) is
+# open on one side and shut on the other, and each such point moves a
+# gradient by one point's whole term, ~1/sqrt(points) of the tensor's
+# largest value. Measured on an H100 at 1024 rays x 64: 2.5e-3 (fp32),
+# 1.9e-2 (bf16); at 16,384 x 128 bf16: 7.1e-3. bf16: the bound the CPU
+# tests give two bf16 implementations of this backward. On ONE stash, the
+# kernel's own, the two agree to GRAD_TOL like the stash backward.
+RECOMPUTE_VS_PLAIN = {"float32": 1e-2, "bfloat16": 3e-2}
+
+
+def recompute_bound(params, n: int, s: int, bf16: bool, xyz_in: bool):
+    """Bound of the recompute backward as a function: the forward's inputs
+    and the cotangents in, the gradients out; the forward again, the chain
+    and the weight gradient in operations."""
+    f_fwd, f_chain, f_wgrad = mlp_work(params)
+    n_params = sum(t.numel() for t in (*params.trunk_w, *params.trunk_b,
+                                       *params[2:]))
+    per_ray = (3 * s if xyz_in else 8) + 2 * s + 27 + 128 + s
+    return bound(n * s * (f_fwd + f_chain + f_wgrad),
+                 (n * per_ray + n_params) * 4, bf16)
+
+
+def recompute_case(device, params, gen, n: int, s: int, dt, exact: bool,
+                   xyz_in: bool):
+    """The recompute backward on n rays x s samples, rays-in or xyz-in
+    (jittered points), at its own slab size, against its plain version on
+    the same inputs and cotangents (1024-ray slices, gradients summed in
+    fp64), against the plain backward on the stash the forward kernel
+    writes for these inputs (the rows the slabs recompute), run twice, and
+    against the stash backward. -> record."""
+    import torch
+
+    from crnerf_tpu_torch.ops import fused_render as fr
+
+    c = 64
+    dt_name = str(dt)[6:]
+    kw = fr.prepare_kernel_weights(params, 15, 4, dt)
+    lay = fr.grad_layout(kw.dims)
+    slices = ray_slices(n)
+    o, d, z, noise = ray_inputs(n, s, gen, device)
+    xyz = jittered_points(o, d, z, gen) if xyz_in else None
+    g_ray = torch.zeros(n, fr._round_up(c + 1, fr.LANE), device=device)
+    g_ray[:, :c + 1] = torch.randn(n, c + 1, generator=gen,
+                                   device=device) * 0.1
+    g_w = torch.randn(n, s, generator=gen, device=device) * 0.1
+    origins = None if xyz_in else o
+
+    def kernel(slab_rays=None):
+        return fr.bwd_recompute(kw, origins, d, z, noise, g_ray, g_w, exact,
+                                xyz, slab_rays)
+
+    def plain():
+        gw = torch.zeros(lay.wt, dtype=torch.float64, device=device)
+        gb = torch.zeros(lay.bt, dtype=torch.float64, device=device)
+        for sl in slices:
+            gw_s, gb_s, _ = fr.bwd_recompute_plain(
+                kw, None if xyz_in else o[sl], d[sl], z[sl], noise[sl],
+                g_ray[sl], g_w[sl], exact,
+                None if xyz is None else xyz[sl], slab_rays=N_RAYS)
+            gw += gw_s
+            gb += gb_s
+        return gw, gb
+
+    def plain_on(st):       # the plain backward on a given stash
+        dir_blk = fr.dir_block(kw, d, exact)
+        gw = torch.zeros(lay.wt, dtype=torch.float64, device=device)
+        gb = torch.zeros(lay.bt, dtype=torch.float64, device=device)
+        for sl in slices:
+            pts = slice(sl.start * s, sl.stop * s)
+            dz_p, gb_s = fr.bwd_chain_plain(kw, z[sl], noise[sl],
+                                            dir_blk[sl], st[pts], g_ray[sl],
+                                            g_w[sl])
+            gw += fr.bwd_wgrad_plain(kw, st[pts], dz_p)
+            gb += gb_s
+        return gw, gb
+
+    key = ("fused_render_bwd_recompute_xyz" if xyz_in
+           else "fused_render_bwd_recompute")
+    before = dict(fr.LAUNCH_COUNTS)
+    slab = fr.slab_rays_for(kw, n, s, device)
+    with full_fp32():
+        gw_k, gb_k, scratch = kernel()
+        gw_2, gb_2, _ = kernel()
+        repeat_bits = torch.equal(gw_k, gw_2) and torch.equal(gb_k, gb_2)
+        del gw_2, gb_2
+        # the stash route on the same inputs
+        _, _, st = fr.render_fwd(kw, origins, d, z, noise, exact, stash=True,
+                                 xyz=xyz)
+        dz_s, gb_s = fr.bwd_chain(kw, z, noise, fr.dir_block(kw, d, exact),
+                                  st, g_ray, g_w)
+        gw_s = fr.bwd_wgrad(kw, st, dz_s)
+        # with every ray in one slab the scratch is the stash route's
+        rows_equal = None
+        if slab >= n:
+            rows_equal = (torch.equal(scratch[0], st)
+                          and torch.equal(scratch[1], dz_s))
+        del scratch, dz_s
+        gw_o, gb_o = plain_on(st)
+        del st
+        gw_p, gb_p = plain()
+        torch.cuda.synchronize()
+    counted = (fr.LAUNCH_COUNTS[key] == before[key] + 2)
+    got = fr.flatten_params(fr.unpack_grads(kw, gw_k, gb_k))
+    want = fr.flatten_params(fr.unpack_grads(kw, gw_p, gb_p))
+    k2 = fr.flatten_params(fr.unpack_grads(kw, gw_s, gb_s))
+    on_stash = fr.flatten_params(fr.unpack_grads(kw, gw_o, gb_o))
+    scale = [a.abs().max().clamp_min(1e-30) for a in want]
+
+    def worst(other):
+        return max(((a - b).abs().max() / m).item()
+                   for a, b, m in zip(other, got, scale))
+
+    rel, vs_k2, rel_stash = worst(want), worst(k2), worst(on_stash)
+    abs_err = max((gw_k - gw_p).abs().max().item(),
+                  (gb_k - gb_p).abs().max().item())
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    passed = (repeat_bits and finite and counted and rows_equal is not False
+              and rel <= RECOMPUTE_VS_PLAIN[dt_name]
+              and rel_stash <= fr.GRAD_TOL[dt]
+              and vs_k2 <= RECOMPUTE_VS_STASH[dt_name])
+    ms = time_ms(kernel)
+    plain_ms = time_ms(plain, reps=3 if n == N_RAYS else 1)
+    b_ms, b_by = recompute_bound(params, n, s, dt == torch.bfloat16, xyz_in)
+    work = n * s * sum(mlp_work(params))
+    print(f"[recompute] {'xyz-in ' if xyz_in else 'rays-in'} {n} rays x "
+          f"S={s} {dt_name:8s} slabs of {slab} rays: grads max rel "
+          f"{rel:.3e} against the plain version from the inputs (tol "
+          f"{RECOMPUTE_VS_PLAIN[dt_name]}), {rel_stash:.3e} against the "
+          f"plain backward on the forward kernel's stash (tol "
+          f"{fr.GRAD_TOL[dt]}), against the stash backward "
+          f"{vs_k2:.3e} (bound {RECOMPUTE_VS_STASH[dt_name]}), repeat bits "
+          f"equal {repeat_bits}, scratch rows equal the stash route's "
+          f"{rows_equal}; kernel {ms:.3f} ms ({work / ms / 1e9:.0f} "
+          f"TFLOP/s) plain {plain_ms:.3f} ms bound {b_ms:.3f} ms ({b_by}) "
+          f"{'ok' if passed else 'FAIL'}")
+    return dict(N=n, S=s, dtype=dt_name, xyz_in=xyz_in, ok=passed,
+                err_grad=rel, err_on_stash=rel_stash, vs_stash=vs_k2,
+                abs_err=abs_err, ms=ms,
+                plain_ms=plain_ms, bound=(b_ms, b_by), slab=slab)
+
+
+def recompute_scratch_check(device, params, gen):
+    """The recompute backward's device memory above its inputs at two
+    batch sizes (8192 and 16,384 rays x 128, bf16): the same slab, so the
+    same peak up to the per-ray rows it stages (a few MB)."""
+    import torch
+
+    from crnerf_tpu_torch.ops import fused_render as fr
+
+    kw = fr.prepare_kernel_weights(params, 15, 4, torch.bfloat16)
+    s, peaks = 128, {}
+    for n in (8192, 16384):
+        o, d, z, noise = ray_inputs(n, s, gen, device)
+        g_ray = torch.randn(n, 128, generator=gen, device=device) * 0.1
+        g_w = torch.randn(n, s, generator=gen, device=device) * 0.1
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        gw, gb, scratch = fr.bwd_recompute(kw, o, d, z, noise, g_ray, g_w,
+                                           False)
+        torch.cuda.synchronize()
+        peaks[n] = (torch.cuda.max_memory_allocated() - base,
+                    fr.slab_rays_for(kw, n, s, device))
+        del gw, gb, scratch
+    (p8, r8), (p16, r16) = peaks[8192], peaks[16384]
+    mib = 2 ** 20
+    print(f"[recompute] scratch above the inputs: {p8 / mib:.1f} MiB at "
+          f"8192 rays, {p16 / mib:.1f} MiB at 16,384 rays (slabs of {r8} and "
+          f"{r16} rays, budget {fr.RECOMPUTE_SCRATCH_BYTES / mib:.0f} MiB "
+          f"for the slab's stash and dz)")
+    if r8 != r16 or abs(p16 - p8) > 16 * mib or p16 > (
+            fr.RECOMPUTE_SCRATCH_BYTES + 256 * mib):
+        raise PhaseError("the recompute backward's scratch grows with N")
+
+
+def phase_recompute(device, seed: int):
+    """The recompute backward against its plain version, both input forms:
+    1024 rays at S=64 and S=128, bf16 with the recurrence and fp32 with the
+    exact encode, then the no-stash steps' own launches (16,384 rays, S=64
+    and S=128, bf16, recurrence). Returns the per-case records."""
+    import torch
+
+    params = full_width_params(seed, device)
+    gen = torch.Generator(device=device).manual_seed(seed + 4)
+    cases = [(N_RAYS, s, dt, exact, xyz_in) for xyz_in in (False, True)
+             for s in (64, 128)
+             for dt, exact in ((torch.bfloat16, False),
+                               (torch.float32, True))]
+    cases += [(TRAIN_GRIDS * 1024, s, torch.bfloat16, False, xyz_in)
+              for xyz_in in (False, True) for s in (64, 128)]
+    records = [recompute_case(device, params, gen, *case) for case in cases]
+    if not all(r["ok"] for r in records):
+        raise PhaseError("the recompute backward disagrees with its plain "
+                         "version or with the stash backward")
+    recompute_scratch_check(device, params, gen)
+    return records
+
+
+COMPOSITE_SHAPES = ((8192, 512, 64), (1000, 200, 48))
+
+
+def composite_f64(feats, sigmas, z):
+    """The compositing of core.compositing.composite evaluated at
+    float64."""
+    import torch
+
+    from crnerf_tpu_torch.core.compositing import (
+        compute_alphas,
+        weights_from_alphas,
+    )
+
+    z = z.double()
+    w = weights_from_alphas(compute_alphas(sigmas.double(), z))
+    return (w, torch.einsum("ns,nsc->nc", w, feats.double()),
+            torch.sum(w * z, -1))
+
+
+def phase_composite(device, seed: int):
+    """The compositing kernel against its plain version at the serve
+    tile's fine pass (8192 x 512 x 64) and a ragged shape; on the fused
+    forward's own features and sigma (from the plain forward, no noise)
+    against the fused forward kernel's weights, feature map and depth; then
+    once as its users call it, counters zeroed before and read after.
+    Returns (records, launches of that call)."""
+    import torch
+
+    from crnerf_tpu_torch.core.compositing import composite
+    from crnerf_tpu_torch.ops import composite as comp
+    from crnerf_tpu_torch.ops import fused_render as fr
+
+    gen = torch.Generator(device=device).manual_seed(seed + 5)
+    records = []
+    for n, s, c in COMPOSITE_SHAPES:
+        feats = torch.rand(n, s, c, generator=gen, device=device)
+        sigmas = torch.rand(n, s, generator=gen, device=device) * 3.75 - 0.75
+        z = torch.sort(torch.rand(n, s, generator=gen, device=device) * 5
+                       + 0.5, -1).values
+        got = comp.composite_apply(feats, sigmas, z)
+        want = composite(feats, sigmas, z)
+        want64 = composite_f64(feats, sigmas, z)
+        err = [(a - b).abs().max().item() for a, b in zip(got, want)]
+        err64 = [(a - b).abs().max().item() for a, b in zip(got, want64)]
+        plain64 = [(a - b).abs().max().item() for a, b in zip(want, want64)]
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        passed = (finite
+                  and all(e <= t for e, t in zip(err, comp.KERNEL_TOL))
+                  and all(e <= t for e, t in zip(err64,
+                                                 comp.KERNEL_TOL_F64)))
+        del got, want, want64
+        ms = time_ms(lambda: comp.composite_apply(feats, sigmas, z), reps=5)
+        plain_ms = time_ms(lambda: composite(feats, sigmas, z), reps=5)
+        # one multiply-add per feature value; features, sigma and z read
+        # once, weights, feature map and depth written once
+        b_ms, b_by = bound(2.0 * n * s * c,
+                           (n * s * c + 3 * n * s + n * c + n) * 4,
+                           bf16=False)
+        print(f"[composite] {n} x {s} x {c}: max|dw|={err[0]:.3e} "
+              f"max|dfmap|={err[1]:.3e} max|ddepth|={err[2]:.3e} "
+              f"tol={comp.KERNEL_TOL}; against float64 "
+              f"{' '.join(f'{e:.3e}' for e in err64)} "
+              f"tol={comp.KERNEL_TOL_F64} (the plain version: "
+              f"{' '.join(f'{e:.3e}' for e in plain64)}); kernel {ms:.3f} ms "
+              f"({n * s * c * 4 / ms / 1e9:.2f} TB/s of features) plain "
+              f"{plain_ms:.3f} ms bound {b_ms:.3f} ms ({b_by}) "
+              f"{'ok' if passed else 'FAIL'}")
+        records.append(dict(N=n, S=s, C=c, err=max(err), ms=ms,
+                            plain_ms=plain_ms, bound=(b_ms, b_by),
+                            ok=passed))
+    if not all(r["ok"] for r in records):
+        raise PhaseError("the compositing kernel disagrees with its plain "
+                         "version")
+
+    # the fused forward's own compositing block, as a unit test: the kernel
+    # on the plain forward's features and sigma against the fused forward
+    params = full_width_params(seed, device)
+    n, s = N_RAYS, 256
+    o, d, z, _ = ray_inputs(n, s, gen, device)
+    noise = torch.zeros(n, s, device=device)
+    xyz = o[:, None, :] + d[:, None, :] * z[..., None]
+    for dt in (torch.float32, torch.bfloat16):
+        kw = fr.prepare_kernel_weights(params, 15, 4, dt)
+        with full_fp32():
+            feat, sigma, _ = fr.render_points_plain(params, xyz, d, 15, 4, dt,
+                                                    True)
+            w5, f5, d5 = comp.composite_apply(feat.contiguous(),
+                                              sigma.contiguous(), z)
+            blk, w1 = fr.fused_render_apply(kw, o, d, z, noise, True)
+        err = ((w5 - w1).abs().max().item(),
+               (f5 - blk[:, :64]).abs().max().item(),
+               (d5 - blk[:, 64]).abs().max().item())
+        tol = fr.KERNEL_TOL[dt]
+        ok = all(e <= t for e, t in zip(err, tol))
+        print(f"[composite] on the fused forward's features and sigma "
+              f"({n} x {s}, {str(dt)[6:]}) against the fused forward: "
+              f"max|dw|={err[0]:.3e} max|dfmap|={err[1]:.3e} "
+              f"max|ddepth|={err[2]:.3e} tol={tol} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise PhaseError("the compositing kernel disagrees with the "
+                             "fused forward's compositing")
+
+    # the exported op as its users call it, at the serve tile's size
+    n, s, c = COMPOSITE_SHAPES[0]
+    feats = torch.rand(n, s, c, generator=gen, device=device)
+    sigmas = torch.rand(n, s, generator=gen, device=device) * 3
+    z = torch.sort(torch.rand(n, s, generator=gen, device=device) * 5 + 0.5,
+                   -1).values
+    for k in comp.LAUNCH_COUNTS:
+        comp.LAUNCH_COUNTS[k] = 0
+    from crnerf_tpu_torch.ops import composite_apply
+    w, fmap, depth = composite_apply(feats, sigmas, z)
+    torch.cuda.synchronize()
+    launches = dict(comp.LAUNCH_COUNTS)
+    total = w.sum(-1)
+    if not (launches["composite"] == 1 and w.shape == (n, s)
+            and fmap.shape == (n, c) and depth.shape == (n,)
+            and bool(torch.isfinite(fmap).all())
+            and bool((total <= 1 + 1e-5).all()) and bool((w >= 0).all())
+            and bool((fmap >= 0).all()) and bool((fmap <= 1 + 1e-5).all())):
+        raise PhaseError(f"composite_apply: launches {launches}, or outputs "
+                         "out of range")
+    print(f"[composite] composite_apply at {n} x {s} x {c}: launches "
+          f"{launches}, weights sum to [{total.min():.4f}, "
+          f"{total.max():.4f}], depth [{depth.min():.3f}, "
+          f"{depth.max():.3f}]")
+    return records, launches["composite"]
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile_dir", type=str, default="",
@@ -936,17 +1412,32 @@ def main(argv=None) -> int:
         phase_build()
         records = phase_kernel(device, SEED)
         train_records = phase_train_kernels(device, SEED)
+        recompute_records = phase_recompute(device, SEED)
+        composite_records, composite_launches = phase_composite(device, SEED)
         os.makedirs(BUILD, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=BUILD) as workdir:
             launches, p50 = phase_serve(device, SEED, workdir,
                                         args.profile_dir or None)
         print(f"[serve] p50 {p50} ms per {FRAME_WH[0]}x{FRAME_WH[1]} "
               f"frame at 256+256 samples, bf16 ({card})")
-        train_launches, step_ms = phase_train(device, SEED,
-                                              args.profile_dir or None)
+        train_launches, step_ms, peak, grads = phase_train(
+            device, SEED, args.profile_dir or None)
         print(f"[train] median {step_ms:.2f} ms per step, "
               f"{TRAIN_GRIDS * 1024 / step_ms * 1e3:.0f} train rays/s "
               f"({card})")
+        route_launches = {}
+        for route in ("pallas_stash=False", "pertube_cord=True"):
+            route_launches[route], r_ms, r_peak, r_grads = phase_train(
+                device, SEED, None, route)
+            print(f"[train] route {route}: median {r_ms:.2f} ms per step "
+                  f"against {step_ms:.2f} on the stash route, "
+                  f"{TRAIN_GRIDS * 1024 / r_ms * 1e3:.0f} train rays/s, peak "
+                  f"memory {r_peak:.2f} GiB against {peak:.2f} ({card})")
+            if not r_peak < peak:
+                raise PhaseError(f"{route}: peak memory {r_peak:.2f} GiB is "
+                                 f"not below the stash route's {peak:.2f}")
+            if route == "pallas_stash=False":
+                routes_agree("stash", grads, route, r_grads)
     except Exception as e:  # any phase failing fails the run
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
               file=sys.stderr)
@@ -959,38 +1450,65 @@ def main(argv=None) -> int:
     tk = next(r for r in train_records
               if r["N"] == TRAIN_GRIDS * 1024 and r["S"] == 128)
 
-    def entry(name, source, replaces, n_launch, err, key):
-        b_ms, b_by = tk["bound"][key]
+    def at_fine_pass(recs, xyz_in):
+        return next(r for r in recs if r["N"] == TRAIN_GRIDS * 1024
+                    and r["S"] == 128 and r["xyz_in"] == xyz_in)
+
+    def entry(name, source, replaces, n_launch, err, r):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": n_launch,
-                "max_abs_err": err, "ms": tk["ms"][key],
-                "plain_ms": tk["plain_ms"][key], "bound_ms": b_ms,
-                "bound_by": b_by, "library_ms": None}
+                "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+                "library_ms": None}
 
-    fwd_cu = "crnerf_tpu_torch/csrc/fused_render_fwd.cu"
-    bwd_cu = "crnerf_tpu_torch/csrc/fused_render_bwd.cu"
+    def train_kernel(key):      # one kernel's numbers of the stash pair
+        return {k: tk[k][key] for k in ("ms", "plain_ms", "bound")}
+
+    def fwd_err(xyz_in):
+        return max(max(r["err_weights"], r["err_fmap"], r["err_depth"])
+                   for r in records if r["xyz_in"] == xyz_in)
+
+    def recompute_err(xyz_in):
+        return max(r["abs_err"] for r in recompute_records
+                   if r["xyz_in"] == xyz_in)
+
+    k1, k2, k3 = ("crnerf_tpu/ops/fused_render.py:348",
+                  "crnerf_tpu/ops/fused_render.py:648",
+                  "crnerf_tpu/ops/fused_render.py:437")
+    fwd_cu = "crnerf_tpu_torch/csrc/fused_render_fwd.cuh"
+    bwd_cu = "crnerf_tpu_torch/csrc/fused_render_bwd.cuh"
+    rec_cu = "crnerf_tpu_torch/csrc/fused_render_bwd_recompute.cu"
+    route_a = route_launches["pallas_stash=False"]
+    route_b = route_launches["pertube_cord=True"]
     print(json.dumps({"kernels": [
-        {"name": "fused_render_fwd", "route": "cuda", "source": fwd_cu,
-         "replaces": "crnerf_tpu/ops/fused_render.py:348",
-         "launches": launches,
-         "max_abs_err": max(max(r["err_weights"], r["err_fmap"],
-                                r["err_depth"]) for r in records),
-         "ms": main_kernel["ms"], "plain_ms": main_kernel["plain_ms"],
-         "bound_ms": main_kernel["bound"][0],
-         "bound_by": main_kernel["bound"][1],
-         "library_ms": None},
-        entry("fused_render_fwd_stash", fwd_cu,
-              "crnerf_tpu/ops/fused_render.py:348",
+        # launched by the serve path and by the pallas_stash=False route
+        entry("fused_render_fwd", fwd_cu, k1,
+              launches + route_a["fused_render_fwd"], fwd_err(False),
+              main_kernel),
+        entry("fused_render_fwd_stash", fwd_cu, k1,
               train_launches["fused_render_fwd_stash"],
-              max(r["err_fwd"] for r in train_records), "fwd_stash"),
-        entry("fused_render_bwd", bwd_cu,
-              "crnerf_tpu/ops/fused_render.py:648",
+              max(r["err_fwd"] for r in train_records),
+              train_kernel("fwd_stash")),
+        entry("fused_render_bwd", bwd_cu, k2,
               train_launches["fused_render_bwd"],
-              max(r["abs_chain"] for r in train_records), "chain"),
-        entry("fused_render_bwd_wgrad", bwd_cu,
-              "crnerf_tpu/ops/fused_render.py:648",
+              max(r["abs_chain"] for r in train_records),
+              train_kernel("chain")),
+        entry("fused_render_bwd_wgrad", bwd_cu, k2,
               train_launches["fused_render_bwd_wgrad"],
-              max(r["abs_wgrad"] for r in train_records), "wgrad"),
+              max(r["abs_wgrad"] for r in train_records),
+              train_kernel("wgrad")),
+        entry("K1 xyz-in", fwd_cu, k1, route_b["fused_render_fwd_xyz"],
+              fwd_err(True), at_fine_pass(records, True)),
+        entry("K3 rays-in", rec_cu, k3,
+              route_a["fused_render_bwd_recompute"], recompute_err(False),
+              at_fine_pass(recompute_records, False)),
+        entry("K3 xyz-in", rec_cu, k3,
+              route_b["fused_render_bwd_recompute_xyz"], recompute_err(True),
+              at_fine_pass(recompute_records, True)),
+        entry("K5", "crnerf_tpu_torch/csrc/composite.cu",
+              "crnerf_tpu/ops/composite.py:34", composite_launches,
+              max(r["err"] for r in composite_records),
+              composite_records[0]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -21,7 +21,9 @@ Training:
            render/system.py CrNerfSystem.forward_train (stochastic renderer
            through the fused render forward with its activation stash, the
            random-appearance branch), train/losses.py crnerf_loss, backward
-           through the fused render backward kernels, train/optim.py
+           through the fused render backward kernels (from the stash, or
+           with Config.pallas_stash=False or Config.pertube_cord=True by
+           recomputing the forward slab by slab), train/optim.py
            optimizer and schedule, train/state.py TrainState (embedding
            cache, BatchNorm statistics).
 """

@@ -313,8 +313,9 @@ def main(argv: Optional[Sequence[str]] = None):
                         "directory holding one")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=7060)
-    p.add_argument("--device", type=str,
-                   default="cuda" if torch.cuda.is_available() else "cpu")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device; 'cpu' serves through the kernels' "
+                        "plain versions and must be asked for")
     p.add_argument("--N_samples", type=int, default=256)
     p.add_argument("--N_importance", type=int, default=256)
     p.add_argument("--chunk", type=int, default=8192)
@@ -335,6 +336,10 @@ def main(argv: Optional[Sequence[str]] = None):
     if not args.root and args.host not in ("127.0.0.1", "localhost", "::1"):
         p.error("non-loopback --host requires --root (requests carry "
                 "filesystem paths)")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        p.error(f"--device {args.device}: no CUDA device is available "
+                "(pass --device cpu to serve from the CPU)")
     cfg = Config(
         N_samples=args.N_samples, N_importance=args.N_importance,
         chunk=args.chunk, appearance_wh=tuple(args.appearance_wh),
@@ -342,7 +347,7 @@ def main(argv: Optional[Sequence[str]] = None):
         nerf_out_dim=args.nerf_out_dim, compute_dtype=args.compute_dtype,
         use_mask=False,  # serve = the decode path
     )
-    system = load_system(cfg, args.ckpt_path, torch.device(args.device))
+    system = load_system(cfg, args.ckpt_path, device)
     svc = RenderService(cfg, system, root=args.root or None)
     warmup(svc, args.warmup)
     server = Server(svc, args.host, args.port)

@@ -3,7 +3,10 @@
 names and defaults (``tests/test_torch_imports.py`` holds them equal). The
 port keeps its own copy so that it runs where only ``crnerf_tpu_torch/`` is
 present. The TPU-only knobs (Pallas routing, tile sizes, slab feeding,
-conv schedules) have no counterpart here.
+conv schedules) have no counterpart here, with one exception:
+``pallas_stash`` keeps its name because it selects between two backward
+routes that both exist here, the stash backward and the recompute backward,
+which trade device memory for time on this card as they do on the TPU.
 """
 
 from __future__ import annotations
@@ -23,6 +26,9 @@ class Config:
     use_disp: bool = False
     perturb: float = 1.0
     noise_std: float = 1.0
+    pertube_cord: bool = False  # training only: jitter every sample point
+    # by 1e-5 * U[0, 1); the points then reach the kernels one by one
+    # (xyz-in) and the backward recomputes
     netdepth: int = 8
     netwidth: int = 256
 
@@ -70,6 +76,11 @@ class Config:
     # sequential chunks with summed gradients; each chunk's activation stash
     # lives only from its forward to its backward. 0 = AUTO
     # (``resolved_chunks``)
+    pallas_stash: bool = True  # training: the fused render forward keeps an
+    # activation stash (about 5 KB per sample point at 8x256 bf16) for its
+    # backward. False: nothing is kept and the backward recomputes the
+    # forward slab by slab in a scratch of a fixed size: less memory, more
+    # time
     fast_sincos: bool = True  # double-angle recurrence for the posenc
     # sweep; only consulted when compute_dtype == 'bfloat16'
     appearance_wh: Tuple[int, int] = (224, 160)  # (W, H) of the style image

@@ -20,7 +20,7 @@ def compute_alphas(sigmas: torch.Tensor, z_vals: torch.Tensor,
                    noise: Optional[torch.Tensor] = None) -> torch.Tensor:
     """sigmas, z_vals, noise: (N, S) -> alphas (N, S)."""
     deltas = z_vals[:, 1:] - z_vals[:, :-1]
-    deltas = torch.cat([deltas, torch.full_like(deltas[:, :1], DELTA_INF)],
+    deltas = torch.cat([deltas, torch.full_like(z_vals[:, :1], DELTA_INF)],
                        -1)
     if noise is not None:
         sigmas = sigmas + noise

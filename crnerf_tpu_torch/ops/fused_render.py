@@ -1,23 +1,35 @@
 """Fused volume rendering of one pass: posenc + NeRF MLP + compositing in
-ONE CUDA kernel (``csrc/fused_render_fwd.cu``), rays-in mode, and its
-backward from an activation stash (``csrc/fused_render_bwd.cu``).
+ONE CUDA kernel (``csrc/fused_render_fwd.cuh``), and its two backwards: from
+an activation stash (``csrc/fused_render_bwd.cuh``) or by recomputing the
+forward slab by slab (``csrc/fused_render_bwd_recompute.cu``). Each ``.cu``
+of ``csrc/`` is one library's C entry points over those headers.
 
 Counterpart of ``crnerf_tpu/ops/fused_render.py`` ``fused_render_apply``
-and ``make_fused_render_train`` with ``rays_in=True, stash=True``: inputs
-are per ray (origins, directions, z values, sigma noise), xyz = o + d*z and
-the encode are made inside the kernel, and only per-ray results leave it:
+and ``make_fused_render_train``. Rays-in (``rays_in=True``): inputs are per
+ray (origins, directions, z values, sigma noise), xyz = o + d*z and the
+encode are made inside the kernel. Xyz-in (``rays_in=False``, ``xyz=``
+here): one coordinate per sample point (N, S, 3) is read in place of
+o + d*z, for callers that jitter the points; depth still uses z. Only
+per-ray results leave the kernel:
 
   ray block (N, round_up(C+1, 128)) f32 = [feature map (:C) | depth (C) | 0]
   weights   (N, S) f32
 
-In training the forward also writes the stash, one row per sample point at
-the compute dtype, [h_0 .. h_{L-1} | hf | dd | encode] in the kernel's
-padded widths (``grad_layout``): bit for bit the values its products
-consumed. The backward reads it and returns a float32 gradient for every
-weight and bias, summed over all points, and nothing for rays, z or noise.
-It is two kernels: the per-ray chain that writes every layer's dz, and the
-split-K weight gradient dW = A^T dZ; both sum in a fixed order, so the
-gradients of two runs on the same inputs are bit-identical.
+Training with ``stash=True`` (rays-in or xyz-in here; the JAX package has
+it for rays-in only): the forward also writes the stash, one row per
+sample point at the compute dtype, [h_0 .. h_{L-1} | hf | dd | encode] in
+the kernel's padded widths (``grad_layout``): bit for bit the values its
+products consumed. The backward reads it and returns a float32 gradient for
+every weight and bias, summed over all points, and nothing for rays, z or
+noise. It is two kernels: the per-ray chain that writes every layer's dz,
+and the split-K weight gradient dW = A^T dZ; both sum in a fixed order, so
+the gradients of two runs on the same inputs are bit-identical.
+
+Training with ``stash=False``: the forward keeps nothing but its inputs.
+The backward walks the rays in slabs of a fixed size; for each slab it runs
+the stash forward again into a scratch stash, then the chain and the weight
+gradient on it, and adds the slab's gradients onto those before, in slab
+order. The scratch holds one slab whatever N is (``slab_rays_for``).
 
 ``render_fwd_plain`` / ``render_bwd_plain`` are the plain PyTorch versions
 with the kernels' dtype policy (that of the JAX kernels' ``_mlp_fwd`` and
@@ -28,6 +40,8 @@ compute dtype; the sigma head runs at the compute dtype; biases, softplus,
 sigmoid, compositing and the bias sums are fp32. ``exact_encode=False``
 selects the anchored double-angle sin/cos recurrence (exact sin/cos every
 ``ANCHOR_SPAN`` octaves), as the bf16 configs do.
+
+``render_bwd_recompute_plain`` is the plain version of the slab backward.
 
 ``fused_render_apply`` (inference) and ``fused_render_train`` (a
 ``torch.autograd.Function``) are the wrappers: a CPU tensor goes to the
@@ -54,11 +68,23 @@ MAX_C = 128
 
 # launches of each kernel, counted by its wrapper where it launches
 LAUNCH_COUNTS: Dict[str, int] = {
-    "fused_render_fwd": 0,          # forward, no stash (inference)
-    "fused_render_fwd_stash": 0,    # forward with the stash (training)
+    "fused_render_fwd": 0,          # forward, rays-in, no stash
+    "fused_render_fwd_xyz": 0,      # forward, xyz-in, no stash
+    "fused_render_fwd_stash": 0,    # forward with the stash (either form)
     "fused_render_bwd": 0,          # backward, the per-ray dz chain
     "fused_render_bwd_wgrad": 0,    # backward, the split-K weight gradient
+    "fused_render_bwd_recompute": 0,      # recompute backward, rays-in
+    "fused_render_bwd_recompute_xyz": 0,  # recompute backward, xyz-in
 }
+
+# Scratch of the recompute backward: the slab's stash and dz buffer together
+# stay under this many bytes (``slab_rays_for``). 2 GiB holds ~1,600 rays
+# of 128 samples at 8x256 bf16 (10,112 bytes a point), six grids of the
+# chain kernel. The time hardly depends on it (``tools/slab_ab`` on an H100,
+# 16,384 x 128 bf16: 72.4 ms with slabs of one grid and 366 MiB, 69.7 ms at
+# 1.3 GiB, 69.3 ms here, 70.5 ms with one slab of 20 GB), so the budget is
+# what a step can always spare beside its other ~2 GiB.
+RECOMPUTE_SCRATCH_BYTES = 2 << 30
 
 # Kernel against render_fwd_plain on the same inputs, per compute dtype:
 # max abs error of (weights, fmap, depth). fp32: the JAX package's own
@@ -155,18 +181,17 @@ def _mm(a: torch.Tensor, w: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     return a.to(dt).float() @ w.to(dt).float()
 
 
-def render_fwd_plain(params: MlpParams, origins, dirs, z_vals, noise,
-                     n_emb_xyz: int = 15, n_emb_dir: int = 4,
-                     compute_dtype: torch.dtype = torch.float32,
-                     exact_encode: bool = True,
-                     skips: Tuple[int, ...] = (4,), stash: bool = False):
-    """Plain PyTorch version of the kernel: origins, dirs (N, 3), z_vals,
-    noise (N, S) -> (ray block (N, c_pad) f32, weights (N, S) f32), and
-    with ``stash`` also the activation stash (N*S, SC) at the compute
-    dtype in the kernel's layout (``grad_layout``)."""
-    n, s = z_vals.shape
+def render_points_plain(params: MlpParams, xyz, dirs,
+                        n_emb_xyz: int = 15, n_emb_dir: int = 4,
+                        compute_dtype: torch.dtype = torch.float32,
+                        exact_encode: bool = True,
+                        skips: Tuple[int, ...] = (4,)):
+    """The MLP half of the plain version: sample points xyz (N, S, 3), dirs
+    (N, 3) -> (features (N, S, C) in [0, 1], sigma (N, S) >= 0, both f32,
+    and what the stash keeps: trunk ReLU outputs, hf, dd, encode). What is
+    left of the pass is ``core.compositing.composite``."""
+    n, s = xyz.shape[:2]
     dt = compute_dtype
-    xyz = origins[:, None, :] + dirs[:, None, :] * z_vals[..., None]
     enc = sincos_encode(xyz.reshape(-1, 3), n_emb_xyz, exact_encode)
     d_xyz = enc.shape[1]
     h = None
@@ -191,6 +216,28 @@ def render_fwd_plain(params: MlpParams, origins, dirs, z_vals, noise,
     feat = torch.sigmoid(_mm(dd, params.feat_w, dt) + params.feat_b)
     feat = feat.reshape(n, s, -1)
     sigma = softplus(z_sig[:, 0]).reshape(n, s)
+    return feat, sigma, (acts, hf, dd, enc)
+
+
+def render_fwd_plain(params: MlpParams, origins, dirs, z_vals, noise,
+                     n_emb_xyz: int = 15, n_emb_dir: int = 4,
+                     compute_dtype: torch.dtype = torch.float32,
+                     exact_encode: bool = True,
+                     skips: Tuple[int, ...] = (4,), stash: bool = False,
+                     xyz: Optional[torch.Tensor] = None):
+    """Plain PyTorch version of the kernel: origins, dirs (N, 3), z_vals,
+    noise (N, S) -> (ray block (N, c_pad) f32, weights (N, S) f32), and
+    with ``stash`` also the activation stash (N*S, SC) at the compute
+    dtype in the kernel's layout (``grad_layout``). ``xyz`` (N, S, 3)
+    f32: the sample points, in place of origins + dirs * z (``origins``
+    is then not read)."""
+    n, s = z_vals.shape
+    dt = compute_dtype
+    if xyz is None:
+        xyz = origins[:, None, :] + dirs[:, None, :] * z_vals[..., None]
+    feat, sigma, (acts, hf, dd, enc) = render_points_plain(
+        params, xyz, dirs, n_emb_xyz, n_emb_dir, dt, exact_encode, skips)
+    width, d_xyz = params.final_w.shape[0], enc.shape[1]
     weights, fmap, depth = composite(feat, sigma, z_vals, noise)
     c = feat.shape[-1]
     out = torch.zeros((n, _round_up(c + 1, LANE)), dtype=torch.float32,
@@ -525,6 +572,8 @@ _FWD_DIMS = ("N", "S", "L", "skip_mask", "WP", "HP", "CP", "C", "KE", "F",
 _CHAIN_DIMS = ("N", "S", "L", "WP", "HP", "CP", "C", "DK", "ldo", "SC", "DC",
                "slices", "BF16", "grid")
 _WGRAD_DIMS = ("M", "SC", "DC", "WT", "n_tiles", "splits", "m_per", "BF16")
+_RECOMPUTE_DIMS = _FWD_DIMS + ("DC", "slices", "grid", "WT", "n_tiles",
+                               "splits", "m_per", "R")
 _C_FN = "crnerf_render_fwd"
 _C_ARGS = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
            ctypes.c_void_p)
@@ -544,6 +593,13 @@ def _lib_bwd():
     return _build.load("fused_render_bwd.cu",
                        {"crnerf_render_bwd_chain": _C_ARGS,
                         "crnerf_render_bwd_wgrad": _C_ARGS})
+
+
+def _lib_recompute():
+    from crnerf_tpu_torch.ops import _build
+
+    return _build.load("fused_render_bwd_recompute.cu",
+                       {"crnerf_render_bwd_recompute": _C_ARGS})
 
 
 def _call(lib, fn_name: str, tensors, dims: Dict[str, int], order, dev):
@@ -579,29 +635,42 @@ def dir_block(kw: KernelWeights, dirs: torch.Tensor,
     return enc.to(kw.compute_dtype).float().contiguous()
 
 
-def render_fwd(kw: KernelWeights, origins, dirs, z_vals, noise,
-                exact_encode: bool, stash: bool):
-    """-> (ray block, weights, stash or None): the plain version for CPU
-    tensors, the kernel for CUDA tensors."""
-    if z_vals.device.type == "cpu":
-        res = render_fwd_plain(kw.params, origins, dirs, z_vals, noise,
-                               kw.n_emb_xyz, kw.n_emb_dir, kw.compute_dtype,
-                               exact_encode, kw.skips, stash=stash)
-        return res if stash else (*res, None)
-    if z_vals.device.type != "cuda":
-        raise ValueError(f"no fused render for device {z_vals.device}")
+def _check_rays(kw: KernelWeights, origins, dirs, z_vals, noise, xyz):
+    """The forward's inputs on one CUDA device -> the (N, 8) [o | d | 0]
+    rows the rays-in kernel reads (None with ``xyz``)."""
     dev = z_vals.device
     n, s = z_vals.shape
     if n == 0 or s == 0:
         raise ValueError(f"empty ray batch {tuple(z_vals.shape)}")
-    _check("origins", origins, (n, 3), dev)
     _check("dirs", dirs, (n, 3), dev)
     _check("z_vals", z_vals, (n, s), dev)
     _check("noise", noise, (n, s), dev)
     for t in kw.tensors:
         if t is not None and t.device != dev:
             raise ValueError(f"kernel weights on {t.device}, rays on {dev}")
-    od = torch.cat([origins, dirs, origins.new_zeros((n, 2))], -1)
+    if xyz is not None:
+        _check("xyz", xyz, (n, s, 3), dev)
+        return None
+    _check("origins", origins, (n, 3), dev)
+    return torch.cat([origins, dirs, origins.new_zeros((n, 2))], -1)
+
+
+def render_fwd(kw: KernelWeights, origins, dirs, z_vals, noise,
+                exact_encode: bool, stash: bool,
+                xyz: Optional[torch.Tensor] = None):
+    """-> (ray block, weights, stash or None): the plain version for CPU
+    tensors, the kernel for CUDA tensors. ``xyz`` (N, S, 3): the xyz-in
+    form (``origins`` may then be None)."""
+    if z_vals.device.type == "cpu":
+        res = render_fwd_plain(kw.params, origins, dirs, z_vals, noise,
+                               kw.n_emb_xyz, kw.n_emb_dir, kw.compute_dtype,
+                               exact_encode, kw.skips, stash=stash, xyz=xyz)
+        return res if stash else (*res, None)
+    if z_vals.device.type != "cuda":
+        raise ValueError(f"no fused render for device {z_vals.device}")
+    dev = z_vals.device
+    n, s = z_vals.shape
+    od = _check_rays(kw, origins, dirs, z_vals, noise, xyz)
     dir_blk = dir_block(kw, dirs, exact_encode)
     ldo = _round_up(kw.dims["C"] + 1, LANE)
     out = torch.empty((n, ldo), dtype=torch.float32, device=dev)
@@ -611,20 +680,22 @@ def render_fwd(kw: KernelWeights, origins, dirs, z_vals, noise,
           if stash else None)
     dims = dict(kw.dims, N=n, S=s, exact=int(exact_encode), ldo=ldo, SC=sc)
     _call(_lib(), _C_FN,
-          [od, z_vals, noise, dir_blk, out, w_out, st, *kw.tensors], dims,
-          _FWD_DIMS, dev)
+          [od, z_vals, noise, dir_blk, out, w_out, st, xyz, *kw.tensors],
+          dims, _FWD_DIMS, dev)
     LAUNCH_COUNTS["fused_render_fwd_stash" if stash
-                  else "fused_render_fwd"] += 1
+                  else "fused_render_fwd" if xyz is None
+                  else "fused_render_fwd_xyz"] += 1
     return out, w_out, st
 
 
 def fused_render_apply(
     kw: KernelWeights,
-    origins: torch.Tensor,      # (N, 3) ray origins
+    origins: Optional[torch.Tensor],  # (N, 3) ray origins (None with xyz)
     dirs: torch.Tensor,         # (N, 3) unit ray directions
     z_vals: torch.Tensor,       # (N, S)
     noise: torch.Tensor,        # (N, S) sigma noise (zeros at eval)
     exact_encode: bool = True,
+    xyz: Optional[torch.Tensor] = None,   # (N, S, 3): the xyz-in form
 ):
     """-> (ray block (N, c_pad) f32 [fmap(:C) | depth(C) | 0], weights
     (N, S) f32) for weights laid out by ``prepare_kernel_weights`` (which
@@ -632,7 +703,7 @@ def fused_render_apply(
     ``render_fwd_plain``; CUDA tensors launch the kernel. No gradient:
     training goes through ``fused_render_train``."""
     out, w_out, _ = render_fwd(kw, origins, dirs, z_vals, noise,
-                                exact_encode, stash=False)
+                                exact_encode, stash=False, xyz=xyz)
     return out, w_out
 
 
@@ -647,6 +718,36 @@ def _tile_table(lay: GradLayout, tile: int, device_str: str) -> torch.Tensor:
                 rows.append([a_col + tm, min(tile, k - tm), b_col + tn,
                              min(tile, n - tn), off + tm * n + tn, n])
     return torch.tensor(rows, dtype=torch.int32, device=device_str)
+
+
+def _chain_grid(kw: KernelWeights, n: int, dev) -> Tuple[int, int]:
+    """-> (CTAs of the chain kernel's persistent grid over n rays: the
+    bf16 kernel fits two on an SM, fp32 one; slices of the rays in the
+    dir-encode gradient)."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    return min(n, n_sm * (2 if kw.dims["BF16"] else 1)), min(n, 32)
+
+
+def _chain_scratch(kw: KernelWeights, n: int, grid: int, slices: int, dev):
+    """The chain kernel's small scratch for n rays: per-CTA bias partials,
+    each ray's summed ddd, per-slice dir-encode partials."""
+    dc, hp, dk = grad_layout(kw.dims).dc, kw.dims["HP"], kw.dims["DK"]
+    f32 = dict(dtype=torch.float32, device=dev)
+    return (torch.empty((grid, dc), **f32), torch.empty((n, hp), **f32),
+            torch.empty((slices, dk * hp), **f32))
+
+
+def _chain_weights(kw: KernelWeights):
+    """The chain kernel's own weight operands: the sigma column at the
+    compute dtype, then W^T of the feature head, the dir layer's hidden
+    rows, the final layer and trunk layers 1..L-1, laid out as the forward
+    lays out W."""
+    pad = kw.padded
+    lay_t = pack_mma_b if kw.dims["BF16"] else (lambda m: m.contiguous())
+    wsv = pad["ws"][:, 0].to(kw.compute_dtype).float().contiguous()
+    transposed = [lay_t(pad["wc"].T), lay_t(pad["wdh"].T), lay_t(pad["wf"].T)]
+    transposed += [lay_t(pad["wh", i].T) for i in range(1, kw.dims["L"])]
+    return [wsv, *transposed]
 
 
 def bwd_chain(kw: KernelWeights, z_vals, noise, dir_blk, stash, g_ray, g_w):
@@ -665,28 +766,28 @@ def bwd_chain(kw: KernelWeights, z_vals, noise, dir_blk, stash, g_ray, g_w):
     _check("g_ray", g_ray, (n, ldo), dev)
     _check("g_w", g_w, (n, s), dev)
     _check("stash", stash, (n * s, lay.sc), dev, dt)
-    lay_t = pack_mma_b if kw.dims["BF16"] else (lambda m: m.contiguous())
-    wsv = pad["ws"][:, 0].to(dt).float().contiguous()
-    transposed = [lay_t(pad["wc"].T), lay_t(pad["wdh"].T), lay_t(pad["wf"].T)]
-    transposed += [lay_t(pad["wh", i].T) for i in range(1, kw.dims["L"])]
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    # a persistent grid: the bf16 kernel fits two CTAs on an SM, fp32 one
-    grid = min(n, n_sm * (2 if kw.dims["BF16"] else 1))
-    slices = min(n, 32)     # of the rays, in the dir-encode gradient
-    hp, dk = kw.dims["HP"], kw.dims["DK"]
+    grid, slices = _chain_grid(kw, n, dev)
     dzbuf = torch.empty((n * s, lay.dc), dtype=dt, device=dev)
-    bpart = torch.empty((grid, lay.dc), dtype=torch.float32, device=dev)
-    ddray = torch.empty((n, hp), dtype=torch.float32, device=dev)
-    dpart = torch.empty((slices, dk * hp), dtype=torch.float32, device=dev)
     gb = torch.empty((lay.bt,), dtype=torch.float32, device=dev)
     dims = dict(kw.dims, N=n, S=s, ldo=ldo, SC=lay.sc, DC=lay.dc,
                 slices=slices, grid=grid)
     _call(_lib_bwd(), "crnerf_render_bwd_chain",
-          [z_vals, noise, dir_blk, g_ray, g_w, stash, dzbuf, bpart, ddray,
-           dpart, gb, kw.tensors[0], pad["bs"], kw.tensors[7], pad["bc"],
-           wsv, *transposed], dims, _CHAIN_DIMS, dev)
+          [z_vals, noise, dir_blk, g_ray, g_w, stash, dzbuf,
+           *_chain_scratch(kw, n, grid, slices, dev), gb, kw.tensors[0],
+           pad["bs"], kw.tensors[7], pad["bc"], *_chain_weights(kw)], dims,
+          _CHAIN_DIMS, dev)
     LAUNCH_COUNTS["fused_render_bwd"] += 1
     return dzbuf, gb
+
+
+def _wgrad_plan(kw: KernelWeights, m: int, dev):
+    """-> (tile table, splits of the m points, points per split): enough
+    CTAs for a few waves, each with at least four steps of points."""
+    tile, pts = _WGRAD_TILE[kw.compute_dtype]
+    tiles = _tile_table(grad_layout(kw.dims), tile, str(dev))
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    splits = max(1, min(-(-m // (4 * pts)), -(-4 * n_sm // tiles.shape[0])))
+    return tiles, splits, _round_up(-(-m // splits), pts)
 
 
 def bwd_wgrad(kw: KernelWeights, stash, dzbuf) -> torch.Tensor:
@@ -700,12 +801,7 @@ def bwd_wgrad(kw: KernelWeights, stash, dzbuf) -> torch.Tensor:
     m = stash.shape[0]
     _check("stash", stash, (m, lay.sc), dev, dt)
     _check("dz buffer", dzbuf, (m, lay.dc), dev, dt)
-    tile, pts = _WGRAD_TILE[dt]
-    tiles = _tile_table(lay, tile, str(dev))
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    # enough CTAs for a few waves, each with at least four steps of points
-    splits = max(1, min(-(-m // (4 * pts)), -(-4 * n_sm // tiles.shape[0])))
-    m_per = _round_up(-(-m // splits), pts)
+    tiles, splits, m_per = _wgrad_plan(kw, m, dev)
     part = torch.empty((splits, lay.wt), dtype=torch.float32, device=dev)
     gw = torch.empty((lay.wt,), dtype=torch.float32, device=dev)
     dims = dict(M=m, SC=lay.sc, DC=lay.dc, WT=lay.wt,
@@ -731,6 +827,127 @@ def fused_render_bwd(kw: KernelWeights, z_vals, noise, dirs, stash, g_ray,
     return unpack_grads(kw, gw, gb)
 
 
+def slab_rays_for(kw: KernelWeights, n: int, s: int, device=None,
+                  budget: int = RECOMPUTE_SCRATCH_BYTES) -> int:
+    """Rays per slab of the recompute backward over n rays of s samples:
+    as many as keep the slab's stash and dz buffer under ``budget`` bytes,
+    whatever n is; on a card, a whole number of the chain kernel's grids
+    when it is more than one (no nearly empty last wave)."""
+    lay = grad_layout(kw.dims)
+    per_ray = s * (lay.sc + lay.dc) * (2 if kw.dims["BF16"] else 4)
+    r = max(1, budget // per_ray)
+    if r >= n:
+        return n
+    if device is not None and torch.device(device).type == "cuda":
+        grid, _ = _chain_grid(kw, r, device)
+        if r > grid:
+            r -= r % grid
+    return r
+
+
+def bwd_recompute_plain(kw: KernelWeights, origins, dirs, z_vals, noise,
+                        g_ray, g_w, exact_encode: bool = True, xyz=None,
+                        slab_rays: Optional[int] = None):
+    """Plain version of the recompute backward: slab by slab the stash
+    forward again, the chain and the weight gradient (their plain
+    versions), each slab's flat padded gradients added onto the slabs
+    before in slab order -> (gw (WT,), gb (BT,), the last slab's (stash, dz
+    buffer))."""
+    n, s = z_vals.shape
+    r = min(n, slab_rays or slab_rays_for(kw, n, s))
+    dir_blk = dir_block(kw, dirs, exact_encode)
+    gw = gb = scratch = None
+    for r0 in range(0, n, r):
+        sl = slice(r0, r0 + r)
+        _, _, st = render_fwd_plain(
+            kw.params, None if origins is None else origins[sl], dirs[sl],
+            z_vals[sl], noise[sl], kw.n_emb_xyz, kw.n_emb_dir,
+            kw.compute_dtype, exact_encode, kw.skips, stash=True,
+            xyz=None if xyz is None else xyz[sl])
+        dzbuf, gb_s = bwd_chain_plain(kw, z_vals[sl], noise[sl], dir_blk[sl],
+                                      st, g_ray[sl], g_w[sl])
+        gw_s = bwd_wgrad_plain(kw, st, dzbuf)
+        gw = gw_s if gw is None else gw + gw_s
+        gb = gb_s if gb is None else gb + gb_s
+        scratch = (st, dzbuf)
+    return gw, gb, scratch
+
+
+def render_bwd_recompute_plain(params: MlpParams, origins, dirs, z_vals,
+                               noise, g_ray, g_w, n_emb_xyz: int = 15,
+                               n_emb_dir: int = 4,
+                               compute_dtype: torch.dtype = torch.float32,
+                               exact_encode: bool = True,
+                               skips: Tuple[int, ...] = (4,), xyz=None,
+                               slab_rays: Optional[int] = None) -> MlpParams:
+    """Plain PyTorch version of the recompute backward kernel: the
+    forward's inputs (``xyz`` (N, S, 3) in place of origins for the xyz-in
+    form) and the cotangents of the ray block (N, c_pad) and of the weights
+    (N, S) -> a float32 gradient for every tensor of ``params``."""
+    kw = prepare_kernel_weights(params, n_emb_xyz, n_emb_dir, compute_dtype,
+                                skips)
+    gw, gb, _ = bwd_recompute_plain(kw, origins, dirs, z_vals, noise, g_ray,
+                                    g_w, exact_encode, xyz, slab_rays)
+    return unpack_grads(kw, gw, gb)
+
+
+def bwd_recompute(kw: KernelWeights, origins, dirs, z_vals, noise, g_ray,
+                  g_w, exact_encode: bool = True, xyz=None,
+                  slab_rays: Optional[int] = None):
+    """The recompute backward kernel (``bwd_recompute_plain`` on CPU
+    tensors) -> (gw (WT,), gb (BT,), the scratch (stash, dz buffer) as the
+    last slab left it). One call walks every slab; the scratch holds
+    ``slab_rays`` rays (default ``slab_rays_for``) whatever N is."""
+    if z_vals.device.type == "cpu":
+        return bwd_recompute_plain(kw, origins, dirs, z_vals, noise, g_ray,
+                                   g_w, exact_encode, xyz, slab_rays)
+    if z_vals.device.type != "cuda":
+        raise ValueError(f"no fused render for device {z_vals.device}")
+    dev, dt = z_vals.device, kw.compute_dtype
+    lay = grad_layout(kw.dims)
+    n, s = z_vals.shape
+    ldo = _round_up(kw.dims["C"] + 1, LANE)
+    od = _check_rays(kw, origins, dirs, z_vals, noise, xyz)
+    _check("g_ray", g_ray, (n, ldo), dev)
+    _check("g_w", g_w, (n, s), dev)
+    r = min(n, slab_rays or slab_rays_for(kw, n, s, dev))
+    if r < 1:
+        raise ValueError(f"slab of {r} rays")
+    grid, slices = _chain_grid(kw, r, dev)
+    tiles, splits, m_per = _wgrad_plan(kw, r * s, dev)
+    stash = torch.empty((r * s, lay.sc), dtype=dt, device=dev)
+    dzbuf = torch.empty((r * s, lay.dc), dtype=dt, device=dev)
+    part = torch.empty((splits, lay.wt), dtype=torch.float32, device=dev)
+    gw = torch.empty((lay.wt,), dtype=torch.float32, device=dev)
+    gb = torch.empty((lay.bt,), dtype=torch.float32, device=dev)
+    dims = dict(kw.dims, N=n, S=s, exact=int(exact_encode), ldo=ldo,
+                SC=lay.sc, DC=lay.dc, slices=slices, grid=grid, WT=lay.wt,
+                n_tiles=tiles.shape[0], splits=splits, m_per=m_per, R=r)
+    _call(_lib_recompute(), "crnerf_render_bwd_recompute",
+          [od, xyz, z_vals, noise, dir_block(kw, dirs, exact_encode), g_ray,
+           g_w, stash, dzbuf, *_chain_scratch(kw, r, grid, slices, dev), gb,
+           tiles, part, gw, *_chain_weights(kw), *kw.tensors], dims,
+          _RECOMPUTE_DIMS, dev)
+    LAUNCH_COUNTS["fused_render_bwd_recompute" if xyz is None
+                  else "fused_render_bwd_recompute_xyz"] += 1
+    return gw, gb, (stash, dzbuf)
+
+
+def fused_render_bwd_recompute(kw: KernelWeights, origins, dirs, z_vals,
+                               noise, g_ray, g_w, exact_encode: bool = True,
+                               xyz=None, slab_rays: Optional[int] = None
+                               ) -> MlpParams:
+    """Gradients of every tensor of ``kw.params`` from the forward's inputs
+    and the cotangents of the ray block and of the weights, with no stash
+    from the forward: the recompute backward kernel on CUDA tensors, its
+    plain version on CPU tensors."""
+    gw, gb, _ = bwd_recompute(kw, origins, dirs, z_vals, noise,
+                              g_ray.float().contiguous(),
+                              g_w.float().contiguous(), exact_encode, xyz,
+                              slab_rays)
+    return unpack_grads(kw, gw, gb)
+
+
 def flatten_params(p: MlpParams) -> Tuple[torch.Tensor, ...]:
     return (*p.trunk_w, *p.trunk_b, *p[2:])
 
@@ -743,28 +960,33 @@ def unflatten_params(flat) -> MlpParams:
 
 
 class FusedRenderTrain(torch.autograd.Function):
-    """Counterpart of ``make_fused_render_train(rays_in=True, stash=True)``:
-    forward = the stash forward, backward = the stash backward. Gradients
-    come back for the ``MlpParams`` tensors only; origins, directions, z
-    and noise get none. The stash lives from forward to backward and is
-    freed there."""
+    """Counterpart of ``make_fused_render_train``. Gradients come back for
+    the ``MlpParams`` tensors only; origins, directions, z, noise and xyz
+    get none. ``stash=True``: forward = the stash forward, backward = the
+    stash backward; the stash lives from forward to backward and is freed
+    there. ``stash=False``: forward = the plain forward kernel, which keeps
+    its inputs only; backward = the recompute backward."""
 
     @staticmethod
-    def forward(ctx, origins, dirs, z_vals, noise, opts, *flat):
-        n_emb_xyz, n_emb_dir, compute_dtype, exact_encode, skips = opts
+    def forward(ctx, origins, dirs, z_vals, noise, xyz, opts, *flat):
+        (n_emb_xyz, n_emb_dir, compute_dtype, exact_encode, skips, stash,
+         slab_rays) = opts
         kw = prepare_kernel_weights(unflatten_params(flat), n_emb_xyz,
                                     n_emb_dir, compute_dtype, skips)
-        out, w_out, stash = render_fwd(kw, origins, dirs, z_vals, noise,
-                                        exact_encode, stash=True)
-        ctx.kw, ctx.stash, ctx.exact_encode = kw, stash, exact_encode
-        ctx.save_for_backward(z_vals, noise, dirs)
+        out, w_out, st = render_fwd(kw, origins, dirs, z_vals, noise,
+                                     exact_encode, stash=stash, xyz=xyz)
+        ctx.kw, ctx.stash = kw, st
+        ctx.opts = (exact_encode, stash, slab_rays)
+        keep = (None, None) if stash else (origins, xyz)
+        ctx.save_for_backward(z_vals, noise, dirs, *keep)
         return out, w_out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_ray, g_w):
-        z_vals, noise, dirs = ctx.saved_tensors
-        if ctx.stash is None:
+        z_vals, noise, dirs, origins, xyz = ctx.saved_tensors
+        exact_encode, stash, slab_rays = ctx.opts
+        if stash and ctx.stash is None:
             raise RuntimeError("the stash was freed by an earlier backward")
         # a cotangent no loss term reads arrives as None
         if g_ray is None:
@@ -772,11 +994,16 @@ class FusedRenderTrain(torch.autograd.Function):
             g_ray = z_vals.new_zeros((z_vals.shape[0], ldo))
         if g_w is None:
             g_w = torch.zeros_like(z_vals)
-        grads = fused_render_bwd(ctx.kw, z_vals, noise, dirs, ctx.stash,
-                                 g_ray, g_w, ctx.exact_encode)
-        ctx.stash = None
-        ctx.kw = None
-        return (None, None, None, None, None, *flatten_params(grads))
+        if stash:
+            grads = fused_render_bwd(ctx.kw, z_vals, noise, dirs, ctx.stash,
+                                     g_ray, g_w, exact_encode)
+            ctx.stash = None
+            ctx.kw = None
+        else:
+            grads = fused_render_bwd_recompute(
+                ctx.kw, origins, dirs, z_vals, noise, g_ray, g_w,
+                exact_encode, xyz, slab_rays)
+        return (None,) * 6 + flatten_params(grads)
 
 
 def fused_render_train(
@@ -790,13 +1017,21 @@ def fused_render_train(
     compute_dtype: torch.dtype = torch.float32,
     exact_encode: bool = True,
     skips: Tuple[int, ...] = (4,),
+    xyz: Optional[torch.Tensor] = None,
+    stash: bool = True,
+    slab_rays: Optional[int] = None,
 ):
     """Differentiable fused render of one pass -> (ray block, weights) as
     ``fused_render_apply``. ``params`` are live tensors on the autograd
     graph (``mlp_params_from_module(m, detach=False)``): they are laid out
     for the kernel at every call, and the backward kernel's gradients flow
-    back onto them."""
-    opts = (n_emb_xyz, n_emb_dir, compute_dtype, exact_encode, tuple(skips))
-    return FusedRenderTrain.apply(origins.detach(), dirs.detach(),
-                                  z_vals.detach(), noise.detach(), opts,
-                                  *flatten_params(params))
+    back onto them. ``xyz`` (N, S, 3): the xyz-in form. ``stash=False``:
+    nothing but the inputs lives from forward to backward, and the backward
+    recomputes in slabs of ``slab_rays`` rays (default ``slab_rays_for``)."""
+    opts = (n_emb_xyz, n_emb_dir, compute_dtype, exact_encode, tuple(skips),
+            bool(stash), slab_rays)
+    return FusedRenderTrain.apply(
+        None if origins is None else origins.detach(), dirs.detach(),
+        z_vals.detach(), noise.detach(),
+        None if xyz is None else xyz.detach().float().contiguous(), opts,
+        *flatten_params(params))

@@ -15,7 +15,10 @@ training and inference share one kernel body), resamples stochastically
 from the detached coarse weights, and is differentiable in the MLP weights
 only: rays, z and noise are detached before each fused call, as in the JAX
 package. It takes the live parameters. Every random input is drawn from a
-``torch.Generator`` or passed in through ``draws``.
+``torch.Generator`` or passed in through ``draws``. With ``pertube_cord``
+every sample point of a pass is moved by ``1e-5 * U[0, 1)``: the pass then
+hands the kernels one coordinate per point (xyz-in) and its backward
+recomputes, as it does with ``stash=False``.
 
 The JAX package's ``lax.map`` over ray tiles is a Python loop over
 ``chunk``-ray tiles here.
@@ -50,15 +53,20 @@ def _noise(shape, noise_std: float, given, device, generator):
                                    generator=generator)
 
 
+PERTUBE_SCALE = 1e-5    # size of the coordinate jitter
+
+
 def _render(run_pass, rays: torch.Tensor, n_samples: int, n_importance: int,
             use_disp: bool, perturb: float = 0.0, noise_std: float = 0.0,
             generator: Optional[torch.Generator] = None,
-            draws: Optional[Dict[str, torch.Tensor]] = None
-            ) -> Dict[str, torch.Tensor]:
-    """The two-pass skeleton. ``run_pass(which, rays_o, rays_d, z, noise)``
-    -> (ray block, weights, C) runs the coarse (``which`` 0) or fine (1)
-    MLP over the samples; ``n_importance`` 0 stops after the coarse pass.
-    ``perturb`` 0 and ``noise_std`` 0 give the deterministic render."""
+            draws: Optional[Dict[str, torch.Tensor]] = None,
+            pertube_cord: bool = False) -> Dict[str, torch.Tensor]:
+    """The two-pass skeleton. ``run_pass(which, rays_o, rays_d, z, noise,
+    xyz)`` -> (ray block, weights, C) runs the coarse (``which`` 0) or fine
+    (1) MLP over the samples; ``n_importance`` 0 stops after the coarse
+    pass. ``perturb`` 0 and ``noise_std`` 0 give the deterministic render.
+    ``xyz`` is None unless ``pertube_cord``: then (N, S, 3), the pass's
+    points o + d*z plus the jitter, both in float32 and in this order."""
     draws = draws or {}
     rays = rays.detach()
     rays_o = rays[:, 0:3].contiguous()
@@ -68,7 +76,15 @@ def _render(run_pass, rays: torch.Tensor, n_samples: int, n_importance: int,
     def outputs(which: int, z, noise_key: str, tag: str):
         noise = _noise(z.shape, noise_std, draws.get(noise_key), rays.device,
                        generator)
-        blk, w, c = run_pass(which, rays_o, rays_d, z, noise)
+        xyz = None
+        if pertube_cord:
+            u = draws.get(f"pertube_{tag}")
+            if u is None:
+                u = torch.rand((*z.shape, 3), dtype=torch.float32,
+                               device=rays.device, generator=generator)
+            xyz = (rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+                   + PERTUBE_SCALE * u.to(torch.float32))
+        blk, w, c = run_pass(which, rays_o, rays_d, z, noise, xyz)
         return {f"weights_{tag}": w, f"feature_{tag}": blk[:, :c],
                 f"depth_{tag}": blk[:, c]}
 
@@ -101,7 +117,7 @@ def render_rays(
     """-> {weights,feature,depth}_coarse and, with a fine pass,
     {weights,feature,depth}_fine and z_fine. ``coarse``/``fine`` come
     from ``prepare_kernel_weights``."""
-    def run_pass(which, rays_o, rays_d, z, noise):
+    def run_pass(which, rays_o, rays_d, z, noise, xyz):
         kw = (coarse, fine)[which]
         return (*fused_render_apply(kw, rays_o, rays_d, z, noise,
                                     exact_encode), kw.dims["C"])
@@ -136,6 +152,8 @@ def render_rays_train(
     compute_dtype: torch.dtype = torch.float32,
     exact_encode: bool = True,
     skips=(4,),
+    pertube_cord: bool = False,
+    stash: bool = True,
     generator: Optional[torch.Generator] = None,
     draws: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Dict[str, torch.Tensor]:
@@ -146,16 +164,24 @@ def render_rays_train(
     uniforms of the perturbation, ``noise_coarse`` (N, n_samples) and
     ``noise_fine`` (N, n_samples + n_importance) sigma noise already scaled
     by ``noise_std``, ``pdf_e`` (N, n_importance + 1) exponential
-    spacings."""
+    spacings, and with ``pertube_cord`` the uniforms of the coordinate
+    jitter ``pertube_coarse`` (N, n_samples, 3) and ``pertube_fine``
+    (N, n_samples + n_importance, 3).
+
+    ``stash`` (the JAX package's ``pallas_stash``): the forward of each
+    pass keeps its activation stash for the backward. False, or
+    ``pertube_cord`` (as in the JAX package, where only the rays-in kernel
+    has a stash): nothing is kept and the backward recomputes."""
     opts = dict(n_emb_xyz=n_emb_xyz, n_emb_dir=n_emb_dir,
                 compute_dtype=compute_dtype, exact_encode=exact_encode,
-                skips=tuple(skips))
+                skips=tuple(skips), stash=stash and not pertube_cord)
 
-    def run_pass(which, rays_o, rays_d, z, noise):
+    def run_pass(which, rays_o, rays_d, z, noise, xyz):
         params = (coarse, fine)[which]
-        return (*fused_render_train(params, rays_o, rays_d, z, noise, **opts),
+        return (*fused_render_train(params, rays_o, rays_d, z, noise,
+                                    xyz=xyz, **opts),
                 params.feat_w.shape[1])
 
     return _render(run_pass, rays, n_samples,
                    n_importance if fine is not None else 0, use_disp,
-                   perturb, noise_std, generator, draws)
+                   perturb, noise_std, generator, draws, pertube_cord)

@@ -165,7 +165,8 @@ class CrNerfSystem(nn.Module):
             use_disp=cfg.use_disp, perturb=cfg.perturb,
             noise_std=cfg.noise_std, compute_dtype=compute_dtype(cfg),
             exact_encode=not (cfg.fast_sincos and bf16),
-            skips=self.nerf_coarse.skips, generator=generator, draws=draws,
+            skips=self.nerf_coarse.skips, pertube_cord=cfg.pertube_cord,
+            stash=cfg.pallas_stash, generator=generator, draws=draws,
         )
         res.update({k: v.reshape(g, b, *v.shape[1:]) for k, v in rr.items()})
         has_fine = "feature_fine" in rr

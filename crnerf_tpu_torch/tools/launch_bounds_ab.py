@@ -1,6 +1,6 @@
 """A/B of the bf16 fused render kernels' occupancy hint on the card.
 
-``csrc/fused_render_fwd.cu`` (the forward) and ``csrc/fused_render_bwd.cu``
+``csrc/fused_render_fwd.cuh`` (the forward) and ``csrc/fused_render_bwd.cuh``
 (the backward's chain kernel) ask ``__launch_bounds__(NTHREADS, BF16 ? 2 :
 1)``: two CTAs per SM for the bf16 variant, which caps it at 128 registers
 (with some spill). This builds the source as shipped and with the hint at
@@ -12,7 +12,8 @@ train step's fine pass (16,384 rays x S=128).
     python -m crnerf_tpu_torch.tools.launch_bounds_ab          # forward
     python -m crnerf_tpu_torch.tools.launch_bounds_ab chain    # needs a GPU
 
-Variants are built into ``build/exp/``.
+Variants are built into ``build/exp/<variant>/``: the library's ``.cu``
+beside an edited copy of the kernel's header.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ VARIANTS = {"2_ctas_per_sm": SHIPPED,
             "1_cta_per_sm": "__launch_bounds__(NTHREADS, 1)"}
 N_RAYS, S, PAIRS, REPS = 8192, 512, 5, 5
 CHAIN_RAYS, CHAIN_S = 16384, 128
-# kernel -> (source, exported C functions, the wrapper's library getter)
+# kernel -> (library source; its kernel header is the same name with
+# .cuh, exported C functions, the wrapper's library getter)
 KERNELS = {
     "fwd": ("fused_render_fwd.cu", (fr._C_FN,), "_lib"),
     "chain": ("fused_render_bwd.cu",
@@ -43,13 +45,16 @@ KERNELS = {
 
 def build_variant(name: str, bounds: str, source: str,
                   functions) -> ctypes.CDLL:
-    src = (_build.CSRC / source).read_text()
+    header = source + "h"
+    src = (_build.CSRC / header).read_text()
     if SHIPPED not in src:
         raise RuntimeError(f"{SHIPPED!r} not found in the kernel source")
-    out = _build.BUILD_DIR / "exp"
+    out = _build.BUILD_DIR / "exp" / name
     out.mkdir(parents=True, exist_ok=True)
-    cu, so = out / f"{name}.cu", out / f"{name}.so"
-    cu.write_text(src.replace(SHIPPED, bounds))
+    cu, so = out / source, out / f"{name}.so"
+    # the copied .cu includes the header beside it, not the shipped one
+    cu.write_text((_build.CSRC / source).read_text())
+    (out / header).write_text(src.replace(SHIPPED, bounds))
     proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I",
                            str(_build.CSRC), "-o", str(so), str(cu)],
                           capture_output=True, text=True)

@@ -13,6 +13,8 @@ the live embedding is used, with gradient. After the update, each grid's
 (a Python loop), each chunk's backward right after its forward, with the
 gradients summed and divided by C: the same mean up to fp order, while the
 activation stash of the fused render kernels lives for one chunk only.
+``Config.pallas_stash=False`` and ``Config.pertube_cord`` reach the renderer
+through ``forward_train``: no stash then, the backward recomputes.
 """
 
 from __future__ import annotations
@@ -28,7 +30,8 @@ from crnerf_tpu_torch.train.state import TrainState
 
 # injected draws that carry a leading G axis and reach the renderer as
 # per-ray rows of the chunk's grids
-_PER_RAY_DRAWS = ("z_u", "noise_coarse", "noise_fine", "pdf_e")
+_PER_RAY_DRAWS = ("z_u", "noise_coarse", "noise_fine", "pdf_e",
+                  "pertube_coarse", "pertube_fine")
 
 
 def select_random_embeddings(state: TrainState, n: int,
@@ -63,7 +66,8 @@ def make_train_step(system: CrNerfSystem, optimizer: torch.optim.Optimizer,
     inputs in place of the state's generator (the tests hand both packages
     the same numbers): ``sel_idx`` (G,) cache rows of the random branch,
     and the renderer's ``z_u``, ``noise_coarse``, ``noise_fine``,
-    ``pdf_e`` with a leading G axis.
+    ``pdf_e`` (and with ``Config.pertube_cord`` ``pertube_coarse``,
+    ``pertube_fine``) with a leading G axis.
 
     Returns the state and the metrics ``loss``, ``psnr``,
     ``annealing_weight``, ``lr`` and ``loss/<term>`` (0-dim tensors on the
@@ -120,7 +124,7 @@ def make_train_step(system: CrNerfSystem, optimizer: torch.optim.Optimizer,
         for c in range(n_chunks):
             sl = slice(c * gc, (c + 1) * gc)
             b_c = {k: v[sl] for k, v in batch.items()}
-            d_c = {k: draws[k][sl].reshape(-1, draws[k].shape[-1])
+            d_c = {k: draws[k][sl].flatten(0, 1)   # (gc, B, ...) rows
                    for k in _PER_RAY_DRAWS if k in draws}
             total, sums, ps, aw, a_emb = chunk_loss(state, b_c, a_rand[sl],
                                                     d_c)

@@ -1,5 +1,5 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version,
-at small shapes. Skipped without a CUDA device. The card has no jax, and
+"""The port's CUDA kernels on the card, against their plain PyTorch
+versions, at small shapes. Skipped without a CUDA device. The card has no jax, and
 tests/conftest.py imports it, so run these there with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -223,3 +223,211 @@ def test_train_function_on_card_matches_cpu(dev):
         grads[name] = [p.grad.cpu() for p in m.parameters()]
     for a, b in zip(grads["cpu"], grads["card"]):
         assert float((a - b).abs().max()) <= 2e-4 * float(a.abs().max())
+
+
+def _jittered(rays, seed=11):
+    """The rays' sample points moved by 1e-5 * U[0, 1), (N, S, 3) f32."""
+    o, d, z, _ = rays
+    g = torch.Generator().manual_seed(seed)
+    u = torch.rand((*z.shape, 3), generator=g).to(z.device)
+    return (o[:, None] + d[:, None] * z[..., None] + 1e-5 * u).contiguous()
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("depth,width,c,s", [
+    (6, 64, 16, 8), (6, 64, 16, 100), (8, 256, 64, 64), (2, 48, 24, 130),
+])
+def test_xyz_in_kernel_matches_plain(dev, dt, exact, depth, width, c, s):
+    """The forward kernel reading one jittered coordinate per point,
+    against render_fwd_plain(xyz=) on the same points: KERNEL_TOL."""
+    params, kw, rays, _, _ = _train_case(dev, dt, exact, depth, width, c, s)
+    o, d, z, noise = rays
+    xyz = _jittered(rays)
+    before = dict(fr.LAUNCH_COUNTS)
+    blk_k, w_k = fr.fused_render_apply(kw, None, d, z, noise, exact, xyz=xyz)
+    blk_p, w_p = fr.render_fwd_plain(params, None, d, z, noise,
+                                     compute_dtype=dt, exact_encode=exact,
+                                     xyz=xyz)
+    torch.cuda.synchronize()
+    assert fr.LAUNCH_COUNTS["fused_render_fwd_xyz"] == (
+        before["fused_render_fwd_xyz"] + 1)
+    assert fr.LAUNCH_COUNTS["fused_render_fwd"] == before["fused_render_fwd"]
+    tw, tf, td = fr.KERNEL_TOL[dt]
+    assert float((w_k - w_p).abs().max()) <= tw
+    assert float((blk_k[:, :c] - blk_p[:, :c]).abs().max()) <= tf
+    assert float((blk_k[:, c] - blk_p[:, c]).abs().max()) <= td
+    assert torch.all(blk_k[:, c + 1:] == 0)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stash", [False, True])
+def test_xyz_in_without_jitter_equals_rays_in_bits(dev, dt, stash):
+    """o + d*z handed in as xyz: outputs and stash of the rays-in launch,
+    bit for bit (S = 100: a partial last chunk)."""
+    _, kw, rays, _, _ = _train_case(dev, dt, False, 6, 64, 16, 100)
+    o, d, z, noise = rays
+    xyz = (o[:, None] + d[:, None] * z[..., None]).contiguous()
+    a = fr.render_fwd(kw, o, d, z, noise, False, stash=stash)
+    b = fr.render_fwd(kw, None, d, z, noise, False, stash=stash, xyz=xyz)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert (a[2] is None) == (b[2] is None) == (not stash)
+    if stash:
+        assert torch.equal(a[2], b[2])
+
+
+# the recompute backward against the stash backward on the same inputs, per
+# tensor over its largest value: the same dz rows, the fp32 sums over the
+# points grouped by slab
+RECOMPUTE_VS_STASH = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
+# the recompute backward against its plain version from the same INPUTS:
+# each side recomputes its own forward (sinf against torch.sin, another
+# order of sums), so a ReLU whose input is within that difference of zero
+# is open on one side and shut on the other, and at these few points (37
+# rays) one such point moves a tensor's gradient visibly: measured 2.9e-4
+# at fp32 on 37 x 64 points, where the same backward on one shared stash
+# agrees to GRAD_TOL (test_backward_kernels_match_plain)
+RECOMPUTE_VS_PLAIN = {torch.float32: 2e-3, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rays_in", [True, False])
+@pytest.mark.parametrize("depth,width,c,s", TRAIN_SHAPES)
+def test_recompute_backward_matches_plain(dev, dt, rays_in, depth, width, c,
+                                          s):
+    """The recompute backward (slabs of 10 of the 37 rays: a ragged last
+    slab) against its plain version, RECOMPUTE_VS_PLAIN per tensor;
+    twice: the same bits; against the stash backward on a stash of the
+    same inputs: RECOMPUTE_VS_STASH."""
+    exact = dt == torch.float32
+    params, kw, rays, g_ray, g_w = _train_case(dev, dt, exact, depth, width,
+                                               c, s)
+    o, d, z, noise = rays
+    xyz = None if rays_in else _jittered(rays)
+    key = ("fused_render_bwd_recompute" if rays_in
+           else "fused_render_bwd_recompute_xyz")
+    before = dict(fr.LAUNCH_COUNTS)
+    got = fr.fused_render_bwd_recompute(kw, o, d, z, noise, g_ray, g_w,
+                                        exact, xyz, slab_rays=10)
+    again = fr.fused_render_bwd_recompute(kw, o, d, z, noise, g_ray, g_w,
+                                          exact, xyz, slab_rays=10)
+    torch.cuda.synchronize()
+    assert fr.LAUNCH_COUNTS[key] == before[key] + 2
+    assert fr.LAUNCH_COUNTS["fused_render_fwd_stash"] == (
+        before["fused_render_fwd_stash"])
+    want = fr.render_bwd_recompute_plain(
+        params, o, d, z, noise, g_ray, g_w, compute_dtype=dt,
+        exact_encode=exact, xyz=xyz, slab_rays=10)
+    _, _, st = fr.render_fwd(kw, o, d, z, noise, exact, stash=True, xyz=xyz)
+    k2 = fr.fused_render_bwd(kw, z, noise, d, st, g_ray, g_w, exact)
+    for a, b, r, q in zip(fr.flatten_params(want), fr.flatten_params(got),
+                          fr.flatten_params(again), fr.flatten_params(k2)):
+        assert a.shape == b.shape
+        assert torch.equal(b, r)
+        assert torch.isfinite(b).all()
+        scale = max(float(a.abs().max()), 1e-30)
+        assert float((q - b).abs().max()) / scale <= RECOMPUTE_VS_STASH[dt]
+        assert float((a - b).abs().max()) / scale <= RECOMPUTE_VS_PLAIN[dt]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_recompute_scratch_rows_are_the_stash_routes(dev, dt):
+    """One slab over all rays: the scratch the recompute backward leaves is
+    the stash route's stash and dz buffer, bit for bit, and so are the
+    gradients."""
+    exact = dt == torch.float32
+    _, kw, rays, g_ray, g_w = _train_case(dev, dt, exact, 6, 64, 16, 100)
+    o, d, z, noise = rays
+    gw, gb, (st_r, dz_r) = fr.bwd_recompute(kw, o, d, z, noise, g_ray, g_w,
+                                            exact, slab_rays=37)
+    _, _, st = fr.render_fwd(kw, o, d, z, noise, exact, stash=True)
+    dz, gb_s = fr.bwd_chain(kw, z, noise, fr.dir_block(kw, d, exact), st,
+                            g_ray, g_w)
+    gw_s = fr.bwd_wgrad(kw, st, dz)
+    torch.cuda.synchronize()
+    assert torch.equal(st_r, st) and torch.equal(dz_r, dz)
+    assert torch.equal(gb, gb_s) and torch.equal(gw, gw_s)
+
+
+@pytest.mark.parametrize("slab_rays", [1, 5, 37, 1000])
+def test_recompute_slab_size_does_not_change_the_gradients(dev, slab_rays):
+    _, kw, rays, g_ray, g_w = _train_case(dev, torch.float32, True, 6, 64,
+                                          16, 24)
+    want = fr.fused_render_bwd_recompute(kw, *rays, g_ray, g_w, True, None,
+                                         slab_rays=37)
+    got = fr.fused_render_bwd_recompute(kw, *rays, g_ray, g_w, True, None,
+                                        slab_rays=slab_rays)
+    for a, b in zip(fr.flatten_params(want), fr.flatten_params(got)):
+        if slab_rays >= 37:
+            assert torch.equal(a, b)
+        else:
+            assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+
+
+@pytest.mark.parametrize("rays_in", [True, False])
+def test_recompute_train_function_on_card_matches_cpu(dev, rays_in):
+    """fused_render_train(stash=False) end to end (forward kernel, then
+    the recompute backward under autograd) against the same call on CPU
+    tensors (the plain versions), fp32."""
+    torch.manual_seed(5)
+    m_cpu = NerfMLP(depth=6, width=64, out_dim=16)
+    m_dev = NerfMLP(depth=6, width=64, out_dim=16)
+    m_dev.load_state_dict(m_cpu.state_dict())
+    m_dev.to(dev)
+    o, d, z, noise = [t.cpu() for t in _inputs(dev, 21, 24)]
+    o, d, z = [torch.round(t * 64) / 64 for t in (o, d, z)]
+    z = torch.sort(z, -1).values
+    xyz = None if rays_in else _jittered((o, d, z, noise))
+    grads = {}
+    for name, m, to in (("cpu", m_cpu, lambda t: t),
+                        ("card", m_dev, lambda t: t.to(dev))):
+        blk, w = fr.fused_render_train(
+            fr.mlp_params_from_module(m, detach=False), to(o), to(d), to(z),
+            to(noise), xyz=None if xyz is None else to(xyz), stash=False,
+            slab_rays=8)
+        assert blk.grad_fn.stash is None
+        ((blk[:, :17] ** 2).sum() + (w * torch.cos(w)).sum()).backward()
+        grads[name] = [p.grad.cpu() for p in m.parameters()]
+    for a, b in zip(grads["cpu"], grads["card"]):
+        assert float((a - b).abs().max()) <= 2e-4 * float(a.abs().max())
+
+
+@pytest.mark.parametrize("n,s,c", [(300, 20, 48), (37, 200, 16), (64, 1, 3),
+                                   (9, 130, 129), (5, 33, 256)])
+def test_composite_kernel_matches_plain(dev, n, s, c):
+    """The compositing kernel against core.compositing.composite on the
+    same inputs (a fifth of the densities negative), ragged S and C."""
+    from crnerf_tpu_torch.core.compositing import composite
+    from crnerf_tpu_torch.ops import composite as comp
+
+    g = torch.Generator().manual_seed(n + s + c)
+    feats = torch.rand(n, s, c, generator=g).to(dev)
+    sigmas = (torch.rand(n, s, generator=g) * 3.75 - 0.75).to(dev)
+    z = torch.sort(torch.rand(n, s, generator=g) * 5 + 0.5, -1).values.to(dev)
+    before = comp.LAUNCH_COUNTS["composite"]
+    got = comp.composite_apply(feats, sigmas, z)
+    want = composite(feats, sigmas, z)
+    torch.cuda.synchronize()
+    assert comp.LAUNCH_COUNTS["composite"] == before + 1
+    for a, b, tol in zip(got, want, comp.KERNEL_TOL):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        assert float((a - b).abs().max()) <= tol
+
+
+def test_composite_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    from crnerf_tpu_torch.ops.composite import composite_apply
+
+    f = torch.rand(4, 8, 16, device=dev)
+    sg, z = torch.rand(4, 8, device=dev), torch.rand(4, 8, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        composite_apply(f, sg.double(), z)
+    with pytest.raises(ValueError, match="contiguous"):
+        composite_apply(f, sg.T.contiguous().T, z)
+    with pytest.raises(ValueError, match="on cpu"):
+        composite_apply(f, sg.cpu(), z)
+    with pytest.raises(ValueError, match="C <= 256"):
+        composite_apply(torch.rand(2, 3, 300, device=dev),
+                        torch.rand(2, 3, device=dev),
+                        torch.rand(2, 3, device=dev))
+

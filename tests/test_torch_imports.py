@@ -1,7 +1,8 @@
 """The port imports torch and never jax, flax, optax or the JAX package:
 every module of crnerf_tpu_torch (the train/ and data/ packages
 included), and chip_smoke.py, import with all four blocked. Its Config
-keeps the JAX Config's names and defaults."""
+keeps the JAX Config's names and defaults. Its serve entry point runs on the
+card unless the caller asks for the CPU."""
 
 import dataclasses
 import os
@@ -21,7 +22,8 @@ for name in names:
     importlib.import_module(name)
 for needed in ("train.step", "train.losses", "train.optim", "train.state",
                "train.metrics", "data.pipeline", "data.sampler",
-               "data.scene", "data.synthetic"):
+               "data.scene", "data.synthetic", "ops.composite",
+               "ops.fused_render", "tools.slab_ab"):
     assert "crnerf_tpu_torch." + needed in names, needed
 import chip_smoke
 chip_smoke.serve_config()
@@ -61,8 +63,15 @@ def test_config_fields_match_the_jax_config():
         "optimizer", "lr", "momentum", "weight_decay", "lr_scheduler",
         "warmup_multiplier", "warmup_epochs", "decay_step", "decay_gamma",
         "poly_exp", "grad_accum_chunks", "seed"}
-    # no TPU-only knob came along
-    assert not any(n.startswith(("pallas_", "s2d_", "slab_"))
+    # the two fields that select the no-stash training routes
+    assert {"pertube_cord", "pallas_stash"} <= names
+    assert (Config().pertube_cord, Config().pallas_stash) == (False, True)
+    assert (JaxConfig().pertube_cord, JaxConfig().pallas_stash) == (False,
+                                                                    True)
+    # no TPU-only knob came along (pallas_stash selects a route that
+    # exists here too)
+    assert not any((n.startswith(("pallas_", "s2d_", "slab_"))
+                    and n != "pallas_stash")
                    or n in ("use_pallas", "fold_heads", "hoist_heads",
                             "pdf_impl", "chunk_unroll", "eval_tile_pts")
                    for n in names)
@@ -80,3 +89,41 @@ def test_chip_smoke_refuses_without_a_card():
                          timeout=300)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_serve_cli_defaults_to_the_card_and_fails_without_one(tmp_path):
+    """``--device`` defaults to "cuda"; with no CUDA device the server
+    stops at start with a message that names the way to the CPU, before it
+    looks for the checkpoint. ``--device cpu`` gets past that point (and
+    then fails on the missing checkpoint)."""
+    import inspect
+
+    from crnerf_tpu_torch.apps import serve
+
+    src = inspect.getsource(serve.main)
+    assert '"--device", type=str, default="cuda"' in src
+    assert "is_available() else" not in inspect.getsource(serve)
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    base = [sys.executable, "-m", "crnerf_tpu_torch", "serve", "--ckpt_path",
+            str(tmp_path / "missing.npz")]
+    out = subprocess.run(base, cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and "--device cpu" in out.stderr
+    assert "serving on" not in out.stdout
+    out = subprocess.run(base + ["--device", "cpu"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "no weights.npz" in out.stderr
+    assert "no CUDA device" not in out.stderr
+
+
+def test_no_entry_point_picks_the_cpu_by_itself():
+    """No module of the port chooses its device by whether a card is
+    present: the tools refuse without one, the server defaults to cuda."""
+    import pathlib
+
+    for path in pathlib.Path(REPO, "crnerf_tpu_torch").rglob("*.py"):
+        text = path.read_text()
+        assert "is_available() else" not in text, path
+

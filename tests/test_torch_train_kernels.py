@@ -260,8 +260,11 @@ def test_cpu_wrappers_launch_no_kernel(case):
     before = dict(fr.LAUNCH_COUNTS)
     _port_grads(case, torch.float32, True)
     assert fr.LAUNCH_COUNTS == before
-    assert set(before) == {"fused_render_fwd", "fused_render_fwd_stash",
-                           "fused_render_bwd", "fused_render_bwd_wgrad"}
+    assert set(before) == {"fused_render_fwd", "fused_render_fwd_xyz",
+                           "fused_render_fwd_stash", "fused_render_bwd",
+                           "fused_render_bwd_wgrad",
+                           "fused_render_bwd_recompute",
+                           "fused_render_bwd_recompute_xyz"}
 
 
 def test_tile_table_covers_every_gradient_once(case):

@@ -15,6 +15,16 @@ N_emb_xyz=10, as in tests/test_torch_slice.py: at 15 octaves the two
 frameworks' one-ulp differences in the perturbed z become ~1e-2 in
 sin(2^14 x). tests/test_torch_train_kernels.py holds the kernels' math at
 15 octaves on exact inputs.
+
+The two no-stash routes get one whole step each, the same way:
+``pallas_stash=False`` (rays-in forward, recompute backward) and
+``pertube_cord=True`` (the sample points jittered by 1e-5 * U[0, 1), xyz-in
+forward, recompute backward), with the jitter's uniforms replayed from the
+fifth and sixth of the renderer's six keys. They too run at N_emb_xyz=10:
+the jitter is added to o + d*z, which the two frameworks round one ulp
+apart, so at 15 octaves the comparison would measure that ulp and not the
+route. tests/test_torch_recompute.py holds both routes' kernels' math at 15
+octaves on points that both sides read as the same float32 numbers.
 """
 
 import dataclasses
@@ -61,9 +71,10 @@ def _flat(tree):
     return bridge.flatten(jax.tree.map(np.asarray, tree))
 
 
-def replay_draws(rng, valid):
+def replay_draws(rng, valid, pertube=False):
     """The numbers the JAX step draws from ``rng`` with the cache validity
-    ``valid``, as the port's ``draws``."""
+    ``valid``, as the port's ``draws``; with ``pertube`` the uniforms of the
+    coordinate jitter too."""
     _, kstep, ksel = jax.random.split(rng, 3)
     n = valid.shape[0]
     idx = [int(jnp.argmax(jnp.where(valid, jax.random.gumbel(k, (n,)),
@@ -71,9 +82,16 @@ def replay_draws(rng, valid):
            for k in jax.random.split(ksel, G)]
     s, i = CFG.N_samples, CFG.N_importance
     per_grid = {"z_u": [], "noise_coarse": [], "noise_fine": [], "pdf_e": []}
+    if pertube:
+        per_grid.update(pertube_coarse=[], pertube_fine=[])
     for key in jax.random.split(kstep, G):
         (kf,) = jax.random.split(key, 1)
-        kz, kn_c, kn_f, kpdf, _, _ = jax.random.split(kf, 6)
+        kz, kn_c, kn_f, kpdf, kp_c, kp_f = jax.random.split(kf, 6)
+        if pertube:
+            per_grid["pertube_coarse"].append(
+                jax.random.uniform(kp_c, (B, s, 3), jnp.float32))
+            per_grid["pertube_fine"].append(
+                jax.random.uniform(kp_f, (B, s + i, 3), jnp.float32))
         per_grid["z_u"].append(jax.random.uniform(kz, (B, s), jnp.float32))
         per_grid["noise_coarse"].append(
             CFG.noise_std * jax.random.normal(kn_c, (B, s), jnp.float32))
@@ -416,4 +434,144 @@ def test_step_rejects_a_batch_of_the_wrong_size(run):
     fn = make_train_step(state.system, state.optimizer, psched, 4, 1)
     with pytest.raises(ValueError, match="grids"):
         fn(state, run["steps"][0]["batch"])
+
+
+ROUTES = {"pallas_stash_off": dict(pallas_stash=False),
+          "pertube_cord": dict(pertube_cord=True)}
+
+
+@pytest.fixture(scope="module", params=list(ROUTES))
+def route(request):
+    """One step of both packages on a no-stash route, from the same
+    weights, batch and draws; the port's calls of its two backwards are
+    counted."""
+    cfg = dataclasses.replace(CFG, **ROUTES[request.param])
+    tcfg = PortConfig(**{f.name: getattr(cfg, f.name)
+                         for f in dataclasses.fields(PortConfig)})
+    assert (tcfg.pallas_stash, tcfg.pertube_cord) == (cfg.pallas_stash,
+                                                      cfg.pertube_cord)
+    scene = jax_scene(n_train=4, n_test=1, img_wh=(24, 18),
+                      appearance_wh=cfg.appearance_wh)
+    pipe = JaxPipeline(scene, batch_size=B)
+    batch = pipe.make_global_batch(0, 0, G)
+    jsys = JaxSystem(cfg)
+    variables = jsys.init(jax.random.PRNGKey(0))
+    tx, sched = jax_make_optimizer(cfg, pipe.iterations)
+    jstate = JaxTrainState.create(
+        variables, tx.init(variables["params"]), n_vocab=cfg.N_vocab,
+        embed_hw=32, embed_c=cfg.nerf_out_dim, rng=jax.random.PRNGKey(1))
+    jstep = jax.jit(jax_make_train_step(jsys, tx, sched, grids_per_step=G,
+                                        grad_accum_chunks=1))
+    draws = replay_draws(jstate.rng, jstate.embedding_valid,
+                         pertube=cfg.pertube_cord)
+    jstate, jm = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()
+                                if k != "image_idx"})
+    tb = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+
+    def port_step(step_draws):
+        system = bridge.load_into(CrNerfSystem(tcfg),
+                                  jax.tree.map(np.asarray, variables))
+        opt, psched = make_optimizer(tcfg, pipe.iterations,
+                                     system.parameters())
+        state = TrainState.create(system, opt, tcfg.N_vocab, 32,
+                                  tcfg.nerf_out_dim)
+        state, pm = make_train_step(system, opt, psched, G, 1)(
+            state, tb, step_draws)
+        grads = bridge.flatten(bridge.flax_from_state_dict(
+            system, grads=True)["params"])
+        return {k: float(v) for k, v in pm.items()}, grads
+
+    calls = {"stash": 0, "recompute": [], "stashes": [], "jitter": []}
+    with pytest.MonkeyPatch.context() as mp:
+        real_bwd = fused_render.fused_render_bwd
+        real_rec = fused_render.fused_render_bwd_recompute
+        real_fwd = fused_render.render_fwd
+
+        def count_bwd(*a, **k):
+            calls["stash"] += 1
+            return real_bwd(*a, **k)
+
+        def count_rec(kw, origins, dirs, z, noise, g_ray, g_w, exact, xyz,
+                      slab_rays):
+            calls["recompute"].append(None if xyz is None
+                                      else tuple(xyz.shape))
+            if xyz is not None:
+                calls["jitter"].append(
+                    xyz - (origins[:, None] + dirs[:, None] * z[..., None]))
+            return real_rec(kw, origins, dirs, z, noise, g_ray, g_w, exact,
+                            xyz, slab_rays)
+
+        def watch_fwd(*a, **k):
+            out = real_fwd(*a, **k)
+            calls["stashes"].append(out[2] is not None)
+            return out
+
+        mp.setattr(fused_render, "fused_render_bwd", count_bwd)
+        mp.setattr(fused_render, "fused_render_bwd_recompute", count_rec)
+        mp.setattr(fused_render, "render_fwd", watch_fwd)
+        pm, pg = port_step(draws)
+    out = dict(name=request.param, cfg=cfg, calls=calls, port_metrics=pm,
+               port_grads=pg,
+               jax_metrics={k: float(v) for k, v in jm.items()},
+               jax_grads={k: v / 0.1
+                          for k, v in _flat(jstate.opt_state[0].mu).items()})
+    return out
+
+
+def test_route_metrics_match(route):
+    """Every metric of the step on the no-stash routes, bounds as
+    test_metrics_match's first step: 1e-4 relative, PSNR 1e-3 dB."""
+    jm, pm = route["jax_metrics"], route["port_metrics"]
+    assert set(jm) == set(pm)
+    for k in jm:
+        tol = dict(rtol=1e-4, atol=1e-3) if k == "psnr" else dict(
+            rtol=1e-4, atol=1e-7)
+        np.testing.assert_allclose(pm[k], jm[k], err_msg=k, **tol)
+
+
+def test_route_per_leaf_gradients_match(route):
+    """Per leaf 2e-3 of the leaf's largest gradient plus 1e-7, CGNet's
+    leaves 5e-2, as test_per_leaf_gradients_match (whose docstring says
+    where CGNet's slack comes from)."""
+    jg, pg = route["jax_grads"], route["port_grads"]
+    assert set(jg) == set(pg)
+    for k in jg:
+        scale = np.abs(jg[k]).max()
+        rel = 5e-2 if k.startswith("implicit_mask.") else 2e-3
+        np.testing.assert_allclose(pg[k], jg[k], atol=rel * scale + 1e-7,
+                                   err_msg=k)
+    nerf = [k for k in jg if k.startswith(("nerf_coarse.", "nerf_fine."))]
+    assert len(nerf) >= 40
+    assert all(float(np.abs(jg[k]).max()) > 0 for k in nerf)
+
+
+def test_route_goes_through_the_recompute_backward(route):
+    """Neither pass keeps a stash and both backwards recompute: rays-in
+    with pallas_stash off, xyz-in (N, S, 3) with the jitter."""
+    calls, cfg = route["calls"], route["cfg"]
+    assert calls["stash"] == 0
+    assert calls["stashes"] == [False, False]
+    s, i = cfg.N_samples, cfg.N_importance
+    if cfg.pertube_cord:
+        assert sorted(calls["recompute"]) == [(G * B, s, 3),
+                                              (G * B, s + i, 3)]
+    else:
+        assert calls["recompute"] == [None, None]
+
+
+def test_the_jitter_reaches_the_kernels(route):
+    """The points the backward is handed are o + d*z moved by the injected
+    1e-5 * U[0, 1): every displacement within [0, 1e-5] up to an ulp of a
+    coordinate of size ~4 (5e-7), their mean 0.5e-5 within 5 %. (At this
+    size and with fresh weights the step's loss does not resolve the
+    jitter in float32, so the loss cannot show it.) The other route hands
+    no points at all."""
+    jitter = route["calls"]["jitter"]
+    if not route["cfg"].pertube_cord:
+        assert jitter == []
+        return
+    assert len(jitter) == 2
+    for d in jitter:
+        assert float(d.min()) >= -5e-7 and float(d.max()) <= 1e-5 + 5e-7
+        assert abs(float(d.mean()) - 0.5e-5) <= 0.05 * 0.5e-5
 
