@@ -32,6 +32,15 @@ Phases, each fatal on failure:
   4c. the compositing kernel against its plain version at 8192 x 512 x 64
      and a ragged shape, on the fused forward's own sigma and features
      against the fused forward's outputs, and once as its users call it
+  4d. the per-point fused MLP pair at full width: the forward against its
+     plain version on 1024 x 128 points, bf16 with the recurrence and fp32
+     exact, one direction per ray and one per point, a ragged shape, then
+     at the launches of its paths (16,384 x 64 and x 128, 8192 x 256 and x
+     512, bf16), and through composite against the fused render's xyz-in
+     ray block at fp32; the backward against its plain version on one
+     shared forward (tight bound) and from the inputs (loose bound), twice
+     for the same bits, at its own slab size against one slab, and its
+     scratch at two batch sizes
   5. serve at full size: RenderService with seeded random weights
      round-tripped through a weights.npz and the weight bridge, ping,
      2 inline 320x240 renders at 256+256 samples, stats; the launch
@@ -48,6 +57,13 @@ Phases, each fatal on failure:
      alive after a forward, peak memory beside the stash route's, a small
      fp32 step of each on the card against the CPU, and pallas_stash=False
      against the stash route on the same batch and draws
+  8. the per-point route, pallas_render=False, through the same entry
+     points: 2 served frames (two fused-MLP launches per tile, none of the
+     fused render's) against the full route's frame, a small frame card
+     against CPU; the flagship training step (one fused-MLP forward and
+     one backward launch per pass, none of the fused render's), a small
+     fp32 step card against CPU, its NeRF gradients against the stash
+     route's; and one timed reading of the module route, pallas_train=False
 Prints a {"kernels": [...]} line, the card line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
 phase fails or no CUDA device is present.
@@ -75,7 +91,7 @@ FRAME_WH = (320, 240)
 N_RENDERS = 2
 SEED = 0
 TRAIN_GRIDS = 16
-TRAIN_WARMUP, TRAIN_STEPS, TRAIN_STAGED = 2, 6, 2
+TRAIN_WARMUP, TRAIN_STEPS, TRAIN_STAGED = 2, 4, 2
 # published peaks of one H100 SXM (NVIDIA's data sheet), for the bounds
 PEAK_BF16_FLOPS = 989e12
 PEAK_FP32_FLOPS = 67e12
@@ -131,6 +147,22 @@ def time_ms(fn, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+def zero_counts():
+    """Every kernel's launch count to 0."""
+    from crnerf_tpu_torch.ops import fused_mlp, fused_render
+
+    for counts in (fused_render.LAUNCH_COUNTS, fused_mlp.LAUNCH_COUNTS):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_counts():
+    """The launch counts of the fused render and fused MLP kernels."""
+    from crnerf_tpu_torch.ops import fused_mlp, fused_render
+
+    return {**fused_render.LAUNCH_COUNTS, **fused_mlp.LAUNCH_COUNTS}
+
+
 def full_width_params(seed: int, device):
     """Seeded 8x256, C=64 NerfMLP weights (PyTorch's default init) in the
     kernel's (in, out) layout."""
@@ -148,7 +180,12 @@ def phase_build():
     """One nvcc per source, all started together."""
     import threading
 
-    from crnerf_tpu_torch.ops import _build, composite, fused_render
+    from crnerf_tpu_torch.ops import (
+        _build,
+        composite,
+        fused_mlp,
+        fused_render,
+    )
 
     t0 = time.perf_counter()
     errors = []
@@ -162,7 +199,9 @@ def phase_build():
     loaders = {"fused_render_fwd.cu": fused_render._lib,
                "fused_render_bwd.cu": fused_render._lib_bwd,
                "fused_render_bwd_recompute.cu": fused_render._lib_recompute,
-               "composite.cu": composite._lib}
+               "composite.cu": composite._lib,
+               "fused_mlp_fwd.cu": fused_mlp._lib_fwd,
+               "fused_mlp_bwd.cu": fused_mlp._lib_bwd}
     threads = [threading.Thread(target=build, args=(f,))
                for f in loaders.values()]
     for t in threads:
@@ -316,13 +355,14 @@ def phase_kernel(device, seed: int):
     return records
 
 
-def serve_config(compute_dtype: str = "bfloat16"):
+def serve_config(compute_dtype: str = "bfloat16", **kw):
     """The eval leg of bench.py: 256+256 samples, 8x256 MLPs, C=64,
-    appearance encoder + StyleNet + CGNet mask on a 224x160 style image."""
+    appearance encoder + StyleNet + CGNet mask on a 224x160 style image.
+    ``kw``: the fields that select another route."""
     from crnerf_tpu_torch import Config
 
     return Config(N_samples=256, N_importance=256, appearance_wh=(224, 160),
-                  compute_dtype=compute_dtype)
+                  compute_dtype=compute_dtype, **kw)
 
 
 def seeded_weights_npz(cfg, seed: int, path: str):
@@ -389,9 +429,23 @@ REF_DTYPES = ("float32", "bfloat16")
 REF_TOL = (1e-4, 1e-5)
 
 
-def phase_serve(device, seed: int, workdir: str, profile_dir=None):
-    """RenderService at full size through the kernel; returns (launches,
-    p50 ms)."""
+# The per-point route's frame against the full route's, same weights, style
+# and camera, bf16: (rgb max, rgb mean, depth max). The two differ in the
+# sigma head's policy (fp32 on unrounded weights against bf16) and in where
+# the compositing sums run: the size of what bf16 against fp32 changes in a
+# frame (the reference check prints it), so the rgb mean bound is that
+# check's, the rgb max bound one bf16 step of a value near 1, and the depth
+# bound the forward kernel's own at bf16 (depth is fp32 and not quantised
+# by the decoder, so it is the number that can show a difference).
+ROUTE_FRAME_TOL = (4e-3, 1e-4, 5e-3)
+
+
+def phase_serve(device, seed: int, workdir: str, profile_dir=None,
+                full_frame=None, **route):
+    """RenderService at full size through the kernels of the route that
+    ``route`` (Config fields) selects; returns (launches of its forward
+    kernel, p50 ms, the frame's float outputs). ``full_frame``: the full
+    route's frame, which a per-point route's must match."""
     import numpy as np
     import torch
 
@@ -400,9 +454,9 @@ def phase_serve(device, seed: int, workdir: str, profile_dir=None):
         load_system,
         warmup,
     )
-    from crnerf_tpu_torch.ops import fused_render
-
-    cfg = serve_config()
+    cfg = serve_config(**route)
+    key = "fused_render_fwd" if cfg.pallas_render else "fused_mlp_fwd"
+    tag = "serve" if cfg.pallas_render else "serve pallas_render=False"
     path = os.path.join(workdir, "weights.npz")
     want = seeded_weights_npz(cfg, seed, path)
     system = load_system(cfg, path, device)
@@ -420,30 +474,33 @@ def phase_serve(device, seed: int, workdir: str, profile_dir=None):
            "near": NEAR, "far": FAR, "style_id": "smoke", "inline": True}
     warmup(svc, f"{w}x{h}")    # first launches: weight layout, allocator
 
-    for k in fused_render.LAUNCH_COUNTS:
-        fused_render.LAUNCH_COUNTS[k] = 0
+    zero_counts()
     ping = svc.handle({"op": "ping"})
     replies = [svc.handle(req) for _ in range(N_RENDERS)]
     stats = svc.handle({"op": "stats"})
-    launches = dict(fused_render.LAUNCH_COUNTS)
+    launches = read_counts()
 
     if not (ping["ok"] and ping["device"] == str(device)):
         raise PhaseError(f"ping: {ping}")
-    print(f"[serve] ping {ping}")
+    print(f"[{tag}] ping {ping}")
     for i, r in enumerate(replies):
         if not r.get("ok"):
             raise PhaseError(f"render {i}: {r}")
         img = decode_png_rgb8(base64.b64decode(r["png_b64"]))
         if img.shape != (h, w, 3) or img.dtype != np.uint8:
             raise PhaseError(f"render {i}: image {img.shape} {img.dtype}")
-        print(f"[serve] render {i}: {r['ms']:.1f} ms, {img.shape} u8, "
+        print(f"[{tag}] render {i}: {r['ms']:.1f} ms, {img.shape} u8, "
               f"mean {img.mean():.2f}, min {img.min()}, max {img.max()}")
     if not stats["ok"] or stats["renders"] != N_RENDERS:
         raise PhaseError(f"stats: {stats}")
-    print(f"[serve] stats {stats}")
-    if launches["fused_render_fwd"] <= 0:
-        raise PhaseError("the serve path never launched fused_render_fwd")
-    print(f"[serve] launches {launches}")
+    print(f"[{tag}] stats {stats}")
+    # a coarse and a fine launch per tile of Config.chunk rays, nothing else
+    tiles = -(-w * h // cfg.chunk)
+    want = {k: (2 * tiles * N_RENDERS if k == key else 0) for k in launches}
+    if launches != want:
+        raise PhaseError(f"{tag}: launch counters {launches}, expected "
+                         f"{want}")
+    print(f"[{tag}] launches {launches} ({tiles} tiles a frame)")
 
     # full outputs (the CGNet mask included) are finite and in range
     full = svc.renderer.fetch(svc.renderer.render_frame_cam_async(
@@ -455,13 +512,23 @@ def phase_serve(device, seed: int, workdir: str, profile_dir=None):
     if not (0 <= full["rgb"].min() and full["rgb"].max() <= 1
             and 0 <= full["mask"].min() and full["mask"].max() <= 1):
         raise PhaseError("full render: rgb or mask outside [0, 1]")
-    print(f"[serve] full outputs finite: rgb {full['rgb'].shape}, depth "
+    print(f"[{tag}] full outputs finite: rgb {full['rgb'].shape}, depth "
           f"[{full['depth'].min():.3f}, {full['depth'].max():.3f}], "
           f"mask [{full['mask'].min():.3f}, {full['mask'].max():.3f}]")
-    reference_check(seed, path, device, style)
+    if full_frame is not None:
+        err = np.abs(full["rgb"] - full_frame["rgb"])
+        derr = np.abs(full["depth"] - full_frame["depth"]).max()
+        print(f"[{tag}] against the full route's frame: rgb max "
+              f"{err.max():.3e} mean {err.mean():.3e}, depth max {derr:.3e} "
+              f"(bounds {ROUTE_FRAME_TOL})")
+        if (err.max() > ROUTE_FRAME_TOL[0] or err.mean() > ROUTE_FRAME_TOL[1]
+                or derr > ROUTE_FRAME_TOL[2]):
+            raise PhaseError(f"{tag}: the frame differs from the full "
+                             "route's")
+    reference_check(seed, path, device, style, tag, **route)
     if profile_dir:
         profile_frame(svc, req, profile_dir)
-    return launches["fused_render_fwd"], stats["p50_ms"]
+    return launches[key], stats["p50_ms"], full
 
 
 def _fov_k(w, h):
@@ -470,9 +537,11 @@ def _fov_k(w, h):
     return fov_intrinsics((w, h))
 
 
-def reference_check(seed: int, path: str, device, style):
+def reference_check(seed: int, path: str, device, style, tag="serve",
+                    **route):
     """A small frame rendered on the card (kernel) against the same
-    weights on the CPU (plain versions), at fp32 and at the served bf16."""
+    weights on the CPU (plain versions), at fp32 and at the served bf16,
+    on the route that ``route`` selects."""
     import numpy as np
     import torch
 
@@ -482,7 +551,7 @@ def reference_check(seed: int, path: str, device, style):
     h, w = REF_HW
     out = {}
     for dt_name in REF_DTYPES:
-        cfg = serve_config(dt_name)
+        cfg = serve_config(dt_name, **route)
         precision = (full_fp32 if dt_name == "float32"
                      else contextlib.nullcontext)
         for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
@@ -497,14 +566,14 @@ def reference_check(seed: int, path: str, device, style):
         err = np.abs(out[dt_name, "card"]["rgb"] - out[dt_name, "cpu"]["rgb"])
         derr = np.abs(out[dt_name, "card"]["depth"]
                       - out[dt_name, "cpu"]["depth"])
-        print(f"[serve] card vs cpu {dt_name} {w}x{h}: rgb max "
+        print(f"[{tag}] card vs cpu {dt_name} {w}x{h}: rgb max "
               f"{err.max():.3e} mean {err.mean():.3e} (tol {tol_max}, "
               f"{tol_mean}); depth max {derr.max():.3e}")
         if err.max() > tol_max or err.mean() > tol_mean:
             failed.append(dt_name)
     cross = np.abs(out["bfloat16", "card"]["rgb"]
                    - out["float32", "cpu"]["rgb"])
-    print(f"[serve] card bf16 vs cpu fp32 (what a path computed at fp32 "
+    print(f"[{tag}] card bf16 vs cpu fp32 (what a path computed at fp32 "
           f"would differ by): rgb max {cross.max():.3e} mean "
           f"{cross.mean():.3e}")
     if failed:
@@ -637,7 +706,10 @@ def profile_step(state, step, batch, out_dir, step_ms: float):
     kinds = (("K1 render_fwd_kernel (every form)", ("render_fwd_kernel",)),
              ("K2 chain render_bwd_chain_kernel",
               ("render_bwd_chain_kernel",)),
-             ("K2 wgrad_bf16_kernel + reduce_partials",
+             ("K4 mlp_fwd_kernel (forward and the backward's recompute)",
+              ("mlp_fwd_kernel",)),
+             ("K4 chain mlp_bwd_chain_kernel", ("mlp_bwd_chain_kernel",)),
+             ("wgrad_bf16_kernel + reduce_partials",
               ("wgrad_bf16_kernel", "wgrad_f32_kernel",
                "reduce_partials_kernel")),
              ("convolutions (cuDNN)", ("conv", "cudnn", "wgrad", "dgrad",
@@ -705,6 +777,8 @@ ROUTES = {
     "pertube_cord=True": (dict(pertube_cord=True),
                           ("fused_render_fwd_xyz",
                            "fused_render_bwd_recompute_xyz")),
+    "pallas_render=False": (dict(pallas_render=False),
+                            ("fused_mlp_fwd", "fused_mlp_bwd")),
 }
 
 
@@ -766,7 +840,8 @@ def small_step_check(device, seed: int, route: str = "stash"):
 
 def stashes_alive_after_forward(state, batch):
     """One forward of the step's system under autograd -> for each fused
-    render pass on the graph, whether a stash lives on it."""
+    render or fused MLP pass on the graph, whether a stash lives on it (a
+    fused MLP pass saves its points and directions, nothing else)."""
     import torch
 
     state.system.train()
@@ -782,6 +857,9 @@ def stashes_alive_after_forward(state, batch):
         if type(node).__name__ == "FusedRenderTrainBackward":
             found.append(node.stash is not None)
             continue
+        if type(node).__name__ == "FusedMlpTrainBackward":
+            found.append(any(t.shape[-1] != 3 for t in node.saved_tensors))
+            continue
         todo.extend(fn for fn, _ in node.next_functions)
     return found
 
@@ -794,8 +872,6 @@ def phase_train(device, seed: int, profile_dir=None, route: str = "stash"):
 
     import torch
 
-    from crnerf_tpu_torch.ops import fused_render
-
     cfg = train_config(**ROUTES[route][0])
     chunks = cfg.resolved_chunks()
     state, step, staged = make_trainer(cfg, device, seed, (112, 84), chunks)
@@ -806,11 +882,10 @@ def phase_train(device, seed: int, profile_dir=None, route: str = "stash"):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _, warm_losses, _ = timed_steps(state, step, staged, TRAIN_WARMUP)
-    for k in fused_render.LAUNCH_COUNTS:
-        fused_render.LAUNCH_COUNTS[k] = 0
+    zero_counts()
     times, losses, m = timed_steps(state, step, staged, TRAIN_STEPS,
                                    first=TRAIN_WARMUP)
-    launches = dict(fused_render.LAUNCH_COUNTS)
+    launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
 
     all_losses = warm_losses + losses
@@ -824,7 +899,7 @@ def phase_train(device, seed: int, profile_dir=None, route: str = "stash"):
             raise PhaseError(f"gradient of {name} missing or not finite")
     per_step = 2 * chunks     # coarse + fine pass of every chunk
     want = {k: (per_step * TRAIN_STEPS if k in ROUTES[route][1] else 0)
-            for k in fused_render.LAUNCH_COUNTS}
+            for k in launches}
     if launches != want:
         raise PhaseError(f"{route}: launch counters {launches}, expected "
                          f"{want}")
@@ -1253,6 +1328,322 @@ def phase_recompute(device, seed: int):
     return records
 
 
+# ---------------------------------------------------- the per-point MLP pair
+def mlp_inputs(n: int, s: int, dir_rep: int, gen, device):
+    """Seeded sample points (n*s, 3) along n rays and the directions: one
+    per ray (``dir_rep`` = s) or one per point (1)."""
+    o, d, z, _ = ray_inputs(n, s, gen, device)
+    xyz = (o[:, None, :] + d[:, None, :] * z[..., None]).reshape(-1, 3)
+    if dir_rep == 1:
+        d = d.repeat_interleave(s, 0)
+    return xyz.contiguous(), d.contiguous()
+
+
+def point_slices(m: int, dir_rep: int):
+    """Slices of at most N_RAYS * 128 points that end on a direction's
+    boundary -> (points, directions) slice pairs."""
+    per = max(1, N_RAYS * 128 // dir_rep) * dir_rep
+    return [(slice(i, min(i + per, m)),
+             slice(i // dir_rep, -(-min(i + per, m) // dir_rep)))
+            for i in range(0, m, per)]
+
+
+def mlp_fwd_bound(params, m: int, n_dirs: int, c: int, bf16: bool):
+    """The forward as a function: a coordinate per point and the
+    directions in, features and sigma per point out, all f32."""
+    return bound(m * mlp_work(params)[0],
+                 (3 * m + 3 * n_dirs + m * (c + 1)) * 4, bf16)
+
+
+def mlp_forward_case(device, params, gen, n: int, s: int, dt, exact: bool,
+                     dir_rep: int):
+    """The fused-MLP forward kernel on n*s points against mlp_fwd_plain on
+    the same inputs (slice by slice) -> record."""
+    import torch
+
+    from crnerf_tpu_torch.ops import fused_mlp as fm
+
+    c = 64
+    xyz, d = mlp_inputs(n, s, dir_rep, gen, device)
+    m = xyz.shape[0]
+    mkw = fm.prepare_mlp_weights(params, 15, 4, dt)
+    slices = point_slices(m, dir_rep)
+
+    def plain():
+        for pts, dirs in slices:
+            yield pts, fm.mlp_fwd_plain(mkw, xyz[pts], d[dirs], exact,
+                                        dir_rep)
+
+    def kernel():
+        return fm.fused_mlp_apply(mkw, xyz, d, exact, dir_rep)
+
+    err_f = err_s = 0.0
+    with full_fp32():
+        feat, sigma = kernel()
+        scale = max(1.0, sigma.max().item())
+        for pts, (f_p, s_p) in plain():
+            err_f = max(err_f, (feat[pts] - f_p).abs().max().item())
+            err_s = max(err_s, (sigma[pts] - s_p).abs().max().item() / scale)
+    tol = fm.KERNEL_TOL[dt]
+    passed = (bool(torch.isfinite(feat).all() and torch.isfinite(sigma).all())
+              and bool((sigma >= 0).all()) and err_f <= tol[0]
+              and err_s <= tol[1])
+    ms = time_ms(kernel)
+    plain_ms = time_ms(lambda: drain(plain()), reps=3 if n == N_RAYS else 1)
+    b_ms, b_by = mlp_fwd_bound(params, m, d.shape[0], c,
+                               dt == torch.bfloat16)
+    dt_name = str(dt)[6:]
+    print(f"[mlp-kernel] forward {n} x {s} = {m} points, dir_rep {dir_rep} "
+          f"{dt_name:8s} exact={exact!s:5s} max|dfeat|={err_f:.3e} "
+          f"max|dsigma|={err_s:.3e} (of max(1, {scale:.2f})) tol={tol} "
+          f"kernel {ms:.3f} ms ({m * mlp_work(params)[0] / ms / 1e9:.0f} "
+          f"TFLOP/s, {m * (c + 1) * 4 / ms / 1e6:.1f} GB/s of stores) plain "
+          f"{plain_ms:.3f} ms bound {b_ms:.3f} ms ({b_by}) "
+          f"{'ok' if passed else 'FAIL'}")
+    return dict(N=n, S=s, dtype=dt_name, dir_rep=dir_rep,
+                err=max(err_f, err_s * scale), ms=ms, plain_ms=plain_ms,
+                bound=(b_ms, b_by), ok=passed)
+
+
+def mlp_composite_check(device, params, gen):
+    """The fused MLP's features and sigma through composite against the
+    fused render's xyz-in ray block on the same points, z and noise, at
+    fp32, where the two kernels' sigma policies coincide."""
+    import torch
+
+    from crnerf_tpu_torch.core.compositing import composite
+    from crnerf_tpu_torch.ops import fused_mlp as fm
+    from crnerf_tpu_torch.ops import fused_render as fr
+
+    n, s, dt = N_RAYS, 128, torch.float32
+    o, d, z, noise = ray_inputs(n, s, gen, device)
+    xyz = jittered_points(o, d, z, gen)
+    mkw = fm.prepare_mlp_weights(params, 15, 4, dt)
+    with full_fp32():
+        feat, sigma = fm.fused_mlp_apply(mkw, xyz.reshape(-1, 3), d, True, s)
+        w4, f4, d4 = composite(feat.reshape(n, s, -1), sigma.reshape(n, s), z,
+                               noise)
+        blk, w1 = fr.fused_render_apply(mkw.kw, None, d, z, noise, True,
+                                        xyz=xyz)
+    err = ((w4 - w1).abs().max().item(),
+           (f4 - blk[:, :64]).abs().max().item(),
+           (d4 - blk[:, 64]).abs().max().item())
+    tol = fr.KERNEL_TOL[dt]
+    ok = all(e <= t for e, t in zip(err, tol))
+    print(f"[mlp-kernel] fused MLP + composite against the fused render's "
+          f"xyz-in ray block ({n} x {s}, float32): max|dw|={err[0]:.3e} "
+          f"max|dfmap|={err[1]:.3e} max|ddepth|={err[2]:.3e} tol={tol} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise PhaseError("the fused MLP + composite disagrees with the "
+                         "fused render kernel")
+
+
+# The backward at its own slab size against the same kernel with every
+# point in one slab, per gradient tensor over its largest value: the dz rows
+# are the same bits, the fp32 sums over the points are grouped by slab.
+MLP_SLABS_VS_ONE = {"float32": 1e-5, "bfloat16": 5e-4}
+
+
+def mlp_backward_case(device, params, gen, n: int, s: int, dt, exact: bool):
+    """The fused-MLP backward kernel on n rays x s samples (one direction
+    per ray) and random non-zero per-point cotangents: against the plain
+    chain and weight gradient on its own recomputed stash (one shared
+    forward: GRAD_TOL), against the plain backward from the inputs
+    (GRAD_TOL_FROM_INPUTS; the plain versions run over slices, gradients
+    summed in fp64), twice for the same bits, and at its own slab size
+    against one slab. -> record."""
+    import torch
+
+    from crnerf_tpu_torch.ops import fused_mlp as fm
+    from crnerf_tpu_torch.ops import fused_render as fr
+
+    c = 64
+    dt_name = str(dt)[6:]
+    mkw = fm.prepare_mlp_weights(params, 15, 4, dt)
+    lay = fm.mlp_grad_layout(mkw.kw.dims)
+    xyz, d = mlp_inputs(n, s, s, gen, device)
+    m = xyz.shape[0]
+    g_feat = torch.randn(m, c, generator=gen, device=device) * 0.1
+    g_sig = torch.randn(m, generator=gen, device=device) * 0.1
+    slices = point_slices(m, s)
+
+    def kernel(slab_points=None):
+        return fm.mlp_bwd(mkw, xyz, d, g_feat, g_sig, exact, s, slab_points)
+
+    def zeros():
+        return (torch.zeros(lay.wt, dtype=torch.float64, device=device),
+                torch.zeros(lay.bt, dtype=torch.float64, device=device))
+
+    def plain():
+        gw, gb = zeros()
+        for pts, dirs in slices:
+            gw_s, gb_s, _ = fm.mlp_bwd_slabs_plain(
+                mkw, xyz[pts], d[dirs], g_feat[pts], g_sig[pts], exact, s,
+                slab_points=pts.stop - pts.start)
+            gw += gw_s
+            gb += gb_s
+        return gw, gb
+
+    def plain_on(st):       # the plain backward on a given stash
+        gw, gb = zeros()
+        for pts, _ in slices:
+            dz_p, gb_s = fm.mlp_chain_plain(mkw, st[pts], g_feat[pts],
+                                            g_sig[pts])
+            gw += fr.bwd_wgrad_plain(mkw.kw, st[pts], dz_p, lay)
+            gb += gb_s
+        return gw, gb
+
+    before = fm.LAUNCH_COUNTS["fused_mlp_bwd"]
+    slab = fm.slab_points_for(mkw, m, device)
+    with full_fp32():
+        gw_k, gb_k, _ = kernel()
+        gw_2, gb_2, _ = kernel()
+        repeat_bits = torch.equal(gw_k, gw_2) and torch.equal(gb_k, gb_2)
+        del gw_2, gb_2
+        gw_1, gb_1, (st, _) = kernel(slab_points=m)   # every point's stash
+        gw_o, gb_o = plain_on(st)
+        del st
+        gw_p, gb_p = plain()
+        torch.cuda.synchronize()
+    counted = fm.LAUNCH_COUNTS["fused_mlp_bwd"] == before + 3
+
+    def grads(gw, gb):
+        return fr.flatten_params(fm.unpack_mlp_grads(mkw, gw, gb))
+
+    got, one, want, on_stash = (grads(gw_k, gb_k), grads(gw_1, gb_1),
+                                grads(gw_p, gb_p), grads(gw_o, gb_o))
+    scale = [a.abs().max().clamp_min(1e-30) for a in want]
+
+    def worst(a_list, b_list):
+        return max(((a - b).abs().max() / sc).item()
+                   for a, b, sc in zip(a_list, b_list, scale))
+
+    rel, rel_stash, vs_one = (worst(want, got), worst(on_stash, one),
+                              worst(one, got))
+    abs_err = max((gw_k - gw_p).abs().max().item(),
+                  (gb_k - gb_p).abs().max().item())
+    largest = max(gw_p.abs().max().item(), gb_p.abs().max().item())
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    passed = (repeat_bits and finite and counted
+              and rel <= fm.GRAD_TOL_FROM_INPUTS[dt]
+              and rel_stash <= fm.GRAD_TOL[dt]
+              and vs_one <= MLP_SLABS_VS_ONE[dt_name])
+    ms = time_ms(kernel)
+    plain_ms = time_ms(plain, reps=3 if n == N_RAYS else 1)
+    n_params = sum(t.numel() for t in fr.flatten_params(params))
+    work = m * sum(mlp_work(params))
+    # the points, the directions and the per-point cotangents in, the
+    # gradients out; the forward again, the chain and the weight gradient
+    b_ms, b_by = bound(work, (3 * m + 3 * n + m * (c + 1) + n_params) * 4,
+                       dt == torch.bfloat16)
+    print(f"[mlp-kernel] backward {n} x {s} = {m} points {dt_name:8s} slabs "
+          f"of {slab} points: grads max rel {rel_stash:.3e} against the "
+          f"plain backward on the kernel's own stash (tol "
+          f"{fm.GRAD_TOL[dt]}), {rel:.3e} against the plain version from "
+          f"the inputs (tol {fm.GRAD_TOL_FROM_INPUTS[dt]}; max abs "
+          f"{abs_err:.3e}, the largest gradient {largest:.3e}), {vs_one:.3e} "
+          f"against one slab (bound {MLP_SLABS_VS_ONE[dt_name]}), repeat "
+          f"bits equal {repeat_bits}; kernel {ms:.3f} ms "
+          f"({work / ms / 1e9:.0f} TFLOP/s) plain {plain_ms:.3f} ms bound "
+          f"{b_ms:.3f} ms ({b_by}) {'ok' if passed else 'FAIL'}")
+    return dict(N=n, S=s, dtype=dt_name, ok=passed, err_grad=rel,
+                err_on_stash=rel_stash, vs_one=vs_one, err=abs_err, ms=ms,
+                plain_ms=plain_ms, bound=(b_ms, b_by), slab=slab)
+
+
+def mlp_scratch_check(device, params, gen):
+    """The backward's device memory above its inputs at two batch sizes
+    (8192 and 16,384 rays x 128, bf16): the same slab, so the same peak."""
+    import torch
+
+    from crnerf_tpu_torch.ops import fused_mlp as fm
+
+    mkw = fm.prepare_mlp_weights(params, 15, 4, torch.bfloat16)
+    s, peaks = 128, {}
+    for n in (8192, 16384):
+        xyz, d = mlp_inputs(n, s, s, gen, device)
+        g_feat = torch.randn(n * s, 64, generator=gen, device=device) * 0.1
+        g_sig = torch.randn(n * s, generator=gen, device=device) * 0.1
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fm.mlp_bwd(mkw, xyz, d, g_feat, g_sig, False, s)
+        torch.cuda.synchronize()
+        peaks[n] = (torch.cuda.max_memory_allocated() - base,
+                    fm.slab_points_for(mkw, n * s, device))
+        del out
+    (p8, r8), (p16, r16) = peaks[8192], peaks[16384]
+    mib = 2 ** 20
+    print(f"[mlp-kernel] backward scratch above the inputs: {p8 / mib:.1f} "
+          f"MiB at 8192 rays, {p16 / mib:.1f} MiB at 16,384 rays (slabs of "
+          f"{r8} and {r16} points, budget {fm.BWD_SCRATCH_BYTES / mib:.0f} "
+          f"MiB for the slab's stash and dz)")
+    if r8 != r16 or abs(p16 - p8) > 16 * mib or p16 > (
+            fm.BWD_SCRATCH_BYTES + 256 * mib):
+        raise PhaseError("the fused MLP backward's scratch grows with N")
+
+
+def phase_mlp_kernels(device, seed: int):
+    """The fused-MLP pair against its plain versions. Returns (forward
+    records, backward records)."""
+    import torch
+
+    params = full_width_params(seed, device)
+    gen = torch.Generator(device=device).manual_seed(seed + 6)
+    both = ((torch.bfloat16, False), (torch.float32, True))
+    fwd_cases = [(N_RAYS, 128, dt, exact, rep)
+                 for dt, exact in both for rep in (128, 1)]
+    fwd_cases += [(999, 77, torch.bfloat16, False, 77)]      # ragged
+    fwd_cases += [(TRAIN_GRIDS * 1024, s, torch.bfloat16, False, s)
+                  for s in (64, 128)]
+    fwd_cases += [(SERVE_TILE, s, torch.bfloat16, False, s)
+                  for s in (256, 512)]
+    fwd = [mlp_forward_case(device, params, gen, *case)
+           for case in fwd_cases]
+    if not all(r["ok"] for r in fwd):
+        raise PhaseError("the fused MLP forward disagrees with its plain "
+                         "version")
+    mlp_composite_check(device, params, gen)
+    bwd_cases = [(N_RAYS, s, dt, exact) for s in (64, 128)
+                 for dt, exact in both]
+    bwd_cases += [(TRAIN_GRIDS * 1024, s, torch.bfloat16, False)
+                  for s in (64, 128)]
+    bwd = [mlp_backward_case(device, params, gen, *case)
+           for case in bwd_cases]
+    if not all(r["ok"] for r in bwd):
+        raise PhaseError("the fused MLP backward disagrees with its plain "
+                         "version")
+    mlp_scratch_check(device, params, gen)
+    return fwd, bwd
+
+
+def module_route_reading(device, seed: int):
+    """One timed reading of the module route (pallas_train=False: the
+    NerfMLP module under autograd with remat) at the flagship step: no
+    kernel of the port launches. -> (median ms, peak GiB)."""
+    import statistics
+
+    import torch
+
+    cfg = train_config(pallas_train=False)
+    state, step, staged = make_trainer(cfg, device, seed, (112, 84),
+                                       cfg.resolved_chunks())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    _, warm, _ = timed_steps(state, step, staged, 1)
+    times, losses, _ = timed_steps(state, step, staged, 2, first=1)
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    if any(launches.values()):
+        raise PhaseError(f"pallas_train=False launched kernels: {launches}")
+    if not all(x == x and abs(x) != float("inf") for x in warm + losses):
+        raise PhaseError(f"pallas_train=False: non-finite loss "
+                         f"{warm + losses}")
+    return statistics.median(times), peak_gb
+
+
 COMPOSITE_SHAPES = ((8192, 512, 64), (1000, 200, 48))
 
 
@@ -1414,19 +1805,27 @@ def main(argv=None) -> int:
         train_records = phase_train_kernels(device, SEED)
         recompute_records = phase_recompute(device, SEED)
         composite_records, composite_launches = phase_composite(device, SEED)
+        mlp_fwd_records, mlp_bwd_records = phase_mlp_kernels(device, SEED)
         os.makedirs(BUILD, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=BUILD) as workdir:
-            launches, p50 = phase_serve(device, SEED, workdir,
-                                        args.profile_dir or None)
+            launches, p50, full_frame = phase_serve(
+                device, SEED, workdir, args.profile_dir or None)
         print(f"[serve] p50 {p50} ms per {FRAME_WH[0]}x{FRAME_WH[1]} "
               f"frame at 256+256 samples, bf16 ({card})")
+        with tempfile.TemporaryDirectory(dir=BUILD) as workdir:
+            mlp_serve_launches, mlp_p50, _ = phase_serve(
+                device, SEED, workdir, None, full_frame,
+                pallas_render=False)
+        print(f"[serve] pallas_render=False: p50 {mlp_p50} ms per frame "
+              f"against {p50} on the full route ({card})")
         train_launches, step_ms, peak, grads = phase_train(
             device, SEED, args.profile_dir or None)
         print(f"[train] median {step_ms:.2f} ms per step, "
               f"{TRAIN_GRIDS * 1024 / step_ms * 1e3:.0f} train rays/s "
               f"({card})")
         route_launches = {}
-        for route in ("pallas_stash=False", "pertube_cord=True"):
+        for route in ("pallas_stash=False", "pertube_cord=True",
+                      "pallas_render=False"):
             route_launches[route], r_ms, r_peak, r_grads = phase_train(
                 device, SEED, None, route)
             print(f"[train] route {route}: median {r_ms:.2f} ms per step "
@@ -1438,6 +1837,15 @@ def main(argv=None) -> int:
                                  f"not below the stash route's {peak:.2f}")
             if route == "pallas_stash=False":
                 routes_agree("stash", grads, route, r_grads)
+            if route == "pallas_render=False":
+                # another forward (the dir term's sum, compositing outside)
+                # and autograd's compositing backward: fp32 rounding apart
+                routes_agree("stash", grads, route, r_grads, tol=1e-3)
+        m_ms, m_peak = module_route_reading(device, SEED)
+        print(f"[train] route pallas_train=False (the module under autograd "
+              f"with remat): median {m_ms:.2f} ms per step against "
+              f"{step_ms:.2f} on the stash route, peak memory {m_peak:.2f} "
+              f"GiB ({card})")
     except Exception as e:  # any phase failing fails the run
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
               file=sys.stderr)
@@ -1480,6 +1888,11 @@ def main(argv=None) -> int:
     rec_cu = "crnerf_tpu_torch/csrc/fused_render_bwd_recompute.cu"
     route_a = route_launches["pallas_stash=False"]
     route_b = route_launches["pertube_cord=True"]
+    route_c = route_launches["pallas_render=False"]
+    k4_fwd = next(r for r in mlp_fwd_records
+                  if r["N"] == SERVE_TILE and r["S"] == 512)
+    k4_bwd = next(r for r in mlp_bwd_records
+                  if r["N"] == TRAIN_GRIDS * 1024 and r["S"] == 128)
     print(json.dumps({"kernels": [
         # launched by the serve path and by the pallas_stash=False route
         entry("fused_render_fwd", fwd_cu, k1,
@@ -1509,6 +1922,14 @@ def main(argv=None) -> int:
               "crnerf_tpu/ops/composite.py:34", composite_launches,
               max(r["err"] for r in composite_records),
               composite_records[0]),
+        # launched by the pallas_render=False serve path and training step
+        entry("K4 fwd", "crnerf_tpu_torch/csrc/fused_mlp_fwd.cuh",
+              "crnerf_tpu/ops/fused_mlp.py:431",
+              mlp_serve_launches + route_c["fused_mlp_fwd"],
+              max(r["err"] for r in mlp_fwd_records), k4_fwd),
+        entry("K4 bwd", "crnerf_tpu_torch/csrc/fused_mlp_bwd.cu",
+              "crnerf_tpu/ops/fused_mlp.py:494", route_c["fused_mlp_bwd"],
+              max(r["err"] for r in mlp_bwd_records), k4_bwd),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,13 @@ Training:
            recomputing the forward slab by slab), train/optim.py
            optimizer and schedule, train/state.py TrainState (embedding
            cache, BatchNorm statistics).
+
+Both take another route through the same entry points when the Config says
+so: ``pallas_render=False`` evaluates the MLP per sample point in the fused
+MLP kernels (ops/fused_mlp.py) and composites in plain PyTorch
+(core/compositing.py), under autograd in training; ``use_pallas=False``
+(serving) and ``pallas_train=False`` (training) run the NerfMLP module with
+no hand-written kernel.
 """
 
 from crnerf_tpu_torch.config import Config

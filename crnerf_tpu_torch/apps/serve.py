@@ -321,6 +321,11 @@ def main(argv: Optional[Sequence[str]] = None):
     p.add_argument("--chunk", type=int, default=8192)
     p.add_argument("--compute_dtype", type=str, default="bfloat16",
                    choices=("bfloat16", "float32"))
+    p.add_argument("--use_pallas", type=int, default=1, choices=(0, 1),
+                   help="0: the NerfMLP module per point, not the kernels")
+    p.add_argument("--pallas_render", type=int, default=1, choices=(0, 1),
+                   help="0: the fused MLP kernel per point and compositing "
+                        "in plain PyTorch, not the fused render kernel")
     # architecture knobs must match the checkpoint
     p.add_argument("--netdepth", type=int, default=8)
     p.add_argument("--netwidth", type=int, default=256)
@@ -345,6 +350,8 @@ def main(argv: Optional[Sequence[str]] = None):
         chunk=args.chunk, appearance_wh=tuple(args.appearance_wh),
         netdepth=args.netdepth, netwidth=args.netwidth,
         nerf_out_dim=args.nerf_out_dim, compute_dtype=args.compute_dtype,
+        use_pallas=bool(args.use_pallas),
+        pallas_render=bool(args.pallas_render),
         use_mask=False,  # serve = the decode path
     )
     system = load_system(cfg, args.ckpt_path, device)

@@ -2,11 +2,15 @@
 ``Config`` that the serving path and the training step read, with the same
 names and defaults (``tests/test_torch_imports.py`` holds them equal). The
 port keeps its own copy so that it runs where only ``crnerf_tpu_torch/`` is
-present. The TPU-only knobs (Pallas routing, tile sizes, slab feeding,
-conv schedules) have no counterpart here, with one exception:
-``pallas_stash`` keeps its name because it selects between two backward
-routes that both exist here, the stash backward and the recompute backward,
-which trade device memory for time on this card as they do on the TPU.
+present. The TPU-only knobs (tile sizes, slab feeding, conv schedules, the
+interpreter switch) have no counterpart here. The routing fields keep their
+names because each selects between routes that exist here too:
+``pallas_stash`` between the stash backward and the recompute backward,
+which trade device memory for time on this card as they do on the TPU;
+``use_pallas`` (inference) and ``pallas_train`` (training) between the
+hand-written kernels and the ``NerfMLP`` module under autograd, with
+``remat``; ``pallas_render`` between the fused render kernels and the fused
+MLP kernels followed by compositing in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -76,6 +80,15 @@ class Config:
     # sequential chunks with summed gradients; each chunk's activation stash
     # lives only from its forward to its backward. 0 = AUTO
     # (``resolved_chunks``)
+    use_pallas: bool = True  # inference renders through the hand-written
+    # kernels; False: the NerfMLP module, per point, then compositing
+    pallas_train: bool = True  # the same choice for the training step
+    pallas_render: bool = True  # where the kernels run: compositing inside
+    # the fused render kernel, only per-ray results reach device memory.
+    # False: the fused MLP kernel writes features and sigma per point and
+    # compositing runs in plain PyTorch (under autograd in training)
+    remat: bool = True  # module route, training: recompute the MLP's
+    # activations in the backward (torch.utils.checkpoint), not keep them
     pallas_stash: bool = True  # training: the fused render forward keeps an
     # activation stash (about 5 KB per sample point at 8x256 bf16) for its
     # backward. False: nothing is kept and the backward recomputes the

@@ -77,15 +77,6 @@ struct BArgs {
   int N, S, L, WP, HP, CP, C, DK, ldo, SC, DC;
 };
 
-template <typename T>
-__device__ __forceinline__ float to_f(T v) {
-  if constexpr (std::is_same<T, float>::value) {
-    return v;
-  } else {
-    return __bfloat162float(v);
-  }
-}
-
 // out = epi(A @ W) over the CH-row tile; epi(row, col, v0&, v1&) transforms
 // two adjacent columns and stores them. bf16: the column sums of the
 // transformed values are added to cs[half * cs_ld + col], half = the

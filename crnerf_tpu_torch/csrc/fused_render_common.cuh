@@ -1,7 +1,8 @@
 // Device code shared by the fused render kernels (forward and backward):
 // the chunk geometry, the mma.sync / SIMT matrix products over a 64-row
-// activation tile in shared memory, and the scalar helpers. Included by
-// fused_render_fwd.cu and fused_render_bwd.cu; each of them is built into a
+// activation tile in shared memory, the scalar helpers, and the two stages
+// every forward shares: the positional encode and the trunk. Included by
+// every csrc/*.cu through the kernels' headers; each .cu is built into a
 // library of its own.
 #pragma once
 
@@ -169,6 +170,15 @@ __device__ __forceinline__ T to_t(float v) {
   }
 }
 
+template <typename T>
+__device__ __forceinline__ float to_f(T v) {
+  if constexpr (std::is_same<T, float>::value) {
+    return v;
+  } else {
+    return __bfloat162float(v);
+  }
+}
+
 __device__ __forceinline__ float pow2f(int k) {  // exact 2^k
   return __int_as_float((127 + k) << 23);
 }
@@ -210,6 +220,93 @@ __device__ __forceinline__ void load_rows(T* dst, int ld_dst, const T* src,
       val = __ldg(reinterpret_cast<const uint4*>(src + (size_t)r * ld_src + v));
     *reinterpret_cast<uint4*>(dst + r * ld_dst + v) = val;
   }
+}
+
+// ------------------------------------------------- encode and trunk, shared
+// The positional encode of a CH-row tile, [x, sin 2^0 x, cos 2^0 x, sin 2^1
+// x, ...] interleaved, into enc (CH x lde, KE columns, the ones past 3 + 6F
+// zero). The caller has written the raw coordinates into xyz (CH x 3, fp32,
+// shared memory) and into enc[:, :3]; every thread of the block calls this,
+// and the tile is complete when it returns. sinf/cosf (accurate, never the
+// fast intrinsics) of x * 2^k with exact power-of-two multipliers, or
+// (exact = 0) the anchored double-angle recurrence; rounding-exact
+// intrinsics keep the compiler from fusing the recurrence into FMAs the
+// plain version does not use.
+template <typename T>
+__device__ __forceinline__ void encode_tile(T* enc, int lde, const float* xyz,
+                                            int F, int KE, int exact) {
+  const int tid = threadIdx.x;
+  for (int i = tid; i < CH * (KE - 3 - 6 * F); i += NTHREADS) {
+    const int w = KE - 3 - 6 * F;
+    enc[(i / w) * lde + 3 + 6 * F + i % w] = to_t<T>(0.f);
+  }
+  __syncthreads();
+  if (exact) {
+    for (int i = tid; i < CH * 3 * F; i += NTHREADS) {
+      const int r = i / (3 * F), rem = i % (3 * F), k = rem / 3, c = rem % 3;
+      const float arg = __fmul_rn(xyz[r * 3 + c], pow2f(k));
+      T* e = enc + r * lde + 3 + 6 * k + c;
+      e[0] = to_t<T>(sinf(arg));
+      e[3] = to_t<T>(cosf(arg));
+    }
+  } else {
+    const int n_anchor = (F + ANCHOR_SPAN - 1) / ANCHOR_SPAN;
+    for (int i = tid; i < CH * 3 * n_anchor; i += NTHREADS) {
+      const int r = i / (3 * n_anchor), rem = i % (3 * n_anchor);
+      const int a0 = (rem / 3) * ANCHOR_SPAN, c = rem % 3;
+      const float va = __fmul_rn(xyz[r * 3 + c], pow2f(a0));
+      float s = sinf(va), co = cosf(va);
+      const int k_end = min(a0 + ANCHOR_SPAN, F);
+      for (int k = a0; k < k_end; ++k) {
+        if (k > a0) {
+          const float two_s = __fmul_rn(2.f, s);
+          const float s2 = __fmul_rn(two_s, co);
+          co = __fsub_rn(1.f, __fmul_rn(two_s, s));
+          s = s2;
+        }
+        T* e = enc + r * lde + 3 + 6 * k + c;
+        e[0] = to_t<T>(s);
+        e[3] = to_t<T>(co);
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// The trunk over a CH-row tile: h_i = relu([enc |] h_{i-1} @ W_i + b_i) at
+// the compute dtype, ping-pong between act0 and act1 (CH x lda); layer 0 and
+// the layers of skip_mask take the encode. With STASH every layer's output
+// rows go to srow + i * WP (row stride SC). Returns the last layer's buffer;
+// all threads have passed the barrier after it.
+template <bool BF16, bool STASH, typename T>
+__device__ __forceinline__ const T* trunk_tile(
+    const T* enc, int lde, int KE, T* act0, T* act1, int lda, int WP, int L,
+    int skip_mask, const void* const* wenc, const void* const* wh,
+    const float* const* b, T* srow, int SC, int nrows) {
+  const T* h = nullptr;
+  T* bufs[2] = {act0, act1};
+  for (int i = 0; i < L; ++i) {
+    const bool with_enc = i == 0 || ((skip_mask >> i) & 1);
+    T* out = bufs[i & 1];
+    const float* bias = b[i];
+    auto epi = [&](int r, int c, float v0, float v1) {
+      store2<T>(out + r * lda + c, fmaxf(v0 + bias[c], 0.f),
+                fmaxf(v1 + bias[c + 1], 0.f));
+    };
+    if (i == 0) {
+      gemm<BF16, T>(enc, lde, KE, wenc[0], (const T*)nullptr, 0, 0, nullptr,
+                    WP, epi);
+    } else if (with_enc) {
+      gemm<BF16, T>(enc, lde, KE, wenc[i], h, lda, WP, wh[i], WP, epi);
+    } else {
+      gemm<BF16, T>(h, lda, WP, wh[i], (const T*)nullptr, 0, 0, nullptr, WP,
+                    epi);
+    }
+    __syncthreads();
+    if constexpr (STASH) store_rows<T>(srow + i * WP, SC, out, lda, WP, nrows);
+    h = out;
+  }
+  return h;
 }
 
 }  // namespace

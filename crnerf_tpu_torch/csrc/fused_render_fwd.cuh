@@ -35,10 +35,10 @@
 //   * Dtype policy as the JAX kernel's _mlp_fwd: ReLU outputs, hf and dd
 //     cast to the compute dtype; the sigma head at the compute dtype with
 //     fp32 accumulation; biases, softplus, sigmoid and compositing fp32.
-//   * Encode: sinf/cosf (accurate, never the fast intrinsics) of x * 2^k
-//     with exact power-of-two multipliers, or the anchored double-angle
-//     recurrence; rounding-exact intrinsics keep the compiler from fusing
-//     the recurrence and o + d*z into FMAs the plain version does not use.
+//   * Encode (encode_tile, fused_render_common.cuh): sinf/cosf of x * 2^k
+//     or the anchored double-angle recurrence; rounding-exact intrinsics
+//     keep the compiler from fusing o + d*z into an FMA the plain version
+//     does not use.
 //   * Stash (training): every chunk's encode, trunk ReLU outputs, hf and
 //     dd are copied from shared memory to one row per point of the stash,
 //     [h_0 .. h_{L-1} | hf | dd | encode] at the compute dtype, bit for
@@ -141,71 +141,14 @@ __global__ void __launch_bounds__(NTHREADS, BF16 ? 2 : 1)
       xyz[i] = x;
       enc[r * lde + c] = to_t<T>(x);
     }
-    for (int i = tid; i < CH * (a.KE - 3 - 6 * F); i += NTHREADS) {
-      const int w = a.KE - 3 - 6 * F;
-      enc[(i / w) * lde + 3 + 6 * F + i % w] = to_t<T>(0.f);
-    }
-    __syncthreads();
-    if (a.exact) {
-      for (int i = tid; i < CH * 3 * F; i += NTHREADS) {
-        const int r = i / (3 * F), rem = i % (3 * F), k = rem / 3, c = rem % 3;
-        const float arg = __fmul_rn(xyz[r * 3 + c], pow2f(k));
-        T* e = enc + r * lde + 3 + 6 * k + c;
-        e[0] = to_t<T>(sinf(arg));
-        e[3] = to_t<T>(cosf(arg));
-      }
-    } else {
-      const int n_anchor = (F + ANCHOR_SPAN - 1) / ANCHOR_SPAN;
-      for (int i = tid; i < CH * 3 * n_anchor; i += NTHREADS) {
-        const int r = i / (3 * n_anchor), rem = i % (3 * n_anchor);
-        const int a0 = (rem / 3) * ANCHOR_SPAN, c = rem % 3;
-        const float va = __fmul_rn(xyz[r * 3 + c], pow2f(a0));
-        float s = sinf(va), co = cosf(va);
-        const int k_end = min(a0 + ANCHOR_SPAN, F);
-        for (int k = a0; k < k_end; ++k) {
-          if (k > a0) {
-            const float two_s = __fmul_rn(2.f, s);
-            const float s2 = __fmul_rn(two_s, co);
-            co = __fsub_rn(1.f, __fmul_rn(two_s, s));
-            s = s2;
-          }
-          T* e = enc + r * lde + 3 + 6 * k + c;
-          e[0] = to_t<T>(s);
-          e[3] = to_t<T>(co);
-        }
-      }
-    }
-    __syncthreads();
+    encode_tile<T>(enc, lde, xyz, F, a.KE, a.exact);
     if constexpr (STASH)
       store_rows<T>(srow + (a.L + 1) * a.WP + a.HP, a.SC, enc, lde, a.KE,
                     nrows);
 
-    // trunk
-    const T* h = nullptr;
-    T* bufs[2] = {act0, act1};
-    for (int i = 0; i < a.L; ++i) {
-      const bool with_enc = i == 0 || ((a.skip_mask >> i) & 1);
-      T* out = bufs[i & 1];
-      const float* bias = a.b[i];
-      auto epi = [&](int r, int c, float v0, float v1) {
-        store2<T>(out + r * lda + c, fmaxf(v0 + bias[c], 0.f),
-                  fmaxf(v1 + bias[c + 1], 0.f));
-      };
-      if (i == 0) {
-        gemm<BF16, T>(enc, lde, a.KE, a.wenc[0], (const T*)nullptr, 0, 0,
-                      nullptr, a.WP, epi);
-      } else if (with_enc) {
-        gemm<BF16, T>(enc, lde, a.KE, a.wenc[i], h, lda, a.WP, a.wh[i], a.WP,
-                      epi);
-      } else {
-        gemm<BF16, T>(h, lda, a.WP, a.wh[i], (const T*)nullptr, 0, 0, nullptr,
-                      a.WP, epi);
-      }
-      __syncthreads();
-      if constexpr (STASH)
-        store_rows<T>(srow + i * a.WP, a.SC, out, lda, a.WP, nrows);
-      h = out;
-    }
+    const T* h = trunk_tile<BF16, STASH, T>(
+        enc, lde, a.KE, act0, act1, lda, a.WP, a.L, a.skip_mask, a.wenc, a.wh,
+        a.b, srow, a.SC, nrows);
     T* spare = (h == act0) ? act1 : act0;
     // sigma head (column 0 of a 32-wide product) and xyz_encoding_final
     {

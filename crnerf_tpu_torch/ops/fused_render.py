@@ -536,12 +536,14 @@ def bwd_chain_plain(kw: KernelWeights, z_vals, noise, dir_blk, stash, g_ray,
     return full.to(dt), gb
 
 
-def bwd_wgrad_plain(kw: KernelWeights, stash, dzbuf) -> torch.Tensor:
+def bwd_wgrad_plain(kw: KernelWeights, stash, dzbuf,
+                    lay: Optional[GradLayout] = None) -> torch.Tensor:
     """Plain version of the backward's second kernel: every weight
     gradient dW = A^T dZ over all points, A a column block of the stash,
     dZ of the dz buffer (both already at the compute dtype), summed in
-    fp32 -> flat padded weight gradients (WT,) f32."""
-    lay = grad_layout(kw.dims)
+    fp32 -> flat padded weight gradients (WT,) f32. ``lay``: the jobs of
+    another layout than the fused render's (``ops.fused_mlp``)."""
+    lay = lay or grad_layout(kw.dims)
     st, dz = stash.float(), dzbuf.float()
     gw = torch.empty((lay.wt,), dtype=torch.float32, device=stash.device)
     for _, a_col, k, b_col, n, off in lay.jobs:
@@ -780,11 +782,12 @@ def bwd_chain(kw: KernelWeights, z_vals, noise, dir_blk, stash, g_ray, g_w):
     return dzbuf, gb
 
 
-def _wgrad_plan(kw: KernelWeights, m: int, dev):
+def _wgrad_plan(kw: KernelWeights, m: int, dev,
+                lay: Optional[GradLayout] = None):
     """-> (tile table, splits of the m points, points per split): enough
     CTAs for a few waves, each with at least four steps of points."""
     tile, pts = _WGRAD_TILE[kw.compute_dtype]
-    tiles = _tile_table(grad_layout(kw.dims), tile, str(dev))
+    tiles = _tile_table(lay or grad_layout(kw.dims), tile, str(dev))
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     splits = max(1, min(-(-m // (4 * pts)), -(-4 * n_sm // tiles.shape[0])))
     return tiles, splits, _round_up(-(-m // splits), pts)

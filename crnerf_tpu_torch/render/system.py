@@ -26,12 +26,13 @@ from crnerf_tpu_torch.models.common import sample_bilinear_uv
 from crnerf_tpu_torch.models.decoder import get_renderer
 from crnerf_tpu_torch.models.nerf_mlp import NerfMLP
 from crnerf_tpu_torch.models.style import StyleNet
+from crnerf_tpu_torch.ops.fused_mlp import prepare_mlp_weights
 from crnerf_tpu_torch.ops.fused_render import (
-    KernelWeights,
     mlp_params_from_module,
     prepare_kernel_weights,
 )
 from crnerf_tpu_torch.render.renderer import (
+    Weights,
     render_rays_tiled,
     render_rays_train,
 )
@@ -75,15 +76,23 @@ class CrNerfSystem(nn.Module):
             if cfg.use_mask else None
         )
 
-    def kernel_weights(self) -> Dict[str, Optional[KernelWeights]]:
-        """The coarse and fine MLPs laid out for the fused render kernel:
-        a snapshot of the parameters as they are now. A renderer of frozen
-        weights prepares once and renders many frames; after any update of
-        the parameters the layout is stale and must be made again.
-        Training does not use it: ``forward_train`` hands the renderer the
-        live parameters, which are laid out at every call."""
+    def kernel_weights(self) -> Dict[str, Optional[Weights]]:
+        """The coarse and fine MLPs as the inference route of the config
+        takes them (``render.renderer.render_rays``): laid out for the
+        fused render kernel (``use_pallas`` and ``pallas_render``), for the
+        fused MLP kernel (``pallas_render`` off), or the modules themselves
+        (``use_pallas`` off). A layout is a snapshot of the parameters as
+        they are now. A renderer of frozen weights prepares once and
+        renders many frames; after any update of the parameters the layout
+        is stale and must be made again. Training does not use it:
+        ``forward_train`` hands the renderer the live parameters, which
+        are laid out at every call."""
         cfg = self.cfg
-        prep = lambda m: prepare_kernel_weights(  # noqa: E731
+        if not cfg.use_pallas:
+            return {"coarse": self.nerf_coarse, "fine": self.nerf_fine}
+        lay_out = (prepare_kernel_weights if cfg.pallas_render
+                   else prepare_mlp_weights)
+        prep = lambda m: lay_out(  # noqa: E731
             mlp_params_from_module(m), cfg.N_emb_xyz, cfg.N_emb_dir,
             compute_dtype(cfg), m.skips,
         )
@@ -154,7 +163,10 @@ class CrNerfSystem(nn.Module):
             res["out_mask"] = torch.stack(
                 [sample_bilinear_uv(mask_small[i], batch["uv_pix"][i])
                  for i in range(g)], 0)
-        params = lambda m: mlp_params_from_module(m, detach=False)  # noqa: E731
+        # the fused routes take live (in, out) views of the parameters, the
+        # module route the modules
+        params = ((lambda m: mlp_params_from_module(m, detach=False))
+                  if cfg.pallas_train else (lambda m: m))
         bf16 = cfg.compute_dtype == "bfloat16"
         rr = render_rays_train(
             params(self.nerf_coarse),
@@ -166,7 +178,8 @@ class CrNerfSystem(nn.Module):
             noise_std=cfg.noise_std, compute_dtype=compute_dtype(cfg),
             exact_encode=not (cfg.fast_sincos and bf16),
             skips=self.nerf_coarse.skips, pertube_cord=cfg.pertube_cord,
-            stash=cfg.pallas_stash, generator=generator, draws=draws,
+            stash=cfg.pallas_stash, full=cfg.pallas_render,
+            remat=cfg.remat, generator=generator, draws=draws,
         )
         res.update({k: v.reshape(g, b, *v.shape[1:]) for k, v in rr.items()})
         has_fine = "feature_fine" in rr
@@ -205,7 +218,7 @@ class CrNerfSystem(nn.Module):
     @torch.no_grad()
     def forward_eval(self, rays: torch.Tensor, uv: torch.Tensor,
                      whole_img: torch.Tensor, hw: Tuple[int, int],
-                     kernel_weights: Dict[str, Optional[KernelWeights]],
+                     kernel_weights: Dict[str, Optional[Weights]],
                      want_mask: bool = True) -> Dict[str, torch.Tensor]:
         """rays (h*w, 8), pixel-centre uv (h*w, 2), whole_img (1, Ha, Wa, 3)
         in [-1, 1], ``kernel_weights()`` -> rgb_fine, rgb_coarse (h*w, 3),

@@ -431,3 +431,153 @@ def test_composite_wrapper_rejects_what_the_kernel_does_not_take(dev):
                         torch.rand(2, 3, device=dev),
                         torch.rand(2, 3, device=dev))
 
+
+
+# ------------------------------------------------ the per-point fused MLP
+MLP_SHAPES = [(6, 64, 16, 8), (6, 64, 16, 100), (8, 256, 64, 64),
+              (2, 48, 24, 130), (1, 32, 8, 16)]
+
+
+def _mlp_case(dev, dt, depth, width, c, s, dir_rep, n=37, seed=1):
+    from crnerf_tpu_torch.ops import fused_mlp as fm
+
+    torch.manual_seed(seed)
+    params = fr.mlp_params_from_module(
+        NerfMLP(depth=depth, width=width, out_dim=c).to(dev))
+    o, d, z, _ = _inputs(dev, n, s)
+    xyz = (o[:, None] + d[:, None] * z[..., None]).reshape(-1, 3).contiguous()
+    if dir_rep == 1:
+        d = d.repeat_interleave(s, 0).contiguous()
+    g = torch.Generator().manual_seed(seed + 7)
+    g_feat = (torch.randn(n * s, c, generator=g) * 0.1).to(dev)
+    g_sig = (torch.randn(n * s, generator=g) * 0.1).to(dev)
+    return fm, fm.prepare_mlp_weights(params, 15, 4, dt), xyz, d, g_feat, g_sig
+
+
+@pytest.mark.parametrize("dt,exact", [(torch.float32, True),
+                                      (torch.bfloat16, False)])
+@pytest.mark.parametrize("per_ray", [True, False])
+@pytest.mark.parametrize("depth,width,c,s", MLP_SHAPES)
+def test_mlp_forward_matches_plain(dev, dt, exact, per_ray, depth, width, c,
+                                   s):
+    """37 rays x s points is a multiple of no tile; a direction per ray and
+    one per point; widths and C that need zero padding."""
+    rep = s if per_ray else 1
+    fm, mkw, xyz, d, _, _ = _mlp_case(dev, dt, depth, width, c, s, rep)
+    before = fm.LAUNCH_COUNTS["fused_mlp_fwd"]
+    f_k, s_k = fm.fused_mlp_apply(mkw, xyz, d, exact, rep)
+    f_p, s_p = fm.mlp_fwd_plain(mkw, xyz, d, exact, rep)
+    torch.cuda.synchronize()
+    assert fm.LAUNCH_COUNTS["fused_mlp_fwd"] == before + 1
+    assert f_k.shape == (37 * s, c) and s_k.shape == (37 * s,)
+    tf, ts = fm.KERNEL_TOL[dt]
+    assert float((f_k - f_p).abs().max()) <= tf
+    assert float((s_k - s_p).abs().max()) <= ts * max(1.0, float(s_p.max()))
+
+
+@pytest.mark.parametrize("dt,exact", [(torch.float32, True),
+                                      (torch.bfloat16, False)])
+@pytest.mark.parametrize("slab", [None, 100])
+@pytest.mark.parametrize("depth,width,c,s", MLP_SHAPES)
+def test_mlp_backward_matches_plain_on_one_forward(dev, dt, exact, slab,
+                                                   depth, width, c, s):
+    """The backward kernel with every point in one slab against the plain
+    chain and weight gradient on the stash it recomputed (GRAD_TOL); twice
+    for the same bits; in slabs of 100 points (which end inside a tile and
+    inside a ray) against one slab, up to the grouping of fp32 sums."""
+    fm, mkw, xyz, d, g_feat, g_sig = _mlp_case(dev, dt, depth, width, c, s, s)
+    m = xyz.shape[0]
+    lay = fm.mlp_grad_layout(mkw.kw.dims)
+    before = fm.LAUNCH_COUNTS["fused_mlp_bwd"]
+    gw_1, gb_1, (st, dz) = fm.mlp_bwd(mkw, xyz, d, g_feat, g_sig, exact, s, m)
+    gw_k, gb_k, _ = fm.mlp_bwd(mkw, xyz, d, g_feat, g_sig, exact, s, slab)
+    gw_2, gb_2, _ = fm.mlp_bwd(mkw, xyz, d, g_feat, g_sig, exact, s, slab)
+    torch.cuda.synchronize()
+    assert fm.LAUNCH_COUNTS["fused_mlp_bwd"] == before + 3
+    assert torch.equal(gw_k, gw_2) and torch.equal(gb_k, gb_2)
+    dz_p, gb_p = fm.mlp_chain_plain(mkw, st, g_feat, g_sig)
+    gw_p = fr.bwd_wgrad_plain(mkw.kw, st, dz_p, lay)
+    want = fr.flatten_params(fm.unpack_mlp_grads(mkw, gw_p, gb_p))
+    one = fr.flatten_params(fm.unpack_mlp_grads(mkw, gw_1, gb_1))
+    got = fr.flatten_params(fm.unpack_mlp_grads(mkw, gw_k, gb_k))
+    for a, b, k in zip(want, one, got):
+        scale = float(a.abs().max().clamp_min(1e-30))
+        assert float((a - b).abs().max()) <= fm.GRAD_TOL[dt] * scale
+        assert float((b - k).abs().max()) <= 5e-4 * scale
+
+
+def test_mlp_train_function_on_card_matches_cpu(dev):
+    """fused_mlp_train under autograd, fp32: the card's kernels against
+    the CPU's plain versions from the same inputs (the loose bound)."""
+    from crnerf_tpu_torch.ops import fused_mlp as fm
+
+    torch.manual_seed(5)
+    mlp = NerfMLP(depth=6, width=64, out_dim=16)
+    o, d, z, _ = _inputs(torch.device("cpu"), 37, 20)
+    xyz = (o[:, None] + d[:, None] * z[..., None]).reshape(-1, 3)
+    g = torch.Generator().manual_seed(6)
+    g_feat = torch.randn(37 * 20, 16, generator=g) * 0.1
+    g_sig = torch.randn(37 * 20, generator=g) * 0.1
+    grads = {}
+    for name, where in (("cpu", torch.device("cpu")), ("card", dev)):
+        m = NerfMLP(depth=6, width=64, out_dim=16)
+        m.load_state_dict(mlp.state_dict())
+        m.to(where)
+        p = fr.mlp_params_from_module(m, detach=False)
+        f, s = fm.fused_mlp_train(p, xyz.to(where), d.to(where), dir_rep=20)
+        ((f * g_feat.to(where)).sum() + (s * g_sig.to(where)).sum()).backward()
+        grads[name] = {k: v.grad.cpu() for k, v in m.named_parameters()}
+    for k, a in grads["cpu"].items():
+        tol = fm.GRAD_TOL_FROM_INPUTS[torch.float32] * float(a.abs().max())
+        assert float((grads["card"][k] - a).abs().max()) <= tol, k
+
+
+def test_mlp_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    fm, mkw, xyz, d, g_feat, g_sig = _mlp_case(dev, torch.float32, 4, 32, 16,
+                                               16, 16)
+    with pytest.raises(ValueError, match="float32"):
+        fm.fused_mlp_apply(mkw, xyz.double(), d, dir_rep=16)
+    with pytest.raises(ValueError, match="does not cover"):
+        fm.fused_mlp_apply(mkw, xyz, d, dir_rep=15)
+    with pytest.raises(ValueError, match="on cpu"):
+        fm.fused_mlp_apply(mkw, xyz, d.cpu(), dir_rep=16)
+    with pytest.raises(ValueError, match="shape"):
+        fm.mlp_bwd(mkw, xyz, d, g_feat[:, :8].contiguous(), g_sig, True, 16)
+
+
+@pytest.mark.parametrize("field", ["pallas_render", "use_pallas"])
+def test_per_point_routes_on_card_match_cpu(dev, field):
+    """The served slice on the fused MLP + composite route and on the
+    module route at a small fp32 config: the card against the CPU."""
+    from crnerf_tpu_torch.config import Config
+    from crnerf_tpu_torch.ops import fused_mlp as fm
+    from crnerf_tpu_torch.render.inference import Renderer
+    from crnerf_tpu_torch.render.system import CrNerfSystem
+
+    cfg = Config(N_samples=16, N_importance=16, netdepth=6, netwidth=64,
+                 nerf_out_dim=16, appearance_wh=(64, 48), chunk=256,
+                 N_emb_xyz=10, **{field: False})
+    torch.manual_seed(3)
+    cpu_sys = CrNerfSystem(cfg).eval()
+    card_sys = CrNerfSystem(cfg).eval()
+    card_sys.load_state_dict(cpu_sys.state_dict())
+    card_sys.to(dev)
+    style = np.random.default_rng(0).uniform(-1, 1, (1, 48, 64, 3)).astype(
+        np.float32)
+    c2w = np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, 1.5]], np.float32)
+    K = np.array([[30.0, 0, 16], [0, 30.0, 12], [0, 0, 1]], np.float32)
+    before_mlp, before_render = dict(fm.LAUNCH_COUNTS), dict(fr.LAUNCH_COUNTS)
+    out = {}
+    for name, system in (("cpu", cpu_sys), ("card", card_sys)):
+        r = Renderer(cfg, system)
+        out[name] = r.fetch(r.render_frame_cam_async(c2w, K, 0.5, 2.5,
+                                                     (24, 32), style))
+    # 768 rays in tiles of 256: a coarse and a fine launch per tile
+    want = 6 if field == "pallas_render" else 0
+    assert (fm.LAUNCH_COUNTS["fused_mlp_fwd"]
+            == before_mlp["fused_mlp_fwd"] + want)
+    assert fr.LAUNCH_COUNTS == before_render
+    np.testing.assert_allclose(out["card"]["rgb"], out["cpu"]["rgb"],
+                               atol=1e-3)
+    np.testing.assert_allclose(out["card"]["mask"], out["cpu"]["mask"],
+                               atol=1e-4)

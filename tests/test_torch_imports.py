@@ -23,7 +23,7 @@ for name in names:
 for needed in ("train.step", "train.losses", "train.optim", "train.state",
                "train.metrics", "data.pipeline", "data.sampler",
                "data.scene", "data.synthetic", "ops.composite",
-               "ops.fused_render", "tools.slab_ab"):
+               "ops.fused_render", "ops.fused_mlp", "tools.slab_ab"):
     assert "crnerf_tpu_torch." + needed in names, needed
 import chip_smoke
 chip_smoke.serve_config()
@@ -63,17 +63,21 @@ def test_config_fields_match_the_jax_config():
         "optimizer", "lr", "momentum", "weight_decay", "lr_scheduler",
         "warmup_multiplier", "warmup_epochs", "decay_step", "decay_gamma",
         "poly_exp", "grad_accum_chunks", "seed"}
-    # the two fields that select the no-stash training routes
-    assert {"pertube_cord", "pallas_stash"} <= names
-    assert (Config().pertube_cord, Config().pallas_stash) == (False, True)
-    assert (JaxConfig().pertube_cord, JaxConfig().pallas_stash) == (False,
-                                                                    True)
-    # no TPU-only knob came along (pallas_stash selects a route that
-    # exists here too)
+    # the fields that select a route, each between routes that exist here
+    # too: the no-stash training routes, kernels or the module, the fused
+    # render or the fused MLP + composite
+    routing = {"pertube_cord": False, "pallas_stash": True,
+               "use_pallas": True, "pallas_train": True,
+               "pallas_render": True, "remat": True}
+    assert set(routing) <= names
+    for name, default in routing.items():
+        assert getattr(Config(), name) is default, name
+        assert getattr(JaxConfig(), name) is default, name
+    # no TPU-only knob came along
     assert not any((n.startswith(("pallas_", "s2d_", "slab_"))
-                    and n != "pallas_stash")
-                   or n in ("use_pallas", "fold_heads", "hoist_heads",
-                            "pdf_impl", "chunk_unroll", "eval_tile_pts")
+                    and n not in routing)
+                   or n in ("fold_heads", "hoist_heads", "pdf_impl",
+                            "chunk_unroll", "eval_tile_pts")
                    for n in names)
     assert Config(batch_size=256).grid_hw == JaxConfig(batch_size=256).grid_hw
     kw = dict(N_emb_xyz=10, N_emb_dir=3)
