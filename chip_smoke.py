@@ -41,6 +41,17 @@ Phases, each fatal on failure:
      shared forward (tight bound) and from the inputs (loose bound), twice
      for the same bits, at its own slab size against one slab, and its
      scratch at two batch sizes
+  4e. the conv spikes' kernels (S1, S4) and the sincos kernel (S3): the 3x3
+     conv forward and its weight gradient at the spike's shape (8 x 160 x
+     224, 64 -> 64), at enc_a's conv3 in the train step (16 x 160 x 224,
+     64 -> 64) and at two ragged shapes, the gradient twice for the same
+     bits; the packed 2x2 conv at the encoder's two levels (4C = 256, 512)
+     and at two ragged shapes, and, after _d2s, against the 3x3 conv of the
+     reflect-padded original; sin/cos at the spike's five scales against
+     float64 (the fast intrinsics' error printed); each kernel against its
+     plain version, with its time beside the plain version's, cuDNN's (or
+     torch.sin + torch.cos) and its bound; then the three spike tools as a
+     user runs them, counters zeroed before and read after
   5. serve at full size: RenderService with seeded random weights
      round-tripped through a weights.npz and the weight bridge, ping,
      2 inline 320x240 renders at 256+256 samples, stats; the launch
@@ -147,20 +158,25 @@ def time_ms(fn, reps: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def zero_counts():
-    """Every kernel's launch count to 0."""
-    from crnerf_tpu_torch.ops import fused_mlp, fused_render
+def _counters():
+    from crnerf_tpu_torch.ops import conv, fused_mlp, fused_render, sincos
 
-    for counts in (fused_render.LAUNCH_COUNTS, fused_mlp.LAUNCH_COUNTS):
+    return (fused_render.LAUNCH_COUNTS, fused_mlp.LAUNCH_COUNTS,
+            conv.LAUNCH_COUNTS, sincos.LAUNCH_COUNTS)
+
+
+def zero_counts():
+    """Every kernel's launch count to 0 (the compositing kernel's has its
+    own phase)."""
+    for counts in _counters():
         for k in counts:
             counts[k] = 0
 
 
 def read_counts():
-    """The launch counts of the fused render and fused MLP kernels."""
-    from crnerf_tpu_torch.ops import fused_mlp, fused_render
-
-    return {**fused_render.LAUNCH_COUNTS, **fused_mlp.LAUNCH_COUNTS}
+    """The launch counts of the fused render, fused MLP, conv and sincos
+    kernels."""
+    return {k: v for counts in _counters() for k, v in counts.items()}
 
 
 def full_width_params(seed: int, device):
@@ -183,8 +199,10 @@ def phase_build():
     from crnerf_tpu_torch.ops import (
         _build,
         composite,
+        conv,
         fused_mlp,
         fused_render,
+        sincos,
     )
 
     t0 = time.perf_counter()
@@ -201,7 +219,9 @@ def phase_build():
                "fused_render_bwd_recompute.cu": fused_render._lib_recompute,
                "composite.cu": composite._lib,
                "fused_mlp_fwd.cu": fused_mlp._lib_fwd,
-               "fused_mlp_bwd.cu": fused_mlp._lib_bwd}
+               "fused_mlp_bwd.cu": fused_mlp._lib_bwd,
+               "conv.cu": conv._lib,
+               "sincos.cu": sincos._lib}
     threads = [threading.Thread(target=build, args=(f,))
                for f in loaders.values()]
     for t in threads:
@@ -1773,6 +1793,209 @@ def phase_composite(device, seed: int):
     return records, launches["composite"]
 
 
+# ------------------------------------------- the conv and sincos spikes
+# (N, H, W, C, Co) of the 3x3 conv: the spike's shape, enc_a's conv3 in the
+# train step (forward_train encodes the 16 grids' 224x160 appearance
+# images), and two ragged shapes (the second takes the element-by-element
+# copies: C and Co not multiples of 8)
+CONV3_SHAPES = ((8, 160, 224, 64, 64), (TRAIN_GRIDS, 160, 224, 64, 64),
+                (3, 37, 53, 40, 72), (2, 19, 23, 13, 21))
+# (B, H, W, C) of the original and F of the packed conv: the encoder's two
+# levels (scripts/spike_packed_conv.py), then two ragged ones (I = 19 and
+# 11 output rows; 4C = 40 and 12)
+PACKED_SHAPES = (((8, 160, 224, 64), 64), ((8, 80, 112, 128), 128),
+                 ((2, 38, 54, 10), 6), ((2, 22, 30, 3), 5))
+
+
+def _errs(got, want):
+    """(max abs error, max abs error over max |want|), float32."""
+    got, want = got.float(), want.float()
+    e = (got - want).abs().max().item()
+    return e, e / (want.abs().max().item() + 1e-30)
+
+
+def conv3_case(device, gen, n, h, w, c, co):
+    """The 3x3 forward and weight-gradient kernels at one shape against
+    their plain versions, the gradient twice; -> (fwd record, dw record)."""
+    import torch
+
+    from crnerf_tpu_torch.ops import conv as cv
+    from crnerf_tpu_torch.tools.spike_conv3x3 import library_dw, library_fwd
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=device).bfloat16()
+
+    xpad, kernel, dy = normal(n, h + 2, w + 2, c), normal(3, 3, c, co), \
+        normal(n, h, w, co)
+    m, tag = n * h * w, f"{n} x {h} x {w}, {c} -> {co}"
+    flops = 2.0 * 9 * m * c * co
+    in_bytes = 2 * xpad.numel()
+    cases = {  # kernel, plain version, cuDNN, bytes moved at the least
+        # input and kernel read once, the f32 output written once
+        "fwd": (lambda: cv.conv3x3_valid_fwd(xpad, kernel),
+                lambda: cv.conv_valid_plain(xpad, kernel),
+                library_fwd(xpad, kernel),
+                in_bytes + 2 * kernel.numel() + 4 * m * co),
+        # input and cotangent read once, the f32 gradient written once
+        "dw": (lambda: cv.conv3x3_dw(xpad, dy),
+               lambda: cv.conv3x3_dw_plain(xpad, dy),
+               library_dw(xpad, dy, kernel.shape),
+               in_bytes + 2 * dy.numel() + 4 * 9 * c * co),
+    }
+    recs = []
+    for kind, (kern, plain, lib, nbytes) in cases.items():
+        got = kern()
+        with full_fp32():
+            want = plain()
+        abs_err, rel = _errs(got, want)
+        same_bits = torch.equal(got, kern()) if kind == "dw" else True
+        ok = (rel <= cv.KERNEL_TOL_F32 and same_bits
+              and bool(torch.isfinite(got).all()))
+        del got, want
+        # 20 calls a reading: cuDNN's ~0.1 ms calls are near the host's
+        # launch rate, and fewer calls measure the host
+        ms = time_ms(kern, reps=20)
+        with full_fp32():
+            plain_ms = time_ms(plain, reps=3)
+            library_ms = time_ms(lib, reps=20)
+        b_ms, b_by = bound(flops, nbytes)
+        bits = ("" if kind == "fwd" else ", twice: the same bits"
+                if same_bits else ", twice: OTHER BITS")
+        print(f"[conv] 3x3 {kind} {tag}: max|err| {abs_err:.3e} = {rel:.3e} "
+              f"of the largest (bound {cv.KERNEL_TOL_F32:.0e}){bits}; kernel "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+              f"{plain_ms:.4f} ms, cuDNN {library_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}) {'ok' if ok else 'FAIL'}")
+        recs.append(dict(kind=kind, shape=(n, h, w, c, co), err=abs_err,
+                         rel=rel,
+                         ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                         bound=(b_ms, b_by), ok=ok))
+    return recs
+
+
+def packed_case(device, shape, f):
+    """The packed conv at one level against its plain version and, after
+    _d2s, against the 3x3 kernel on the reflect-padded original."""
+    import torch
+
+    from crnerf_tpu_torch.ops import conv as cv
+    from crnerf_tpu_torch.tools.spike_conv3x3 import library_fwd
+    from crnerf_tpu_torch.tools.spike_packed_conv import (
+        level_inputs,
+        packed_operands,
+    )
+
+    b, h, w, c = shape
+    x, k3 = level_inputs(shape, f, device)
+    xp_pad, k2 = packed_operands(x, k3)
+    got = cv.packed_conv(xp_pad, k2)
+    with full_fp32():
+        want = cv.conv_valid_plain(xp_pad, k2, torch.bfloat16)
+    abs_err, rel = _errs(got, want)
+    # the tie to S1: the packed output is the 3x3 sums rounded to bf16
+    tie = _errs(cv._d2s(got), cv.conv3x3_valid_fwd(
+        cv.reflect_pad(x, 1).contiguous(), k3))[1]
+    tie_tol = 2.0 ** -8 + cv.KERNEL_TOL_F32
+    ok = (rel <= cv.KERNEL_TOL_BF16 and tie <= tie_tol
+          and bool(torch.isfinite(got.float()).all()))
+    del got, want
+    ms = time_ms(lambda: cv.packed_conv(xp_pad, k2), reps=20)
+    with full_fp32():
+        plain_ms = time_ms(
+            lambda: cv.conv_valid_plain(xp_pad, k2, torch.bfloat16), reps=3)
+        library_ms = time_ms(library_fwd(xp_pad, k2), reps=20)
+    i, j = h // 2, w // 2
+    flops = 2.0 * 4 * b * i * j * (4 * c) * (4 * f)
+    nbytes = 2 * (xp_pad.numel() + k2.numel() + b * i * j * 4 * f)
+    b_ms, b_by = bound(flops, nbytes)
+    print(f"[conv] packed {b} x {h} x {w}, {c} -> {f} (4C = {4 * c}): "
+          f"max|err| {abs_err:.3e} = {rel:.3e} of the largest (bound "
+          f"{cv.KERNEL_TOL_BF16:.2e}); _d2s of it against the 3x3 kernel "
+          f"{tie:.3e} (bound {tie_tol:.2e}); kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+          f"cuDNN {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
+          f"{'ok' if ok else 'FAIL'}")
+    return dict(shape=(b, h, w, c, f), err=abs_err, rel=rel, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms,
+                bound=(b_ms, b_by), ok=ok)
+
+
+def sincos_cases(device):
+    """The accurate variant against float64 at the spike's five scales,
+    the fast one's error printed; -> records."""
+    import numpy as np
+    import torch
+
+    from crnerf_tpu_torch.ops import sincos as sc
+    from crnerf_tpu_torch.tools.spike_kernel_sincos import (
+        f64_err,
+        unit_inputs,
+    )
+
+    x01 = unit_inputs(device)
+    recs = []
+    for scale in sc.SCALES:
+        x = (x01 * scale).contiguous()
+        s, c = sc.sincos(x)
+        e64 = max(f64_err(s, x, np.sin), f64_err(c, x, np.cos))
+        sf, cf = sc.sincos(x, fast=True)
+        fast64 = max(f64_err(sf, x, np.sin), f64_err(cf, x, np.cos))
+        ps, pc = sc.sincos_plain(x)
+        err = max((s - ps).abs().max().item(), (c - pc).abs().max().item())
+        ms = time_ms(lambda: sc.sincos(x), reps=20)
+        plain_ms = time_ms(lambda: sc.sincos_plain(x), reps=20)
+        library_ms = time_ms(lambda: (torch.sin(x), torch.cos(x)), reps=20)
+        b_ms, b_by = bound(0.0, 3 * 4 * x.numel())  # x read, s and c written
+        ok = e64 <= sc.F64_TOL
+        print(f"[sincos] |x| <= {scale:g} rad: against float64 {e64:.3e} "
+              f"(bound {sc.F64_TOL:.3e}), the fast intrinsics {fast64:.3e}; "
+              f"against torch.sin / cos {err:.3e}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, torch.sin + torch.cos {library_ms:.4f} ms, "
+              f"bound {b_ms:.5f} ms ({b_by}) {'ok' if ok else 'FAIL'}")
+        recs.append(dict(scale=scale, err=err, e64=e64, fast64=fast64, ms=ms,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         bound=(b_ms, b_by), ok=ok))
+    return recs
+
+
+# the spike tools as a user runs them: the conv3x3 spike at its own shape
+# and at the train step's batch, the packed spike, the sincos spike
+SPIKE_RUNS = (("spike_conv3x3", []),
+              ("spike_conv3x3", ["--n", str(TRAIN_GRIDS)]),
+              ("spike_packed_conv", []), ("spike_kernel_sincos", []))
+
+
+def phase_conv(device, seed: int):
+    """Phase 4e. -> (3x3 records, packed records, sincos records, launches
+    of the spike tools' run)."""
+    import importlib
+
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
+    conv3 = [r for shape in CONV3_SHAPES
+             for r in conv3_case(device, gen, *shape)]
+    packed = [packed_case(device, shape, f) for shape, f in PACKED_SHAPES]
+    sincos = sincos_cases(device)
+    if not all(r["ok"] for r in conv3 + packed + sincos):
+        raise PhaseError("a conv or sincos kernel disagrees with its plain "
+                         "version, or the gradient changed its bits")
+    torch.cuda.synchronize()
+    zero_counts()
+    for tool, argv in SPIKE_RUNS:
+        mod = importlib.import_module(f"crnerf_tpu_torch.tools.{tool}")
+        if mod.main(argv) != 0:
+            raise PhaseError(f"{tool} {' '.join(argv)} failed")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    spikes = ("conv3x3_fwd", "conv3x3_dw", "packed_conv", "sincos")
+    if not (all(launches[k] > 0 for k in spikes)
+            and not any(v for k, v in launches.items() if k not in spikes)):
+        raise PhaseError(f"spike tools: launch counters {launches}")
+    print(f"[conv] the spike tools' launches: {launches}")
+    return conv3, packed, sincos, launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile_dir", type=str, default="",
@@ -1806,6 +2029,8 @@ def main(argv=None) -> int:
         recompute_records = phase_recompute(device, SEED)
         composite_records, composite_launches = phase_composite(device, SEED)
         mlp_fwd_records, mlp_bwd_records = phase_mlp_kernels(device, SEED)
+        conv3_records, packed_records, sincos_records, spike_launches = \
+            phase_conv(device, SEED)
         os.makedirs(BUILD, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=BUILD) as workdir:
             launches, p50, full_frame = phase_serve(
@@ -1867,7 +2092,7 @@ def main(argv=None) -> int:
                 "replaces": replaces, "launches": n_launch,
                 "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-                "library_ms": None}
+                "library_ms": r.get("library_ms")}
 
     def train_kernel(key):      # one kernel's numbers of the stash pair
         return {k: tk[k][key] for k in ("ms", "plain_ms", "bound")}
@@ -1893,6 +2118,9 @@ def main(argv=None) -> int:
                   if r["N"] == SERVE_TILE and r["S"] == 512)
     k4_bwd = next(r for r in mlp_bwd_records
                   if r["N"] == TRAIN_GRIDS * 1024 and r["S"] == 128)
+    conv_cuh = "crnerf_tpu_torch/csrc/conv_fwd.cuh"
+    conv3_train = [r for r in conv3_records
+                   if r["shape"] == CONV3_SHAPES[1]]
     print(json.dumps({"kernels": [
         # launched by the serve path and by the pallas_stash=False route
         entry("fused_render_fwd", fwd_cu, k1,
@@ -1930,6 +2158,24 @@ def main(argv=None) -> int:
         entry("K4 bwd", "crnerf_tpu_torch/csrc/fused_mlp_bwd.cu",
               "crnerf_tpu/ops/fused_mlp.py:494", route_c["fused_mlp_bwd"],
               max(r["err"] for r in mlp_bwd_records), k4_bwd),
+        # launched by the spike tools (phase 4e); the conv entries' numbers
+        # at enc_a's conv3 in the train step and at the encoder's conv3
+        # level, sincos's at the anchor scale 1280 rad
+        entry("conv3x3 fwd", conv_cuh, "scripts/spike_conv3x3.py:30",
+              spike_launches["conv3x3_fwd"],
+              max(r["err"] for r in conv3_records if r["kind"] == "fwd"),
+              conv3_train[0]),
+        entry("conv3x3 dw", "crnerf_tpu_torch/csrc/conv.cu",
+              "scripts/spike_conv3x3.py:74", spike_launches["conv3x3_dw"],
+              max(r["err"] for r in conv3_records if r["kind"] == "dw"),
+              conv3_train[1]),
+        entry("packed conv", conv_cuh, "scripts/spike_packed_conv.py:39",
+              spike_launches["packed_conv"],
+              max(r["err"] for r in packed_records), packed_records[0]),
+        entry("sincos", "crnerf_tpu_torch/csrc/sincos.cu",
+              "scripts/spike_kernel_sincos.py:24", spike_launches["sincos"],
+              max(r["err"] for r in sincos_records),
+              next(r for r in sincos_records if r["scale"] == 1280.0)),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -422,22 +422,6 @@ constexpr int WG_T = 128;    // bf16 output tile
 constexpr int WG_PT = 64;    // points per stage
 constexpr int WG_LD = WG_T + 8;
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
 __global__ void __launch_bounds__(NTHREADS, 2)
     wgrad_bf16_kernel(const WArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];

@@ -12,6 +12,8 @@
 
 #include <type_traits>
 
+#include "mma.cuh"
+
 namespace {
 
 constexpr int CH = 64;          // samples per chunk = GEMM rows
@@ -23,15 +25,6 @@ constexpr int ANCHOR_SPAN = 8;
 constexpr float DELTA_INF = 1e2f;
 
 // ------------------------------------------------------------ matmuls
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // acc += A[m0:m0+32, :K] @ B[:, nt0*8 : (nt0+ntw)*8]; A bf16 row-major in
 // shared memory, B packed [kstep][ntile][lane] uint2 (see pack_mma_b).
 __device__ __forceinline__ void mma_accumulate(

@@ -27,6 +27,7 @@ import torch
 from crnerf_tpu_torch.models.nerf_mlp import NerfMLP
 from crnerf_tpu_torch.ops import _build
 from crnerf_tpu_torch.ops import fused_render as fr
+from crnerf_tpu_torch.tools._common import time_ms
 
 SHIPPED = "__launch_bounds__(NTHREADS, BF16 ? 2 : 1)"
 VARIANTS = {"2_ctas_per_sm": SHIPPED,
@@ -69,19 +70,6 @@ def build_variant(name: str, bounds: str, source: str,
         fn.argtypes = list(fr._C_ARGS)
         fn.restype = ctypes.c_int
     return lib
-
-
-def time_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def main(argv=None) -> int:
@@ -133,7 +121,7 @@ def main(argv=None) -> int:
         for order in (list(libs), list(libs)[::-1]) * PAIRS:
             for k in order:
                 setattr(fr, getter, lambda lib=libs[k]: lib)
-                times[k].append(time_ms(run, REPS))
+                times[k].append(time_ms(run, dev, REPS))
     finally:
         setattr(fr, getter, shipped_lib)
     for k, v in times.items():

@@ -22,21 +22,9 @@ import torch
 
 from crnerf_tpu_torch.models.nerf_mlp import NerfMLP
 from crnerf_tpu_torch.ops import fused_render as fr
+from crnerf_tpu_torch.tools._common import time_ms
 
 N_RAYS, S, ROUNDS, REPS = 16384, 128, 3, 2
-
-
-def time_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def main() -> int:
@@ -88,7 +76,7 @@ def main() -> int:
     for order in (list(times), list(times)[::-1]) * ROUNDS:
         for r in order:
             fn = stash_route if r == "stash route" else (lambda: recompute(r))
-            times[r].append(time_ms(fn, REPS))
+            times[r].append(time_ms(fn, dev, REPS))
     for r, v in times.items():
         v = sorted(v)
         label = (f"{r}" if r == "stash route" else

@@ -581,3 +581,85 @@ def test_per_point_routes_on_card_match_cpu(dev, field):
                                atol=1e-3)
     np.testing.assert_allclose(out["card"]["mask"], out["cpu"]["mask"],
                                atol=1e-4)
+
+
+# ------------------------------------------------ the conv and sincos spikes
+@pytest.mark.parametrize("n,h,w,c,co", [
+    (2, 16, 24, 64, 64), (3, 37, 53, 40, 72), (2, 19, 23, 13, 21),
+    (1, 1, 1, 8, 8),
+])
+def test_conv3x3_kernels_match_plain(dev, n, h, w, c, co):
+    """The 3x3 forward and weight-gradient kernels against their plain
+    versions (ops.conv.KERNEL_TOL_F32 of the largest value): regular,
+    ragged with 16-byte copies, ragged element by element, one pixel. The
+    gradient twice gives the same bits."""
+    from crnerf_tpu_torch.ops import conv as cv
+
+    g = torch.Generator().manual_seed(5)
+    xpad = torch.randn(n, h + 2, w + 2, c, generator=g).bfloat16().to(dev)
+    k = torch.randn(3, 3, c, co, generator=g).bfloat16().to(dev)
+    dy = torch.randn(n, h, w, co, generator=g).bfloat16().to(dev)
+    before = dict(cv.LAUNCH_COUNTS)
+    fwd = cv.conv3x3_valid_fwd(xpad, k)
+    dw = cv.conv3x3_dw(xpad, dy)
+    torch.cuda.synchronize()
+    assert cv.LAUNCH_COUNTS["conv3x3_fwd"] == before["conv3x3_fwd"] + 1
+    assert cv.LAUNCH_COUNTS["conv3x3_dw"] == before["conv3x3_dw"] + 1
+    for got, want in ((fwd, cv.conv_valid_plain(xpad, k)),
+                      (dw, cv.conv3x3_dw_plain(xpad, dy))):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        err = float((got - want).abs().max())
+        assert err <= cv.KERNEL_TOL_F32 * float(want.abs().max())
+    assert torch.equal(dw, cv.conv3x3_dw(xpad, dy))
+
+
+@pytest.mark.parametrize("shape,f", [((2, 16, 24, 64), 64),
+                                     ((2, 38, 54, 10), 6),
+                                     ((1, 22, 30, 3), 5)])
+def test_packed_conv_kernel_matches_plain_and_the_3x3(dev, shape, f):
+    from crnerf_tpu_torch.ops import conv as cv
+
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn(shape, generator=g).bfloat16().to(dev)
+    k3 = (torch.randn(3, 3, shape[-1], f, generator=g) * 0.05).bfloat16().to(
+        dev)
+    xp_pad = cv.packed_reflect_pad1(cv._s2d(x)).contiguous()
+    k2 = cv._pack_kernel3x3(k3).contiguous()
+    got = cv.packed_conv(xp_pad, k2)
+    want = cv.conv_valid_plain(xp_pad, k2, torch.bfloat16)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    top = float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) \
+        <= cv.KERNEL_TOL_BF16 * top
+    three = cv.conv3x3_valid_fwd(cv.reflect_pad(x, 1).contiguous(), k3)
+    assert float((cv._d2s(got).float() - three).abs().max()) \
+        <= (2.0 ** -8 + cv.KERNEL_TOL_F32) * float(three.abs().max())
+
+
+def test_conv_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from crnerf_tpu_torch.ops import conv as cv
+
+    x = torch.zeros(1, 6, 6, 8, device=dev, dtype=torch.bfloat16)
+    k = torch.zeros(3, 3, 8, 8, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        cv.conv3x3_valid_fwd(x.float(), k.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        cv.conv3x3_valid_fwd(x.transpose(1, 2), k)
+    with pytest.raises(ValueError, match="shape"):
+        cv.conv3x3_valid_fwd(x, k[:, :, :4])
+    with pytest.raises(ValueError, match="on cpu"):
+        cv.conv3x3_dw(x, torch.zeros(1, 4, 4, 8, dtype=torch.bfloat16))
+
+
+def test_sincos_kernel_within_two_ulps_of_float64(dev):
+    from crnerf_tpu_torch.ops import sincos as sc
+
+    x01 = torch.rand(1024, 128, generator=torch.Generator().manual_seed(7))
+    for scale in sc.SCALES:
+        x = (x01 * 2 - 1) * scale
+        s, c = sc.sincos(x.to(dev))
+        x64 = x.double()
+        assert float((s.cpu().double() - torch.sin(x64)).abs().max()) \
+            <= sc.F64_TOL
+        assert float((c.cpu().double() - torch.cos(x64)).abs().max()) \
+            <= sc.F64_TOL

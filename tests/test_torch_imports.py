@@ -1,13 +1,16 @@
 """The port imports torch and never jax, flax, optax or the JAX package:
-every module of crnerf_tpu_torch (the train/ and data/ packages
-included), and chip_smoke.py, import with all four blocked. Its Config
-keeps the JAX Config's names and defaults. Its serve entry point runs on the
-card unless the caller asks for the CPU."""
+every module of crnerf_tpu_torch (the train/ and data/ packages, the conv
+and sincos ops and the spike tools included), and chip_smoke.py, import
+with all four blocked. Its Config keeps the JAX Config's names and
+defaults. Its serve entry point and its spike tools run on the card unless
+the caller asks for the CPU."""
 
 import dataclasses
 import os
 import subprocess
 import sys
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -23,7 +26,9 @@ for name in names:
 for needed in ("train.step", "train.losses", "train.optim", "train.state",
                "train.metrics", "data.pipeline", "data.sampler",
                "data.scene", "data.synthetic", "ops.composite",
-               "ops.fused_render", "ops.fused_mlp", "tools.slab_ab"):
+               "ops.fused_render", "ops.fused_mlp", "tools.slab_ab",
+               "ops.conv", "ops.sincos", "tools.spike_conv3x3",
+               "tools.spike_packed_conv", "tools.spike_kernel_sincos"):
     assert "crnerf_tpu_torch." + needed in names, needed
 import chip_smoke
 chip_smoke.serve_config()
@@ -131,3 +136,47 @@ def test_no_entry_point_picks_the_cpu_by_itself():
         text = path.read_text()
         assert "is_available() else" not in text, path
 
+
+
+SPIKE_TOOLS = ("spike_conv3x3", "spike_packed_conv", "spike_kernel_sincos")
+
+
+@pytest.mark.parametrize("tool", SPIKE_TOOLS)
+def test_spike_tool_stops_without_a_card(tool):
+    """No CUDA device and no ``--device``: the tool stops at start with a
+    message that names the way to the CPU, and prints no result."""
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "-m", f"crnerf_tpu_torch.tools.{tool}"], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and "--device cpu" in out.stderr
+    assert out.stdout == ""
+
+
+@pytest.mark.parametrize("tool,argv", [
+    ("spike_conv3x3", ["--n", "1", "--h", "6", "--w", "10", "--c", "8",
+                       "--co", "16", "--check"]),
+    ("spike_conv3x3", ["--n", "1", "--h", "5", "--w", "7", "--c", "3",
+                       "--co", "5"]),
+    ("spike_packed_conv", ["--iters", "1"]),
+    ("spike_kernel_sincos", []),
+])
+def test_spike_tool_runs_on_the_cpu_when_asked(monkeypatch, capsys, tool,
+                                               argv):
+    """``--device cpu``: the plain versions, PyTorch's CPU convolution in
+    cuDNN's place, the JAX scripts' output lines (the packed spike at a
+    small level shape: its own two levels are minutes of CPU)."""
+    import importlib
+
+    mod = importlib.import_module(f"crnerf_tpu_torch.tools.{tool}")
+    if tool == "spike_packed_conv":
+        monkeypatch.setattr(mod, "CASES", (("small", (1, 8, 12, 8), 8),))
+    assert mod.main(argv + ["--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.startswith("device: CPU")
+    want = {"spike_conv3x3": "checks OK" if "--check" in argv else
+            "kernel dw ",
+            "spike_packed_conv": "small: max rel err vs library = ",
+            "spike_kernel_sincos": "torch sin vs f64 numpy @1280 rad"}[tool]
+    assert want in out
