@@ -52,13 +52,26 @@ Phases, each fatal on failure:
      plain version, with its time beside the plain version's, cuDNN's (or
      torch.sin + torch.cos) and its bound; then the three spike tools as a
      user runs them, counters zeroed before and read after
+  4f. the last two spikes' kernels: the pipelined fused render forward (S2)
+     against the fused render forward (K1) on the same inputs, for every
+     rays-per-CTA P, at 1024 rays x S=256 and 512, at the spike's 8192 x
+     128 and at the serve tile, 8192 x 512 (the same bits), and against
+     its plain version on 1024 rays; the encode-block assembly (S5) in its
+     three modes against its plain version on real (sin, cos) states at
+     2048 tiles and at an odd 37: the outputs, the bf16 blocks themselves
+     (the same bits in base and stores) and the rows it zeroes; times
+     beside K1's (S2) or cuBLAS's (S5) and the bounds; then the two spike
+     tools as a user runs them, counters zeroed before and read after
   5. serve at full size: RenderService with seeded random weights
      round-tripped through a weights.npz and the weight bridge, ping,
      2 inline 320x240 renders at 256+256 samples, stats; the launch
      counters are zeroed just before and read just after
   6. train at full size: the flagship config (16 grids of 1024 rays, 64+64
      samples, 8x256, bf16) on the synthetic scene through make_train_step;
-     warm-up, timed steps, one profiled step, and a small fp32 step on
+     warm-up, timed steps, one profiled step, CGNet's mask and parameter
+     gradients on the step's style images with TF32 allowed in cuDNN, as a
+     user's process has it, against the same with TF32 off (the same bits:
+     its convolutions are pinned to IEEE fp32), and a small fp32 step on
      the card against the same step on the CPU; the
      launch counters are zeroed just before the timed steps and read just
      after
@@ -159,10 +172,18 @@ def time_ms(fn, reps: int = 3) -> float:
 
 
 def _counters():
-    from crnerf_tpu_torch.ops import conv, fused_mlp, fused_render, sincos
+    from crnerf_tpu_torch.ops import (
+        conv,
+        fused_mlp,
+        fused_render,
+        pipe_render,
+        sincos,
+        sublane_stores,
+    )
 
     return (fused_render.LAUNCH_COUNTS, fused_mlp.LAUNCH_COUNTS,
-            conv.LAUNCH_COUNTS, sincos.LAUNCH_COUNTS)
+            conv.LAUNCH_COUNTS, sincos.LAUNCH_COUNTS,
+            pipe_render.LAUNCH_COUNTS, sublane_stores.LAUNCH_COUNTS)
 
 
 def zero_counts():
@@ -174,8 +195,8 @@ def zero_counts():
 
 
 def read_counts():
-    """The launch counts of the fused render, fused MLP, conv and sincos
-    kernels."""
+    """The launch counts of the fused render, fused MLP, conv, sincos,
+    pipelined render and sublane-stores kernels."""
     return {k: v for counts in _counters() for k, v in counts.items()}
 
 
@@ -202,7 +223,9 @@ def phase_build():
         conv,
         fused_mlp,
         fused_render,
+        pipe_render,
         sincos,
+        sublane_stores,
     )
 
     t0 = time.perf_counter()
@@ -221,7 +244,9 @@ def phase_build():
                "fused_mlp_fwd.cu": fused_mlp._lib_fwd,
                "fused_mlp_bwd.cu": fused_mlp._lib_bwd,
                "conv.cu": conv._lib,
-               "sincos.cu": sincos._lib}
+               "sincos.cu": sincos._lib,
+               "pipe_render_fwd.cu": pipe_render._lib,
+               "sublane_stores.cu": sublane_stores._lib}
     threads = [threading.Thread(target=build, args=(f,))
                for f in loaders.values()]
     for t in threads:
@@ -947,6 +972,8 @@ def phase_train(device, seed: int, profile_dir=None, route: str = "stash"):
     if route != "pertube_cord=True":     # its kernels are the same two
         profile_step(state, step, staged[0],
                      profile_dir if route == "stash" else None, med)
+    if route == "stash":
+        tf32_check(state, staged[0])
     del state, step, staged
     grads = small_step_check(device, seed, route)
     return launches, med, peak_gb, grads
@@ -1996,6 +2023,228 @@ def phase_conv(device, seed: int):
     return conv3, packed, sincos, launches
 
 
+# S2 against K1: 1024 rays at S=256 and 512 (and against its plain
+# version), the spike's 8192 x 128, the serve tile 8192 x 512
+PIPE_SHAPES = ((N_RAYS, 256), (N_RAYS, 512), (8192, 128), (SERVE_TILE, 512))
+PIPE_ENTRY = (8192, 128)          # the kernels line's shape: the spike's
+SUBLANE_TILES = (2048, 37)        # the spike's count, and an odd one
+# block rows each S5 mode zeroes (the TPU kernel leaves them unwritten)
+SUBLANE_ZERO_ROWS = {"base": range(8, 96), "stores": range(93, 96),
+                     "dmatrix": range(0)}
+SPIKE_RUNS_4F = (("spike_interleave", []), ("spike_sublane_stores", []))
+
+
+def pipe_case(device, params, gen, n: int, s: int):
+    """S2 at n rays x s samples, bf16, recurrence, every P, against K1 on the same inputs (the same bits; else KERNEL_TOL[bf16])
+    and, on N_RAYS rays, against pipe_render_plain -> records."""
+    import torch
+
+    from crnerf_tpu_torch.ops import fused_render as fr
+    from crnerf_tpu_torch.ops import pipe_render as pr
+
+    dt = torch.bfloat16
+    o, d, z, noise = ray_inputs(n, s, gen, device)
+    kw = fr.prepare_kernel_weights(params, 15, 4, dt)
+    blk1, w1 = fr.fused_render_apply(kw, o, d, z, noise, exact_encode=False)
+
+    def errs(blk, w, blk_r, w_r):
+        return ((w - w_r).abs().max().item(),
+                (blk[:, :64] - blk_r[:, :64]).abs().max().item(),
+                (blk[:, 64] - blk_r[:, 64]).abs().max().item())
+
+    tol = fr.KERNEL_TOL[dt]
+    f_fwd, _, _ = mlp_work(params)
+    b_ms, b_by = bound(n * s * f_fwd, n * (8 + 2 * s + 27 + 128 + s) * 4)
+    k1_ms = time_ms(lambda: fr.fused_render_apply(kw, o, d, z, noise,
+                                                  exact_encode=False))
+    plain_ms = None
+    if n == N_RAYS or (n, s) == PIPE_ENTRY:
+        plain_ms = time_ms(lambda: drain(
+            pr.pipe_render_plain(params, o[sl], d[sl], z[sl], noise[sl], 15,
+                                 4, dt, False) for sl in ray_slices(n)),
+            reps=3 if n == N_RAYS else 1)
+    recs = []
+    occ = pr.pipe_render_occupancy(kw, device)
+    for p in pr.PHASES:
+        blk, w = pr.pipe_render_apply(kw, o, d, z, noise, False, p)
+        same = torch.equal(blk, blk1) and torch.equal(w, w1)
+        err_k1 = errs(blk, w, blk1, w1)
+        err_plain = None
+        if n == N_RAYS:
+            with full_fp32():
+                blk_p, w_p = pr.pipe_render_plain(params, o, d, z, noise,
+                                                  15, 4, dt, False)
+            err_plain = errs(blk, w, blk_p, w_p)
+            del blk_p, w_p
+        ok = (bool(torch.isfinite(blk).all() and torch.isfinite(w).all())
+              and (same or all(e <= t for e, t in zip(err_k1, tol)))
+              and (err_plain is None
+                   or all(e <= t for e, t in zip(err_plain, tol))))
+        del blk, w
+        ms = time_ms(lambda: pr.pipe_render_apply(kw, o, d, z, noise,
+                                                  False, p))
+        vs_plain = ("" if err_plain is None else
+                    " vs plain max|dw|={:.3e} max|dfmap|={:.3e} "
+                    "max|ddepth|={:.3e} (tol {}),".format(*err_plain, tol))
+        print(f"[pipe] S2 P={p} {n} rays x S={s} bf16: vs K1 "
+              f"{'the same bits' if same else 'OTHER BITS, max err %s' % (err_k1,)},"
+              f"{vs_plain} kernel {ms:.3f} ms "
+              f"({n * s * f_fwd / ms / 1e9:.0f} TFLOP/s), K1 {k1_ms:.3f} "
+              f"ms, plain "
+              f"{'not timed' if plain_ms is None else '%.3f ms' % plain_ms}"
+              f", bound {b_ms:.3f} ms ({b_by}), {occ} CTAs an SM "
+              f"{'ok' if ok else 'FAIL'}")
+        recs.append(dict(N=n, S=s, P=p, same_bits=same,
+                         err_k1=max(err_k1),
+                         err_plain=None if err_plain is None
+                         else max(err_plain),
+                         ms=ms, k1_ms=k1_ms, plain_ms=plain_ms,
+                         bound=(b_ms, b_by), occupancy=occ, ok=ok))
+    return recs
+
+
+def sublane_case(device, mode: str, tiles: int):
+    """S5 in one mode on ``tiles`` tiles of real (sin, cos) states against
+    its plain version: the outputs within the mode's KERNEL_TOL of the
+    largest value, the bf16 blocks themselves (read back through w = [I |
+    0]) within its BLOCK_TOL (the same bits in base and stores), and the
+    zero rows (a w that is zero outside them must give an exactly zero
+    output); at 2048 tiles also the times on the spike's inputs, cuBLAS's
+    on the prebuilt block and the bound."""
+    import torch
+
+    from crnerf_tpu_torch.ops import sublane_stores as ss
+    from crnerf_tpu_torch.tools.spike_sublane_stores import (
+        kernel_bound,
+        real_states,
+        spike_inputs,
+    )
+
+    x_spike, w = spike_inputs(tiles, device)
+    x = real_states(tiles, device)
+    got = ss.sublane_stores(x, w, mode)
+    with full_fp32():
+        want = ss.sublane_stores_plain(x, w, mode)
+    abs_err, rel = _errs(got, want)
+    finite = bool(torch.isfinite(got).all())
+    del got, want
+    blk = ss.kernel_blocks(x, mode)
+    with full_fp32():
+        blk_want = ss.sublane_blocks_plain(x, mode).to(torch.bfloat16).float()
+    blk_err = float((blk - blk_want).abs().max())
+    blk_diff = int((blk != blk_want).sum())
+    del blk, blk_want
+    rows = list(SUBLANE_ZERO_ROWS[mode])
+    zero_ok = True
+    if rows:
+        w_zero = torch.zeros_like(w)
+        w_zero[rows] = w[rows]
+        zero_ok = not bool(ss.sublane_stores(x, w_zero, mode).any())
+    ok = (rel <= ss.KERNEL_TOL[mode] and blk_err <= ss.BLOCK_TOL[mode]
+          and finite and zero_ok)
+    rec = dict(mode=mode, tiles=tiles, err=abs_err, rel=rel,
+               blk_err=blk_err, blk_diff=blk_diff, zero_ok=zero_ok, ok=ok)
+    line = (f"[sublane] S5 {mode} at {tiles} tiles, (sin, cos) states: "
+            f"max|err| {abs_err:.3e} = {rel:.3e} of the largest (bound "
+            f"{ss.KERNEL_TOL[mode]:.2e}); bf16 blocks max|d| {blk_err:.3e} "
+            f"(bound {ss.BLOCK_TOL[mode]:.2e}), {blk_diff} entries differ; "
+            f"rows {rows[0] if rows else '-'}.."
+            f"{rows[-1] if rows else '-'} zero: {zero_ok}")
+    if tiles == SUBLANE_TILES[0]:
+        ms = time_ms(lambda: ss.sublane_stores(x_spike, w, mode), reps=20)
+        with full_fp32():
+            plain_ms = time_ms(
+                lambda: ss.sublane_stores_plain(x_spike, w, mode), reps=3)
+        a = (ss.sublane_blocks_plain(x_spike, "base").to(torch.bfloat16)
+             .transpose(1, 2).reshape(-1, ss.ROWS).contiguous())
+        lib_bf16 = time_ms(lambda: torch.mm(a, w), reps=20)
+        library_ms = time_ms(lambda: torch.mm(a, w, out_dtype=torch.float32),
+                             reps=20)
+        del a
+        flops, nbytes = kernel_bound(tiles)
+        b_ms, b_by = bound(flops, nbytes)
+        rec.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                   library_bf16_ms=lib_bf16, bound=(b_ms, b_by))
+        line += (f"; kernel {ms:.4f} ms ({1e3 * ms / tiles:.4f} us/tile), "
+                 f"plain {plain_ms:.4f} ms, cuBLAS torch.mm on the prebuilt "
+                 f"block {library_ms:.4f} ms f32 out, {lib_bf16:.4f} ms bf16 "
+                 f"out, bound {b_ms:.4f} ms ({b_by})")
+    print(line + (" ok" if ok else " FAIL"))
+    return rec
+
+
+def phase_spikes_4f(device, seed: int):
+    """Phase 4f. -> (S2 records, S5 records, launches of the two tools'
+    run)."""
+    import importlib
+
+    import torch
+
+    params = full_width_params(seed, device)
+    gen = torch.Generator(device=device).manual_seed(seed + 9)
+    pipe = [r for n, s in PIPE_SHAPES
+            for r in pipe_case(device, params, gen, n, s)]
+    sub = [sublane_case(device, mode, tiles) for tiles in SUBLANE_TILES
+           for mode in ("base", "stores", "dmatrix")]
+    if not all(r["ok"] for r in pipe + sub):
+        raise PhaseError("a pipelined render or sublane-stores kernel "
+                         "disagrees with K1 or its plain version")
+    torch.cuda.synchronize()
+    zero_counts()
+    for tool, argv in SPIKE_RUNS_4F:
+        mod = importlib.import_module(f"crnerf_tpu_torch.tools.{tool}")
+        if mod.main(argv) != 0:
+            raise PhaseError(f"{tool} {' '.join(argv)} failed")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    # the interleave tool also launches K1 as its yardstick
+    new = ("pipe_render_fwd", "sublane_stores")
+    if not (all(launches[k] > 0 for k in new)
+            and not any(v for k, v in launches.items()
+                        if k not in new + ("fused_render_fwd",))):
+        raise PhaseError(f"4f tools: launch counters {launches}")
+    print(f"[pipe] the two spike tools' launches: {launches}")
+    return pipe, sub, launches
+
+
+def tf32_check(state, batch):
+    """CGNet's mask and its parameters' gradients on the step's style
+    images with TF32 allowed in cuDNN, as PyTorch's default has it in a
+    user's process (set here: earlier phases' tools turn it off), against
+    the same with TF32 off: its convolutions are pinned to IEEE fp32, so
+    the same bits. The gradients come from a seeded cotangent on its
+    logits, with cuDNN held to its deterministic algorithms
+    (``tools.tf32_ab.cgnet_eval``), so that the bits do not move from run
+    to run."""
+    import torch
+
+    from crnerf_tpu_torch.tools.tf32_ab import cgnet_eval
+
+    cgnet = state.system.implicit_mask
+    whole01 = (batch["whole_img"][:, 0] + 1.0) / 2.0
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        flag = torch.backends.cudnn.conv.fp32_precision
+        mask, grads = cgnet_eval(cgnet, whole01)
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    with full_fp32():
+        ref_mask, ref_grads = cgnet_eval(cgnet, whole01)
+    same = (torch.equal(mask, ref_mask)
+            and all(torch.equal(a, b) for a, b in zip(grads, ref_grads)))
+    err = max(float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30)
+              for a, b in zip([mask, *grads], [ref_mask, *ref_grads]))
+    print(f"[train] CGNet at a user's flags (cudnn allow_tf32 True, conv "
+          f"fp32_precision {flag!r}) against TF32 off: mask and "
+          f"{len(grads)} gradients "
+          f"{'the same bits' if same else 'OTHER BITS'} (max {err:.3e} of "
+          f"the largest)")
+    if not same:
+        raise PhaseError("CGNet with TF32 allowed differs from IEEE fp32: "
+                         "its convolutions are not pinned")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile_dir", type=str, default="",
@@ -2031,6 +2280,8 @@ def main(argv=None) -> int:
         mlp_fwd_records, mlp_bwd_records = phase_mlp_kernels(device, SEED)
         conv3_records, packed_records, sincos_records, spike_launches = \
             phase_conv(device, SEED)
+        pipe_records, sublane_records, launches_4f = phase_spikes_4f(
+            device, SEED)
         os.makedirs(BUILD, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=BUILD) as workdir:
             launches, p50, full_frame = phase_serve(
@@ -2176,6 +2427,23 @@ def main(argv=None) -> int:
               "scripts/spike_kernel_sincos.py:24", spike_launches["sincos"],
               max(r["err"] for r in sincos_records),
               next(r for r in sincos_records if r["scale"] == 1280.0)),
+        # launched by the two spike tools of phase 4f; S2's numbers at the
+        # spike's 8192 x 128 with P = 2, its error against its plain version
+        # (it gives K1's bits); S5's at 2048 tiles, stores mode
+        entry("pipe render fwd", "crnerf_tpu_torch/csrc/pipe_render_fwd.cu",
+              "scripts/spike_interleave.py:47",
+              launches_4f["pipe_render_fwd"],
+              max(r["err_plain"] for r in pipe_records
+                  if r["err_plain"] is not None),
+              next(r for r in pipe_records
+                   if (r["N"], r["S"]) == PIPE_ENTRY and r["P"] == 2)),
+        entry("sublane stores", "crnerf_tpu_torch/csrc/sublane_stores.cu",
+              "scripts/spike_sublane_stores.py:40",
+              launches_4f["sublane_stores"],
+              max(r["err"] for r in sublane_records),
+              next(r for r in sublane_records
+                   if r["tiles"] == SUBLANE_TILES[0]
+                   and r["mode"] == "stores")),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

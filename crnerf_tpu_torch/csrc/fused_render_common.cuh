@@ -215,6 +215,19 @@ __device__ __forceinline__ void load_rows(T* dst, int ld_dst, const T* src,
   }
 }
 
+// Barrier over the NTHREADS threads of the product warps (warps 0-7).
+// BAR 0 is __syncthreads(), for a CTA of those warps alone; another BAR is
+// the named barrier of that id over NTHREADS threads, for a CTA whose other
+// warps do other work meanwhile (pipe_render_fwd.cu).
+template <int BAR>
+__device__ __forceinline__ void warps_sync() {
+  if constexpr (BAR == 0) {
+    __syncthreads();
+  } else {
+    asm volatile("bar.sync %0, %1;\n" ::"n"(BAR), "n"(NTHREADS) : "memory");
+  }
+}
+
 // ------------------------------------------------- encode and trunk, shared
 // The positional encode of a CH-row tile, [x, sin 2^0 x, cos 2^0 x, sin 2^1
 // x, ...] interleaved, into enc (CH x lde, KE columns, the ones past 3 + 6F
@@ -224,8 +237,8 @@ __device__ __forceinline__ void load_rows(T* dst, int ld_dst, const T* src,
 // fast intrinsics) of x * 2^k with exact power-of-two multipliers, or
 // (exact = 0) the anchored double-angle recurrence; rounding-exact
 // intrinsics keep the compiler from fusing the recurrence into FMAs the
-// plain version does not use.
-template <typename T>
+// plain version does not use. BAR: the barrier of warps_sync.
+template <typename T, int BAR = 0>
 __device__ __forceinline__ void encode_tile(T* enc, int lde, const float* xyz,
                                             int F, int KE, int exact) {
   const int tid = threadIdx.x;
@@ -233,7 +246,7 @@ __device__ __forceinline__ void encode_tile(T* enc, int lde, const float* xyz,
     const int w = KE - 3 - 6 * F;
     enc[(i / w) * lde + 3 + 6 * F + i % w] = to_t<T>(0.f);
   }
-  __syncthreads();
+  warps_sync<BAR>();
   if (exact) {
     for (int i = tid; i < CH * 3 * F; i += NTHREADS) {
       const int r = i / (3 * F), rem = i % (3 * F), k = rem / 3, c = rem % 3;
@@ -263,15 +276,15 @@ __device__ __forceinline__ void encode_tile(T* enc, int lde, const float* xyz,
       }
     }
   }
-  __syncthreads();
+  warps_sync<BAR>();
 }
 
 // The trunk over a CH-row tile: h_i = relu([enc |] h_{i-1} @ W_i + b_i) at
 // the compute dtype, ping-pong between act0 and act1 (CH x lda); layer 0 and
 // the layers of skip_mask take the encode. With STASH every layer's output
 // rows go to srow + i * WP (row stride SC). Returns the last layer's buffer;
-// all threads have passed the barrier after it.
-template <bool BF16, bool STASH, typename T>
+// all threads have passed the barrier (warps_sync<BAR>) after it.
+template <bool BF16, bool STASH, typename T, int BAR = 0>
 __device__ __forceinline__ const T* trunk_tile(
     const T* enc, int lde, int KE, T* act0, T* act1, int lda, int WP, int L,
     int skip_mask, const void* const* wenc, const void* const* wh,
@@ -295,7 +308,7 @@ __device__ __forceinline__ const T* trunk_tile(
       gemm<BF16, T>(h, lda, WP, wh[i], (const T*)nullptr, 0, 0, nullptr, WP,
                     epi);
     }
-    __syncthreads();
+    warps_sync<BAR>();
     if constexpr (STASH) store_rows<T>(srow + i * WP, SC, out, lda, WP, nrows);
     h = out;
   }

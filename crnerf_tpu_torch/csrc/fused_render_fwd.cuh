@@ -45,7 +45,11 @@
 //     bit what the products consumed. ~5 KB per point at 8x256 bf16: with
 //     it the kernel also moves bytes, ~4 KB per MFLOP, still under the
 //     card's operations-per-byte line.
-// Left for later: wgmma, TMA, persistent CTAs, several rays per CTA.
+// The chunk's heads (heads_tile), its compositing (composite_chunk), the
+// per-row scalars and the argument parsing are shared with the pipelined
+// forward (pipe_render_fwd.cu), which runs them with the compositing on a
+// warp of its own.
+// Left for later: wgmma, TMA, persistent CTAs.
 
 #pragma once
 
@@ -72,6 +76,119 @@ struct KArgs {
   void* stash;          // (N*S, SC) at the compute dtype, or null
   int N, S, L, skip_mask, WP, HP, CP, C, KE, F, DK, exact, ldo, SC;
 };
+
+// -------------------------------------------------- the chunk's stages
+// z, noise and delta of sample j of a ray of S samples; rows past S repeat
+// the last sample's z and get noise 0 (and alpha 0 in composite_chunk).
+__device__ __forceinline__ void row_scalars(const float* zr, const float* nr,
+                                            int S, int j, float& zc,
+                                            float& nz, float& dl) {
+  const int jc = j < S ? j : S - 1;
+  const float zj = zr[jc];
+  zc = zj;
+  nz = j < S ? nr[j] : 0.f;
+  dl = j < S - 1 ? zr[j + 1] - zj : DELTA_INF;
+}
+
+// The heads over a chunk after the trunk (h: its last layer, in act0 or
+// act1): sigma (column 0 of a 32-wide product) into sig, hf = h @ W_f +
+// b_f into the other activation buffer, dd = relu(hf @ W_dh + dir term +
+// b_d) into h's buffer, the features sigmoid(dd @ W_c + b_c) into feat
+// (fp32). After each stage, past its barrier (warps_sync<BAR>), after(k,
+// buffer) runs: k = 0 with hf, 1 with dd, 2 with the features complete.
+template <bool BF16, int BAR, typename T, class After>
+__device__ __forceinline__ void heads_tile(const KArgs& a, const T* h,
+                                           T* act0, T* act1, int lda,
+                                           const float* dirt, float* sig,
+                                           float* feat, After after) {
+  T* spare = (h == act0) ? act1 : act0;
+  // sigma head (column 0 of a 32-wide product) and xyz_encoding_final
+  {
+    const float* bs = a.bs;
+    auto epi_s = [&](int r, int c, float v0, float) {
+      if (c == 0) sig[r] = v0 + bs[0];
+    };
+    gemm<BF16, T>(h, lda, a.WP, a.ws, (const T*)nullptr, 0, 0, nullptr, 32,
+                  epi_s);
+    const float* bf = a.bf;
+    auto epi_f = [&](int r, int c, float v0, float v1) {
+      store2<T>(spare + r * lda + c, v0 + bf[c], v1 + bf[c + 1]);
+    };
+    gemm<BF16, T>(h, lda, a.WP, a.wf, (const T*)nullptr, 0, 0, nullptr,
+                  a.WP, epi_f);
+  }
+  warps_sync<BAR>();
+  after(0, (const T*)spare);
+  // dir branch: relu(hf @ W_dh + dir term + b_d) into the trunk buffer
+  {
+    T* ddb = const_cast<T*>(h);
+    const float* bd = a.bd;
+    auto epi_d = [&](int r, int c, float v0, float v1) {
+      store2<T>(ddb + r * lda + c, fmaxf(v0 + dirt[c] + bd[c], 0.f),
+                fmaxf(v1 + dirt[c + 1] + bd[c + 1], 0.f));
+    };
+    gemm<BF16, T>(spare, lda, a.WP, a.wdh, (const T*)nullptr, 0, 0, nullptr,
+                  a.HP, epi_d);
+  }
+  warps_sync<BAR>();
+  after(1, h);
+  // feature head: sigmoid(dd @ W_c + b_c), fp32
+  {
+    const float* bc = a.bc;
+    const int cp = a.CP;
+    auto epi_c = [&](int r, int c, float v0, float v1) {
+      feat[r * cp + c] = 1.f / (1.f + expf(-(v0 + bc[c])));
+      feat[r * cp + c + 1] = 1.f / (1.f + expf(-(v1 + bc[c + 1])));
+    };
+    gemm<BF16, T>(h, lda, a.HP, a.wc, (const T*)nullptr, 0, 0, nullptr,
+                  a.CP, epi_c);
+  }
+  warps_sync<BAR>();
+  after(2, (const T*)nullptr);
+}
+
+// Compositing of the chunk starting at sample c0 by one warp, two rows per
+// lane (rows 2 lane, 2 lane + 1 of sig, nz, dl and zc): the weights into
+// wts (and into wo, the ray's row of the weights output, unless null), the
+// transmittance carried from chunk to chunk as a running product, the
+// chunk's depth added to dep. Every lane ends with the same t_carry and dep.
+__device__ __forceinline__ void composite_chunk(
+    const float* sig, const float* nz, const float* dl, const float* zc,
+    int c0, int S, int lane, float* wts, float* wo, float& t_carry,
+    float& dep) {
+  float al[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int r = 2 * lane + q;
+    const float act = fmaxf(softplusf(sig[r]) + nz[r], 0.f);
+    al[q] = (c0 + r < S) ? 1.f - expf(-dl[r] * act) : 0.f;
+  }
+  float incl = (1.f - al[0]) * (1.f - al[1]);
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl *= y;
+  }
+  float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 1.f;
+  const float total = __shfl_sync(0xffffffffu, incl, 31);
+  const float t0 = t_carry * excl;
+  const float w0 = al[0] * t0;
+  const float w1 = al[1] * (t0 * (1.f - al[0]));
+  t_carry *= total;
+  const int r0 = 2 * lane;
+  wts[r0] = w0;
+  wts[r0 + 1] = w1;
+  if (wo != nullptr) {
+    if (c0 + r0 < S) wo[c0 + r0] = w0;
+    if (c0 + r0 + 1 < S) wo[c0 + r0 + 1] = w1;
+  }
+  float pd = w0 * zc[r0] + w1 * zc[r0 + 1];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    pd += __shfl_xor_sync(0xffffffffu, pd, off);
+  dep += pd;
+}
 
 // ------------------------------------------------------------- kernel
 template <bool BF16, bool STASH>
@@ -124,14 +241,7 @@ __global__ void __launch_bounds__(NTHREADS, BF16 ? 2 : 1)
     T* srow = static_cast<T*>(a.stash) + ((size_t)ray * S + c0) * a.SC;
     const int nrows = min(CH, S - c0);
     // per-row scalars; rows past S repeat the last sample and get alpha 0
-    if (tid < CH) {
-      const int j = c0 + tid;
-      const int jc = j < S ? j : S - 1;
-      const float zj = zr[jc];
-      zc[tid] = zj;
-      nz[tid] = j < S ? nr[j] : 0.f;
-      dl[tid] = j < S - 1 ? zr[j + 1] - zj : DELTA_INF;
-    }
+    if (tid < CH) row_scalars(zr, nr, S, c0 + tid, zc[tid], nz[tid], dl[tid]);
     __syncthreads();
     // encode: [x, sin 2^0 x, cos 2^0 x, sin 2^1 x, ...] interleaved
     for (int i = tid; i < CH * 3; i += NTHREADS) {
@@ -149,88 +259,23 @@ __global__ void __launch_bounds__(NTHREADS, BF16 ? 2 : 1)
     const T* h = trunk_tile<BF16, STASH, T>(
         enc, lde, a.KE, act0, act1, lda, a.WP, a.L, a.skip_mask, a.wenc, a.wh,
         a.b, srow, a.SC, nrows);
-    T* spare = (h == act0) ? act1 : act0;
-    // sigma head (column 0 of a 32-wide product) and xyz_encoding_final
-    {
-      const float* bs = a.bs;
-      auto epi_s = [&](int r, int c, float v0, float) {
-        if (c == 0) sig[r] = v0 + bs[0];
-      };
-      gemm<BF16, T>(h, lda, a.WP, a.ws, (const T*)nullptr, 0, 0, nullptr, 32,
-                    epi_s);
-      const float* bf = a.bf;
-      auto epi_f = [&](int r, int c, float v0, float v1) {
-        store2<T>(spare + r * lda + c, v0 + bf[c], v1 + bf[c + 1]);
-      };
-      gemm<BF16, T>(h, lda, a.WP, a.wf, (const T*)nullptr, 0, 0, nullptr,
-                    a.WP, epi_f);
-    }
-    __syncthreads();
-    if constexpr (STASH)
-      store_rows<T>(srow + a.L * a.WP, a.SC, spare, lda, a.WP, nrows);
-    // dir branch: relu(hf @ W_dh + dir term + b_d) into the trunk buffer
-    {
-      T* ddb = const_cast<T*>(h);
-      const float* bd = a.bd;
-      auto epi_d = [&](int r, int c, float v0, float v1) {
-        store2<T>(ddb + r * lda + c, fmaxf(v0 + dirt[c] + bd[c], 0.f),
-                  fmaxf(v1 + dirt[c + 1] + bd[c + 1], 0.f));
-      };
-      gemm<BF16, T>(spare, lda, a.WP, a.wdh, (const T*)nullptr, 0, 0, nullptr,
-                    a.HP, epi_d);
-    }
-    __syncthreads();
-    if constexpr (STASH)
-      store_rows<T>(srow + (a.L + 1) * a.WP, a.SC, h, lda, a.HP, nrows);
-    // feature head: sigmoid(dd @ W_c + b_c), fp32
-    {
-      const float* bc = a.bc;
-      const int cp = a.CP;
-      auto epi_c = [&](int r, int c, float v0, float v1) {
-        feat[r * cp + c] = 1.f / (1.f + expf(-(v0 + bc[c])));
-        feat[r * cp + c + 1] = 1.f / (1.f + expf(-(v1 + bc[c + 1])));
-      };
-      gemm<BF16, T>(h, lda, a.HP, a.wc, (const T*)nullptr, 0, 0, nullptr,
-                    a.CP, epi_c);
-    }
-    __syncthreads();
+    heads_tile<BF16, 0, T>(
+        a, h, act0, act1, lda, dirt, sig, feat,
+        [&](int stage, const T* buf) {
+          if constexpr (STASH) {
+            if (stage == 0)        // hf
+              store_rows<T>(srow + a.L * a.WP, a.SC, buf, lda, a.WP, nrows);
+            else if (stage == 1)   // dd
+              store_rows<T>(srow + (a.L + 1) * a.WP, a.SC, buf, lda, a.HP,
+                            nrows);
+          }
+        });
 
     // compositing of the chunk: warp 0, two rows per lane
-    if (warp == 0) {
-      float al[2];
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int r = 2 * lane + q;
-        const float act = fmaxf(softplusf(sig[r]) + nz[r], 0.f);
-        al[q] = (c0 + r < S) ? 1.f - expf(-dl[r] * act) : 0.f;
-      }
-      float incl = (1.f - al[0]) * (1.f - al[1]);
-#pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float y = __shfl_up_sync(0xffffffffu, incl, off);
-        if (lane >= off) incl *= y;
-      }
-      float excl = __shfl_up_sync(0xffffffffu, incl, 1);
-      if (lane == 0) excl = 1.f;
-      const float total = __shfl_sync(0xffffffffu, incl, 31);
-      const float t0 = t_carry * excl;
-      const float w0 = al[0] * t0;
-      const float w1 = al[1] * (t0 * (1.f - al[0]));
-      t_carry *= total;
-      const int r0 = 2 * lane;
-      wts[r0] = w0;
-      wts[r0 + 1] = w1;
-      if (a.wout != nullptr) {
-        float* wo = a.wout + (size_t)ray * S;
-        if (c0 + r0 < S) wo[c0 + r0] = w0;
-        if (c0 + r0 + 1 < S) wo[c0 + r0 + 1] = w1;
-      }
-      float pd = w0 * zc[r0] + w1 * zc[r0 + 1];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        pd += __shfl_xor_sync(0xffffffffu, pd, off);
-      dep += pd;
-    }
+    if (warp == 0)
+      composite_chunk(sig, nz, dl, zc, c0, S, lane, wts,
+                      a.wout ? a.wout + (size_t)ray * S : nullptr, t_carry,
+                      dep);
     __syncthreads();
     if (tid < a.C) {
       for (int r = 0; r < CH; ++r) fm += wts[r] * feat[r * a.CP + tid];
@@ -268,17 +313,17 @@ constexpr int FWD_DIMS = 15;
 // wdh, bd, wde, wc, bc, then per trunk layer (wenc, wh, b); absent operands
 // are 0.
 // dims: N, S, L, skip_mask, WP, HP, CP, C, KE, F, DK, exact, ldo, BF16, SC.
-// Launches on ``stream`` and returns cudaGetLastError() (or
-// cudaErrorInvalidValue for arguments the kernel does not take).
-int render_fwd_entry(const void* const* ptrs, int n_ptrs, const int* dims,
-                     int n_dims, void* stream) {
+// Fills a and bf16; returns 0, or cudaErrorInvalidValue for arguments the
+// kernels do not take.
+int parse_fwd_args(const void* const* ptrs, int n_ptrs, const int* dims,
+                   int n_dims, KArgs& a, bool& bf16) {
   if (n_dims != FWD_DIMS) return (int)cudaErrorInvalidValue;
-  KArgs a = {};
+  a = KArgs{};
   a.N = dims[0]; a.S = dims[1]; a.L = dims[2]; a.skip_mask = dims[3];
   a.WP = dims[4]; a.HP = dims[5]; a.CP = dims[6]; a.C = dims[7];
   a.KE = dims[8]; a.F = dims[9]; a.DK = dims[10]; a.exact = dims[11];
   a.ldo = dims[12]; a.SC = dims[14];
-  const bool bf16 = dims[13] != 0;
+  bf16 = dims[13] != 0;
   if (a.N < 1 || a.S < 1 || a.L < 1 || a.L > MAXL) return (int)cudaErrorInvalidValue;
   if (n_ptrs != FWD_PTRS + 3 * a.L) return (int)cudaErrorInvalidValue;
   if (a.WP % 32 || a.WP > 32 * MAX_NTW || a.HP % 32 || a.HP > a.WP ||
@@ -307,6 +352,18 @@ int render_fwd_entry(const void* const* ptrs, int n_ptrs, const int* dims,
     if ((with_enc && !a.wenc[i]) || (i > 0 && !a.wh[i]) || !a.b[i])
       return (int)cudaErrorInvalidValue;
   }
+  return 0;
+}
+
+// Arguments as parse_fwd_args takes them. Launches on ``stream`` and
+// returns cudaGetLastError() (or cudaErrorInvalidValue for arguments the
+// kernel does not take).
+int render_fwd_entry(const void* const* ptrs, int n_ptrs, const int* dims,
+                     int n_dims, void* stream) {
+  KArgs a;
+  bool bf16;
+  const int rc = parse_fwd_args(ptrs, n_ptrs, dims, n_dims, a, bf16);
+  if (rc != 0) return rc;
   const size_t smem = smem_bytes(a, bf16);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16) {

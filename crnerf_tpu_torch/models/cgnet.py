@@ -28,7 +28,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from crnerf_tpu_torch.models.common import PReLU, nchw, nhwc, resize_bilinear
+from crnerf_tpu_torch.models.common import (
+    IEEEConv2d,
+    PReLU,
+    nchw,
+    nhwc,
+    resize_bilinear,
+)
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.1   # torch convention: new = 0.9 * old + 0.1 * batch
@@ -62,7 +68,7 @@ class _Norm(nn.Module):
 class ConvBNPReLU(nn.Module):
     def __init__(self, n_in: int, n_out: int, k: int, stride: int = 1):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(n_in, n_out, k, stride, (k - 1) // 2,
+        self.Conv_0 = IEEEConv2d(n_in, n_out, k, stride, (k - 1) // 2,
                                 bias=False)
         self._Norm_0 = _Norm(n_out)
         self.PReLU_0 = PReLU(n_out)
@@ -81,8 +87,8 @@ class BNPReLU(nn.Module):
         return self.PReLU_0(self._Norm_0(x))
 
 
-def _depthwise(channels: int, dilation: int) -> nn.Conv2d:
-    return nn.Conv2d(channels, channels, 3, padding=dilation,
+def _depthwise(channels: int, dilation: int) -> IEEEConv2d:
+    return IEEEConv2d(channels, channels, 3, padding=dilation,
                      dilation=dilation, groups=channels, bias=False)
 
 
@@ -111,7 +117,7 @@ class ContextGuidedBlockDown(nn.Module):
         self.F_sur = _depthwise(n_out, dilation)
         self._Norm_0 = _Norm(2 * n_out)
         self.PReLU_0 = PReLU(2 * n_out)
-        self.reduce = nn.Conv2d(2 * n_out, n_out, 1, bias=False)
+        self.reduce = IEEEConv2d(2 * n_out, n_out, 1, bias=False)
         self.FGlo_0 = FGlo(n_out, reduction)
 
     def forward(self, x):
@@ -161,7 +167,7 @@ class ContextGuidedNetwork(nn.Module):
         for name in self.level3:
             self.add_module(name, ContextGuidedBlock(128, 128, 4, 16))
         self.bn_prelu_3 = BNPReLU(256)
-        self.classifier = nn.Conv2d(256, classes, 1)
+        self.classifier = IEEEConv2d(256, classes, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (N, H, W, 3) -> (N, H, W, classes) sigmoid mask."""

@@ -6,11 +6,13 @@ NCHW between their layers, call the same torch operators directly.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.autograd.function import once_differentiable
 
 
 def nchw(x: torch.Tensor) -> torch.Tensor:
@@ -114,12 +116,81 @@ def sample_bilinear_uv(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     return top * (1 - wy) + bot * wy
 
 
+@contextlib.contextmanager
+def ieee_fp32_conv():
+    """cuDNN's fp32 convolutions in IEEE fp32 inside the block, whatever
+    the process's TF32 flags (PyTorch's default lets cuDNN run them in
+    TF32, about three decimal digits); the operator's flag is restored on
+    leaving, exception or not. Sets the convolution's own flag,
+    ``torch.backends.cudnn.conv.fp32_precision``: ``cudnn.flags()`` would
+    also turn cuDNN off (its ``enabled`` defaults to False), and reading the
+    legacy ``cudnn.allow_tf32`` raises once a caller has set the operators'
+    flags apart."""
+    flag = torch.backends.cudnn.conv
+    saved = flag.fp32_precision
+    flag.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        flag.fp32_precision = saved
+
+
+class _IEEEConv2d(torch.autograd.Function):
+    """F.conv2d whose forward and backward both run under
+    ``ieee_fp32_conv``: autograd runs a backward after the forward's block
+    has closed, so pinning the forward alone would leave the gradients in
+    TF32."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, dilation, groups):
+        ctx.save_for_backward(x, weight)
+        ctx.conf = (None if bias is None else list(bias.shape), stride,
+                    padding, dilation, groups)
+        with ieee_fp32_conv():
+            return F.conv2d(x, weight, bias, stride, padding, dilation,
+                            groups)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gy):
+        x, weight = ctx.saved_tensors
+        bias_sizes, stride, padding, dilation, groups = ctx.conf
+        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                bias_sizes is not None and ctx.needs_input_grad[2]]
+        with ieee_fp32_conv():
+            gx, gw, gb = torch.ops.aten.convolution_backward(
+                gy, x, weight, bias_sizes, list(stride), list(padding),
+                list(dilation), False, [0] * len(stride), groups, mask)
+        return gx, gw, gb, None, None, None, None
+
+
+def conv2d_ieee(x: torch.Tensor, weight: torch.Tensor,
+                bias, stride, padding, dilation,
+                groups: int = 1) -> torch.Tensor:
+    """``F.conv2d`` (numeric stride, padding and dilation tuples) in IEEE
+    fp32 on the card, forward and backward; the same operators as
+    ``F.conv2d`` and its autograd backward on the CPU."""
+    return _IEEEConv2d.apply(x, weight, bias, tuple(stride), tuple(padding),
+                             tuple(dilation), groups)
+
+
+class IEEEConv2d(nn.Conv2d):
+    """``nn.Conv2d`` (zero padding) through ``conv2d_ieee``: the same
+    parameters and names, no TF32 at fp32."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d_ieee(x, self.weight, self.bias, self.stride,
+                           self.padding, self.dilation, self.groups)
+
+
 def conv(layer: nn.Conv2d, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """flax ``nn.Conv(dtype=dt)`` on NCHW: input and kernel cast to dt, the
     product rounded to dt, then the bias added at dt (two roundings, as in
-    flax; a fused bias would round once)."""
-    y = F.conv2d(x.to(dt), layer.weight.to(dt), None, layer.stride,
-                 layer.padding, layer.dilation, layer.groups)
+    flax; a fused bias would round once). At fp32 the product is IEEE fp32
+    (``conv2d_ieee``), as the JAX package computes it on the CPU."""
+    args = (x.to(dt), layer.weight.to(dt), None, layer.stride, layer.padding,
+            layer.dilation, layer.groups)
+    y = conv2d_ieee(*args) if dt == torch.float32 else F.conv2d(*args)
     return y if layer.bias is None else y + layer.bias.to(dt)[:, None, None]
 
 

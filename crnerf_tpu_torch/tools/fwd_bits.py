@@ -4,7 +4,10 @@
 
 Prints one sha256 per case (bf16 and fp32, exact encode and recurrence,
 1024 rays x 256 samples, 8x256, C=64) over the bytes of the ray block and
-the weights. The kernel has no atomics and a fixed order of sums, so two
+the weights; then per case of the training forwards (the same dtypes and
+encodes, the first 256 rays) one over the ray block, the weights and the
+stash of the stash forward, and one over the ray block and the weights of
+the xyz-in forward on the rays' sample points. The kernel has no atomics and a fixed order of sums, so two
 builds that compute the same function print the same digests on the same
 card: run it in two checkouts to show that a change to the kernel's source
 left the inference launches bit-identical.
@@ -45,6 +48,21 @@ def main() -> int:
             h = hashlib.sha256(blk.cpu().numpy().tobytes()
                                + w.cpu().numpy().tobytes()).hexdigest()
             print(f"{str(dt)[6:]} exact={exact} {h}")
+    m = 256
+    pts = (o[:m, None, :] + d[:m, None, :] * z[:m, :, None]).contiguous()
+    for dt in (torch.bfloat16, torch.float32):
+        kw = fr.prepare_kernel_weights(params, 15, 4, dt)
+        for exact in (True, False):
+            outs = fr.render_fwd(kw, o[:m], d[:m], z[:m], noise[:m], exact,
+                                 stash=True)
+            outs += fr.render_fwd(kw, None, d[:m], z[:m], noise[:m], exact,
+                                  stash=False, xyz=pts)[:2]
+            torch.cuda.synchronize()
+            for name, ts in (("stash", outs[:3]), ("xyz-in", outs[3:])):
+                h = hashlib.sha256(b"".join(
+                    t.cpu().view(torch.uint8).numpy().tobytes()
+                    for t in ts)).hexdigest()
+                print(f"{str(dt)[6:]} exact={exact} {name} {h}")
     return 0
 
 

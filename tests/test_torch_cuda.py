@@ -663,3 +663,107 @@ def test_sincos_kernel_within_two_ulps_of_float64(dev):
             <= sc.F64_TOL
         assert float((c.cpu().double() - torch.cos(x64)).abs().max()) \
             <= sc.F64_TOL
+
+
+# ------------------------------------- the pipelined render and the stores
+@pytest.mark.parametrize("p", [1, 2, 3, 4])
+@pytest.mark.parametrize("depth,width,c,n,s", [
+    (6, 64, 16, 37, 100), (8, 256, 64, 64, 128), (2, 48, 24, 9, 130),
+])
+def test_pipe_render_gives_k1_bits(dev, p, depth, width, c, n, s):
+    """S2 against K1 on the same inputs: the same bits, for every rays a
+    CTA (p = 3 leaves a ragged last CTA), S with a partial
+    last chunk, padded widths; and against the plain version within K1's
+    bf16 tolerance."""
+    from crnerf_tpu_torch.ops import pipe_render as pr
+
+    torch.manual_seed(3)
+    params = fr.mlp_params_from_module(
+        NerfMLP(depth=depth, width=width, out_dim=c).to(dev))
+    o, d, z, noise = _inputs(dev, n, s)
+    kw = fr.prepare_kernel_weights(params, 15, 4, torch.bfloat16)
+    before = pr.LAUNCH_COUNTS["pipe_render_fwd"]
+    blk, w = pr.pipe_render_apply(kw, o, d, z, noise, False, p)
+    blk1, w1 = fr.fused_render_apply(kw, o, d, z, noise, False)
+    torch.cuda.synchronize()
+    assert pr.LAUNCH_COUNTS["pipe_render_fwd"] == before + 1
+    assert torch.equal(blk, blk1) and torch.equal(w, w1)
+    blk_p, w_p = pr.pipe_render_plain(params, o, d, z, noise, 15, 4,
+                                      torch.bfloat16, False)
+    tw, tf, td = fr.KERNEL_TOL[torch.bfloat16]
+    assert float((w - w_p).abs().max()) <= tw
+    assert float((blk[:, :c] - blk_p[:, :c]).abs().max()) <= tf
+    assert float((blk[:, c] - blk_p[:, c]).abs().max()) <= td
+
+
+def test_pipe_render_refuses_what_the_kernel_does_not_take(dev):
+    from crnerf_tpu_torch.ops import pipe_render as pr
+
+    params = fr.mlp_params_from_module(
+        NerfMLP(depth=2, width=32, out_dim=8).to(dev))
+    o, d, z, noise = _inputs(dev, 4, 16)
+    with pytest.raises(ValueError, match="bf16 only"):
+        pr.pipe_render_apply(fr.prepare_kernel_weights(params), o, d, z,
+                             noise)
+    kw = fr.prepare_kernel_weights(params, 15, 4, torch.bfloat16)
+    assert pr.pipe_render_occupancy(kw, dev) >= 1
+    with pytest.raises(ValueError, match="on cpu"):
+        pr.pipe_render_apply(kw, o.cpu(), d, z, noise)
+
+
+@pytest.mark.parametrize("mode", ["base", "stores", "dmatrix"])
+@pytest.mark.parametrize("tiles", [1, 37])
+def test_sublane_stores_kernel_matches_plain(dev, mode, tiles):
+    """S5 against its plain version on real (sin, cos) states: the outputs
+    within the mode's ops.sublane_stores.KERNEL_TOL of the largest value,
+    the bf16 blocks (read back through w = [I | 0]) within its BLOCK_TOL
+    (the same bits in base and stores), and the rows it zeroes: a w that
+    is zero outside them gives an exactly zero output."""
+    from crnerf_tpu_torch.ops import sublane_stores as ss
+    from crnerf_tpu_torch.tools.spike_sublane_stores import (
+        real_states,
+        spike_inputs,
+    )
+
+    x = real_states(tiles, dev)
+    w = spike_inputs(1, dev)[1]
+    before = ss.LAUNCH_COUNTS["sublane_stores"]
+    got = ss.sublane_stores(x, w, mode)
+    torch.cuda.synchronize()
+    assert ss.LAUNCH_COUNTS["sublane_stores"] == before + 1
+    want = ss.sublane_stores_plain(x, w, mode)
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) \
+        <= ss.KERNEL_TOL[mode] * float(want.abs().max())
+    blk_want = ss.sublane_blocks_plain(x, mode).to(torch.bfloat16).float()
+    assert float((ss.kernel_blocks(x, mode) - blk_want).abs().max()) \
+        <= ss.BLOCK_TOL[mode]
+    rows = {"base": range(8, 96), "stores": range(93, 96)}.get(mode)
+    if rows:
+        w_zero = torch.zeros_like(w)
+        w_zero[list(rows)] = w[list(rows)]
+        assert not bool(ss.sublane_stores(x, w_zero, mode).any())
+
+
+def test_cgnet_is_ieee_fp32_at_a_users_tf32_flags(dev):
+    """With TF32 allowed in cuDNN, as PyTorch's default has it, CGNet's
+    mask and parameter gradients are the bits of the same evaluation with
+    TF32 off: its convolutions are pinned to IEEE fp32."""
+    from crnerf_tpu_torch.models.cgnet import ContextGuidedNetwork
+    from crnerf_tpu_torch.tools.tf32_ab import cgnet_eval, no_tf32
+
+    torch.manual_seed(4)
+    net = ContextGuidedNetwork().to(dev)
+    x = torch.rand(4, 160, 224, 3, generator=torch.Generator().manual_seed(
+        8)).to(dev)
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        mask, grads = cgnet_eval(net, x)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    with no_tf32():
+        ref_mask, ref_grads = cgnet_eval(net, x)
+    assert torch.equal(mask, ref_mask)
+    assert all(torch.equal(a, b) for a, b in zip(grads, ref_grads))

@@ -1,6 +1,7 @@
 """The port imports torch and never jax, flax, optax or the JAX package:
-every module of crnerf_tpu_torch (the train/ and data/ packages, the conv
-and sincos ops and the spike tools included), and chip_smoke.py, import
+every module of crnerf_tpu_torch (the train/ and data/ packages, the conv,
+sincos, pipelined-render and sublane-stores ops and the spike tools
+included), and chip_smoke.py, import
 with all four blocked. Its Config keeps the JAX Config's names and
 defaults. Its serve entry point and its spike tools run on the card unless
 the caller asks for the CPU."""
@@ -28,7 +29,10 @@ for needed in ("train.step", "train.losses", "train.optim", "train.state",
                "data.scene", "data.synthetic", "ops.composite",
                "ops.fused_render", "ops.fused_mlp", "tools.slab_ab",
                "ops.conv", "ops.sincos", "tools.spike_conv3x3",
-               "tools.spike_packed_conv", "tools.spike_kernel_sincos"):
+               "tools.spike_packed_conv", "tools.spike_kernel_sincos",
+               "ops.pipe_render", "ops.sublane_stores",
+               "tools.spike_interleave", "tools.spike_sublane_stores",
+               "tools.tf32_ab"):
     assert "crnerf_tpu_torch." + needed in names, needed
 import chip_smoke
 chip_smoke.serve_config()
@@ -138,7 +142,8 @@ def test_no_entry_point_picks_the_cpu_by_itself():
 
 
 
-SPIKE_TOOLS = ("spike_conv3x3", "spike_packed_conv", "spike_kernel_sincos")
+SPIKE_TOOLS = ("spike_conv3x3", "spike_packed_conv", "spike_kernel_sincos",
+               "spike_interleave", "spike_sublane_stores")
 
 
 @pytest.mark.parametrize("tool", SPIKE_TOOLS)
@@ -161,6 +166,8 @@ def test_spike_tool_stops_without_a_card(tool):
                        "--co", "5"]),
     ("spike_packed_conv", ["--iters", "1"]),
     ("spike_kernel_sincos", []),
+    ("spike_interleave", ["--rays", "3", "--s", "20"]),
+    ("spike_sublane_stores", ["--tiles", "2", "--iters", "1"]),
 ])
 def test_spike_tool_runs_on_the_cpu_when_asked(monkeypatch, capsys, tool,
                                                argv):
@@ -178,5 +185,8 @@ def test_spike_tool_runs_on_the_cpu_when_asked(monkeypatch, capsys, tool,
     want = {"spike_conv3x3": "checks OK" if "--check" in argv else
             "kernel dw ",
             "spike_packed_conv": "small: max rel err vs library = ",
-            "spike_kernel_sincos": "torch sin vs f64 numpy @1280 rad"}[tool]
+            "spike_kernel_sincos": "torch sin vs f64 numpy @1280 rad",
+            "spike_interleave": "pipelined P=4 at (3 x 20): max|d| vs K1 "
+                                "0.00e+00 (same bits)",
+            "spike_sublane_stores": "cuBLAS: none on the CPU"}[tool]
     assert want in out
