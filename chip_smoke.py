@@ -6,7 +6,8 @@
 Phases, each fatal on failure:
   1. versions, the card's name and power limit; no CUDA device -> exit 1
   2. build every kernel from csrc/ with nvcc (sm_90a), the sources side by
-     side
+     side; ptxas's registers and spills printed, and the phase fails on
+     its note C7520 (it serialised a kernel's wgmma)
   3. the forward kernel against its plain PyTorch version at full width
      (8x256, C=64) on 1024 rays, S=256 and S=512, bf16 and fp32, exact
      encode and the recurrence; max abs error of weights, fmap and depth
@@ -50,8 +51,13 @@ Phases, each fatal on failure:
      reflect-padded original; sin/cos at the spike's five scales against
      float64 (the fast intrinsics' error printed); each kernel against its
      plain version, with its time beside the plain version's, cuDNN's (or
-     torch.sin + torch.cos) and its bound; then the three spike tools as a
-     user runs them, counters zeroed before and read after
+     torch.sin + torch.cos) and its bound; the conv kernels and cuDNN
+     timed in turns (cuDNN, kernel, kernel, cuDNN; medians of 6 readings
+     of 20 calls), each beside its own bound, and the variant each shape
+     took (wgmma or mma.sync, from the launch counters: a main shape, C and
+     Co multiples of 64, must take wgmma); then the three spike tools as a
+     user runs them, counters zeroed before and read after (no mma.sync
+     launch)
   4f. the last two spikes' kernels: the pipelined fused render forward (S2)
      against the fused render forward (K1) on the same inputs, for every
      rays-per-CTA P, at 1024 rays x S=256 and 512, at the spike's 8192 x
@@ -256,12 +262,21 @@ def phase_build():
     if errors:
         raise errors[0]
     dt = time.perf_counter() - t0
+    serialised = []
     for source in loaders:
         log = _build.BUILD_LOG.get(source, "(cached build)")
         print(f"[build] {source} (all {len(loaders)} sources in {dt:.1f} s)")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            # registers, spills, and ptxas's note when it serialises wgmma
+            if any(k in line for k in ("registers", "spill", "error",
+                                       "Performance")):
                 print("[build]  " + line.strip())
+            if "C7520" in line:
+                serialised.append(source)
+    if serialised:
+        raise PhaseError(f"ptxas serialised the wgmma of {serialised} "
+                         "(note C7520): a wait or branch between the "
+                         "products of one group")
 
 
 def ray_slices(n: int):
@@ -1841,12 +1856,36 @@ def _errs(got, want):
     return e, e / (want.abs().max().item() + 1e-30)
 
 
+def _variant_taken(cv, fn, name: str):
+    """-> (fn's result, the variant its launch counted under: "wgmma" for
+    ``name``, "mma" for ``name`` + "_mma")."""
+    import torch
+
+    before = dict(cv.LAUNCH_COUNTS)
+    got = fn()
+    torch.cuda.synchronize()
+    moved = {k for k, v in cv.LAUNCH_COUNTS.items() if v != before[k]}
+    taken = ("wgmma" if moved == {name} else "mma"
+             if moved == {name + "_mma"} else f"counters {sorted(moved)}")
+    return got, taken
+
+
+def _variant_ok(cv, c: int, co: int, taken: str) -> bool:
+    """The variant the shape must take: conv_variant's, and the wgmma one
+    at a main shape (C and Co multiples of 64)."""
+    want = cv.conv_variant(c, co)
+    return taken == want and bool(c % 64 or co % 64 or taken == "wgmma")
+
+
 def conv3_case(device, gen, n, h, w, c, co):
     """The 3x3 forward and weight-gradient kernels at one shape against
-    their plain versions, the gradient twice; -> (fwd record, dw record)."""
+    their plain versions, the gradient twice; the variant each took (from
+    the launch counters); kernel and cuDNN timed in turns; -> (fwd record,
+    dw record)."""
     import torch
 
     from crnerf_tpu_torch.ops import conv as cv
+    from crnerf_tpu_torch.tools._common import turns_ms
     from crnerf_tpu_torch.tools.spike_conv3x3 import library_dw, library_fwd
 
     def normal(*shape):
@@ -1857,44 +1896,47 @@ def conv3_case(device, gen, n, h, w, c, co):
     m, tag = n * h * w, f"{n} x {h} x {w}, {c} -> {co}"
     flops = 2.0 * 9 * m * c * co
     in_bytes = 2 * xpad.numel()
-    cases = {  # kernel, plain version, cuDNN, bytes moved at the least
-        # input and kernel read once, the f32 output written once
+    cases = {  # kernel, plain version, cuDNN, bytes both sides read, output
+        # elements (the kernel writes them at 4 bytes, cuDNN at 2)
         "fwd": (lambda: cv.conv3x3_valid_fwd(xpad, kernel),
                 lambda: cv.conv_valid_plain(xpad, kernel),
                 library_fwd(xpad, kernel),
-                in_bytes + 2 * kernel.numel() + 4 * m * co),
-        # input and cotangent read once, the f32 gradient written once
+                in_bytes + 2 * kernel.numel(), m * co),
         "dw": (lambda: cv.conv3x3_dw(xpad, dy),
                lambda: cv.conv3x3_dw_plain(xpad, dy),
                library_dw(xpad, dy, kernel.shape),
-               in_bytes + 2 * dy.numel() + 4 * 9 * c * co),
+               in_bytes + 2 * dy.numel(), 9 * c * co),
     }
     recs = []
-    for kind, (kern, plain, lib, nbytes) in cases.items():
-        got = kern()
+    for kind, (kern, plain, lib, reads, outs) in cases.items():
+        got, taken = _variant_taken(
+            cv, kern, "conv3x3_fwd" if kind == "fwd" else "conv3x3_dw")
         with full_fp32():
             want = plain()
         abs_err, rel = _errs(got, want)
         same_bits = torch.equal(got, kern()) if kind == "dw" else True
         ok = (rel <= cv.KERNEL_TOL_F32 and same_bits
+              and _variant_ok(cv, c, co, taken)
               and bool(torch.isfinite(got).all()))
         del got, want
-        # 20 calls a reading: cuDNN's ~0.1 ms calls are near the host's
-        # launch rate, and fewer calls measure the host
-        ms = time_ms(kern, reps=20)
+        # 20 calls a reading, in turns with cuDNN: its ~0.1 ms calls are
+        # near the host's launch rate and moved 1.6x between calls
+        ms, library_ms = turns_ms(kern, lib, device, 20)
         with full_fp32():
             plain_ms = time_ms(plain, reps=3)
-            library_ms = time_ms(lib, reps=20)
-        b_ms, b_by = bound(flops, nbytes)
+        b_ms, b_by = bound(flops, reads + 4 * outs)
+        lib_b_ms, lib_b_by = bound(flops, reads + 2 * outs)
         bits = ("" if kind == "fwd" else ", twice: the same bits"
                 if same_bits else ", twice: OTHER BITS")
-        print(f"[conv] 3x3 {kind} {tag}: max|err| {abs_err:.3e} = {rel:.3e} "
-              f"of the largest (bound {cv.KERNEL_TOL_F32:.0e}){bits}; kernel "
-              f"{ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
-              f"{plain_ms:.4f} ms, cuDNN {library_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}) {'ok' if ok else 'FAIL'}")
+        print(f"[conv] 3x3 {kind} {tag} ({taken}): max|err| {abs_err:.3e} = "
+              f"{rel:.3e} of the largest (bound {cv.KERNEL_TOL_F32:.0e})"
+              f"{bits}; kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{100 * b_ms / ms:.0f}% of its bound {b_ms:.4f} ms, {b_by}), "
+              f"cuDNN {library_ms:.4f} ms ({100 * lib_b_ms / library_ms:.0f}%"
+              f" of its bound {lib_b_ms:.4f} ms, {lib_b_by}, bf16 out), "
+              f"plain {plain_ms:.4f} ms {'ok' if ok else 'FAIL'}")
         recs.append(dict(kind=kind, shape=(n, h, w, c, co), err=abs_err,
-                         rel=rel,
+                         rel=rel, variant=taken,
                          ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                          bound=(b_ms, b_by), ok=ok))
     return recs
@@ -1902,10 +1944,12 @@ def conv3_case(device, gen, n, h, w, c, co):
 
 def packed_case(device, shape, f):
     """The packed conv at one level against its plain version and, after
-    _d2s, against the 3x3 kernel on the reflect-padded original."""
+    _d2s, against the 3x3 kernel on the reflect-padded original; the
+    variant it took; kernel and cuDNN timed in turns."""
     import torch
 
     from crnerf_tpu_torch.ops import conv as cv
+    from crnerf_tpu_torch.tools._common import turns_ms
     from crnerf_tpu_torch.tools.spike_conv3x3 import library_fwd
     from crnerf_tpu_torch.tools.spike_packed_conv import (
         level_inputs,
@@ -1915,7 +1959,8 @@ def packed_case(device, shape, f):
     b, h, w, c = shape
     x, k3 = level_inputs(shape, f, device)
     xp_pad, k2 = packed_operands(x, k3)
-    got = cv.packed_conv(xp_pad, k2)
+    got, taken = _variant_taken(cv, lambda: cv.packed_conv(xp_pad, k2),
+                                "packed_conv")
     with full_fp32():
         want = cv.conv_valid_plain(xp_pad, k2, torch.bfloat16)
     abs_err, rel = _errs(got, want)
@@ -1924,26 +1969,28 @@ def packed_case(device, shape, f):
         cv.reflect_pad(x, 1).contiguous(), k3))[1]
     tie_tol = 2.0 ** -8 + cv.KERNEL_TOL_F32
     ok = (rel <= cv.KERNEL_TOL_BF16 and tie <= tie_tol
+          and _variant_ok(cv, 4 * c, 4 * f, taken)
           and bool(torch.isfinite(got.float()).all()))
     del got, want
-    ms = time_ms(lambda: cv.packed_conv(xp_pad, k2), reps=20)
+    ms, library_ms = turns_ms(lambda: cv.packed_conv(xp_pad, k2),
+                              library_fwd(xp_pad, k2), device, 20)
     with full_fp32():
         plain_ms = time_ms(
             lambda: cv.conv_valid_plain(xp_pad, k2, torch.bfloat16), reps=3)
-        library_ms = time_ms(library_fwd(xp_pad, k2), reps=20)
     i, j = h // 2, w // 2
     flops = 2.0 * 4 * b * i * j * (4 * c) * (4 * f)
     nbytes = 2 * (xp_pad.numel() + k2.numel() + b * i * j * 4 * f)
     b_ms, b_by = bound(flops, nbytes)
-    print(f"[conv] packed {b} x {h} x {w}, {c} -> {f} (4C = {4 * c}): "
-          f"max|err| {abs_err:.3e} = {rel:.3e} of the largest (bound "
-          f"{cv.KERNEL_TOL_BF16:.2e}); _d2s of it against the 3x3 kernel "
-          f"{tie:.3e} (bound {tie_tol:.2e}); kernel {ms:.4f} ms "
-          f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
-          f"cuDNN {library_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) "
-          f"{'ok' if ok else 'FAIL'}")
-    return dict(shape=(b, h, w, c, f), err=abs_err, rel=rel, ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms,
+    print(f"[conv] packed {b} x {h} x {w}, {c} -> {f} (4C = {4 * c}, "
+          f"{taken}): max|err| {abs_err:.3e} = {rel:.3e} of the largest "
+          f"(bound {cv.KERNEL_TOL_BF16:.2e}); _d2s of it against the 3x3 "
+          f"kernel {tie:.3e} (bound {tie_tol:.2e}); kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.1f} TFLOP/s, {100 * b_ms / ms:.0f}% of the "
+          f"bound {b_ms:.4f} ms, {b_by}), cuDNN {library_ms:.4f} ms "
+          f"({100 * b_ms / library_ms:.0f}%, the same bound: bf16 out on "
+          f"both), plain {plain_ms:.4f} ms {'ok' if ok else 'FAIL'}")
+    return dict(shape=(b, h, w, c, f), err=abs_err, rel=rel, variant=taken,
+                ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound=(b_ms, b_by), ok=ok)
 
 
@@ -2006,7 +2053,8 @@ def phase_conv(device, seed: int):
     sincos = sincos_cases(device)
     if not all(r["ok"] for r in conv3 + packed + sincos):
         raise PhaseError("a conv or sincos kernel disagrees with its plain "
-                         "version, or the gradient changed its bits")
+                         "version, the gradient changed its bits, or a "
+                         "shape took another variant than its own")
     torch.cuda.synchronize()
     zero_counts()
     for tool, argv in SPIKE_RUNS:
@@ -2015,6 +2063,7 @@ def phase_conv(device, seed: int):
             raise PhaseError(f"{tool} {' '.join(argv)} failed")
     torch.cuda.synchronize()
     launches = read_counts()
+    # the tools run main shapes only: the wgmma variants, no "_mma" launch
     spikes = ("conv3x3_fwd", "conv3x3_dw", "packed_conv", "sincos")
     if not (all(launches[k] > 0 for k in spikes)
             and not any(v for k, v in launches.items() if k not in spikes)):

@@ -13,40 +13,327 @@
 // Both TPU kernels tile the output in r_tile-row blocks and get the halo
 // through BlockSpecs: three row-shifted views of the input
 // (spike_conv3x3.py:54-56), or a main block and a one-row halo block
-// (spike_packed_conv.py:64-68). Both need H % r_tile == 0:
-// conv3x3_valid_fwd's grid is h // r_tile and leaves the remaining rows
-// unwritten, pallas_packed_conv asserts it. Here a block computes its own
-// addresses from blockIdx and the shapes and masks the ragged edge, so any
+// (spike_packed_conv.py:64-68). Both need H % r_tile == 0. Here a CTA
+// computes its own coordinates and the ragged edge is masked (the mma.sync
+// variant) or falls outside the tensor maps (the wgmma variant), so any
 // N, H, W, C and Co work.
 //
-// GEMM view: M = N*H*W output pixels (rows), Co columns, a depth of
-// KH*KW*C ordered (tap, channel). A block owns a 128-pixel x 64-channel
-// output tile; Co is tiled over blockIdx.y. It walks the depth one (tap,
-// 32 channels) chunk at a time: each pixel's 32 channels of the shifted
-// input row are copied straight from the padded tensor (16-byte cp.async,
-// zero-filled past C and past M), the chunk's 32 x 64 slice of k beside
-// them, through a 3-stage ring in shared memory; ldmatrix feeds mma.sync
-// m16n8k16. 8 warps, each 32 pixels x 32 channels (32 fp32 sums a thread).
-// When C or Co is not a multiple of 8 the copies are element by element
-// (VEC = false): 16-byte copies would straddle pixels.
+// Two variants, chosen by the wrapper (ops/conv.py conv_variant) from the
+// shapes before the launch:
+//
+// conv_fwd_tma_kernel (C and Co multiples of 8: every row of x, k and out
+// is 16-byte aligned, as TMA needs). A persistent grid, one CTA an SM,
+// walks work items: an output tile of BH image rows x BW pixels (BW * BH =
+// 128, ops/conv.py conv_tile picks BW from the width) times BN output
+// channels. Warp 8 is the producer: one lane issues TMA loads into
+// mbarrier rings in dynamic shared memory. Two consumer warpgroups each
+// own 64 of the tile's pixels and run wgmma m64nBNk16 with both operands
+// in shared memory, 128-byte swizzled (hopper.cuh). The depth is walked
+// as (64-channel chunk, tap column j, tap row i):
+//   - A: for each (chunk, j) one box of x, BH + KH - 1 rows x BW pixels
+//     from column w0 + j. Row i of the taps is the same box BW * i rows
+//     on, a whole number of 1024-byte atoms when BW % 8 == 0, so one load
+//     serves KH taps and the K-major descriptor just moves;
+//   - B: for each (chunk, j, i) the 64 x BN slice of k, MN-major as k
+//     lies (N contiguous), BN / 64 boxes. When the whole kernel fits (RES:
+//     S1's 9 x 64 x 64 bf16 = 72 KB) it is loaded once per CTA and stays;
+//     else it streams through its own ring, NB slices deep;
+//   - a product group (commit, then wait until one group is in flight) is
+//     one x box's KH taps when the kernel stays, one tap when it streams;
+//   - epilogue: each warpgroup writes its 64 x BN sums into a swizzled
+//     staging buffer and one thread stores it with TMA (the box's part
+//     past W, H or Co is not written), then goes on to the next item while
+//     the store drains and the producer fills the x ring (as many slots as
+//     227 KB leaves, up to TC_NX).
+// BN is Co up to 256 for a bf16 output (S4 reads each input box once at 4C
+// = 256, twice at 512) and 64 for the fp32 output (S1's 64 x 128 x 4
+// bytes of staging a warpgroup; a wider f32 tile would not leave room for
+// the ring).
+// Why A comes this way. TMA's im2col mode would give one box per (chunk,
+// tap) and re-read x KH * KW times, as the mma.sync variant does; A from
+// registers (one halo window, ldmatrix at tap-shifted rows) reads x once
+// but keeps the A fragments alive across asynchronous products, which the
+// compiler does not see. A tiled box per tap column keeps both operands in
+// shared memory and moves only descriptors, for KW (BH + KH - 1) / BH
+// reads of x from L2 (3.4x for S1 at BW = 8, 2.1-2.3x for S4).
+// What ptxas needs: no mbarrier wait between two wgmma of one group (a
+// wait there is a divergent branch; ptxas then inserts warpgroup.arrive
+// and serialises every wgmma of the function, note C7520, which
+// chip_smoke.py's build phase refuses). The resident kernel is therefore
+// waited for once, before the first item.
+//
+// conv_fwd_kernel (the mma.sync variant, C or Co not a multiple of 8):
+// a block owns a 128-pixel x 64-channel output tile and walks the depth
+// one (tap, 32 channels) chunk at a time, copied element by element into a
+// 3-stage ring, ldmatrix feeding mma.sync m16n8k16; 8 warps, each 32
+// pixels x 32 channels.
 //
 // What bounds it, on an H100 SXM (989 TFLOP/s bf16 dense, 3.35 TB/s):
-// S1 at 8 x 160 x 224, 64 -> 64 is bound by bytes: 21.1 GFLOP against 111
-// MB (37.5 MB of input read once, 73.4 MB of fp32 output written once),
-// 0.033 ms. S4 at the two encoder levels (4C = 256 and 512) is bound by
-// operations: 37.6 GFLOP each, 0.038 ms. The design reads the input from
-// device memory about once per column block (the 9 or 4 shifted reads of
-// a pixel's row come from L1/L2) and writes each output once, from
-// registers, 8 bytes a thread. It runs mma.sync, which on Hopper reaches a
-// fraction of the wgmma rate: S4 stays far from its bound.
-// Left for later: wgmma with TMA loads, a persistent grid, a 128-wide
-// column tile for Co >= 128 (each input tile is now read Co / 64 times).
+// S1 at 16 x 160 x 224, 64 -> 64 is bound by bytes: 42.3 GFLOP against 222
+// MB (75 MB of input read once, 147 MB of fp32 output written once),
+// 0.066 ms. S4 at the two encoder levels (4C = 256 and 512) is bound by
+// operations: 37.6 GFLOP each, 0.038 ms.
 #pragma once
 
 #include "fused_render_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+// ----------------------------------------------- the wgmma + TMA variant
+constexpr int TC_BM = 128;             // output pixels a tile
+constexpr int TC_THREADS = 288;        // two consumer warpgroups + producer
+constexpr int TC_X_MAX = 24576;        // one x box: <= 192 rows of 128 B
+constexpr int TC_B_BOX = 8192;         // 64 channels x 64 out, bf16
+constexpr int TC_SMEM_MAX = 232448;    // the H100's 227 KB a block
+constexpr int TC_BARS = 1024;          // room for the mbarriers
+constexpr int TC_NX = 8;               // the most x slots
+
+struct TcArgs {
+  int BW, BH;
+  int tiles_w, tiles_h, ntiles_n, cchunks, items;
+  uint32_t x_bytes; // bytes of one x box
+  int x_slot, nx;   // bytes of an x slot (x_bytes to 1024), slots
+};
+
+// Shared memory of an instance but its x ring: 1024 bytes to align the
+// start, the barriers, NB B slots and the output staging.
+template <typename OutT, int BN, int NB>
+constexpr int tc_fixed_bytes() {
+  return 1024 + TC_BARS + NB * (BN / 64) * TC_B_BOX +
+         TC_BM * BN * (int)sizeof(OutT);
+}
+
+template <int BN>
+__device__ __forceinline__ void tc_mma(float (&d)[BN / 2], uint64_t da,
+                                       uint64_t db) {
+  if constexpr (BN == 64)
+    wgmma_m64n64k16<0, 1>(d, da, db);
+  else
+    wgmma_m64n256k16<0, 1>(d, da, db);
+}
+
+// RES: the whole kernel stays in shared memory (one column block, at most
+// NB (chunk, tap) slices)
+template <int KH, typename OutT, int BN, int NB, bool RES>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    conv_fwd_tma_kernel(const __grid_constant__ CUtensorMap xmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap omap,
+                        const TcArgs a) {
+  constexpr int KW = KH;
+  constexpr int B_SLOT = (BN / 64) * TC_B_BOX;
+  static_assert(!RES || BN == 64, "a resident kernel is one 64-wide box");
+  constexpr int ES = (int)sizeof(OutT);
+  constexpr int O_BOX = 128 / ES;            // output channels a store box
+  constexpr int WG_OUT = 64 * BN * ES;       // staging of one warpgroup
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  static_assert(2 * (TC_NX + NB) * 8 <= TC_BARS, "barriers");
+  uint64_t* xfull = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* xempty = xfull + TC_NX;
+  uint64_t* bfull = xempty + TC_NX;
+  uint64_t* bempty = bfull + NB;
+  uint8_t* bsm = smem + TC_BARS;
+  uint8_t* osm = bsm + NB * B_SLOT;
+  uint8_t* xsm = osm + TC_BM * BN * ES;
+  const int nx = a.nx;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < nx; ++s) {
+      mbar_init(&xfull[s], 1);
+      mbar_init(&xempty[s], 2);
+    }
+    for (int s = 0; s < NB; ++s) {
+      mbar_init(&bfull[s], 1);
+      mbar_init(&bempty[s], 2);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // item -> (image, tile row, tile column, column block), column block
+  // fastest so the CTAs of one pixel tile run side by side
+  auto decode = [&](int item, int& n, int& h0, int& w0, int& n0) {
+    n0 = (item % a.ntiles_n) * BN;
+    int t = item / a.ntiles_n;
+    w0 = (t % a.tiles_w) * a.BW;
+    t /= a.tiles_w;
+    h0 = (t % a.tiles_h) * a.BH;
+    n = t / a.tiles_h;
+  };
+
+  if (tid >= 256) {  // ----------------------------------------- producer
+    if (tid != 256) return;
+    int xs = 0, xph = 0, bs = 0, bph = 0;
+    if constexpr (RES) {  // the whole kernel, once: slot (chunk, j, i)
+      for (int cc = 0; cc < a.cchunks; ++cc)
+        for (int t = 0; t < KH * KW; ++t) {
+          const int i = t % KH, j = t / KH, slot = cc * KH * KW + t;
+          mbar_expect_tx(&bfull[slot], B_SLOT);
+          tma_load_3d(bsm + slot * B_SLOT, &kmap, &bfull[slot], 0, cc * 64,
+                      i * KW + j);
+        }
+    }
+    for (int item = blockIdx.x; item < a.items; item += gridDim.x) {
+      int n, h0, w0, n0;
+      decode(item, n, h0, w0, n0);
+      for (int cc = 0; cc < a.cchunks; ++cc)
+#pragma unroll
+        for (int j = 0; j < KW; ++j) {
+          mbar_wait(&xempty[xs], xph ^ 1);
+          mbar_expect_tx(&xfull[xs], a.x_bytes);
+          tma_load_4d(xsm + xs * a.x_slot, &xmap, &xfull[xs], cc * 64,
+                      w0 + j, h0, n);
+          if (++xs == nx) { xs = 0; xph ^= 1; }
+          if constexpr (!RES) {
+#pragma unroll
+            for (int i = 0; i < KH; ++i) {
+              mbar_wait(&bempty[bs], bph ^ 1);
+              mbar_expect_tx(&bfull[bs], B_SLOT);
+#pragma unroll
+              for (int b = 0; b < BN / 64; ++b)
+                tma_load_3d(bsm + bs * B_SLOT + b * TC_B_BOX, &kmap,
+                            &bfull[bs], n0 + 64 * b, cc * 64, i * KW + j);
+              if (++bs == NB) { bs = 0; bph ^= 1; }
+            }
+          }
+        }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  const int wg = tid >> 7, wtid = tid & 127;
+  const int warp = wtid >> 5, lane = wtid & 31;
+  float acc[BN / 2];
+  int xs = 0, xph = 0, bs = 0, bph = 0;
+  uint8_t* ostage = osm + wg * WG_OUT;
+  if constexpr (RES)  // once, outside the products: a wait between two
+                      // wgmma of a group serialises them (ptxas C7520)
+    for (int u = 0; u < a.cchunks * KH * KW; ++u) mbar_wait(&bfull[u], 0);
+  for (int item = blockIdx.x; item < a.items; item += gridDim.x) {
+    int n, h0, w0, n0;
+    decode(item, n, h0, w0, n0);
+#pragma unroll
+    for (int q = 0; q < BN / 2; ++q) acc[q] = 0.f;
+    // the slots the previous product group read, released once it is
+    // done. A group is all KH taps of an x box when the kernel stays, one
+    // tap when it streams (its ring holds fewer than two x boxes' slices).
+    int prev_b = -1, prev_x = -1;
+    for (int cc = 0; cc < a.cchunks; ++cc)
+#pragma unroll
+      for (int j = 0; j < KW; ++j) {
+        mbar_wait(&xfull[xs], xph);
+        const uint32_t xaddr = smem_u32(xsm + xs * a.x_slot) + wg * 64 * 128;
+        if constexpr (RES) {
+          fence_acc(acc);
+          wgmma_fence();
+#pragma unroll
+          for (int i = 0; i < KH; ++i) {
+            const uint32_t baddr =
+                smem_u32(bsm + ((cc * KW + j) * KH + i) * B_SLOT);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              tc_mma<BN>(
+                  acc, sw128_desc(xaddr + i * a.BW * 128 + kk * 32, 16, 1024),
+                  sw128_desc(baddr + kk * 2048, TC_B_BOX, 1024));
+          }
+          wgmma_commit();
+          fence_acc(acc);
+          wgmma_wait<1>();
+          fence_acc(acc);
+          if (wtid == 0 && prev_x >= 0) mbar_arrive(&xempty[prev_x]);
+          prev_x = xs;
+        } else {
+#pragma unroll
+          for (int i = 0; i < KH; ++i) {
+            mbar_wait(&bfull[bs], bph);
+            const uint32_t baddr = smem_u32(bsm + bs * B_SLOT);
+            fence_acc(acc);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              tc_mma<BN>(
+                  acc, sw128_desc(xaddr + i * a.BW * 128 + kk * 32, 16, 1024),
+                  sw128_desc(baddr + kk * 2048, TC_B_BOX, 1024));
+            wgmma_commit();
+            fence_acc(acc);
+            wgmma_wait<1>();
+            fence_acc(acc);
+            if (wtid == 0) {
+              if (prev_b >= 0) mbar_arrive(&bempty[prev_b]);
+              if (prev_x >= 0) mbar_arrive(&xempty[prev_x]);
+            }
+            prev_b = bs;
+            prev_x = i == KH - 1 ? xs : -1;
+            if (++bs == NB) { bs = 0; bph ^= 1; }
+          }
+        }
+        if (++xs == nx) { xs = 0; xph ^= 1; }
+      }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (wtid == 0) {
+      if (prev_b >= 0) mbar_arrive(&bempty[prev_b]);
+      if (prev_x >= 0) mbar_arrive(&xempty[prev_x]);
+      bulk_wait_read();  // the previous item's store has left the staging
+    }
+    named_bar_sync(1 + wg, 128);
+    // rows warp * 16 + lane / 4 (+ 8), columns 8 nb + 2 (lane % 4) (+ 1),
+    // into 128-byte swizzled boxes of O_BOX channels
+#pragma unroll
+    for (int nb = 0; nb < BN / 8; ++nb)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = warp * 16 + (lane >> 2) + 8 * hf;
+        const int c = nb * 8 + 2 * (lane & 3);
+        const int byte = (c % O_BOX) * ES;
+        uint8_t* p = ostage + (c / O_BOX) * TC_B_BOX + r * 128 +
+                     ((((byte >> 4) ^ (r & 7)) << 4) | (byte & 15));
+        const float v0 = acc[nb * 4 + 2 * hf], v1 = acc[nb * 4 + 2 * hf + 1];
+        if constexpr (ES == 4)
+          *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+        else
+          *reinterpret_cast<__nv_bfloat162*>(p) =
+              __floats2bfloat162_rn(v0, v1);
+      }
+    fence_proxy_async();
+    named_bar_sync(1 + wg, 128);
+    if (wtid == 0) {
+#pragma unroll
+      for (int b = 0; b < BN / O_BOX; ++b)
+        tma_store_4d(&omap, ostage + b * TC_B_BOX, n0 + b * O_BOX, w0,
+                     h0 + wg * (64 / a.BW), n);
+      bulk_commit();
+    }
+  }
+  if (wtid == 0) bulk_wait();
+}
+
+// Launches conv_fwd_tma_kernel on ``st`` over min(items, SMs) CTAs;
+// cudaGetLastError().
+template <int KH, typename OutT, int BN, int NB, bool RES>
+int launch_conv_fwd_tma(const CUtensorMap& xmap, const CUtensorMap& kmap,
+                        const CUtensorMap& omap, const TcArgs& a,
+                        cudaStream_t st) {
+  constexpr int fixed = tc_fixed_bytes<OutT, BN, NB>();
+  static_assert(fixed + 2 * TC_X_MAX <= TC_SMEM_MAX, "no room for 2 slots");
+  const int smem = fixed + a.nx * a.x_slot;
+  auto kern = conv_fwd_tma_kernel<KH, OutT, BN, NB, RES>;
+  cudaError_t rc = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  const int sms = sm_count();
+  if (sms < 1) return (int)cudaErrorInvalidDevice;
+  const int grid = a.items < sms ? a.items : sms;
+  kern<<<grid, TC_THREADS, smem, st>>>(xmap, kmap, omap, a);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------ the mma.sync variant
 constexpr int CV_BM = 128;      // output pixels a block
 constexpr int CV_BN = 64;       // output channels a block
 constexpr int CV_BK = 32;       // depth a stage: 32 channels of one tap
@@ -62,7 +349,7 @@ struct ConvArgs {
   int N, H, W, C, Co, Hp, Wp;
 };
 
-template <int KH, int KW, typename OutT, bool VEC>
+template <int KH, int KW, typename OutT>
 __global__ void __launch_bounds__(CV_THREADS)
     conv_fwd_kernel(const ConvArgs a) {
   __shared__ __align__(16) __nv_bfloat16 As[CV_STAGES][CV_BM * CV_LDA];
@@ -98,32 +385,20 @@ __global__ void __launch_bounds__(CV_THREADS)
     __nv_bfloat16* bs = Bs[stage];
     const int bc = c0 + br, bo = n0 + bv;
     const __nv_bfloat16* bsrc = a.k + ((size_t)tap * a.C + bc) * a.Co + bo;
-    if constexpr (VEC) {
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const bool ok = a_ok[q] && c0 + av < a.C;
-        cp_async16(as + (ar + 64 * q) * CV_LDA + av,
-                   ok ? a.x + a_base[q] + tap_off + c0 + av : a.x,
-                   ok ? 16 : 0);
+    for (int q = 0; q < 2; ++q)
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int c = c0 + av + u;
+        as[(ar + 64 * q) * CV_LDA + av + u] =
+            a_ok[q] && c < a.C ? a.x[a_base[q] + tap_off + c]
+                               : __float2bfloat16_rn(0.f);
       }
-      const bool ok = bc < a.C && bo < a.Co;
-      cp_async16(bs + br * CV_LDB + bv, ok ? bsrc : a.k, ok ? 16 : 0);
-    } else {
 #pragma unroll
-      for (int q = 0; q < 2; ++q)
-#pragma unroll
-        for (int u = 0; u < 8; ++u) {
-          const int c = c0 + av + u;
-          as[(ar + 64 * q) * CV_LDA + av + u] =
-              a_ok[q] && c < a.C ? a.x[a_base[q] + tap_off + c]
-                                 : __float2bfloat16_rn(0.f);
-        }
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-        bs[br * CV_LDB + bv + u] = bc < a.C && bo + u < a.Co
-                                       ? bsrc[u]
-                                       : __float2bfloat16_rn(0.f);
-    }
+    for (int u = 0; u < 8; ++u)
+      bs[br * CV_LDB + bv + u] = bc < a.C && bo + u < a.Co
+                                     ? bsrc[u]
+                                     : __float2bfloat16_rn(0.f);
   };
 
   float acc[2][4][4];
@@ -135,16 +410,13 @@ __global__ void __launch_bounds__(CV_THREADS)
       for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
 
 #pragma unroll
-  for (int s = 0; s < CV_STAGES - 1; ++s) {
+  for (int s = 0; s < CV_STAGES - 1; ++s)
     if (s < nchunks) load(s, s);
-    cp_async_commit();
-  }
   for (int kc = 0; kc < nchunks; ++kc) {
-    cp_async_wait<CV_STAGES - 2>();  // chunk kc has landed
-    __syncthreads();                 // and every warp is done with kc - 1
+    __syncthreads();  // chunk kc is written and every warp is done with
+                      // kc - 1
     const int nxt = kc + CV_STAGES - 1;
     if (nxt < nchunks) load(nxt, nxt % CV_STAGES);
-    cp_async_commit();
     const __nv_bfloat16* as = As[kc % CV_STAGES];
     const __nv_bfloat16* bs = Bs[kc % CV_STAGES];
 #pragma unroll
@@ -168,7 +440,6 @@ __global__ void __launch_bounds__(CV_THREADS)
                    bf[ni >> 1][(ni & 1) * 2 + 1]);
     }
   }
-  cp_async_wait<0>();
 
   OutT* out = static_cast<OutT*>(a.out);
   const int g = lane >> 2, t = lane & 3;
@@ -183,25 +454,18 @@ __global__ void __launch_bounds__(CV_THREADS)
       for (int ni = 0; ni < 4; ++ni) {
         const int col = n0 + wn * 32 + ni * 8 + 2 * t;
         const float v0 = acc[mi][ni][2 * hf], v1 = acc[mi][ni][2 * hf + 1];
-        if constexpr (VEC) {
-          if (col < a.Co) store2<OutT>(orow + col, v0, v1);
-        } else {
-          if (col < a.Co) orow[col] = to_t<OutT>(v0);
-          if (col + 1 < a.Co) orow[col + 1] = to_t<OutT>(v1);
-        }
+        if (col < a.Co) orow[col] = to_t<OutT>(v0);
+        if (col + 1 < a.Co) orow[col + 1] = to_t<OutT>(v1);
       }
     }
 }
 
-// Launches conv_fwd_kernel<KH, KW, OutT, *> on ``st``; cudaGetLastError().
+// Launches conv_fwd_kernel<KH, KW, OutT> on ``st``; cudaGetLastError().
 template <int KH, int KW, typename OutT>
-int launch_conv_fwd(const ConvArgs& a, bool vec, cudaStream_t st) {
+int launch_conv_fwd(const ConvArgs& a, cudaStream_t st) {
   const int M = a.N * a.H * a.W;
   const dim3 grid((M + CV_BM - 1) / CV_BM, (a.Co + CV_BN - 1) / CV_BN);
-  if (vec)
-    conv_fwd_kernel<KH, KW, OutT, true><<<grid, CV_THREADS, 0, st>>>(a);
-  else
-    conv_fwd_kernel<KH, KW, OutT, false><<<grid, CV_THREADS, 0, st>>>(a);
+  conv_fwd_kernel<KH, KW, OutT><<<grid, CV_THREADS, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -13,7 +13,11 @@ their plain PyTorch versions: counterparts of ``scripts/spike_conv3x3.py``
 
 On the card the operands are bfloat16 (the kernels have no fp32 variant:
 fp32 is refused) with fp32 accumulation; any H, W, C and Co. A CPU tensor
-takes the plain version, any other device raises. Below them, the port's
+takes the plain version, any other device raises. Each kernel has two
+variants, chosen here from the shapes before the launch (``conv_variant``):
+wgmma with TMA loads when C and Co are multiples of 8, mma.sync with
+element-by-element copies otherwise; each counts its launches under its
+own name. Below them, the port's
 copies of the packing helpers of ``crnerf_tpu/models/common.py:29-116``
 that prepare S4's inputs (``_s2d``, ``_d2s``, ``_s2d_assembly``,
 ``_pack_kernel3x3``, ``packed_reflect_pad1``; ``reflect_pad`` is
@@ -30,9 +34,12 @@ import torch
 
 from crnerf_tpu_torch.models.common import reflect_pad  # noqa: F401
 
-# launches of each kernel, counted by its wrapper where it launches
+# launches of each kernel, counted by its wrapper where it launches: the
+# wgmma + TMA variant under the kernel's name, the mma.sync variant under
+# the name + "_mma"
 LAUNCH_COUNTS: Dict[str, int] = {"conv3x3_fwd": 0, "conv3x3_dw": 0,
-                                 "packed_conv": 0}
+                                 "packed_conv": 0, "conv3x3_fwd_mma": 0,
+                                 "conv3x3_dw_mma": 0, "packed_conv_mma": 0}
 
 # Kernel against its plain version on the same bf16 inputs, max abs error
 # over the plain version's largest |value|. fp32 outputs (the 3x3 forward
@@ -45,10 +52,14 @@ LAUNCH_COUNTS: Dict[str, int] = {"conv3x3_fwd": 0, "conv3x3_dw": 0,
 KERNEL_TOL_F32 = 1e-4
 KERNEL_TOL_BF16 = 2.0 ** -7 + 1e-4
 
-# Pixels a stage of the gradient kernel, and the blocks its split aims at
-# (4 on each of the H100's 132 SMs).
+# Pixels a stage of the mma.sync gradient kernel, and the blocks its split
+# aims at (4 on each of the H100's 132 SMs).
 _DW_PT = 64
 _DW_TARGET_BLOCKS = 132 * 4
+# Output pixels a tile of the wgmma kernels, and the CTAs the gradient's
+# split aims at (one on each of the H100's 132 SMs: 178 KB of ring each).
+_TILE = 128
+_DT_TARGET_CTAS = 132
 
 _C_ARGS = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
            ctypes.c_void_p)
@@ -90,6 +101,51 @@ def conv3x3_dw_plain(xpad: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         for i in range(3)])
 
 
+# ------------------------------------------------- shapes to launches
+def conv_variant(c: int, co: int) -> str:
+    """The kernel variant for C input and Co output channels: "wgmma" (TMA
+    loads and stores, wgmma) when both are multiples of 8, so that every
+    row of the input, the kernel, dy and the output is 16-byte aligned, as
+    TMA needs; else "mma" (mma.sync, element-by-element copies). A
+    function of the shapes alone, taken before the launch."""
+    return "wgmma" if c % 8 == 0 and co % 8 == 0 else "mma"
+
+
+def conv_tile(h: int, w: int, taps: int):
+    """-> (BW, BH): the wgmma kernels' output tile, BH rows of BW pixels,
+    BW * BH = 128. BW is a multiple of 8 (a tap row's shift of the input
+    box by BW rows stays on whole 128-byte swizzle atoms), and the input
+    box, BH + taps - 1 rows of BW pixels, fits one 24 KB slot: BW <= 32
+    for 3 taps, <= 64 for 2. Picks the fewest padded pixels
+    (ceil(H / BH) BH x ceil(W / BW) BW), then the smallest box."""
+    best = None
+    for bw in (8, 16, 32, 64):
+        bh = _TILE // bw
+        if (bh + taps - 1) * bw > 192:
+            continue
+        padded = -(-h // bh) * bh * (-(-w // bw) * bw)
+        key = (padded, (bh + taps - 1) * bw)
+        if best is None or key < best[0]:
+            best = (key, (bw, bh))
+    return best[1]
+
+
+def dw_slices(tiles: int, blocks: int) -> int:
+    """-> the slices of the wgmma gradient kernel over ``tiles`` pixel
+    tiles and ``blocks`` 64 x 64 (channel x out) blocks: about 132 CTAs in
+    all, none empty. Slice s takes tiles [s * tiles // slices, (s + 1) *
+    tiles // slices). A function of the shapes alone, so the fixed order of
+    the sums, and hence the bits, depend on nothing else."""
+    return max(1, min(tiles, _DT_TARGET_CTAS // blocks))
+
+
+def _aligned(*ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError("the wgmma kernels need 16-byte aligned "
+                             "tensors (a view at an odd offset is not)")
+
+
 # ------------------------------------------------------------- wrappers
 def _check(name: str, t: torch.Tensor, dev, shape) -> None:
     if t.device != dev:
@@ -120,16 +176,20 @@ def _conv_fwd(xpad: torch.Tensor, kernel: torch.Tensor, taps: int,
                          f"H, W >= {taps} with padding")
     _check("xpad", xpad, dev, (n, hp, wp, c))
     _check("kernel", kernel, dev, (taps, taps, c, co))
-    out = torch.empty((n, hp - taps + 1, wp - taps + 1, co), dtype=out_dtype,
-                      device=dev)
+    h, w = hp - taps + 1, wp - taps + 1
+    out = torch.empty((n, h, w, co), dtype=out_dtype, device=dev)
+    wgmma = conv_variant(c, co) == "wgmma"
+    if wgmma:
+        _aligned(xpad, kernel, out)
+    bw = conv_tile(h, w, taps)[0] if wgmma else 0
     ptrs = (ctypes.c_void_p * 3)(xpad.data_ptr(), kernel.data_ptr(),
                                  out.data_ptr())
-    dims = (ctypes.c_int * 6)(n, hp, wp, c, co, taps)
-    rc = _lib().crnerf_conv_fwd(ptrs, 3, dims, 6,
+    dims = (ctypes.c_int * 8)(n, hp, wp, c, co, taps, int(wgmma), bw)
+    rc = _lib().crnerf_conv_fwd(ptrs, 3, dims, 8,
                                 torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"crnerf_conv_fwd launch failed: cudaError {rc}")
-    LAUNCH_COUNTS[counter] += 1
+        raise RuntimeError(f"crnerf_conv_fwd launch failed: error {rc}")
+    LAUNCH_COUNTS[counter if wgmma else counter + "_mma"] += 1
     return out
 
 
@@ -146,9 +206,10 @@ def packed_conv(xp_pad: torch.Tensor, k2: torch.Tensor) -> torch.Tensor:
 
 
 def dw_split(m: int, tiles: int):
-    """-> (splits, pixels a split) of the gradient kernel over m pixels and
-    ``tiles`` output tiles: a function of the shapes alone, so the fixed
-    order of the sums, and hence the bits, depend on nothing else."""
+    """-> (splits, pixels a split) of the mma.sync gradient kernel over m
+    pixels and ``tiles`` output tiles: a function of the shapes alone, so
+    the fixed order of the sums, and hence the bits, depend on nothing
+    else."""
     splits = max(1, min(-(-_DW_TARGET_BLOCKS // tiles), -(-m // _DW_PT)))
     m_per = -(-m // splits)
     m_per = -(-m_per // _DW_PT) * _DW_PT
@@ -172,18 +233,28 @@ def conv3x3_dw(xpad: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
                          f"H, W >= 1 with padding")
     _check("xpad", xpad, dev, (n, hp, wp, c))
     _check("dy", dy, dev, (n, hp - 2, wp - 2, co))
-    tiles = 9 * -(-c // 64) * -(-co // 64)
-    splits, m_per = dw_split(n * (hp - 2) * (wp - 2), tiles)
+    h, w = hp - 2, wp - 2
+    blocks = -(-c // 64) * -(-co // 64)
+    wgmma = conv_variant(c, co) == "wgmma"
+    if wgmma:
+        bw, bh = conv_tile(h, w, 3)
+        splits = dw_slices(n * -(-h // bh) * -(-w // bw), blocks)
+        per = 0
+    else:
+        bw = 0
+        splits, per = dw_split(n * h * w, 9 * blocks)
     part = torch.empty((splits, 9 * c * co), dtype=torch.float32, device=dev)
     out = torch.empty((3, 3, c, co), dtype=torch.float32, device=dev)
+    if wgmma:
+        _aligned(xpad, dy, part)
     ptrs = (ctypes.c_void_p * 4)(xpad.data_ptr(), dy.data_ptr(),
                                  part.data_ptr(), out.data_ptr())
-    dims = (ctypes.c_int * 7)(n, hp, wp, c, co, splits, m_per)
-    rc = _lib().crnerf_conv_dw(ptrs, 4, dims, 7,
+    dims = (ctypes.c_int * 9)(n, hp, wp, c, co, splits, per, int(wgmma), bw)
+    rc = _lib().crnerf_conv_dw(ptrs, 4, dims, 9,
                                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"crnerf_conv_dw launch failed: cudaError {rc}")
-    LAUNCH_COUNTS["conv3x3_dw"] += 1
+        raise RuntimeError(f"crnerf_conv_dw launch failed: error {rc}")
+    LAUNCH_COUNTS["conv3x3_dw" if wgmma else "conv3x3_dw_mma"] += 1
     return out
 
 

@@ -1,8 +1,9 @@
-"""What the spike tools share: the device a tool runs on, its timer, the
+"""What the spike tools share: the device a tool runs on, its timers, the
 card's name and power limit, and the error measure they print."""
 
 from __future__ import annotations
 
+import statistics
 import subprocess
 import sys
 import time
@@ -64,6 +65,21 @@ def time_ms(fn, device: torch.device, reps: int) -> float:
     end.record()
     torch.cuda.synchronize(device)
     return start.elapsed_time(end) / reps
+
+
+def turns_ms(kernel, library, device: torch.device, reps: int = 20,
+             readings: int = 3):
+    """-> (kernel ms, library ms) per call: the medians of 2 * ``readings``
+    readings of ``reps`` calls each, taken in turns library, kernel,
+    kernel, library, so that a drift of the card or the host between calls
+    falls on both sides alike."""
+    ks, ls = [], []
+    for _ in range(readings):
+        ls.append(time_ms(library, device, reps))
+        ks.append(time_ms(kernel, device, reps))
+        ks.append(time_ms(kernel, device, reps))
+        ls.append(time_ms(library, device, reps))
+    return statistics.median(ks), statistics.median(ls)
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:

@@ -9,10 +9,13 @@ Counterpart of ``scripts/spike_conv3x3.py``.
 
 Seeded bf16 inputs: the padded input (N, H+2, W+2, C), the kernel (3, 3,
 C, Co) and an output cotangent (N, H, W, Co), standard normal. Without
-``--check`` it prints ms per call (over 20 calls) and TFLOP/s of cuDNN's
-forward (``F.conv2d``, bf16 in and out, channels-last), the forward kernel
-(bf16 in, f32 out), the weight-gradient kernel (f32 out) and cuDNN's
-weight gradient (``torch.nn.grad.conv2d_weight``, bf16 out). ``--check`` holds
+``--check`` it prints, for the forward and for the weight gradient, the
+kernel variant the shape takes (``ops.conv.conv_variant``), ms per call and
+TFLOP/s of the kernel (f32 out) and of cuDNN (``F.conv2d``,
+``torch.nn.grad.conv2d_weight``: bf16 in and out, channels-last), each the
+median of 6 readings of 20 calls taken in turns cuDNN, kernel, kernel,
+cuDNN (``_common.turns_ms``), and each side's own bound at the card's
+published peaks (its output in its own dtype). ``--check`` holds
 both kernels to their plain versions (``ops.conv.KERNEL_TOL_F32``) and to
 cuDNN (one bf16 step, cuDNN's outputs being bf16), prints "checks OK" and
 returns 0, or returns 1. cuDNN is the yardstick only: no path of the port
@@ -35,10 +38,20 @@ from crnerf_tpu_torch.tools._common import (
     device_line,
     pick_device,
     rel_err,
-    time_ms,
+    turns_ms,
 )
 
 ITERS = 20   # calls a timing averages over, as the JAX script's scan
+# published peaks of one H100 SXM (NVIDIA's data sheet), for the bounds
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+
+
+def bound_ms(flops: float, nbytes: float):
+    """-> (the least ms at the card's peaks, "bytes" or "operations")."""
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def inputs(n: int, h: int, w: int, c: int, co: int, device):
@@ -112,14 +125,25 @@ def main(argv=None) -> int:
         print("checks OK")
         return 0
     flops = 2 * 9 * args.n * args.h * args.w * args.c * args.co
-    for name, fn in [
-        ("cudnn fwd ", library_fwd(xpad, kernel)),
-        ("kernel fwd", lambda: cv.conv3x3_valid_fwd(xpad, kernel)),
-        ("kernel dw ", lambda: cv.conv3x3_dw(xpad, dy)),
-        ("cudnn dw  ", library_dw(xpad, dy, kernel.shape)),
+    m = args.n * args.h * args.w
+    variant = (cv.conv_variant(args.c, args.co) if device.type == "cuda"
+               else "plain")
+    # (kind, kernel, cuDNN, bytes both read, output elements)
+    for kind, kern, lib, reads, outs in [
+        ("fwd", lambda: cv.conv3x3_valid_fwd(xpad, kernel),
+         library_fwd(xpad, kernel), 2 * (xpad.numel() + kernel.numel()),
+         m * args.co),
+        ("dw ", lambda: cv.conv3x3_dw(xpad, dy),
+         library_dw(xpad, dy, kernel.shape),
+         2 * (xpad.numel() + dy.numel()), kernel.numel()),
     ]:
-        dt = time_ms(fn, device, ITERS)
-        print(f"{name}: {dt:7.3f} ms  ({flops / dt / 1e9:6.1f} TFLOP/s)")
+        t_k, t_l = turns_ms(kern, lib, device, ITERS)
+        for name, t, out_bytes in ((f"kernel {kind} ({variant})", t_k, 4),
+                                   (f"cudnn  {kind}", t_l, 2)):
+            b, by = bound_ms(flops, reads + out_bytes * outs)
+            print(f"{name:20s}: {t:7.4f} ms ({flops / t / 1e9:6.1f} "
+                  f"TFLOP/s), its bound {b:.4f} ms ({by}, output at "
+                  f"{out_bytes} bytes)")
     return 0
 
 

@@ -9,13 +9,15 @@ For each level, seeded bf16 x (B, H, W, C) and k3 (3, 3, C, F) * 0.05 are
 packed as the JAX package packs them (``ops.conv._s2d``,
 ``packed_reflect_pad1``, ``_pack_kernel3x3``): a (B, H/2+1, W/2+1, 4C)
 input and a (2, 2, 4C, 4F) kernel. It prints the kernel's max error
-relative to cuDNN's packed conv, and ms per call and TFLOP/s (of the
-packed form's operations) of the kernel, cuDNN's packed conv, cuDNN's 3x3
-conv of the reflect-padded original (the same math at 9/16 the operations)
-and the 3x3 kernel of ``spike_conv3x3`` on the same. The JAX script's
-``--rt`` (output rows a TPU tile) has no counterpart: a block here owns
-128 output pixels x 64 channels, and any H works. Without a card the tool
-stops unless given ``--device cpu``.
+relative to cuDNN's packed conv, the kernel variant the shape takes
+(``ops.conv.conv_variant``), and ms per call and TFLOP/s (of the packed
+form's operations) of the kernel and cuDNN's packed conv (the medians of 6
+readings taken in turns cuDNN, kernel, kernel, cuDNN), cuDNN's 3x3 conv of
+the reflect-padded original (the same math at 9/16 the operations) and the
+3x3 kernel of ``spike_conv3x3`` on the same. The JAX script's ``--rt``
+(output rows a TPU tile) has no counterpart: a CTA here walks tiles of 128
+output pixels x up to 256 channels, and any H works. Without a card the
+tool stops unless given ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from crnerf_tpu_torch.tools._common import (
     pick_device,
     rel_err,
     time_ms,
+    turns_ms,
 )
 from crnerf_tpu_torch.tools.spike_conv3x3 import library_fwd
 
@@ -75,12 +78,17 @@ def main(argv=None) -> int:
         lib_packed = library_fwd(xp_pad, k2)
         out = cv.packed_conv(xp_pad, k2)
         ref = lib_packed().permute(0, 2, 3, 1)
-        print(f"{label}: max rel err vs library = {rel_err(out, ref):.2e}")
+        variant = (cv.conv_variant(4 * c, 4 * f) if device.type == "cuda"
+                   else "plain")
+        print(f"{label}: max rel err vs library = {rel_err(out, ref):.2e}, "
+              f"variant {variant}")
         del out, ref
         gflop = b * (h // 2) * (w // 2) * 4 * (4 * c) * (4 * f) * 2 / 1e9
+        t_k, t_l = turns_ms(lambda: cv.packed_conv(xp_pad, k2), lib_packed,
+                            device, args.iters)
+        for name, t in (("kernel packed", t_k), ("cudnn packed ", t_l)):
+            print(f"  {name}: {t:7.3f} ms ({gflop / t:6.1f} TFLOP/s)")
         for name, fn, note in [
-            ("kernel packed", lambda: cv.packed_conv(xp_pad, k2), ""),
-            ("cudnn packed ", lib_packed, ""),
             ("cudnn 3x3    ", library_fwd(xpad, k3),
              " (same math at 9/16 the packed FLOPs)"),
             ("kernel 3x3   ", lambda: cv.conv3x3_valid_fwd(xpad, k3),

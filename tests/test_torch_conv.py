@@ -211,9 +211,82 @@ def test_wrappers_raise_on_another_device(fn):
 @pytest.mark.parametrize("m,tiles", [(286_720, 9), (573_440, 9), (1, 9),
                                      (100, 1), (65, 72), (12_345, 36)])
 def test_dw_split_covers_every_pixel_once(m, tiles):
-    """Slices of the gradient kernel: whole 64-pixel stages, none empty,
-    their union exactly [0, m); about 528 blocks where m allows."""
+    """Slices of the mma.sync gradient kernel: whole 64-pixel stages, none
+    empty, their union exactly [0, m); about 528 blocks where m allows."""
     splits, m_per = cv.dw_split(m, tiles)
     assert m_per % 64 == 0 and 1 <= splits <= 65535
     assert (splits - 1) * m_per < m <= splits * m_per
     assert splits * tiles <= 528 + tiles
+
+
+# ------------------------------------------- the wgmma variants' host side
+@pytest.mark.parametrize("c,co,want", [
+    (64, 64, "wgmma"), (256, 256, "wgmma"), (512, 512, "wgmma"),
+    (40, 72, "wgmma"), (40, 24, "wgmma"), (8, 8, "wgmma"),
+    (13, 21, "mma"), (12, 20, "mma"), (64, 60, "mma"), (4, 64, "mma"),
+])
+def test_conv_variant_by_shape(c, co, want):
+    """TMA needs every row 16-byte aligned: C and Co multiples of 8 take
+    the wgmma kernels, any other shape the mma.sync ones. The spikes' main
+    shapes (S1 64 -> 64, S4 4C = 256 and 512) take wgmma."""
+    assert cv.conv_variant(c, co) == want
+
+
+@pytest.mark.parametrize("h,w,taps,want", [
+    (160, 224, 3, (8, 16)),      # S1, enc_a's conv3: no padded pixel
+    (80, 112, 2, (8, 16)),       # S4 conv3 level
+    (40, 56, 2, (16, 8)),        # S4 conv5 level
+    (37, 53, 3, None), (19, 23, 3, None), (1, 1, 3, None),
+    (13, 19, 2, None), (11, 14, 2, None), (300, 7, 3, None),
+])
+def test_conv_tile_is_the_least_padded_that_fits(h, w, taps, want):
+    """BW x BH = 128 pixels, BW a multiple of 8 (a tap row's shift stays on
+    whole swizzle atoms), the input box (BH + taps - 1 rows of BW pixels,
+    128 bytes each) within one 24 KB slot, and no other such tile pads
+    fewer pixels (ties: the smaller box)."""
+    bw, bh = cv.conv_tile(h, w, taps)
+    assert bw * bh == 128 and bw % 8 == 0
+    assert (bh + taps - 1) * bw * 128 <= 24576
+
+    def key(bw_, bh_):
+        return (-(-h // bh_) * bh_ * (-(-w // bw_) * bw_),
+                (bh_ + taps - 1) * bw_)
+
+    fits = [(b, 128 // b) for b in (8, 16, 32, 64, 128)
+            if (128 // b + taps - 1) * b <= 192]
+    assert key(bw, bh) == min(key(*t) for t in fits)
+    if want is not None:
+        assert (bw, bh) == want
+
+
+@pytest.mark.parametrize("tiles,blocks", [
+    (4480, 1), (2240, 1), (1, 1), (131, 1), (133, 1), (10, 2), (7, 4),
+    (1000, 64), (1000, 200), (97, 3),
+])
+def test_dw_slices_cover_every_tile_once(tiles, blocks):
+    """Slices of the wgmma gradient kernel, slice s over tiles [s * T // S,
+    (s + 1) * T // S) as the kernel takes them: none empty, their union
+    exactly [0, T), at most one tile apart in size; 132 CTAs (one an SM)
+    where the tiles allow, at least one slice a 64 x 64 block."""
+    slices = cv.dw_slices(tiles, blocks)
+    assert 1 <= slices <= tiles
+    bounds = [s * tiles // slices for s in range(slices + 1)]
+    sizes = [b - a for a, b in zip(bounds, bounds[1:])]
+    assert bounds[0] == 0 and bounds[-1] == tiles
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    assert slices == max(1, min(tiles, 132 // blocks))
+
+
+@pytest.mark.parametrize("n,h,w", [(16, 160, 224), (3, 37, 53), (1, 1, 1)])
+def test_dw_slices_give_the_same_plan_for_the_same_shape(n, h, w):
+    """The gradient's bits depend on the plan alone, and the plan on the
+    shapes alone: two calls agree, and every pixel tile of the image lies
+    in exactly one slice."""
+    bw, bh = cv.conv_tile(h, w, 3)
+    tiles = n * -(-h // bh) * -(-w // bw)
+    slices = cv.dw_slices(tiles, 1)
+    assert cv.dw_slices(tiles, 1) == slices
+    owner = [next(s for s in range(slices)
+                  if s * tiles // slices <= t < (s + 1) * tiles // slices)
+             for t in range(tiles)]
+    assert sorted(set(owner)) == list(range(slices))

@@ -584,14 +584,24 @@ def test_per_point_routes_on_card_match_cpu(dev, field):
 
 
 # ------------------------------------------------ the conv and sincos spikes
+def _moved(cv, before):
+    """The launch counters that moved since ``before``, by how much."""
+    return {k: v - before[k] for k, v in cv.LAUNCH_COUNTS.items()
+            if v != before[k]}
+
+
 @pytest.mark.parametrize("n,h,w,c,co", [
     (2, 16, 24, 64, 64), (3, 37, 53, 40, 72), (2, 19, 23, 13, 21),
-    (1, 1, 1, 8, 8),
+    (1, 1, 1, 8, 8), (2, 32, 48, 64, 64), (1, 12, 20, 128, 64),
 ])
 def test_conv3x3_kernels_match_plain(dev, n, h, w, c, co):
     """The 3x3 forward and weight-gradient kernels against their plain
-    versions (ops.conv.KERNEL_TOL_F32 of the largest value): regular,
-    ragged with 16-byte copies, ragged element by element, one pixel. The
+    versions (ops.conv.KERNEL_TOL_F32 of the largest value): S1's main
+    width (C = Co = 64) twice, ragged with C and Co multiples of 8, ragged
+    otherwise, one pixel, two input-channel chunks (the kernel streams
+    instead of staying in shared memory; two gradient blocks). All but the
+    ragged shape that is no multiple of 8 take the wgmma kernels, that one
+    the mma.sync ones: the counter of the variant moves, no other. The
     gradient twice gives the same bits."""
     from crnerf_tpu_torch.ops import conv as cv
 
@@ -599,12 +609,13 @@ def test_conv3x3_kernels_match_plain(dev, n, h, w, c, co):
     xpad = torch.randn(n, h + 2, w + 2, c, generator=g).bfloat16().to(dev)
     k = torch.randn(3, 3, c, co, generator=g).bfloat16().to(dev)
     dy = torch.randn(n, h, w, co, generator=g).bfloat16().to(dev)
+    suffix = "" if c % 8 == 0 and co % 8 == 0 else "_mma"
     before = dict(cv.LAUNCH_COUNTS)
     fwd = cv.conv3x3_valid_fwd(xpad, k)
     dw = cv.conv3x3_dw(xpad, dy)
     torch.cuda.synchronize()
-    assert cv.LAUNCH_COUNTS["conv3x3_fwd"] == before["conv3x3_fwd"] + 1
-    assert cv.LAUNCH_COUNTS["conv3x3_dw"] == before["conv3x3_dw"] + 1
+    assert _moved(cv, before) == {"conv3x3_fwd" + suffix: 1,
+                                  "conv3x3_dw" + suffix: 1}
     for got, want in ((fwd, cv.conv_valid_plain(xpad, k)),
                       (dw, cv.conv3x3_dw_plain(xpad, dy))):
         assert got.dtype == torch.float32 and got.shape == want.shape
@@ -615,8 +626,17 @@ def test_conv3x3_kernels_match_plain(dev, n, h, w, c, co):
 
 @pytest.mark.parametrize("shape,f", [((2, 16, 24, 64), 64),
                                      ((2, 38, 54, 10), 6),
-                                     ((1, 22, 30, 3), 5)])
+                                     ((1, 22, 30, 3), 5),
+                                     ((2, 10, 14, 128), 128),
+                                     ((1, 10, 14, 32), 16),
+                                     ((1, 10, 14, 64), 16)])
 def test_packed_conv_kernel_matches_plain_and_the_3x3(dev, shape, f):
+    """The packed conv against its plain version and, after _d2s, against
+    the 3x3 kernel: S4's two widths (4C = 256, one 256-wide column block;
+    4C = 512, two), ragged with 4C and 4F multiples of 8 (the wgmma
+    kernel), ragged otherwise (the mma.sync kernel), 4F = 64 over two and
+    four input chunks (the kernel stays in shared memory, then streams);
+    the counter of the variant moves, no other."""
     from crnerf_tpu_torch.ops import conv as cv
 
     g = torch.Generator().manual_seed(6)
@@ -625,7 +645,12 @@ def test_packed_conv_kernel_matches_plain_and_the_3x3(dev, shape, f):
         dev)
     xp_pad = cv.packed_reflect_pad1(cv._s2d(x)).contiguous()
     k2 = cv._pack_kernel3x3(k3).contiguous()
+    before = dict(cv.LAUNCH_COUNTS)
     got = cv.packed_conv(xp_pad, k2)
+    torch.cuda.synchronize()
+    wgmma = 4 * shape[-1] % 8 == 0 and 4 * f % 8 == 0
+    assert _moved(cv, before) == {
+        "packed_conv" if wgmma else "packed_conv_mma": 1}
     want = cv.conv_valid_plain(xp_pad, k2, torch.bfloat16)
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     top = float(want.float().abs().max())
@@ -649,6 +674,10 @@ def test_conv_wrappers_reject_what_the_kernels_do_not_take(dev):
         cv.conv3x3_valid_fwd(x, k[:, :, :4])
     with pytest.raises(ValueError, match="on cpu"):
         cv.conv3x3_dw(x, torch.zeros(1, 4, 4, 8, dtype=torch.bfloat16))
+    # TMA needs 16-byte aligned tensors: a view one element in is refused
+    flat = torch.zeros(1 + x.numel(), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        cv.conv3x3_valid_fwd(flat[1:].view(x.shape), k)
 
 
 def test_sincos_kernel_within_two_ulps_of_float64(dev):
