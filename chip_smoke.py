@@ -7,17 +7,23 @@ Phases, each fatal on failure:
   1. versions, the card's name and power limit; no CUDA device -> exit 1
   2. build every kernel from csrc/ with nvcc (sm_90a), the sources side by
      side; ptxas's registers and spills printed, and the phase fails on
-     its note C7520 (it serialised a kernel's wgmma)
-  3. the forward kernel against its plain PyTorch version at full width
-     (8x256, C=64) on 1024 rays, S=256 and S=512, bf16 and fp32, exact
-     encode and the recurrence; max abs error of weights, fmap and depth
-     against the stated tolerances, and the kernel's time beside the plain
-     version's; then the same at the serve path's own launch, an 8192-ray
-     tile at S=256 and S=512, bf16 with the recurrence; then its xyz-in
-     form (one jittered coordinate per sample point) on 1024 rays x 128 in
-     both dtypes and encodes and at the pertube_cord step's own launches
-     (16,384 rays, S=64 and 128, bf16), where without jitter it gives the
-     rays-in launch's bits
+     its note C7520 (it serialised a kernel's wgmma) or on a spill in the
+     wgmma forward
+  3. the forward kernel's mma.sync variant against its plain PyTorch
+     version at full width (8x256, C=64) on 1024 rays, S=256 and S=512,
+     bf16 and fp32, exact encode and the recurrence; max abs error of
+     weights, fmap and depth against the stated tolerances, and the
+     kernel's time beside the plain version's; then the same at the serve
+     path's own launch, an 8192-ray tile at S=256 and S=512, bf16 with the
+     recurrence, and at the pallas_stash=False step's (16,384 x 128); then
+     its xyz-in form (one jittered coordinate per sample point) on 1024
+     rays x 128 in both dtypes and encodes and at the pertube_cord step's
+     own launches (16,384 rays, S=64 and 128, bf16), where without jitter
+     it gives the rays-in launch's bits; then the wgmma variant (bf16) on
+     1024 rays at S=256 and 512 in both encodes, its xyz-in form, and at
+     the serve launches (8192 x 256 and 512), against its plain version
+     and against the mma.sync variant on the same inputs, the two timed in
+     turns (medians of 6 readings) with TFLOP/s and share of the bound
   4. the training kernels at full width on 1024 rays, S=64 and S=128, bf16
      with the recurrence and fp32 with the exact encode: the stash forward
      (outputs bit-identical to the no-stash forward, stash against the
@@ -55,9 +61,10 @@ Phases, each fatal on failure:
      timed in turns (cuDNN, kernel, kernel, cuDNN; medians of 6 readings
      of 20 calls), each beside its own bound, and the variant each shape
      took (wgmma or mma.sync, from the launch counters: a main shape, C and
-     Co multiples of 64, must take wgmma); then the three spike tools as a
-     user runs them, counters zeroed before and read after (no mma.sync
-     launch)
+     Co multiples of 64, must take wgmma); sincos and torch.sin +
+     torch.cos the same way, and each one's device time (a CUDA graph of
+     20 calls) beside the bound; then the three spike tools as a user runs
+     them, counters zeroed before and read after (no mma.sync launch)
   4f. the last two spikes' kernels: the pipelined fused render forward (S2)
      against the fused render forward (K1) on the same inputs, for every
      rays-per-CTA P, at 1024 rays x S=256 and 512, at the spike's 8192 x
@@ -71,7 +78,8 @@ Phases, each fatal on failure:
   5. serve at full size: RenderService with seeded random weights
      round-tripped through a weights.npz and the weight bridge, ping,
      2 inline 320x240 renders at 256+256 samples, stats; the launch
-     counters are zeroed just before and read just after
+     counters are zeroed just before and read just after: every forward
+     launch of a frame on the wgmma kernel, none on mma.sync
   6. train at full size: the flagship config (16 grids of 1024 rays, 64+64
      samples, 8x256, bf16) on the synthetic scene through make_train_step;
      warm-up, timed steps, one profiled step, CGNet's mask and parameter
@@ -262,21 +270,31 @@ def phase_build():
     if errors:
         raise errors[0]
     dt = time.perf_counter() - t0
-    serialised = []
+    serialised, spilled = [], []
     for source in loaders:
         log = _build.BUILD_LOG.get(source, "(cached build)")
         print(f"[build] {source} (all {len(loaders)} sources in {dt:.1f} s)")
+        entry = ""
         for line in log.splitlines():
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1] if "'" in line else line
             # registers, spills, and ptxas's note when it serialises wgmma
             if any(k in line for k in ("registers", "spill", "error",
                                        "Performance")):
                 print("[build]  " + line.strip())
             if "C7520" in line:
                 serialised.append(source)
+            if ("render_fwd_wgmma_kernel" in entry
+                    and "spill stores" in line
+                    and ", 0 bytes spill stores, 0 bytes spill loads"
+                    not in line):
+                spilled.append(entry)
     if serialised:
         raise PhaseError(f"ptxas serialised the wgmma of {serialised} "
                          "(note C7520): a wait or branch between the "
                          "products of one group")
+    if spilled:
+        raise PhaseError(f"the wgmma forward spills: {spilled}")
 
 
 def ray_slices(n: int):
@@ -315,14 +333,17 @@ def jittered_points(o, d, z, gen):
 
 
 def forward_case(device, params, gen, n: int, s: int, dt, exact: bool,
-                 xyz_in: bool = False):
-    """The forward kernel on n rays x s samples against render_fwd_plain
-    on the same inputs (slice by slice) -> record. ``xyz_in``: the kernel's
-    xyz-in form on jittered points; and with the unjittered points handed
-    in as xyz it must give the rays-in launch's bits."""
+                 xyz_in: bool = False, variant: str = "mma"):
+    """The forward kernel's ``variant`` on n rays x s samples against
+    render_fwd_plain on the same inputs (slice by slice) -> record.
+    ``xyz_in``: the kernel's xyz-in form on jittered points; and with the
+    unjittered points handed in as xyz it must give the rays-in launch's
+    bits. The wgmma variant is also held to the mma.sync one on the same
+    inputs (KERNEL_TOL) and the two are timed in turns."""
     import torch
 
     from crnerf_tpu_torch.ops import fused_render as fr
+    from crnerf_tpu_torch.tools._common import turns_ms
 
     o, d, z, noise = ray_inputs(n, s, gen, device)
     kw = fr.prepare_kernel_weights(params, 15, 4, dt)
@@ -334,36 +355,47 @@ def forward_case(device, params, gen, n: int, s: int, dt, exact: bool,
                 params, o[sl], d[sl], z[sl], noise[sl], 15, 4, dt, exact,
                 xyz=None if xyz is None else xyz[sl])
 
-    def kernel():
-        return fr.fused_render_apply(kw, None if xyz_in else o, d, z, noise,
-                                     exact_encode=exact, xyz=xyz)
+    def kernel(v=variant):
+        return fr.render_fwd(kw, None if xyz_in else o, d, z, noise, exact,
+                             stash=False, xyz=xyz, variant=v)[:2]
+
+    def errs(blk, w, blk_r, w_r):
+        return ((w - w_r).abs().max().item(),
+                (blk[:, :64] - blk_r[:, :64]).abs().max().item(),
+                (blk[:, 64] - blk_r[:, 64]).abs().max().item())
 
     err = [0.0, 0.0, 0.0]
     same_bits = True
+    err_mma = None
     with full_fp32():
         blk_k, w_k = kernel()
         if xyz_in:
             exact_pts = (o[:, None, :] + d[:, None, :]
                          * z[..., None]).contiguous()
-            blk_x, w_x = fr.fused_render_apply(kw, None, d, z, noise,
-                                               exact_encode=exact,
-                                               xyz=exact_pts)
-            blk_r, w_r = fr.fused_render_apply(kw, o, d, z, noise,
-                                               exact_encode=exact)
+            blk_x, w_x, _ = fr.render_fwd(kw, None, d, z, noise, exact,
+                                          False, xyz=exact_pts,
+                                          variant=variant)
+            blk_r, w_r, _ = fr.render_fwd(kw, o, d, z, noise, exact, False,
+                                          variant=variant)
             same_bits = torch.equal(blk_x, blk_r) and torch.equal(w_x, w_r)
             del exact_pts, blk_x, w_x, blk_r, w_r
+        if variant == "wgmma":
+            err_mma = errs(blk_k, w_k, *kernel("mma"))
         for sl, (blk_p, w_p) in plain():
-            for i, e in enumerate((
-                    (w_k[sl] - w_p).abs().max().item(),
-                    (blk_k[sl, :64] - blk_p[:, :64]).abs().max().item(),
-                    (blk_k[sl, 64] - blk_p[:, 64]).abs().max().item())):
+            for i, e in enumerate(errs(blk_k[sl], w_k[sl], blk_p, w_p)):
                 err[i] = max(err[i], e)
     tol = fr.KERNEL_TOL[dt]
     passed = (bool(torch.isfinite(blk_k).all() and torch.isfinite(w_k).all())
-              and all(e <= t for e, t in zip(err, tol)) and same_bits)
-    ms = time_ms(kernel)
+              and all(e <= t for e, t in zip(err, tol)) and same_bits
+              and (err_mma is None
+                   or all(e <= t for e, t in zip(err_mma, tol))))
+    mma_ms = None
+    if variant == "wgmma":
+        ms, mma_ms = turns_ms(kernel, lambda: kernel("mma"), device, reps=3)
+    else:
+        ms = time_ms(kernel)
     plain_ms = time_ms(lambda: drain(plain()), reps=3 if n == N_RAYS else 1)
-    f_fwd, _, _ = mlp_work(params)
+    f_fwd, _, _ = mlp_work(params, s)
     # per ray the forward reads [o | d] (or 3 coordinates a point), z,
     # noise and the dir encode and writes the ray block and the weights,
     # all f32
@@ -373,22 +405,34 @@ def forward_case(device, params, gen, n: int, s: int, dt, exact: bool,
     dt_name = str(dt)[6:]
     form = ("xyz-in, no-jitter bits equal rays-in "
             f"{same_bits}, " if xyz_in else "")
-    print(f"[kernel] {form}{n} rays x S={s} {dt_name:8s} exact={exact!s:5s} "
-          f"max|dw|={err[0]:.3e} max|dfmap|={err[1]:.3e} "
-          f"max|ddepth|={err[2]:.3e} tol={tol} kernel {ms:.3f} ms "
-          f"({n * s * f_fwd / ms / 1e9:.0f} TFLOP/s) plain {plain_ms:.3f} "
-          f"ms bound {b_ms:.3f} ms ({b_by}) {'ok' if passed else 'FAIL'}")
+    vs_mma = ("" if err_mma is None else
+              " vs mma.sync max|dw|={:.3e} max|dfmap|={:.3e} "
+              "max|ddepth|={:.3e};".format(*err_mma))
+    turns = ("" if mma_ms is None else
+             f" in turns with mma.sync {mma_ms:.3f} ms "
+             f"({n * s * f_fwd / mma_ms / 1e9:.0f} TFLOP/s, "
+             f"{100 * b_ms / mma_ms:.0f}% of the bound),")
+    print(f"[kernel] {variant} {form}{n} rays x S={s} {dt_name:8s} "
+          f"exact={exact!s:5s} max|dw|={err[0]:.3e} "
+          f"max|dfmap|={err[1]:.3e} max|ddepth|={err[2]:.3e} tol={tol};"
+          f"{vs_mma} kernel {ms:.3f} ms ({n * s * f_fwd / ms / 1e9:.0f} "
+          f"TFLOP/s, {100 * b_ms / ms:.0f}% of the bound),{turns} plain "
+          f"{plain_ms:.3f} ms bound {b_ms:.3f} ms ({b_by}) "
+          f"{'ok' if passed else 'FAIL'}")
     return dict(N=n, S=s, dtype=dt_name, exact=exact, xyz_in=xyz_in,
-                err_weights=err[0], err_fmap=err[1], err_depth=err[2],
-                tol=tol, ms=ms, plain_ms=plain_ms, bound=(b_ms, b_by),
+                variant=variant, err_weights=err[0], err_fmap=err[1],
+                err_depth=err[2], err_mma=err_mma, tol=tol, ms=ms,
+                mma_ms=mma_ms, plain_ms=plain_ms, bound=(b_ms, b_by),
                 ok=passed)
 
 
 def phase_kernel(device, seed: int):
-    """The forward kernel against its plain version: 1024 rays at S=256
-    and S=512 in both dtypes and encodes, then the serve path's own launch
-    (SERVE_TILE rays, bf16, recurrence), then the xyz-in form. Returns the
-    per-case records."""
+    """The forward kernel against its plain version. The mma.sync variant:
+    1024 rays at S=256 and S=512 in both dtypes and encodes, then the
+    serve path's own launch (SERVE_TILE rays, bf16, recurrence) and the
+    pallas_stash=False step's, then the xyz-in form. The wgmma variant:
+    1024 rays at S=256 and 512, its xyz-in form, the serve launches, each
+    also against the mma.sync variant. Returns the per-case records."""
     import torch
 
     from crnerf_tpu_torch.ops import fused_render as fr
@@ -399,19 +443,33 @@ def phase_kernel(device, seed: int):
              for dt in (torch.bfloat16, torch.float32)
              for exact in (True, False)]
     cases += [(SERVE_TILE, s, torch.bfloat16, False) for s in (256, 512)]
+    cases += [(TRAIN_GRIDS * 1024, 128, torch.bfloat16, False)]
     # the xyz-in form: 1024 rays, then the pertube_cord step's own launches
     cases += [(N_RAYS, 128, dt, exact, True)
               for dt in (torch.bfloat16, torch.float32)
               for exact in (True, False)]
     cases += [(TRAIN_GRIDS * 1024, s, torch.bfloat16, False, True)
               for s in (64, 128)]
+    # the wgmma variant: 1024 rays, its xyz-in form, the serve launches
+    cases += [(N_RAYS, s, torch.bfloat16, exact, False, "wgmma")
+              for s in (256, 512) for exact in (True, False)]
+    cases += [(N_RAYS, 256, torch.bfloat16, False, True, "wgmma")]
+    cases += [(SERVE_TILE, s, torch.bfloat16, False, False, "wgmma")
+              for s in (256, 512)]
     before = dict(fr.LAUNCH_COUNTS)
     records = [forward_case(device, params, gen, *case) for case in cases]
     if any(fr.LAUNCH_COUNTS[k] <= before[k]
-           for k in ("fused_render_fwd", "fused_render_fwd_xyz")):
+           for k in ("fused_render_fwd", "fused_render_fwd_xyz",
+                     "fused_render_fwd_mma", "fused_render_fwd_xyz_mma")):
         raise PhaseError("kernel launch counter did not rise")
     if not all(r["ok"] for r in records):
         raise PhaseError("kernel disagrees with its plain version")
+    slower = [(r["S"], r["ms"], r["mma_ms"]) for r in records
+              if r["variant"] == "wgmma" and r["N"] == SERVE_TILE
+              and r["ms"] >= r["mma_ms"]]
+    if slower:
+        print(f"[kernel] the wgmma forward is not faster than mma.sync at "
+              f"the serve launches (S, ms, mma.sync ms): {slower}")
     return records
 
 
@@ -561,6 +619,10 @@ def phase_serve(device, seed: int, workdir: str, profile_dir=None,
         raise PhaseError(f"{tag}: launch counters {launches}, expected "
                          f"{want}")
     print(f"[{tag}] launches {launches} ({tiles} tiles a frame)")
+    if cfg.pallas_render:
+        print(f"[{tag}] forward launches on the wgmma kernel: "
+              f"{launches['fused_render_fwd']}, on mma.sync: "
+              f"{launches['fused_render_fwd_mma']}")
 
     # full outputs (the CGNet mask included) are finite and in range
     full = svc.renderer.fetch(svc.renderer.render_frame_cam_async(
@@ -658,14 +720,17 @@ def profile_frame(svc, req, out_dir: str):
     print("[profile]\n" + table)
 
 
-def mlp_work(params):
+def mlp_work(params, per_dir: float):
     """Operations per sample point of one pass, from the weights' shapes:
     (forward, backward chain, backward weight gradient) in FLOP, products
-    only (2 per multiply-add)."""
-    mats = [*params.trunk_w, params.sigma_w, params.final_w, params.dir_w,
-            params.feat_w]
-    fwd = 2.0 * sum(m.numel() for m in mats)
+    only (2 per multiply-add). The dir layer's dir-encode rows make a term
+    per direction (the dir term, and its weight gradient), shared by the
+    ``per_dir`` points of a direction: counted once a direction."""
     width = params.final_w.shape[0]
+    mats = [*params.trunk_w, params.sigma_w, params.final_w,
+            params.dir_w[:width], params.feat_w]
+    fwd = 2.0 * (sum(m.numel() for m in mats)
+                 + params.dir_w[width:].numel() / per_dir)
     d_xyz = params.trunk_w[0].shape[0]
     # the chain: the sigma head once and the feature head twice again (one
     # pass per phase), then dz @ W^T through the feature head, the dir
@@ -832,10 +897,10 @@ ROUTES = {
     "stash": (dict(), ("fused_render_fwd_stash", "fused_render_bwd",
                        "fused_render_bwd_wgrad")),
     "pallas_stash=False": (dict(pallas_stash=False),
-                           ("fused_render_fwd",
+                           ("fused_render_fwd_mma",
                             "fused_render_bwd_recompute")),
     "pertube_cord=True": (dict(pertube_cord=True),
-                          ("fused_render_fwd_xyz",
+                          ("fused_render_fwd_xyz_mma",
                            "fused_render_bwd_recompute_xyz")),
     "pallas_render=False": (dict(pallas_render=False),
                             ("fused_mlp_fwd", "fused_mlp_bwd")),
@@ -1020,8 +1085,8 @@ def routes_agree(a: str, grads_a, b: str, grads_b, tol: float = 1e-5):
         raise PhaseError(f"{b} disagrees with {a} in {worst[True][1]}")
 
 
-def train_kernel_bounds(params, kw, pts: int, bf16: bool):
-    """Bounds of the training kernels over ``pts`` sample points: each
+def train_kernel_bounds(params, kw, n: int, s: int, bf16: bool):
+    """Bounds of the training kernels over ``n`` rays of ``s`` points: each
     kernel alone (the chain writes the dz buffer and the weight gradient
     reads it back), and the backward as a whole, the function the two
     replace: stash in, weight gradients out, no dz in device memory."""
@@ -1029,7 +1094,8 @@ def train_kernel_bounds(params, kw, pts: int, bf16: bool):
 
     lay = fr.grad_layout(kw.dims)
     esz = 2 if bf16 else 4
-    f_fwd, f_chain, f_wgrad = mlp_work(params)
+    pts = n * s
+    f_fwd, f_chain, f_wgrad = mlp_work(params, s)
     return dict(
         fwd_stash=bound(pts * f_fwd, pts * lay.sc * esz, bf16),
         chain=bound(pts * f_chain,
@@ -1083,7 +1149,10 @@ def train_kernels_case(device, params, gen, n: int, s: int, dt,
         return gw
 
     with full_fp32():
-        blk0, w0, _ = fr.render_fwd(kw, o, d, z, noise, exact, stash=False)
+        # the stash form is the mma.sync kernel's: held to its own no-stash
+        # launch, as training runs it
+        blk0, w0, _ = fr.render_fwd(kw, o, d, z, noise, exact, stash=False,
+                                    variant="mma")
         blk1, w1, st = fr.render_fwd(kw, o, d, z, noise, exact, stash=True)
         dz_k, gb_k = fr.bwd_chain(kw, z, noise, dir_blk, st, g_ray, g_w)
         gw_k = fr.bwd_wgrad(kw, st, dz_k)
@@ -1128,7 +1197,7 @@ def train_kernels_case(device, params, gen, n: int, s: int, dt,
               and max(rel) <= fr.GRAD_TOL[dt]
               and err_fwd <= max(fr.KERNEL_TOL[dt]))
     t_nostash = time_ms(lambda: fr.render_fwd(kw, o, d, z, noise, exact,
-                                              stash=False))
+                                              stash=False, variant="mma"))
     ms = dict(
         fwd_stash=time_ms(lambda: fr.render_fwd(kw, o, d, z, noise, exact,
                                                 stash=True)),
@@ -1141,8 +1210,8 @@ def train_kernels_case(device, params, gen, n: int, s: int, dt,
                  chain=time_ms(lambda: drain(chain_plain(st)), reps),
                  wgrad=time_ms(lambda: wgrad_plain(st, dz_k), reps))
     pts = n * s
-    bounds = train_kernel_bounds(params, kw, pts, bf16)
-    work = dict(zip(("fwd_stash", "chain", "wgrad"), mlp_work(params)))
+    bounds = train_kernel_bounds(params, kw, n, s, bf16)
+    work = dict(zip(("fwd_stash", "chain", "wgrad"), mlp_work(params, s)))
     each = " ".join(
         f"{k} {ms[k]:.3f}/{plain[k]:.3f}/{bounds[k][0]:.3f} "
         f"({pts * work[k] / ms[k] / 1e9:.0f} TFLOP/s)" for k in work)
@@ -1206,7 +1275,7 @@ def recompute_bound(params, n: int, s: int, bf16: bool, xyz_in: bool):
     """Bound of the recompute backward as a function: the forward's inputs
     and the cotangents in, the gradients out; the forward again, the chain
     and the weight gradient in operations."""
-    f_fwd, f_chain, f_wgrad = mlp_work(params)
+    f_fwd, f_chain, f_wgrad = mlp_work(params, s)
     n_params = sum(t.numel() for t in (*params.trunk_w, *params.trunk_b,
                                        *params[2:]))
     per_ray = (3 * s if xyz_in else 8) + 2 * s + 27 + 128 + s
@@ -1315,7 +1384,7 @@ def recompute_case(device, params, gen, n: int, s: int, dt, exact: bool,
     ms = time_ms(kernel)
     plain_ms = time_ms(plain, reps=3 if n == N_RAYS else 1)
     b_ms, b_by = recompute_bound(params, n, s, dt == torch.bfloat16, xyz_in)
-    work = n * s * sum(mlp_work(params))
+    work = n * s * sum(mlp_work(params, s))
     print(f"[recompute] {'xyz-in ' if xyz_in else 'rays-in'} {n} rays x "
           f"S={s} {dt_name:8s} slabs of {slab} rays: grads max rel "
           f"{rel:.3e} against the plain version from the inputs (tol "
@@ -1413,7 +1482,7 @@ def point_slices(m: int, dir_rep: int):
 def mlp_fwd_bound(params, m: int, n_dirs: int, c: int, bf16: bool):
     """The forward as a function: a coordinate per point and the
     directions in, features and sigma per point out, all f32."""
-    return bound(m * mlp_work(params)[0],
+    return bound(m * mlp_work(params, m / n_dirs)[0],
                  (3 * m + 3 * n_dirs + m * (c + 1)) * 4, bf16)
 
 
@@ -1455,10 +1524,11 @@ def mlp_forward_case(device, params, gen, n: int, s: int, dt, exact: bool,
     b_ms, b_by = mlp_fwd_bound(params, m, d.shape[0], c,
                                dt == torch.bfloat16)
     dt_name = str(dt)[6:]
+    work = m * mlp_work(params, dir_rep)[0]
     print(f"[mlp-kernel] forward {n} x {s} = {m} points, dir_rep {dir_rep} "
           f"{dt_name:8s} exact={exact!s:5s} max|dfeat|={err_f:.3e} "
           f"max|dsigma|={err_s:.3e} (of max(1, {scale:.2f})) tol={tol} "
-          f"kernel {ms:.3f} ms ({m * mlp_work(params)[0] / ms / 1e9:.0f} "
+          f"kernel {ms:.3f} ms ({work / ms / 1e9:.0f} "
           f"TFLOP/s, {m * (c + 1) * 4 / ms / 1e6:.1f} GB/s of stores) plain "
           f"{plain_ms:.3f} ms bound {b_ms:.3f} ms ({b_by}) "
           f"{'ok' if passed else 'FAIL'}")
@@ -1594,7 +1664,7 @@ def mlp_backward_case(device, params, gen, n: int, s: int, dt, exact: bool):
     ms = time_ms(kernel)
     plain_ms = time_ms(plain, reps=3 if n == N_RAYS else 1)
     n_params = sum(t.numel() for t in fr.flatten_params(params))
-    work = m * sum(mlp_work(params))
+    work = m * sum(mlp_work(params, m / n))
     # the points, the directions and the per-point cotangents in, the
     # gradients out; the forward again, the chain and the weight gradient
     b_ms, b_by = bound(work, (3 * m + 3 * n + m * (c + 1) + n_params) * 4,
@@ -1794,7 +1864,8 @@ def phase_composite(device, seed: int):
                                                     True)
             w5, f5, d5 = comp.composite_apply(feat.contiguous(),
                                               sigma.contiguous(), z)
-            blk, w1 = fr.fused_render_apply(kw, o, d, z, noise, True)
+            blk, w1, _ = fr.render_fwd(kw, o, d, z, noise, True, False,
+                                       variant="mma")
         err = ((w5 - w1).abs().max().item(),
                (f5 - blk[:, :64]).abs().max().item(),
                (d5 - blk[:, 64]).abs().max().item())
@@ -1996,11 +2067,15 @@ def packed_case(device, shape, f):
 
 def sincos_cases(device):
     """The accurate variant against float64 at the spike's five scales,
-    the fast one's error printed; -> records."""
+    the fast one's error printed; the kernel and torch.sin + torch.cos
+    timed in turns as a caller sees them (host-paced: medians of 6
+    readings of 20 calls), and each one's device time (a CUDA graph of 20
+    calls replayed) beside the bound; -> records."""
     import numpy as np
     import torch
 
     from crnerf_tpu_torch.ops import sincos as sc
+    from crnerf_tpu_torch.tools._common import graph_ms, turns_ms
     from crnerf_tpu_torch.tools.spike_kernel_sincos import (
         f64_err,
         unit_inputs,
@@ -2016,18 +2091,25 @@ def sincos_cases(device):
         fast64 = max(f64_err(sf, x, np.sin), f64_err(cf, x, np.cos))
         ps, pc = sc.sincos_plain(x)
         err = max((s - ps).abs().max().item(), (c - pc).abs().max().item())
-        ms = time_ms(lambda: sc.sincos(x), reps=20)
+        ms, library_ms = turns_ms(lambda: sc.sincos(x),
+                                  lambda: (torch.sin(x), torch.cos(x)),
+                                  device)
         plain_ms = time_ms(lambda: sc.sincos_plain(x), reps=20)
-        library_ms = time_ms(lambda: (torch.sin(x), torch.cos(x)), reps=20)
+        dev_ms = graph_ms(lambda: sc.sincos(x), device)
+        lib_dev_ms = graph_ms(lambda: (torch.sin(x), torch.cos(x)), device)
         b_ms, b_by = bound(0.0, 3 * 4 * x.numel())  # x read, s and c written
         ok = e64 <= sc.F64_TOL
         print(f"[sincos] |x| <= {scale:g} rad: against float64 {e64:.3e} "
               f"(bound {sc.F64_TOL:.3e}), the fast intrinsics {fast64:.3e}; "
-              f"against torch.sin / cos {err:.3e}; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, torch.sin + torch.cos {library_ms:.4f} ms, "
-              f"bound {b_ms:.5f} ms ({b_by}) {'ok' if ok else 'FAIL'}")
+              f"against torch.sin / cos {err:.3e}; a call, in turns: kernel "
+              f"{ms:.4f} ms, torch.sin + torch.cos {library_ms:.4f} ms "
+              f"({'no slower' if ms <= library_ms else 'SLOWER'}); device "
+              f"time: kernel {dev_ms:.5f} ms, torch.sin + torch.cos "
+              f"{lib_dev_ms:.5f} ms; plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}) {'ok' if ok else 'FAIL'}")
         recs.append(dict(scale=scale, err=err, e64=e64, fast64=fast64, ms=ms,
                          plain_ms=plain_ms, library_ms=library_ms,
+                         device_ms=dev_ms, library_device_ms=lib_dev_ms,
                          bound=(b_ms, b_by), ok=ok))
     return recs
 
@@ -2094,7 +2176,9 @@ def pipe_case(device, params, gen, n: int, s: int):
     dt = torch.bfloat16
     o, d, z, noise = ray_inputs(n, s, gen, device)
     kw = fr.prepare_kernel_weights(params, 15, 4, dt)
-    blk1, w1 = fr.fused_render_apply(kw, o, d, z, noise, exact_encode=False)
+    # K1's mma.sync variant: the code S2 shares
+    blk1, w1, _ = fr.render_fwd(kw, o, d, z, noise, False, False,
+                                variant="mma")
 
     def errs(blk, w, blk_r, w_r):
         return ((w - w_r).abs().max().item(),
@@ -2102,10 +2186,10 @@ def pipe_case(device, params, gen, n: int, s: int):
                 (blk[:, 64] - blk_r[:, 64]).abs().max().item())
 
     tol = fr.KERNEL_TOL[dt]
-    f_fwd, _, _ = mlp_work(params)
+    f_fwd, _, _ = mlp_work(params, s)
     b_ms, b_by = bound(n * s * f_fwd, n * (8 + 2 * s + 27 + 128 + s) * 4)
-    k1_ms = time_ms(lambda: fr.fused_render_apply(kw, o, d, z, noise,
-                                                  exact_encode=False))
+    k1_ms = time_ms(lambda: fr.render_fwd(kw, o, d, z, noise, False, False,
+                                          variant="mma"))
     plain_ms = None
     if n == N_RAYS or (n, s) == PIPE_ENTRY:
         plain_ms = time_ms(lambda: drain(
@@ -2246,11 +2330,11 @@ def phase_spikes_4f(device, seed: int):
             raise PhaseError(f"{tool} {' '.join(argv)} failed")
     torch.cuda.synchronize()
     launches = read_counts()
-    # the interleave tool also launches K1 as its yardstick
+    # the interleave tool also launches K1 (mma.sync) as its yardstick
     new = ("pipe_render_fwd", "sublane_stores")
     if not (all(launches[k] > 0 for k in new)
             and not any(v for k, v in launches.items()
-                        if k not in new + ("fused_render_fwd",))):
+                        if k not in new + ("fused_render_fwd_mma",))):
         raise PhaseError(f"4f tools: launch counters {launches}")
     print(f"[pipe] the two spike tools' launches: {launches}")
     return pipe, sub, launches
@@ -2378,14 +2462,19 @@ def main(argv=None) -> int:
     # every kernel's entry at the shape its main path gives it: the serve
     # tile's fine pass (8192 rays x S=512) and the train step's fine pass
     # (16,384 rays x S=128), bf16, recurrence encode
-    main_kernel = next(r for r in records
-                       if r["N"] == SERVE_TILE and r["S"] == 512)
+    main_kernel = next(r for r in records if r["variant"] == "wgmma"
+                       and r["N"] == SERVE_TILE and r["S"] == 512)
+    # the mma.sync forward at the pallas_stash=False step's fine pass
+    mma_kernel = next(r for r in records if r["variant"] == "mma"
+                      and r["N"] == TRAIN_GRIDS * 1024 and r["S"] == 128
+                      and not r["xyz_in"])
     tk = next(r for r in train_records
               if r["N"] == TRAIN_GRIDS * 1024 and r["S"] == 128)
 
     def at_fine_pass(recs, xyz_in):
         return next(r for r in recs if r["N"] == TRAIN_GRIDS * 1024
-                    and r["S"] == 128 and r["xyz_in"] == xyz_in)
+                    and r["S"] == 128 and r["xyz_in"] == xyz_in
+                    and r.get("variant", "mma") == "mma")
 
     def entry(name, source, replaces, n_launch, err, r):
         return {"name": name, "route": "cuda", "source": source,
@@ -2397,9 +2486,10 @@ def main(argv=None) -> int:
     def train_kernel(key):      # one kernel's numbers of the stash pair
         return {k: tk[k][key] for k in ("ms", "plain_ms", "bound")}
 
-    def fwd_err(xyz_in):
+    def fwd_err(xyz_in, variant="mma"):
         return max(max(r["err_weights"], r["err_fmap"], r["err_depth"])
-                   for r in records if r["xyz_in"] == xyz_in)
+                   for r in records
+                   if r["xyz_in"] == xyz_in and r["variant"] == variant)
 
     def recompute_err(xyz_in):
         return max(r["abs_err"] for r in recompute_records
@@ -2409,6 +2499,7 @@ def main(argv=None) -> int:
                   "crnerf_tpu/ops/fused_render.py:648",
                   "crnerf_tpu/ops/fused_render.py:437")
     fwd_cu = "crnerf_tpu_torch/csrc/fused_render_fwd.cuh"
+    wgmma_cu = "crnerf_tpu_torch/csrc/fused_render_fwd_wgmma.cuh"
     bwd_cu = "crnerf_tpu_torch/csrc/fused_render_bwd.cuh"
     rec_cu = "crnerf_tpu_torch/csrc/fused_render_bwd_recompute.cu"
     route_a = route_launches["pallas_stash=False"]
@@ -2422,10 +2513,12 @@ def main(argv=None) -> int:
     conv3_train = [r for r in conv3_records
                    if r["shape"] == CONV3_SHAPES[1]]
     print(json.dumps({"kernels": [
-        # launched by the serve path and by the pallas_stash=False route
-        entry("fused_render_fwd", fwd_cu, k1,
-              launches + route_a["fused_render_fwd"], fwd_err(False),
-              main_kernel),
+        # the wgmma forward, launched by the serve path; the mma.sync one
+        # by the pallas_stash=False route
+        entry("fused_render_fwd", wgmma_cu, k1, launches,
+              fwd_err(False, "wgmma"), main_kernel),
+        entry("fused_render_fwd (mma.sync)", fwd_cu, k1,
+              route_a["fused_render_fwd_mma"], fwd_err(False), mma_kernel),
         entry("fused_render_fwd_stash", fwd_cu, k1,
               train_launches["fused_render_fwd_stash"],
               max(r["err_fwd"] for r in train_records),
@@ -2438,7 +2531,7 @@ def main(argv=None) -> int:
               train_launches["fused_render_bwd_wgrad"],
               max(r["abs_wgrad"] for r in train_records),
               train_kernel("wgrad")),
-        entry("K1 xyz-in", fwd_cu, k1, route_b["fused_render_fwd_xyz"],
+        entry("K1 xyz-in", fwd_cu, k1, route_b["fused_render_fwd_xyz_mma"],
               fwd_err(True), at_fine_pass(records, True)),
         entry("K3 rays-in", rec_cu, k3,
               route_a["fused_render_bwd_recompute"], recompute_err(False),

@@ -49,7 +49,10 @@
 // per-row scalars and the argument parsing are shared with the pipelined
 // forward (pipe_render_fwd.cu), which runs them with the compositing on a
 // warp of its own.
-// Left for later: wgmma, TMA, persistent CTAs.
+// The inference forward at bf16 has a wgmma / TMA counterpart
+// (fused_render_fwd_wgmma.cuh), chosen by shape in ops/fused_render.py
+// render_variant; this kernel keeps fp32, other widths, the stash form and
+// the training forwards (their recompute must give the forward's bits).
 
 #pragma once
 

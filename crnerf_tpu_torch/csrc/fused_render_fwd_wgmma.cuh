@@ -1,0 +1,585 @@
+// The fused render forward for inference on Hopper: the same function as
+// render_fwd_kernel (fused_render_fwd.cuh, rays-in and xyz-in, no stash,
+// bf16), with its products on wgmma and its weights streamed by TMA.
+//
+// Replaces crnerf_tpu/ops/fused_render.py:_make_render_fwd_kernel (the
+// Pallas TPU kernel, forward, stash=False) for the bf16 shape that
+// render_variant (ops/fused_render.py) gives to this kernel, the served
+// MLPs': WP = 256, HP = 128, CP = 64, KE <= 128. The widths are template
+// parameters; one instance is built.
+// Included by fused_render_fwd.cu only; the stash forward, the training
+// forwards, fp32 and other widths stay on the mma.sync kernel.
+//
+// What bounds it: ~1.2 MFLOP of products a sample point at 8x256 against
+// ~8 bytes of per-ray input a point: the tensor cores (5.23 ms at 8192 x
+// 512 on an H100 SXM). The mma.sync kernel reached 17% of that because
+// every warp read its weight fragments from L2 for 32 rows: 32 FLOP per
+// byte loaded, ~5 TB/s of L2 traffic. Here each weight byte brought on
+// chip serves 128 rows. Design:
+//   * A persistent grid, one CTA an SM, walks work items: one ray (S > 64)
+//     as tiles of 128 samples, or two rays (S <= 64) a tile. Rows past S
+//     (and the second ray of an odd last pair) get alpha 0. The
+//     transmittance is carried from tile to tile of a ray.
+//   * Warpgroup 2 is the producer: one lane streams the whole weight
+//     program of a tile (every layer's K-slices of 64, in the order the
+//     products take them) with TMA bulk copies into an NS-slot mbarrier
+//     ring. The slices are packed once on the host (pack_wgmma_b,
+//     wgmma_stream), each the 128-byte-swizzled image of B^T (N rows of 64
+//     bf16, K-major), so a slice is one contiguous copy and needs no
+//     tensor map. setmaxnreg cuts the producer to 40 registers a thread and
+//     raises the consumers to 232: ptxas gives a wgmma kernel registers by
+//     warpgroup, 168 at this size, and a 64 x 256 fp32 accumulator spills
+//     at that.
+//   * Two consumer warpgroups own 64 rows each and run wgmma m64nNk16 with
+//     A (the encode or the activations, K-major, 128-byte swizzled) and B
+//     (the ring slot) in shared memory, fp32 accumulators in registers. A
+//     skip layer runs its encode slices and hidden slices into the same
+//     accumulators. After the layer's last product has retired, each
+//     warpgroup writes its epilogue (bias, ReLU, bf16) back into its own
+//     64 activation rows: one buffer a warpgroup.
+//   * The encode, the dir term (once per ray), sigma (a 64 x 8 product,
+//     column 0), the compositing (warp 0 of each warpgroup, after the sigma
+//     head, the second warpgroup's rows after the first's) and the feature
+//     sums (the feature head's epilogue multiplies sigmoid(.) by the row's
+//     weight and sums over rows) are SIMT on the rows each warpgroup owns.
+//   * A product group is one slice's four k16 steps: the ring wait comes
+//     before the group, the slot is released when the next group has
+//     been committed and this one retired. Group shapes are template
+//     parameters: a wait or a runtime branch inside a group makes ptxas
+//     serialise every wgmma (note C7520; chip_smoke.py's build phase fails
+//     on it).
+//   * What holds it now (an H100): a grid of half the SMs takes twice
+//     the time and a ring of two slots runs as fast as three, so neither
+//     the L2 nor the weight stream's latency; the work between products
+//     (each layer's wait and epilogue, the encode, the compositing), done
+//     by both warpgroups at the same time, leaves the tensor cores idle.
+//   * Dtype policy as render_fwd_kernel: ReLU outputs, hf and dd rounded to
+//     bf16; the sigma head at bf16 with fp32 accumulation; biases,
+//     softplus, sigmoid and compositing fp32. The encode computes the same
+//     values (sinf / cosf or the anchored recurrence). Sums run in another
+//     order than the mma.sync kernel's, so the two agree to KERNEL_TOL,
+//     not to the bit.
+
+#pragma once
+
+#include "fused_render_fwd.cuh"
+#include "hopper.cuh"
+
+namespace {
+
+constexpr int WG_ROWS = 64;            // rows a consumer warpgroup owns
+constexpr int WG_THREADS = 384;        // two consumer warpgroups + producer
+constexpr int WG_REGS_PRODUCER = 40;   // registers a thread after setmaxnreg
+constexpr int WG_REGS_CONSUMER = 232;
+constexpr int KEW = 128;               // encode columns in this layout
+constexpr int A_SLICE = WG_ROWS * 128; // 64 rows x 64 bf16, swizzled
+constexpr int SIG_N = 8;               // the sigma head's product width
+constexpr int WG_SMEM_MAX = 232448;    // the H100's 227 KB a block
+constexpr int WG_MAX_NS = 8;
+
+// floats of one warpgroup's SIMT state: sig, zc, nz, dl, wts (64 each),
+// xyz (64 x 3), dirt (HP), the feature sums (2 x CP, by item parity) and
+// the warps' partial sums (4 x CP)
+template <int HP, int CP>
+__host__ __device__ constexpr int wg_floats() {
+  return 5 * WG_ROWS + 3 * WG_ROWS + HP + 6 * CP;
+}
+
+// bytes but the weight ring: 1024 to align, the barriers, the encode and
+// activation buffers of both warpgroups, both warpgroups' floats and the
+// shared tile / item scalars
+template <int WP, int HP, int CP>
+__host__ __device__ constexpr int wg_fixed_bytes() {
+  return 1024 + 1024 + 2 * (KEW / 64) * A_SLICE + 2 * (WP / 64) * A_SLICE +
+         (2 * wg_floats<HP, CP>() + 8) * 4;
+}
+
+template <int WP, int HP, int CP>
+__host__ __device__ constexpr int wg_ring_slots() {
+  constexpr int n = (WG_SMEM_MAX - wg_fixed_bytes<WP, HP, CP>()) / (WP * 128);
+  return n < WG_MAX_NS ? n : WG_MAX_NS;
+}
+
+template <int WP, int HP, int CP>
+__host__ __device__ constexpr int wg_smem_bytes() {
+  return wg_fixed_bytes<WP, HP, CP>() + wg_ring_slots<WP, HP, CP>() * WP * 128;
+}
+
+template <int N>
+__device__ __forceinline__ void wg_mma(float (&d)[N / 2], uint64_t da,
+                                       uint64_t db) {
+  if constexpr (N == 8)
+    wgmma_m64n8k16<0, 0>(d, da, db);
+  else if constexpr (N == 64)
+    wgmma_m64n64k16<0, 0>(d, da, db);
+  else if constexpr (N == 128)
+    wgmma_m64n128k16<0, 0>(d, da, db);
+  else
+    wgmma_m64n256k16<0, 0>(d, da, db);
+}
+
+// Byte offset of element (r, k) in a warpgroup's K-major, 128-byte
+// swizzled buffer: 64-column slices of 64 rows x 128 bytes, the 16-byte
+// chunk q of row r at q ^ (r % 8).
+__device__ __forceinline__ int sw_off(int r, int k) {
+  return (k >> 6) * A_SLICE + r * 128 +
+         ((((k & 63) >> 3) ^ (r & 7)) << 4) + ((k & 7) << 1);
+}
+
+__device__ __forceinline__ void st_bf16(uint8_t* buf, int r, int k,
+                                        float v) {
+  *reinterpret_cast<__nv_bfloat16*>(buf + sw_off(r, k)) =
+      __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ void st_bf16x2(uint8_t* buf, int r, int k,
+                                          float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(buf + sw_off(r, k)) =
+      __floats2bfloat162_rn(v0, v1);
+}
+
+// The ring both sides walk in the same order: slot and phase.
+struct Ring {
+  int s = 0, ph = 0;
+  template <int NS>
+  __device__ __forceinline__ void next() {
+    if (++s == NS) { s = 0; ph ^= 1; }
+  }
+};
+
+// acc += A @ B over nk K-slices of 64: slice kc's A at a_addr(kc) (shared
+// address of a 64-row swizzled slice), B the next ring slot. One product
+// group a slice; a slot is released (one arrival of this warpgroup) once
+// the group after it has been committed and it has retired.
+template <int N, int NS, int SLOT, class AAddr>
+__device__ __forceinline__ void wg_product(float (&acc)[N / 2], int nk,
+                                           AAddr a_addr, uint32_t ring_a,
+                                           uint64_t* full, uint64_t* empty,
+                                           Ring& ring, bool leader) {
+  int prev = -1;
+  for (int kc = 0; kc < nk; ++kc) {
+    mbar_wait(&full[ring.s], ring.ph);
+    const uint32_t aa = a_addr(kc);
+    const uint32_t bb = ring_a + ring.s * SLOT;
+    fence_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wg_mma<N>(acc, sw128_desc(aa + kk * 32, 16, 1024),
+                sw128_desc(bb + kk * 32, 16, 1024));
+    wgmma_commit();
+    fence_acc(acc);
+    wgmma_wait<1>();
+    fence_acc(acc);
+    if (leader && prev >= 0) mbar_arrive(&empty[prev]);
+    prev = ring.s;
+    ring.next<NS>();
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  if (leader && prev >= 0) mbar_arrive(&empty[prev]);
+}
+
+template <int R>
+__device__ __forceinline__ void zero_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) d[i] = 0.f;
+}
+
+// ------------------------------------------------------------- kernel
+// pair: S <= 64, two rays a tile (warpgroup g takes ray 2 item + g);
+// else one ray an item, tiles of 128 samples (warpgroup g takes samples
+// 128 t + 64 g ..).
+template <int WP, int HP, int CP>
+__global__ void __launch_bounds__(WG_THREADS, 1)
+    render_fwd_wgmma_kernel(const KArgs a, const uint8_t* __restrict__ wpack,
+                            const int pair) {
+  constexpr int SLOT = WP * 128;
+  constexpr int NS = wg_ring_slots<WP, HP, CP>();
+  constexpr int NF = wg_floats<HP, CP>();
+  static_assert(NS >= 2, "no room for the weight ring");
+  static_assert(WP % 64 == 0 && HP % 64 == 0 && CP % 64 == 0 && WP <= 256,
+                "widths");
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  // barriers, the weight ring, both warpgroups' encode and activation
+  // buffers (all on 1024-byte boundaries), then the floats
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + WG_MAX_NS;
+  uint8_t* ring = smem + 1024;
+  uint8_t* encb = ring + NS * SLOT;
+  uint8_t* actb = encb + 2 * (KEW / 64) * A_SLICE;
+  float* fl = reinterpret_cast<float*>(actb + 2 * (WP / 64) * A_SLICE);
+  float* tot = fl + 2 * NF;        // [tile parity][warpgroup]
+  float* depb = tot + 4;           // [item parity][warpgroup]
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int S = a.S, F = a.F, L = a.L;
+  const int items = pair ? (a.N + 1) / 2 : a.N;
+  const int tiles = pair ? 1 : (S + 127) / 128;
+
+  if (tid >= 256) {  // ----------------------------------------- producer
+    setmaxnreg_dec<WG_REGS_PRODUCER>();
+    if (tid != 256) return;
+    Ring rg;
+    auto put = [&](const uint8_t* src, uint32_t bytes) {
+      mbar_wait(&empty[rg.s], rg.ph ^ 1);
+      mbar_expect_tx(&full[rg.s], bytes);
+      bulk_load(ring + rg.s * SLOT, src, bytes, &full[rg.s]);
+      rg.next<NS>();
+    };
+    for (int item = blockIdx.x; item < items; item += gridDim.x)
+      for (int t = 0; t < tiles; ++t) {
+        const uint8_t* p = wpack;
+        for (int i = 0; i < L; ++i) {
+          const bool with_enc = i == 0 || ((a.skip_mask >> i) & 1);
+          const int nk = (with_enc ? KEW / 64 : 0) + (i > 0 ? WP / 64 : 0);
+          for (int k = 0; k < nk; ++k, p += SLOT) put(p, SLOT);
+        }
+        for (int k = 0; k < WP / 64; ++k, p += SIG_N * 128)
+          put(p, SIG_N * 128);
+        for (int k = 0; k < WP / 64; ++k, p += WP * 128) put(p, WP * 128);
+        for (int k = 0; k < WP / 64; ++k, p += HP * 128) put(p, HP * 128);
+        for (int k = 0; k < HP / 64; ++k, p += CP * 128) put(p, CP * 128);
+      }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  setmaxnreg_inc<WG_REGS_CONSUMER>();
+  const int g = tid >> 7, wtid = tid & 127;
+  const int warp = wtid >> 5, lane = tid & 31;
+  const bool leader = wtid == 0;
+  const int wg_bar = 2 + g;  // named barrier of this warpgroup
+  auto wg_sync = [&]() { named_bar_sync(wg_bar, 128); };
+  auto both_sync = [&]() { named_bar_sync(1, 256); };
+
+  uint8_t* enc = encb + g * (KEW / 64) * A_SLICE;
+  uint8_t* act = actb + g * (WP / 64) * A_SLICE;
+  const uint32_t enc_a = smem_u32(enc), act_a = smem_u32(act);
+  const uint32_t ring_a = smem_u32(ring);
+  float* f = fl + g * NF;
+  float* sig = f;
+  float* zc = sig + WG_ROWS;
+  float* nz = zc + WG_ROWS;
+  float* dl = nz + WG_ROWS;
+  float* wts = dl + WG_ROWS;
+  float* xyz = wts + WG_ROWS;      // 64 x 3
+  float* dirt = xyz + 3 * WG_ROWS; // HP
+  float* fm = dirt + HP;           // [item parity][CP]
+  float* red = fm + 2 * CP;        // [warp][CP]
+  float* fm0 = fl + HP + 8 * WG_ROWS;  // warpgroup 0's feature sums
+
+  // the accumulator fragment: rows r0 and r0 + 8, columns 8 nb + cq (+1)
+  const int r0 = warp * 16 + (lane >> 2), cq = 2 * (lane & 3);
+
+  Ring rg;
+  int tp = 0, ip = 0;
+  float acc[WP / 2];
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int ray_raw = pair ? 2 * item + g : item;
+    const bool ray_ok = ray_raw < a.N;
+    const int ray = ray_ok ? ray_raw : a.N - 1;
+    // dir term of the ray, once: dir encode @ W_dir_enc (fp32 sums of
+    // compute-dtype operands)
+    for (int n = wtid; n < HP; n += 128) {
+      const float* db = a.dirb + (size_t)ray * a.DK;
+      float s = 0.f;
+      for (int e = 0; e < a.DK; ++e) s += db[e] * a.wde[e * HP + n];
+      dirt[n] = s;
+    }
+    for (int c = wtid; c < CP; c += 128) fm[ip * CP + c] = 0.f;
+    const float* xr = a.xyz ? a.xyz + (size_t)ray * S * 3 : nullptr;
+    float o[3] = {0.f, 0.f, 0.f}, d[3] = {0.f, 0.f, 0.f};
+    if (xr == nullptr) {
+      const float* od = a.od + (size_t)ray * 8;
+      o[0] = od[0]; o[1] = od[1]; o[2] = od[2];
+      d[0] = od[3]; d[1] = od[4]; d[2] = od[5];
+    }
+    const float* zr = a.z + (size_t)ray * S;
+    const float* nr = a.noise + (size_t)ray * S;
+    float t_carry = 1.f;  // transmittance entering the tile (warp 0)
+    float dep = 0.f;      // this warpgroup's depth sum (warp 0)
+
+    for (int t = 0; t < tiles; ++t) {
+      const int sb = pair ? 0 : t * 128 + g * WG_ROWS;  // row 0's sample
+      // per-row scalars; rows past S repeat the last sample, alpha 0
+      if (wtid < WG_ROWS)
+        row_scalars(zr, nr, S, sb + wtid, zc[wtid], nz[wtid], dl[wtid]);
+      wg_sync();
+      // encode: [x, sin 2^0 x, cos 2^0 x, sin 2^1 x, ...], zero past 3 + 6F
+      for (int i = wtid; i < WG_ROWS * 3; i += 128) {
+        const int r = i / 3, c = i % 3;
+        const float x = xr ? xr[min(sb + r, S - 1) * 3 + c]
+                           : __fadd_rn(o[c], __fmul_rn(d[c], zc[r]));
+        xyz[i] = x;
+        st_bf16(enc, r, c, x);
+      }
+      {
+        const int w0 = KEW - 3 - 6 * F;
+        for (int i = wtid; i < WG_ROWS * w0; i += 128)
+          st_bf16(enc, i / w0, 3 + 6 * F + i % w0, 0.f);
+      }
+      wg_sync();
+      if (a.exact) {
+        for (int i = wtid; i < WG_ROWS * 3 * F; i += 128) {
+          const int r = i / (3 * F), rem = i % (3 * F), k = rem / 3,
+                    c = rem % 3;
+          const float arg = __fmul_rn(xyz[r * 3 + c], pow2f(k));
+          st_bf16(enc, r, 3 + 6 * k + c, sinf(arg));
+          st_bf16(enc, r, 6 + 6 * k + c, cosf(arg));
+        }
+      } else {
+        const int n_anchor = (F + ANCHOR_SPAN - 1) / ANCHOR_SPAN;
+        for (int i = wtid; i < WG_ROWS * 3 * n_anchor; i += 128) {
+          const int r = i / (3 * n_anchor), rem = i % (3 * n_anchor);
+          const int a0 = (rem / 3) * ANCHOR_SPAN, c = rem % 3;
+          const float va = __fmul_rn(xyz[r * 3 + c], pow2f(a0));
+          float s = sinf(va), co = cosf(va);
+          const int k_end = min(a0 + ANCHOR_SPAN, F);
+          for (int k = a0; k < k_end; ++k) {
+            if (k > a0) {
+              const float two_s = __fmul_rn(2.f, s);
+              const float s2 = __fmul_rn(two_s, co);
+              co = __fsub_rn(1.f, __fmul_rn(two_s, s));
+              s = s2;
+            }
+            st_bf16(enc, r, 3 + 6 * k + c, s);
+            st_bf16(enc, r, 6 + 6 * k + c, co);
+          }
+        }
+      }
+      fence_proxy_async();
+      wg_sync();
+
+      // ---- trunk: h_i = relu([enc |] h_{i-1} @ W_i + b_i), in place
+      for (int i = 0; i < L; ++i) {
+        const bool with_enc = i == 0 || ((a.skip_mask >> i) & 1);
+        const int ne = with_enc ? KEW / 64 : 0;
+        const int nk = ne + (i > 0 ? WP / 64 : 0);
+        zero_acc(acc);
+        wg_product<WP, NS, SLOT>(
+            acc, nk,
+            [&](int kc) {
+              return kc < ne ? enc_a + kc * A_SLICE
+                             : act_a + (kc - ne) * A_SLICE;
+            },
+            ring_a, full, empty, rg, leader);
+        wg_sync();
+        const float* bias = a.b[i];
+#pragma unroll
+        for (int nb = 0; nb < WP / 8; ++nb) {
+          const int c = nb * 8 + cq;
+          const float b0 = bias[c], b1 = bias[c + 1];
+          st_bf16x2(act, r0, c, fmaxf(acc[nb * 4] + b0, 0.f),
+                    fmaxf(acc[nb * 4 + 1] + b1, 0.f));
+          st_bf16x2(act, r0 + 8, c, fmaxf(acc[nb * 4 + 2] + b0, 0.f),
+                    fmaxf(acc[nb * 4 + 3] + b1, 0.f));
+        }
+        fence_proxy_async();
+        wg_sync();
+      }
+
+      // ---- sigma head: column 0 of a 64 x 8 product
+      {
+        float acc_s[SIG_N / 2];
+        zero_acc(acc_s);
+        wg_product<SIG_N, NS, SLOT>(
+            acc_s, WP / 64, [&](int kc) { return act_a + kc * A_SLICE; },
+            ring_a, full, empty, rg, leader);
+        if ((lane & 3) == 0) {
+          sig[r0] = acc_s[0] + a.bs[0];
+          sig[r0 + 8] = acc_s[2] + a.bs[0];
+        }
+      }
+      wg_sync();
+
+      // ---- compositing, warp 0 of each warpgroup, two rows a lane; the
+      // second warpgroup's rows of a ray's tile come after the first's
+      {
+        float al[2] = {0.f, 0.f}, incl = 1.f, excl = 1.f, total = 1.f;
+        if (warp == 0) {
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const int r = 2 * lane + q;
+            const float actv = fmaxf(softplusf(sig[r]) + nz[r], 0.f);
+            al[q] = (ray_ok && sb + r < S) ? 1.f - expf(-dl[r] * actv) : 0.f;
+          }
+          incl = (1.f - al[0]) * (1.f - al[1]);
+#pragma unroll
+          for (int off = 1; off < 32; off <<= 1) {
+            const float y = __shfl_up_sync(0xffffffffu, incl, off);
+            if (lane >= off) incl *= y;
+          }
+          excl = __shfl_up_sync(0xffffffffu, incl, 1);
+          if (lane == 0) excl = 1.f;
+          total = __shfl_sync(0xffffffffu, incl, 31);
+          if (lane == 0) tot[tp * 2 + g] = total;
+        }
+        both_sync();
+        if (warp == 0) {
+          const float t0_in =
+              (pair || g == 0) ? t_carry : t_carry * tot[tp * 2];
+          const float t0 = t0_in * excl;
+          const float w0 = al[0] * t0;
+          const float w1 = al[1] * (t0 * (1.f - al[0]));
+          t_carry = pair ? t_carry * total
+                         : (t_carry * tot[tp * 2]) * tot[tp * 2 + 1];
+          const int ra = 2 * lane;
+          wts[ra] = w0;
+          wts[ra + 1] = w1;
+          if (a.wout != nullptr && ray_ok) {
+            float* wo = a.wout + (size_t)ray * S;
+            if (sb + ra < S) wo[sb + ra] = w0;
+            if (sb + ra + 1 < S) wo[sb + ra + 1] = w1;
+          }
+          float pd = w0 * zc[ra] + w1 * zc[ra + 1];
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            pd += __shfl_xor_sync(0xffffffffu, pd, off);
+          dep += pd;
+        }
+        tp ^= 1;
+      }
+
+      // ---- xyz_encoding_final: hf = h @ W_f + b_f, in place
+      zero_acc(acc);
+      wg_product<WP, NS, SLOT>(
+          acc, WP / 64, [&](int kc) { return act_a + kc * A_SLICE; }, ring_a,
+          full, empty, rg, leader);
+      wg_sync();
+#pragma unroll
+      for (int nb = 0; nb < WP / 8; ++nb) {
+        const int c = nb * 8 + cq;
+        const float b0 = a.bf[c], b1 = a.bf[c + 1];
+        st_bf16x2(act, r0, c, acc[nb * 4] + b0, acc[nb * 4 + 1] + b1);
+        st_bf16x2(act, r0 + 8, c, acc[nb * 4 + 2] + b0, acc[nb * 4 + 3] + b1);
+      }
+      fence_proxy_async();
+      wg_sync();
+
+      // ---- dir branch: dd = relu(hf @ W_dh + dir term + b_d), in place
+      {
+        float acc_d[HP / 2];
+        zero_acc(acc_d);
+        wg_product<HP, NS, SLOT>(
+            acc_d, WP / 64, [&](int kc) { return act_a + kc * A_SLICE; },
+            ring_a, full, empty, rg, leader);
+        wg_sync();
+#pragma unroll
+        for (int nb = 0; nb < HP / 8; ++nb) {
+          const int c = nb * 8 + cq;
+          const float e0 = dirt[c], e1 = dirt[c + 1];
+          const float b0 = a.bd[c], b1 = a.bd[c + 1];
+          st_bf16x2(act, r0, c, fmaxf(acc_d[nb * 4] + e0 + b0, 0.f),
+                    fmaxf(acc_d[nb * 4 + 1] + e1 + b1, 0.f));
+          st_bf16x2(act, r0 + 8, c, fmaxf(acc_d[nb * 4 + 2] + e0 + b0, 0.f),
+                    fmaxf(acc_d[nb * 4 + 3] + e1 + b1, 0.f));
+        }
+      }
+      fence_proxy_async();
+      wg_sync();
+
+      // ---- feature head: sigmoid(dd @ W_c + b_c), times the row's weight,
+      // summed over the rows
+      {
+        float acc_c[CP / 2];
+        zero_acc(acc_c);
+        wg_product<CP, NS, SLOT>(
+            acc_c, HP / 64, [&](int kc) { return act_a + kc * A_SLICE; },
+            ring_a, full, empty, rg, leader);
+        const float wa = wts[r0], wb = wts[r0 + 8];
+#pragma unroll
+        for (int nb = 0; nb < CP / 8; ++nb) {
+          const int c = nb * 8 + cq;
+          const float b0 = a.bc[c], b1 = a.bc[c + 1];
+          float p0 = wa * (1.f / (1.f + expf(-(acc_c[nb * 4] + b0)))) +
+                     wb * (1.f / (1.f + expf(-(acc_c[nb * 4 + 2] + b0))));
+          float p1 = wa * (1.f / (1.f + expf(-(acc_c[nb * 4 + 1] + b1)))) +
+                     wb * (1.f / (1.f + expf(-(acc_c[nb * 4 + 3] + b1))));
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {
+            p0 += __shfl_xor_sync(0xffffffffu, p0, off);
+            p1 += __shfl_xor_sync(0xffffffffu, p1, off);
+          }
+          if (lane < 4) {
+            red[warp * CP + c] = p0;
+            red[warp * CP + c + 1] = p1;
+          }
+        }
+        wg_sync();
+        for (int c = wtid; c < CP; c += 128)
+          fm[ip * CP + c] += (red[c] + red[CP + c]) +
+                             (red[2 * CP + c] + red[3 * CP + c]);
+      }
+    }
+
+    // ---- the item's ray block(s): [feature map | depth | 0]
+    if (warp == 0 && lane == 0) depb[ip * 2 + g] = dep;
+    both_sync();
+    if (a.out != nullptr && (pair ? ray_ok : g == 0)) {
+      float* orow = a.out + (size_t)ray * a.ldo;
+      const float* fa = fm + ip * CP;
+      const float* fb = fm0 + NF + ip * CP;  // warpgroup 1's sums
+      for (int c = wtid; c < a.ldo; c += 128) {
+        float v = 0.f;
+        if (c < a.C) v = pair ? fa[c] : fa[c] + fb[c];
+        else if (c == a.C)
+          v = pair ? depb[ip * 2 + g] : depb[ip * 2] + depb[ip * 2 + 1];
+        orow[c] = v;
+      }
+    }
+    ip ^= 1;
+  }
+}
+
+// Launches render_fwd_wgmma_kernel<WP, HP, CP> on ``st`` over
+// min(items, SMs) CTAs; cudaGetLastError().
+template <int WP, int HP, int CP>
+int launch_wgmma(const KArgs& a, const void* wpack, cudaStream_t st) {
+  constexpr int smem = wg_smem_bytes<WP, HP, CP>();
+  static_assert(smem <= WG_SMEM_MAX, "shared memory");
+  auto kern = render_fwd_wgmma_kernel<WP, HP, CP>;
+  cudaError_t rc = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (rc != cudaSuccess) return (int)rc;
+  const int sms = sm_count();
+  if (sms < 1) return (int)cudaErrorInvalidDevice;
+  const int pair = a.S <= WG_ROWS;
+  const int items = pair ? (a.N + 1) / 2 : a.N;
+  const int grid = items < sms ? items : sms;
+  kern<<<grid, WG_THREADS, smem, st>>>(
+      a, static_cast<const uint8_t*>(wpack), pair);
+  return (int)cudaGetLastError();
+}
+
+// Arguments as render_fwd_entry takes them, and after them the weight
+// stream (wgmma_stream in ops/fused_render.py). Only the shape this
+// kernel takes: bf16, no stash, (WP, HP, CP) = (256, 128, 64), KE <= 128.
+// Returns cudaGetLastError() or cudaErrorInvalidValue.
+int render_fwd_wgmma_entry(const void* const* ptrs, int n_ptrs,
+                           const int* dims, int n_dims, void* stream) {
+  if (n_ptrs < 1) return (int)cudaErrorInvalidValue;
+  KArgs a;
+  bool bf16;
+  const int rc = parse_fwd_args(ptrs, n_ptrs - 1, dims, n_dims, a, bf16);
+  if (rc != 0) return rc;
+  const void* wpack = ptrs[n_ptrs - 1];
+  if (!bf16 || a.stash || !wpack || ((uintptr_t)wpack & 15) ||
+      a.KE > KEW || 3 + 6 * a.F > KEW || a.WP != 256 || a.HP != 128 ||
+      a.CP != 64)
+    return (int)cudaErrorInvalidValue;
+  return launch_wgmma<256, 128, 64>(a, wpack,
+                                    static_cast<cudaStream_t>(stream));
+}
+
+}  // namespace

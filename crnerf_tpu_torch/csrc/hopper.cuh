@@ -1,7 +1,8 @@
-// Hopper (sm_90a) helpers for the conv kernels: mbarriers, TMA tile loads
-// and stores through a CUtensorMap, wgmma descriptors for the 128-byte
-// swizzled layouts and the warpgroup products that read them, and the host
-// side that encodes a tensor map. Included by conv_fwd.cuh.
+// Hopper (sm_90a) helpers for the wgmma kernels: mbarriers, TMA tile loads
+// and stores through a CUtensorMap and bulk copies, wgmma descriptors for
+// the 128-byte swizzled layouts and the warpgroup products that read them,
+// and the host side that encodes a tensor map. Included by conv_fwd.cuh
+// and fused_render_fwd_wgmma.cuh.
 //
 // The layouts. A TMA box whose inner dimension is 128 bytes (64 bf16 or 32
 // fp32), loaded or stored with CU_TENSOR_MAP_SWIZZLE_128B, lies in shared
@@ -105,6 +106,17 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
       : "memory");
 }
 
+// ``bytes`` (a multiple of 16) from device memory into shared memory,
+// both 16-byte aligned, by TMA's bulk copy; completes on ``bar``
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -122,6 +134,18 @@ __device__ __forceinline__ void bulk_wait() {
 // shared-memory writes of this thread visible to the async proxy (TMA)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The registers a thread of this warpgroup may hold from here on (every
+// warp of the warpgroup executes it; a multiple of 8 in 24..256).
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
 __device__ __forceinline__ void named_bar_sync(int id, int threads) {
@@ -159,6 +183,20 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// D (64 x 8 fp32, 4 a thread) += A (64 x 16) * B (16 x 8), both
+// operands in shared memory by descriptor; TA / TB: 1 = MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n8k16(float (&d)[4], uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
 // D (64 x 64 fp32, 32 a thread) += A (64 x 16) * B (16 x 64), both
 // operands in shared memory by descriptor; TA / TB: 1 = MN-major.
 template <int TA, int TB>
@@ -180,6 +218,42 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// D (64 x 128 fp32, 64 a thread) += A (64 x 16) * B (16 x 128), both
+// operands in shared memory by descriptor; TA / TB: 1 = MN-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 

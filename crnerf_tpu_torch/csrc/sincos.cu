@@ -13,9 +13,14 @@
 //
 // What bounds it, on an H100 SXM: bytes, 12 a value (x read once, s and c
 // written once): 1.5 MB at the spike's (1024, 128), 0.47 us at 3.35 TB/s,
-// far below a launch's own cost. sinf's slow path (Payne-Hanek reduction
-// past |x| ~ 1e5) is not reached at these scales. Design: a grid-stride
-// loop, one value a thread an iteration, coalesced.
+// far below a launch's own cost; so what a call costs is the launch and
+// the host's path to it (its wrapper binds this entry once and passes its
+// pointers as arguments, not through an array). sinf's slow path
+// (Payne-Hanek reduction past |x| ~ 1e5) is not reached at these scales.
+// Design: a grid-stride loop, one value a thread an iteration, coalesced.
+// (Four values a thread with 16-byte loads and stores, one wave over the
+// SMs, was slower on an H100 at (1024, 128): too few threads in flight to
+// hide sinf's latency.)
 
 #include <cuda_runtime.h>
 
@@ -40,23 +45,21 @@ __global__ void sincos_kernel(const float* __restrict__ x,
 
 }  // namespace
 
-// ptrs (host array): x, s out, c out, all fp32 of ``n`` values; fast != 0
-// takes the intrinsics. Launches on ``stream``; returns cudaGetLastError()
-// (or cudaErrorInvalidValue for arguments the kernel does not take).
-extern "C" int crnerf_sincos(const void* const* ptrs, int n_ptrs,
-                             long long n, int fast, void* stream) {
-  if (n_ptrs != 3 || n < 1) return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < n_ptrs; ++i)
-    if (!ptrs[i]) return (int)cudaErrorInvalidValue;
-  const float* x = (const float*)ptrs[0];
-  float* s = (float*)ptrs[1];
-  float* c = (float*)ptrs[2];
+// x, s out, c out, all fp32 of ``n`` values; fast != 0 takes the
+// intrinsics. Launches on ``stream``; returns cudaGetLastError() (or
+// cudaErrorInvalidValue for arguments the kernel does not take).
+extern "C" int crnerf_sincos(const void* x, void* s, void* c, long long n,
+                             int fast, void* stream) {
+  if (n < 1 || !x || !s || !c) return (int)cudaErrorInvalidValue;
+  const float* xf = static_cast<const float*>(x);
+  float* sf = static_cast<float*>(s);
+  float* cf = static_cast<float*>(c);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long want = (n + 255) / 256;
   const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
   if (fast)
-    sincos_kernel<true><<<blocks, 256, 0, st>>>(x, s, c, n);
+    sincos_kernel<true><<<blocks, 256, 0, st>>>(xf, sf, cf, n);
   else
-    sincos_kernel<false><<<blocks, 256, 0, st>>>(x, s, c, n);
+    sincos_kernel<false><<<blocks, 256, 0, st>>>(xf, sf, cf, n);
   return (int)cudaGetLastError();
 }

@@ -6,7 +6,9 @@ root of the checkout, named by a hash of the source, the shared headers
 (``*.cuh``) and the flags, so an edited source is rebuilt and an unchanged
 one is loaded as it is. ``load`` may be called from several threads, one
 per source, to build the libraries side by side. Nothing
-is built when a module is imported: the first launch builds.
+is built when a module is imported: the first launch builds. ``entry``
+binds one C function for a wrapper that is called often: it loads at its
+first call and from then on calls the function with no lock or lookup.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
@@ -79,3 +81,20 @@ def load(source: str, argtypes: Dict[str, Sequence]) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _LIBS[source] = lib
         return lib
+
+
+def entry(source: str, argtypes: Dict[str, Sequence],
+          name: str) -> Callable[..., int]:
+    """-> a callable for the C function ``name`` of ``csrc/<source>``
+    (``argtypes`` as ``load`` takes them): its first call loads the
+    library (building it if need be), later calls go straight to the
+    bound function."""
+    fn = None
+
+    def call(*args) -> int:
+        nonlocal fn
+        if fn is None:
+            fn = getattr(load(source, argtypes), name)
+        return fn(*args)
+
+    return call

@@ -46,6 +46,17 @@ selects the anchored double-angle sin/cos recurrence (exact sin/cos every
 ``fused_render_apply`` (inference) and ``fused_render_train`` (a
 ``torch.autograd.Function``) are the wrappers: a CPU tensor goes to the
 plain versions; a CUDA tensor launches the kernels or raises.
+
+The forward has two kernels for the same function. The wgmma kernel
+(``csrc/fused_render_fwd_wgmma.cuh``: TMA-streamed weights, warpgroup
+products over 128-row tiles) takes the inference forward at bf16 and
+the served MLPs' widths, the one shape it is built for; the mma.sync
+kernel (``csrc/fused_render_fwd.cuh``) takes everything else: fp32,
+other widths, the stash forward, and the training forwards, which ask for it (``variant="mma"``) so that a step's
+forward and its backward's recompute are one kernel's bits.
+``render_variant`` chooses by shape before the launch; each variant
+counts its launches apart (``LAUNCH_COUNTS``: the mma.sync kernel's
+no-stash launches under ``*_mma``).
 """
 
 from __future__ import annotations
@@ -68,8 +79,10 @@ MAX_C = 128
 
 # launches of each kernel, counted by its wrapper where it launches
 LAUNCH_COUNTS: Dict[str, int] = {
-    "fused_render_fwd": 0,          # forward, rays-in, no stash
-    "fused_render_fwd_xyz": 0,      # forward, xyz-in, no stash
+    "fused_render_fwd": 0,          # forward, rays-in, no stash (wgmma)
+    "fused_render_fwd_xyz": 0,      # forward, xyz-in, no stash (wgmma)
+    "fused_render_fwd_mma": 0,      # the same on the mma.sync kernel
+    "fused_render_fwd_xyz_mma": 0,
     "fused_render_fwd_stash": 0,    # forward with the stash (either form)
     "fused_render_bwd": 0,          # backward, the per-ray dz chain
     "fused_render_bwd_wgrad": 0,    # backward, the split-K weight gradient
@@ -269,6 +282,8 @@ class KernelWeights(NamedTuple):
     n_emb_dir: int
     skips: Tuple[int, ...]
     padded: Dict[object, torch.Tensor]  # fp32 (K, N) / (N,) in padded widths
+    # layouts made from these at their first use (``wgmma_weights``)
+    derived: Dict[str, torch.Tensor]
 
 
 def pack_mma_b(b: torch.Tensor) -> torch.Tensor:
@@ -281,6 +296,68 @@ def pack_mma_b(b: torch.Tensor) -> torch.Tensor:
     # k = 16 kt + 8 h + 2 t + j0, n = 8 nt + g -> [kt][nt][4 g + t][2 h + j0]
     v = b.reshape(k // 16, 2, 4, 2, n // 8, 8).permute(0, 4, 5, 2, 1, 3)
     return v.reshape(k // 16, n // 8, 32, 4).to(torch.bfloat16).contiguous()
+
+
+WGMMA_KE = 128     # encode columns of the wgmma kernel (KE padded)
+WGMMA_SIGMA_N = 8  # the wgmma kernel's sigma head: a 64 x 8 product
+
+
+def pack_wgmma_b(b: torch.Tensor) -> torch.Tensor:
+    """(K, N) matrix, K % 64 == 0, N % 8 == 0 -> bf16 (K // 64, N, 64):
+    per 64-deep K-slice the shared-memory image wgmma reads as a K-major B
+    operand in the 128-byte swizzle, row n holding B[64 kc : 64 kc + 64,
+    n] with its 16-byte chunk q at q ^ (n % 8). One slice is one
+    contiguous bulk copy. XOR is its own inverse: the same gather unpacks
+    it."""
+    k, n = b.shape
+    v = b.reshape(k // 64, 64, n).permute(0, 2, 1).reshape(k // 64, n, 8, 8)
+    q = torch.arange(8, device=b.device)
+    idx = q[None, :] ^ (torch.arange(n, device=b.device)[:, None] % 8)
+    v = torch.gather(v, 2, idx[None, :, :, None].expand(k // 64, n, 8, 8))
+    return v.reshape(k // 64, n, 64).to(torch.bfloat16).contiguous()
+
+
+def wgmma_stream(dims: Dict[str, int],
+                 pad: Dict[object, torch.Tensor]) -> torch.Tensor:
+    """The wgmma kernel's weights: every product's B as ``pack_wgmma_b``
+    slices, flat, in the order the kernel takes them (its producer streams
+    the whole of it once a 128-row tile): per trunk layer the encode rows
+    (padded to ``WGMMA_KE``) then the hidden rows, the sigma head's first
+    ``WGMMA_SIGMA_N`` columns, the final layer, the dir layer's hidden
+    rows, the feature head."""
+    def rows(m, k):
+        full = m.new_zeros((k, m.shape[1]))
+        full[:m.shape[0]] = m
+        return full
+
+    mats = []
+    for i in range(dims["L"]):
+        if ("wenc", i) in pad:
+            mats.append(rows(pad["wenc", i], WGMMA_KE))
+        if ("wh", i) in pad:
+            mats.append(pad["wh", i])
+    mats += [pad["ws"][:, :WGMMA_SIGMA_N], pad["wf"], pad["wdh"], pad["wc"]]
+    return torch.cat([pack_wgmma_b(m).reshape(-1) for m in mats])
+
+
+def wgmma_weights(kw: KernelWeights) -> torch.Tensor:
+    """The layout's wgmma weight stream (``wgmma_stream``), packed at its
+    first use and kept with the layout: the layouts of the training
+    forwards, remade every step, never pack it."""
+    stream = kw.derived.get("wgmma")
+    if stream is None:
+        stream = kw.derived["wgmma"] = wgmma_stream(kw.dims, kw.padded)
+    return stream
+
+
+def render_variant(dims: Dict[str, int], stash: bool = False) -> str:
+    """The forward kernel for a layout's dimensions: "wgmma" for the bf16
+    inference forward at the one width it is built for, the served MLPs'
+    (WP 256, HP 128, CP 64, the encode within ``WGMMA_KE`` columns), else
+    "mma". A function of the shapes alone, taken before the launch."""
+    fits = (dims["BF16"] and dims["WP"] == 256 and dims["HP"] == 128
+            and dims["CP"] == 64 and 3 + 6 * dims["F"] <= WGMMA_KE)
+    return "wgmma" if fits and not stash else "mma"
 
 
 def _dims_of(params: MlpParams, n_emb_xyz: int, n_emb_dir: int,
@@ -320,9 +397,10 @@ def prepare_kernel_weights(params: MlpParams, n_emb_xyz: int = 15,
     """Pad every dimension to the kernel's granules (zero weights and
     biases: padded hidden units are exactly 0 after ReLU and meet zero
     rows downstream) and lay the matrices out for the kernel: bf16 in mma
-    fragment order, or fp32 (K, N) row-major. Biases stay fp32. The layout
-    is a snapshot of ``params``: a caller whose weights move (training)
-    prepares again after every update."""
+    fragment order, or fp32 (K, N) row-major. Biases stay fp32. The wgmma
+    kernel's stream is packed from ``padded`` at its first launch
+    (``wgmma_weights``). The layout is a snapshot of ``params``: a caller
+    whose weights move (training) prepares again after every update."""
     dims = _dims_of(params, n_emb_xyz, n_emb_dir, compute_dtype, skips)
     width = params.final_w.shape[0]
     half = params.dir_w.shape[1]
@@ -369,7 +447,7 @@ def prepare_kernel_weights(params: MlpParams, n_emb_xyz: int = 15,
             tensors.append(lay(pad[key]) if key in pad else None)
         tensors.append(pad["b", i])
     return KernelWeights(params, tuple(tensors), dims, compute_dtype,
-                         n_emb_xyz, n_emb_dir, tuple(skips), pad)
+                         n_emb_xyz, n_emb_dir, tuple(skips), pad, {})
 
 
 # ----------------------------------------------------------- grad layout
@@ -577,6 +655,7 @@ _WGRAD_DIMS = ("M", "SC", "DC", "WT", "n_tiles", "splits", "m_per", "BF16")
 _RECOMPUTE_DIMS = _FWD_DIMS + ("DC", "slices", "grid", "WT", "n_tiles",
                                "splits", "m_per", "R")
 _C_FN = "crnerf_render_fwd"
+_C_FN_WGMMA = "crnerf_render_fwd_wgmma"
 _C_ARGS = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
            ctypes.c_void_p)
 # the weight-gradient kernel's output tile and points per step, by dtype
@@ -586,7 +665,8 @@ _WGRAD_TILE = {torch.bfloat16: (128, 64), torch.float32: (64, 32)}
 def _lib():
     from crnerf_tpu_torch.ops import _build
 
-    return _build.load("fused_render_fwd.cu", {_C_FN: _C_ARGS})
+    return _build.load("fused_render_fwd.cu", {_C_FN: _C_ARGS,
+                                               _C_FN_WGMMA: _C_ARGS})
 
 
 def _lib_bwd():
@@ -659,10 +739,21 @@ def _check_rays(kw: KernelWeights, origins, dirs, z_vals, noise, xyz):
 
 def render_fwd(kw: KernelWeights, origins, dirs, z_vals, noise,
                 exact_encode: bool, stash: bool,
-                xyz: Optional[torch.Tensor] = None):
+                xyz: Optional[torch.Tensor] = None,
+                variant: Optional[str] = None):
     """-> (ray block, weights, stash or None): the plain version for CPU
     tensors, the kernel for CUDA tensors. ``xyz`` (N, S, 3): the xyz-in
-    form (``origins`` may then be None)."""
+    form (``origins`` may then be None). ``variant``: the kernel, "wgmma"
+    or "mma"; None takes ``render_variant``'s by shape. The training
+    forwards and the checks that compare bits with the mma.sync kernel
+    name it; "wgmma" raises where that kernel does not take the shape."""
+    chosen = render_variant(kw.dims, stash)
+    variant = chosen if variant is None else variant
+    if variant not in ("wgmma", "mma"):
+        raise ValueError(f"variant {variant!r}: 'wgmma' or 'mma'")
+    if variant == "wgmma" and chosen != "wgmma":
+        raise ValueError(f"the wgmma forward does not take dims {kw.dims} "
+                         f"with stash={stash}")
     if z_vals.device.type == "cpu":
         res = render_fwd_plain(kw.params, origins, dirs, z_vals, noise,
                                kw.n_emb_xyz, kw.n_emb_dir, kw.compute_dtype,
@@ -681,12 +772,15 @@ def render_fwd(kw: KernelWeights, origins, dirs, z_vals, noise,
     st = (torch.empty((n * s, sc), dtype=kw.compute_dtype, device=dev)
           if stash else None)
     dims = dict(kw.dims, N=n, S=s, exact=int(exact_encode), ldo=ldo, SC=sc)
-    _call(_lib(), _C_FN,
-          [od, z_vals, noise, dir_blk, out, w_out, st, xyz, *kw.tensors],
-          dims, _FWD_DIMS, dev)
-    LAUNCH_COUNTS["fused_render_fwd_stash" if stash
-                  else "fused_render_fwd" if xyz is None
-                  else "fused_render_fwd_xyz"] += 1
+    tensors = [od, z_vals, noise, dir_blk, out, w_out, st, xyz, *kw.tensors]
+    if variant == "wgmma":
+        _call(_lib(), _C_FN_WGMMA, tensors + [wgmma_weights(kw)], dims,
+              _FWD_DIMS, dev)
+    else:
+        _call(_lib(), _C_FN, tensors, dims, _FWD_DIMS, dev)
+    key = ("fused_render_fwd_stash" if stash
+           else "fused_render_fwd" if xyz is None else "fused_render_fwd_xyz")
+    LAUNCH_COUNTS[key if stash or variant == "wgmma" else key + "_mma"] += 1
     return out, w_out, st
 
 
@@ -703,7 +797,9 @@ def fused_render_apply(
     (N, S) f32) for weights laid out by ``prepare_kernel_weights`` (which
     fixes the compute dtype, frequencies and skips). CPU tensors take
     ``render_fwd_plain``; CUDA tensors launch the kernel. No gradient:
-    training goes through ``fused_render_train``."""
+    training goes through ``fused_render_train``. The kernel is
+    ``render_variant``'s for the layout: the wgmma one at the bf16 widths
+    it takes."""
     out, w_out, _ = render_fwd(kw, origins, dirs, z_vals, noise,
                                 exact_encode, stash=False, xyz=xyz)
     return out, w_out
@@ -968,7 +1064,8 @@ class FusedRenderTrain(torch.autograd.Function):
     get none. ``stash=True``: forward = the stash forward, backward = the
     stash backward; the stash lives from forward to backward and is freed
     there. ``stash=False``: forward = the plain forward kernel, which keeps
-    its inputs only; backward = the recompute backward."""
+    its inputs only; backward = the recompute backward. Both forwards run
+    the mma.sync kernel."""
 
     @staticmethod
     def forward(ctx, origins, dirs, z_vals, noise, xyz, opts, *flat):
@@ -976,8 +1073,10 @@ class FusedRenderTrain(torch.autograd.Function):
          slab_rays) = opts
         kw = prepare_kernel_weights(unflatten_params(flat), n_emb_xyz,
                                     n_emb_dir, compute_dtype, skips)
+        # the mma.sync kernel, whose stash form the backward recomputes
         out, w_out, st = render_fwd(kw, origins, dirs, z_vals, noise,
-                                     exact_encode, stash=stash, xyz=xyz)
+                                     exact_encode, stash=stash, xyz=xyz,
+                                     variant="mma")
         ctx.kw, ctx.stash = kw, st
         ctx.opts = (exact_encode, stash, slab_rays)
         keep = (None, None) if stash else (origins, xyz)

@@ -19,6 +19,8 @@ from typing import Dict, Tuple
 
 import torch
 
+from crnerf_tpu_torch.ops import _build
+
 # launches of the kernel (either variant), counted where it launches
 LAUNCH_COUNTS: Dict[str, int] = {"sincos": 0}
 
@@ -30,14 +32,16 @@ F64_TOL = 2.0 ** -22
 
 SCALES = (5.0, 5.0 * 2 ** 4, 5.0 * 2 ** 8, 5.0 * 2 ** 11, 5.0 * 2 ** 14)
 
-_C_ARGS = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-           ctypes.c_void_p)
+_C_FN = "crnerf_sincos"
+# x, s, c, n, fast, stream
+_C_ARGS = {_C_FN: (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p)}
+# bound at the first launch; later calls take no lock and no lookup
+_launch = _build.entry("sincos.cu", _C_ARGS, _C_FN)
 
 
 def _lib():
-    from crnerf_tpu_torch.ops import _build
-
-    return _build.load("sincos.cu", {"crnerf_sincos": _C_ARGS})
+    return _build.load("sincos.cu", _C_ARGS)
 
 
 def sincos_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -56,12 +60,13 @@ def sincos(x: torch.Tensor,
         raise ValueError(f"x must be float32, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
-    if x.numel() == 0:
+    n = x.numel()
+    if n == 0:
         raise ValueError("x is empty")
     s, c = torch.empty_like(x), torch.empty_like(x)
-    ptrs = (ctypes.c_void_p * 3)(x.data_ptr(), s.data_ptr(), c.data_ptr())
-    rc = _lib().crnerf_sincos(ptrs, 3, x.numel(), int(fast),
-                              torch.cuda.current_stream(dev).cuda_stream)
+    # the current stream's handle, without a device guard
+    rc = _launch(x.data_ptr(), s.data_ptr(), c.data_ptr(), n, int(fast),
+                 torch._C._cuda_getCurrentRawStream(dev.index))
     if rc != 0:
         raise RuntimeError(f"crnerf_sincos launch failed: cudaError {rc}")
     LAUNCH_COUNTS["sincos"] += 1

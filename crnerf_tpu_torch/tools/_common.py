@@ -82,6 +82,29 @@ def turns_ms(kernel, library, device: torch.device, reps: int = 20,
     return statistics.median(ks), statistics.median(ls)
 
 
+def graph_ms(fn, device: torch.device, reps: int = 20,
+             replays: int = 10) -> float:
+    """Device ms per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, replayed ``replays`` times between CUDA events, so that the
+    host's path to each launch is not in the reading. Card only."""
+    fn()
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / (reps * replays)
+
+
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     """max |got - want| over max |want|, in float32."""
     got, want = got.float(), want.float()

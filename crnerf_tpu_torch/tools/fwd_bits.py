@@ -4,13 +4,16 @@
 
 Prints one sha256 per case (bf16 and fp32, exact encode and recurrence,
 1024 rays x 256 samples, 8x256, C=64) over the bytes of the ray block and
-the weights; then per case of the training forwards (the same dtypes and
-encodes, the first 256 rays) one over the ray block, the weights and the
-stash of the stash forward, and one over the ray block and the weights of
-the xyz-in forward on the rays' sample points. The kernel has no atomics and a fixed order of sums, so two
-builds that compute the same function print the same digests on the same
-card: run it in two checkouts to show that a change to the kernel's source
-left the inference launches bit-identical.
+the weights of the inference forward, with the variant that took it
+(``render_variant``: wgmma at bf16, mma.sync at fp32); then per case of the
+training forwards (the same dtypes and encodes, the first 256 rays, the
+mma.sync kernel as training runs it) one over the ray block, the weights
+and the stash of the stash forward, and one over the ray block and the
+weights of the xyz-in forward on the rays' sample points. The kernels have
+no atomics and a fixed order of sums, so two builds that compute the same
+function print the same digests on the same card: run it in two checkouts
+to show that a change to a kernel's source left its launches
+bit-identical.
 """
 
 from __future__ import annotations
@@ -47,22 +50,23 @@ def main() -> int:
             torch.cuda.synchronize()
             h = hashlib.sha256(blk.cpu().numpy().tobytes()
                                + w.cpu().numpy().tobytes()).hexdigest()
-            print(f"{str(dt)[6:]} exact={exact} {h}")
+            print(f"{str(dt)[6:]} exact={exact} "
+                  f"({fr.render_variant(kw.dims)}) {h}")
     m = 256
     pts = (o[:m, None, :] + d[:m, None, :] * z[:m, :, None]).contiguous()
     for dt in (torch.bfloat16, torch.float32):
         kw = fr.prepare_kernel_weights(params, 15, 4, dt)
         for exact in (True, False):
             outs = fr.render_fwd(kw, o[:m], d[:m], z[:m], noise[:m], exact,
-                                 stash=True)
+                                 stash=True, variant="mma")
             outs += fr.render_fwd(kw, None, d[:m], z[:m], noise[:m], exact,
-                                  stash=False, xyz=pts)[:2]
+                                  stash=False, xyz=pts, variant="mma")[:2]
             torch.cuda.synchronize()
             for name, ts in (("stash", outs[:3]), ("xyz-in", outs[3:])):
                 h = hashlib.sha256(b"".join(
                     t.cpu().view(torch.uint8).numpy().tobytes()
                     for t in ts)).hexdigest()
-                print(f"{str(dt)[6:]} exact={exact} {name} {h}")
+                print(f"{str(dt)[6:]} exact={exact} {name} (mma) {h}")
     return 0
 
 

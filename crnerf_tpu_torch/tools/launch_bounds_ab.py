@@ -97,8 +97,9 @@ def main(argv=None) -> int:
                    -1).values.to(dev)
     noise = torch.zeros(n_rays, s, device=dev)
     if kernel == "fwd":
-        def run():
-            return fr.fused_render_apply(kw, o, d, z, noise, False)
+        def run():     # the mma.sync forward, whose build this varies
+            return fr.render_fwd(kw, o, d, z, noise, False, stash=False,
+                                 variant="mma")[:2]
     else:
         _, _, stash = fr.render_fwd(kw, o, d, z, noise, False, stash=True)
         dir_blk = fr.dir_block(kw, d, False)

@@ -91,7 +91,9 @@ def main(argv=None) -> int:
     ok = True
     for n, s in shapes:
         o, d, z, noise = spike_rays(n, s, device)
-        blk_k1, w_k1 = fr.fused_render_apply(kw, o, d, z, noise, False)
+        # K1's mma.sync variant: the code S2 shares
+        blk_k1, w_k1, _ = fr.render_fwd(kw, o, d, z, noise, False, False,
+                                        variant="mma")
         for p in pr.PHASES:
             blk, w = pr.pipe_render_apply(kw, o, d, z, noise, False, p)
             err = max(float((blk - blk_k1).abs().max()),
@@ -103,9 +105,9 @@ def main(argv=None) -> int:
             print(f"pipelined P={p} at ({n} x {s}): max|d| vs K1 {err:.2e} "
                   f"({'same bits' if same else 'OTHER BITS'}), {ms:.3f} ms "
                   f"({n * s / ms / 1e3:.1f} Mpts/s)")
-        ms = time_ms(lambda: fr.fused_render_apply(kw, o, d, z, noise,
-                                                   False), device, ITERS)
-        print(f"K1 fused render at ({n} x {s}): {ms:.3f} ms "
+        ms = time_ms(lambda: fr.render_fwd(kw, o, d, z, noise, False, False,
+                                           variant="mma"), device, ITERS)
+        print(f"K1 fused render (mma.sync) at ({n} x {s}): {ms:.3f} ms "
               f"({n * s / ms / 1e3:.1f} Mpts/s); library: none")
         del blk_k1, w_k1
     if not ok:

@@ -12,8 +12,10 @@ Seeded x ~ U(-1, 1), (1024, 128) float32, times each scale of
 scales and beyond). Per scale: the kernel's max error against the library
 op, then the accurate and the fast variant against float64 (numpy at the
 float32 argument); then the library against float64 at 1280 rad (the JAX
-script's last line) and the kernel's and the library's ms per call (over
-50 calls).
+script's last line) and the kernel's and the library's ms per call: as a
+caller sees it, in turns (library, kernel, kernel, library; medians of 6
+readings of 20 calls), and on the card also the device's own time per
+call (a CUDA graph of 20 calls replayed).
 Returns 1 if the accurate variant is off float64 by more than
 ``ops.sincos.F64_TOL`` at any scale. Without a card the tool stops unless
 given ``--device cpu`` (plain versions only: no fast variant there).
@@ -31,11 +33,10 @@ from crnerf_tpu_torch.ops import sincos as sc
 from crnerf_tpu_torch.tools._common import (
     add_device_flag,
     device_line,
+    graph_ms,
     pick_device,
-    time_ms,
+    turns_ms,
 )
-
-ITERS = 50   # calls a timing averages over
 
 
 def unit_inputs(device, n: int = 1024, seed: int = 0) -> torch.Tensor:
@@ -78,10 +79,16 @@ def main(argv=None) -> int:
     x = (x01 * 1280.0).contiguous()
     print("torch sin vs f64 numpy @1280 rad:",
           f"{f64_err(torch.sin(x), x, np.sin):.3e}")
-    t_k = time_ms(lambda: sc.sincos(x), device, ITERS)
-    t_l = time_ms(lambda: (torch.sin(x), torch.cos(x)), device, ITERS)
-    print(f"kernel {t_k:.4f} ms, torch.sin + torch.cos {t_l:.4f} ms per "
-          f"(1024, 128) call")
+    t_k, t_l = turns_ms(lambda: sc.sincos(x),
+                        lambda: (torch.sin(x), torch.cos(x)), device)
+    line = (f"per (1024, 128) call, in turns: kernel {t_k:.4f} ms, "
+            f"torch.sin + torch.cos {t_l:.4f} ms")
+    if device.type == "cuda":
+        g_k = graph_ms(lambda: sc.sincos(x), device)
+        g_l = graph_ms(lambda: (torch.sin(x), torch.cos(x)), device)
+        line += (f"; device time: kernel {g_k:.4f} ms, torch.sin + "
+                 f"torch.cos {g_l:.4f} ms")
+    print(line)
     if not ok:
         print(f"the accurate variant is off float64 by more than "
               f"{sc.F64_TOL:.3e}", file=sys.stderr)

@@ -41,18 +41,22 @@ def _inputs(dev, n, s, seed=0):
 ])
 def test_kernel_matches_plain(dev, dt, exact, depth, width, c, s):
     """S not a multiple of 64 exercises the partial last chunk; width 48
-    and C 24 the zero padding to the kernel's 32-granules."""
+    and C 24 the zero padding to the kernel's 32-granules. The launch
+    counts under the variant render_variant chose (8x256 at bf16: wgmma;
+    the rest: mma.sync)."""
     torch.manual_seed(1)
     params = fr.mlp_params_from_module(
         NerfMLP(depth=depth, width=width, out_dim=c).to(dev))
     o, d, z, noise = _inputs(dev, 37, s)
     kw = fr.prepare_kernel_weights(params, 15, 4, dt)
-    before = fr.LAUNCH_COUNTS["fused_render_fwd"]
+    key = ("fused_render_fwd" if fr.render_variant(kw.dims) == "wgmma"
+           else "fused_render_fwd_mma")
+    before = dict(fr.LAUNCH_COUNTS)
     blk_k, w_k = fr.fused_render_apply(kw, o, d, z, noise, exact)
     blk_p, w_p = fr.render_fwd_plain(params, o, d, z, noise,
                                      compute_dtype=dt, exact_encode=exact)
     torch.cuda.synchronize()
-    assert fr.LAUNCH_COUNTS["fused_render_fwd"] == before + 1
+    assert fr.LAUNCH_COUNTS == dict(before, **{key: before[key] + 1})
     tw, tf, td = fr.KERNEL_TOL[dt]
     assert float((w_k - w_p).abs().max()) <= tw
     assert float((blk_k[:, :c] - blk_p[:, :c]).abs().max()) <= tf
@@ -134,7 +138,9 @@ def test_stash_forward_matches_plain(dev, dt, exact, depth, width, c, s):
     (and what those carry downstream): at most 2 % of the entries differ,
     none by more than 2^-6 of the largest activation."""
     params, kw, rays, _, _ = _train_case(dev, dt, exact, depth, width, c, s)
-    blk0, w0, _ = fr.render_fwd(kw, *rays, exact, stash=False)
+    # the stash form is the mma.sync kernel's: held to its no-stash launch
+    blk0, w0, _ = fr.render_fwd(kw, *rays, exact, stash=False,
+                                variant="mma")
     before = fr.LAUNCH_COUNTS["fused_render_fwd_stash"]
     blk1, w1, st = fr.render_fwd(kw, *rays, exact, stash=True)
     torch.cuda.synchronize()
@@ -244,20 +250,95 @@ def test_xyz_in_kernel_matches_plain(dev, dt, exact, depth, width, c, s):
     params, kw, rays, _, _ = _train_case(dev, dt, exact, depth, width, c, s)
     o, d, z, noise = rays
     xyz = _jittered(rays)
+    key = ("fused_render_fwd_xyz" if fr.render_variant(kw.dims) == "wgmma"
+           else "fused_render_fwd_xyz_mma")
     before = dict(fr.LAUNCH_COUNTS)
     blk_k, w_k = fr.fused_render_apply(kw, None, d, z, noise, exact, xyz=xyz)
     blk_p, w_p = fr.render_fwd_plain(params, None, d, z, noise,
                                      compute_dtype=dt, exact_encode=exact,
                                      xyz=xyz)
     torch.cuda.synchronize()
-    assert fr.LAUNCH_COUNTS["fused_render_fwd_xyz"] == (
-        before["fused_render_fwd_xyz"] + 1)
-    assert fr.LAUNCH_COUNTS["fused_render_fwd"] == before["fused_render_fwd"]
+    assert fr.LAUNCH_COUNTS == dict(before, **{key: before[key] + 1})
     tw, tf, td = fr.KERNEL_TOL[dt]
     assert float((w_k - w_p).abs().max()) <= tw
     assert float((blk_k[:, :c] - blk_p[:, :c]).abs().max()) <= tf
     assert float((blk_k[:, c] - blk_p[:, c]).abs().max()) <= td
     assert torch.all(blk_k[:, c + 1:] == 0)
+
+
+# the wgmma forward's shapes: its one build (WP 256, HP 128, CP 64) at a
+# small, ragged width (240 / 120 / 40, zero-padded), at 8x256 and at other
+# depths; S = 64 (two rays a tile, 37 rays: an odd last pair), 100 (a
+# ragged last tile), 256 and 512 (the serve passes)
+WGMMA_SHAPES = [(3, 240, 40, s) for s in (64, 100, 256, 512)] + [
+    (8, 256, 64, s) for s in (64, 100, 256, 512)] + [
+    (2, 256, 64, 100), (5, 240, 48, 130)]
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("depth,width,c,s", WGMMA_SHAPES)
+def test_wgmma_kernel_matches_plain_and_mma(dev, exact, depth, width, c, s):
+    """The wgmma forward (bf16, rays-in) against render_fwd_plain and
+    against the mma.sync forward on the same inputs, KERNEL_TOL[bf16] both:
+    its sums run in another order. Exactly its counter moves."""
+    torch.manual_seed(5)
+    params = fr.mlp_params_from_module(
+        NerfMLP(depth=depth, width=width, out_dim=c).to(dev))
+    o, d, z, noise = _inputs(dev, 37, s)
+    kw = fr.prepare_kernel_weights(params, 15, 4, torch.bfloat16)
+    assert fr.render_variant(kw.dims) == "wgmma"
+    before = dict(fr.LAUNCH_COUNTS)
+    blk_k, w_k = fr.fused_render_apply(kw, o, d, z, noise, exact)
+    torch.cuda.synchronize()
+    assert fr.LAUNCH_COUNTS == dict(
+        before, fused_render_fwd=before["fused_render_fwd"] + 1)
+    blk_m, w_m, _ = fr.render_fwd(kw, o, d, z, noise, exact, stash=False,
+                                  variant="mma")
+    blk_p, w_p = fr.render_fwd_plain(params, o, d, z, noise,
+                                     compute_dtype=torch.bfloat16,
+                                     exact_encode=exact)
+    tw, tf, td = fr.KERNEL_TOL[torch.bfloat16]
+    for blk, w in ((blk_p, w_p), (blk_m, w_m)):
+        assert float((w_k - w).abs().max()) <= tw
+        assert float((blk_k[:, :c] - blk[:, :c]).abs().max()) <= tf
+        assert float((blk_k[:, c] - blk[:, c]).abs().max()) <= td
+    assert torch.all(blk_k[:, c + 1:] == 0)
+
+
+@pytest.mark.parametrize("s", [64, 100])
+def test_wgmma_xyz_in_without_jitter_equals_rays_in_bits(dev, s):
+    """On the wgmma forward too, o + d*z handed in as xyz gives the
+    rays-in launch's bits; each form counts under its own key."""
+    _, kw, rays, _, _ = _train_case(dev, torch.bfloat16, False, 8, 256, 64,
+                                    s)
+    o, d, z, noise = rays
+    xyz = (o[:, None] + d[:, None] * z[..., None]).contiguous()
+    before = dict(fr.LAUNCH_COUNTS)
+    a = fr.fused_render_apply(kw, o, d, z, noise, False)
+    b = fr.fused_render_apply(kw, None, d, z, noise, False, xyz=xyz)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert fr.LAUNCH_COUNTS == dict(
+        before, fused_render_fwd=before["fused_render_fwd"] + 1,
+        fused_render_fwd_xyz=before["fused_render_fwd_xyz"] + 1)
+
+
+def test_wgmma_variant_refuses_what_it_does_not_take(dev):
+    torch.manual_seed(6)
+    params = fr.mlp_params_from_module(
+        NerfMLP(depth=2, width=256, out_dim=64).to(dev))
+    o, d, z, noise = _inputs(dev, 8, 16)
+    kw32 = fr.prepare_kernel_weights(params, 15, 4, torch.float32)
+    with pytest.raises(ValueError, match="does not take"):
+        fr.render_fwd(kw32, o, d, z, noise, False, False, variant="wgmma")
+    kw = fr.prepare_kernel_weights(params, 15, 4, torch.bfloat16)
+    with pytest.raises(ValueError, match="does not take"):
+        fr.render_fwd(kw, o, d, z, noise, False, True, variant="wgmma")
+    narrow = fr.prepare_kernel_weights(fr.mlp_params_from_module(
+        NerfMLP(depth=2, width=128, out_dim=64).to(dev)), 15, 4,
+        torch.bfloat16)
+    with pytest.raises(ValueError, match="does not take"):
+        fr.render_fwd(narrow, o, d, z, noise, False, False, variant="wgmma")
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
@@ -703,7 +784,7 @@ def test_pipe_render_gives_k1_bits(dev, p, depth, width, c, n, s):
     """S2 against K1 on the same inputs: the same bits, for every rays a
     CTA (p = 3 leaves a ragged last CTA), S with a partial
     last chunk, padded widths; and against the plain version within K1's
-    bf16 tolerance."""
+    bf16 tolerance. K1 is its mma.sync variant, whose code S2 shares."""
     from crnerf_tpu_torch.ops import pipe_render as pr
 
     torch.manual_seed(3)
@@ -713,7 +794,8 @@ def test_pipe_render_gives_k1_bits(dev, p, depth, width, c, n, s):
     kw = fr.prepare_kernel_weights(params, 15, 4, torch.bfloat16)
     before = pr.LAUNCH_COUNTS["pipe_render_fwd"]
     blk, w = pr.pipe_render_apply(kw, o, d, z, noise, False, p)
-    blk1, w1 = fr.fused_render_apply(kw, o, d, z, noise, False)
+    blk1, w1, _ = fr.render_fwd(kw, o, d, z, noise, False, stash=False,
+                                variant="mma")
     torch.cuda.synchronize()
     assert pr.LAUNCH_COUNTS["pipe_render_fwd"] == before + 1
     assert torch.equal(blk, blk1) and torch.equal(w, w1)

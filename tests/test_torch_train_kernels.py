@@ -261,6 +261,7 @@ def test_cpu_wrappers_launch_no_kernel(case):
     _port_grads(case, torch.float32, True)
     assert fr.LAUNCH_COUNTS == before
     assert set(before) == {"fused_render_fwd", "fused_render_fwd_xyz",
+                           "fused_render_fwd_mma", "fused_render_fwd_xyz_mma",
                            "fused_render_fwd_stash", "fused_render_bwd",
                            "fused_render_bwd_wgrad",
                            "fused_render_bwd_recompute",
