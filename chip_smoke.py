@@ -7,8 +7,9 @@ Phases, each fatal on failure:
   1. versions, the card's name and power limit; no CUDA device -> exit 1
   2. build every kernel from csrc/ with nvcc (sm_90a), the sources side by
      side; ptxas's registers and spills printed, and the phase fails on
-     its note C7520 (it serialised a kernel's wgmma) or on a spill in the
-     wgmma forward
+     its note C7520 (it serialised a kernel's wgmma) or on a spill in a
+     wgmma kernel of the fused render (the forward's two instances, the
+     chain)
   3. the forward kernel's mma.sync variant against its plain PyTorch
      version at full width (8x256, C=64) on 1024 rays, S=256 and S=512,
      bf16 and fp32, exact encode and the recurrence; max abs error of
@@ -26,12 +27,18 @@ Phases, each fatal on failure:
      turns (medians of 6 readings) with TFLOP/s and share of the bound
   4. the training kernels at full width on 1024 rays, S=64 and S=128, bf16
      with the recurrence and fp32 with the exact encode: the stash forward
-     (outputs bit-identical to the no-stash forward, stash against the
-     plain version's) and the two backward kernels against the plain
-     backward on the same stash, with random non-zero cotangents; twice on
-     the same inputs gives the same bits; then the same at the train
-     step's own launches, 16,384 rays at S=64 and S=128, bf16 with the
-     recurrence (the plain versions over 1024-ray slices of the inputs)
+     (outputs bit-identical to its own kernel's no-stash forward, stash
+     against the plain version's) and the two backward kernels against the
+     plain backward on the same stash, with random non-zero cotangents;
+     twice on the same inputs gives the same bits; then the same at the
+     train step's own launches, 16,384 rays at S=64 and S=128, bf16 with
+     the recurrence (the plain versions over 1024-ray slices of the
+     inputs). Each shape takes its variants: at bf16 the wgmma stash
+     forward and chain, and beside them the mma.sync pair on the same
+     inputs (its stash against the wgmma one, its chain on the wgmma stash
+     against the plain version, the stash backward of each pair from its
+     own forward against the other's), each kernel timed in turns with its
+     counterpart (medians of 6 readings), TFLOP/s and share of the bound
   4b. the recompute backward (no stash from the forward; rays-in and
      xyz-in) against its plain version at the same shapes, twice for the
      same bits, against the stash backward on the same inputs, its scratch
@@ -88,13 +95,16 @@ Phases, each fatal on failure:
      its convolutions are pinned to IEEE fp32), and a small fp32 step on
      the card against the same step on the CPU; the
      launch counters are zeroed just before the timed steps and read just
-     after
+     after: every stash forward and chain launch on the wgmma kernels, none
+     on mma.sync; and around the small fp32 step, whose pair is the
+     mma.sync one
   7. the two no-stash routes of the same step, pallas_stash=False (rays-in
      forward, recompute backward) and pertube_cord=True (xyz-in forward,
      recompute backward): warm-up, timed steps, launch counters, no stash
      alive after a forward, peak memory beside the stash route's, a small
      fp32 step of each on the card against the CPU, and pallas_stash=False
-     against the stash route on the same batch and draws
+     against the stash route on the same batch and draws; neither launches
+     a wgmma training kernel
   8. the per-point route, pallas_render=False, through the same entry
      points: 2 served frames (two fused-MLP launches per tile, none of the
      fused render's) against the full route's frame, a small frame card
@@ -284,7 +294,8 @@ def phase_build():
                 print("[build]  " + line.strip())
             if "C7520" in line:
                 serialised.append(source)
-            if ("render_fwd_wgmma_kernel" in entry
+            if (any(k in entry for k in ("render_fwd_wgmma_kernel",
+                                         "render_bwd_chain_wgmma_kernel"))
                     and "spill stores" in line
                     and ", 0 bytes spill stores, 0 bytes spill loads"
                     not in line):
@@ -294,7 +305,7 @@ def phase_build():
                          "(note C7520): a wait or branch between the "
                          "products of one group")
     if spilled:
-        raise PhaseError(f"the wgmma forward spills: {spilled}")
+        raise PhaseError(f"a wgmma kernel spills: {spilled}")
 
 
 def ray_slices(n: int):
@@ -828,8 +839,13 @@ def profile_step(state, step, batch, out_dir, step_ms: float):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    kinds = (("K1 render_fwd_kernel (every form)", ("render_fwd_kernel",)),
-             ("K2 chain render_bwd_chain_kernel",
+    kinds = (("K1 wgmma render_fwd_wgmma_kernel (either form)",
+              ("render_fwd_wgmma_kernel",)),
+             ("K1 mma.sync render_fwd_kernel (every form)",
+              ("render_fwd_kernel",)),
+             ("K2 chain wgmma render_bwd_chain_wgmma_kernel",
+              ("render_bwd_chain_wgmma_kernel",)),
+             ("K2 chain mma.sync render_bwd_chain_kernel",
               ("render_bwd_chain_kernel",)),
              ("K4 mlp_fwd_kernel (forward and the backward's recompute)",
               ("mlp_fwd_kernel",)),
@@ -992,7 +1008,8 @@ def stashes_alive_after_forward(state, batch):
 def phase_train(device, seed: int, profile_dir=None, route: str = "stash"):
     """The flagship train step on the card through make_train_step, on
     one of ``ROUTES``. Returns (launch counts of the timed steps, median
-    ms per step, peak GiB, the small step's gradients on the card)."""
+    ms per step, peak GiB, the small step's gradients on the card, the
+    small fp32 step's launch counts)."""
     import statistics
 
     import torch
@@ -1028,6 +1045,16 @@ def phase_train(device, seed: int, profile_dir=None, route: str = "stash"):
     if launches != want:
         raise PhaseError(f"{route}: launch counters {launches}, expected "
                          f"{want}")
+    if route == "stash":
+        print(f"[train] {route}: forward launches on the wgmma kernel "
+              f"{launches['fused_render_fwd_stash']}, on mma.sync "
+              f"{launches['fused_render_fwd_stash_mma']}; chain launches on "
+              f"the wgmma kernel {launches['fused_render_bwd']}, on mma.sync "
+              f"{launches['fused_render_bwd_mma']}")
+    elif route != "pallas_render=False":
+        print(f"[train] {route}: wgmma training kernels launched: stash "
+              f"forward {launches['fused_render_fwd_stash']}, chain "
+              f"{launches['fused_render_bwd']}")
     ts = torch.unique(torch.cat([b["ts"][:, 0] for b in staged]).long())
     valid = state.embedding_valid
     if not (valid[ts].all() and int(valid.sum()) == ts.numel()
@@ -1055,8 +1082,20 @@ def phase_train(device, seed: int, profile_dir=None, route: str = "stash"):
     if route == "stash":
         tf32_check(state, staged[0])
     del state, step, staged
+    zero_counts()
     grads = small_step_check(device, seed, route)
-    return launches, med, peak_gb, grads
+    small = read_counts()
+    if route == "stash":
+        # fp32 stays on the mma.sync pair: the small step's two passes
+        want = {k: (2 if k in ("fused_render_fwd_stash_mma",
+                               "fused_render_bwd_mma",
+                               "fused_render_bwd_wgrad") else 0)
+                for k in small}
+        print(f"[train] {route}: the small fp32 step's launches {small}")
+        if small != want:
+            raise PhaseError(f"the fp32 stash step's launches {small}, "
+                             f"expected {want}")
+    return launches, med, peak_gb, grads, small
 
 
 def routes_agree(a: str, grads_a, b: str, grads_b, tol: float = 1e-5):
@@ -1111,16 +1150,29 @@ def train_kernels_case(device, params, gen, n: int, s: int, dt,
                        exact: bool):
     """K1-stash and the two K2 kernels on n rays x s samples against their
     plain versions on the same inputs, stash and random non-zero
-    cotangents. The plain versions run over 1024-ray slices, and the
-    slices' gradients are summed in fp64. -> record."""
+    cotangents; the forward and the chain are the variants the shape takes
+    (at bf16 and the served widths the wgmma pair). The plain versions run
+    over 1024-ray slices, and the slices' gradients are summed in fp64.
+    Where the pair is the wgmma one the mma.sync pair runs on the same
+    inputs: its stash against the wgmma stash, its chain on the same stash
+    against the plain version, each of the two timed in turns with its
+    wgmma counterpart (medians of 6 readings), and the whole stash
+    backward of each pair, each from its own forward, against the other's
+    (held to RECOMPUTE_VS_PLAIN at the step's own launches). -> record."""
     import torch
 
     from crnerf_tpu_torch.ops import fused_render as fr
+    from crnerf_tpu_torch.tools._common import turns_ms
 
     c = 64
     bf16 = dt == torch.bfloat16
+    dt_name = str(dt)[6:]
     kw = fr.prepare_kernel_weights(params, 15, 4, dt)
     lay = fr.grad_layout(kw.dims)
+    fwd_v = fr.render_variant(kw.dims)
+    chain_v = fr.chain_variant(kw.dims, s)
+    both = fwd_v == "wgmma"       # the mma.sync pair beside the wgmma one
+    step_shape = n == TRAIN_GRIDS * 1024
     slices = ray_slices(n)
     o, d, z, noise = ray_inputs(n, s, gen, device)
     g_ray = torch.zeros(n, fr._round_up(c + 1, fr.LANE), device=device)
@@ -1131,6 +1183,14 @@ def train_kernels_case(device, params, gen, n: int, s: int, dt,
 
     def points(sl):
         return slice(sl.start * s, sl.stop * s)
+
+    def fwd(variant, stash=True):
+        return fr.render_fwd(kw, o, d, z, noise, exact, stash=stash,
+                             variant=variant)
+
+    def chain(st, variant):
+        return fr.bwd_chain(kw, z, noise, dir_blk, st, g_ray, g_w,
+                            variant=variant)
 
     def fwd_plain():        # one slice's results alive at a time
         for sl in slices:
@@ -1148,28 +1208,63 @@ def train_kernels_case(device, params, gen, n: int, s: int, dt,
             gw += fr.bwd_wgrad_plain(kw, st[points(sl)], dz[points(sl)])
         return gw
 
+    def stash_diff(a, b):
+        """(entries that differ, entries, largest difference, largest
+        entry of b) of two slices of stash rows."""
+        diff = (a.float() - b.float()).abs()
+        return ((diff > 0).sum().item(), diff.numel(), diff.max().item(),
+                b.float().abs().max().item())
+
+    def share(parts):
+        """Slices' stash_diff -> (share of entries that differ, largest
+        difference over the largest entry)."""
+        differ, count, big, scale = zip(*parts)
+        return sum(differ) / sum(count), max(big) / max(scale)
+
+    def fwd_err(blk, w, sl, blk_p, w_p):
+        return max((w[sl] - w_p).abs().max().item(),
+                   (blk[sl, :c + 1] - blk_p[:, :c + 1]).abs().max().item())
+
+    def stash_ok(frac, big):
+        if bf16:
+            return frac <= STASH_TOL_BF16[0] and big <= STASH_TOL_BF16[1]
+        return big <= STASH_TOL_FP32
+
+    def grads(gw, gb):
+        return fr.flatten_params(fr.unpack_grads(kw, gw, gb))
+
+    def worst(want, got):
+        return max(((a - b).abs().max() / a.abs().max().clamp_min(1e-30))
+                   .item() for a, b in zip(want, got))
+
+    mma = {}
     with full_fp32():
-        # the stash form is the mma.sync kernel's: held to its own no-stash
-        # launch, as training runs it
-        blk0, w0, _ = fr.render_fwd(kw, o, d, z, noise, exact, stash=False,
-                                    variant="mma")
-        blk1, w1, st = fr.render_fwd(kw, o, d, z, noise, exact, stash=True)
-        dz_k, gb_k = fr.bwd_chain(kw, z, noise, dir_blk, st, g_ray, g_w)
+        # the stash form against its own kernel's no-stash launch
+        blk0, w0, _ = fwd(fwd_v, stash=False)
+        blk1, w1, st = fwd(fwd_v)
+        dz_k, gb_k = chain(st, chain_v)
         gw_k = fr.bwd_wgrad(kw, st, dz_k)
-        dz_2, gb_2 = fr.bwd_chain(kw, z, noise, dir_blk, st, g_ray, g_w)
+        dz_2, gb_2 = chain(st, chain_v)
         gw_2 = fr.bwd_wgrad(kw, st, dz_2)
         repeat_bits = (torch.equal(dz_k, dz_2) and torch.equal(gb_k, gb_2)
                        and torch.equal(gw_k, gw_2))
         del dz_2
-        err_fwd = st_differ = st_max = st_scale = 0.0
+        if both:
+            # the mma.sync stash forward on the same inputs, held to its
+            # own no-stash launch
+            blk_m0, w_m0, _ = fwd("mma", stash=False)
+            blk_m, w_m, st_m = fwd("mma")
+            mma["bits"] = torch.equal(blk_m0, blk_m) and torch.equal(w_m0,
+                                                                     w_m)
+            del blk_m0, w_m0
+        err_fwd = err_m = 0.0
+        plain_st = []
         for sl, (blk_p, w_p, st_p) in zip(slices, fwd_plain()):
-            err_fwd = max(err_fwd, (w1[sl] - w_p).abs().max().item(),
-                          (blk1[sl, :c + 1] - blk_p[:, :c + 1]).abs().max()
-                          .item())
-            diff = (st[points(sl)].float() - st_p.float()).abs()
-            st_differ += (diff > 0).sum().item()
-            st_max = max(st_max, diff.max().item())
-            st_scale = max(st_scale, st_p.float().abs().max().item())
+            err_fwd = max(err_fwd, fwd_err(blk1, w1, sl, blk_p, w_p))
+            if both:
+                err_m = max(err_m, fwd_err(blk_m, w_m, sl, blk_p, w_p))
+            plain_st.append(stash_diff(st[points(sl)], st_p))
+        st_frac, st_max = share(plain_st)
         gb_p = torch.zeros(lay.bt, dtype=torch.float64, device=device)
         gw_p = torch.zeros(lay.wt, dtype=torch.float64, device=device)
         for sl, (dz_p, gb_s) in zip(slices, chain_plain(st)):
@@ -1177,34 +1272,58 @@ def train_kernels_case(device, params, gen, n: int, s: int, dt,
             gw_p += fr.bwd_wgrad_plain(kw, st[points(sl)], dz_p)
         # each kernel alone against its plain version on the same inputs
         gw_on_kernel_dz = wgrad_plain(st, dz_k)
+        if both:
+            # the mma.sync pair: its stash against the wgmma one's, its
+            # chain on the wgmma stash against the plain version
+            mma["err_fwd"] = err_m
+            mma["stash_vs_wgmma"] = share(
+                stash_diff(st[points(sl)], st_m[points(sl)]) for sl in slices)
+            dz_mw, gb_mw = chain(st, "mma")
+            mma["abs_chain"] = (gb_mw - gb_p).abs().max().item()
+            mma["err_chain"] = mma["abs_chain"] / gb_p.abs().max().item()
+            mma["err_grad"] = worst(grads(gw_p, gb_p),
+                                    grads(fr.bwd_wgrad(kw, st, dz_mw),
+                                          gb_mw))
+            del dz_mw
+            # the whole stash backward of the mma.sync pair, from its own
+            # forward, against the wgmma pair's
+            dz_mm, gb_mm = chain(st_m, "mma")
+            gw_mm = fr.bwd_wgrad(kw, st_m, dz_mm)
+            del dz_mm, st_m
+            mma["pair_vs_pair"] = worst(grads(gw_mm, gb_mm),
+                                        grads(gw_k, gb_k))
         torch.cuda.synchronize()
     same_bits = torch.equal(blk0, blk1) and torch.equal(w0, w1)
-    st_frac, st_max = st_differ / st.numel(), st_max / st_scale
-    if bf16:
-        st_ok = st_frac <= STASH_TOL_BF16[0] and st_max <= STASH_TOL_BF16[1]
-    else:
-        st_ok = st_max <= STASH_TOL_FP32
-    got = fr.flatten_params(fr.unpack_grads(kw, gw_k, gb_k))
-    want = fr.flatten_params(fr.unpack_grads(kw, gw_p, gb_p))
-    rel = [((a - b).abs().max() / a.abs().max().clamp_min(1e-30)).item()
-           for a, b in zip(want, got)]
+    st_ok = stash_ok(st_frac, st_max)
+    got = grads(gw_k, gb_k)
+    rel = worst(grads(gw_p, gb_p), got)
     finite = all(bool(torch.isfinite(t).all()) for t in got)
     abs_chain = (gb_k - gb_p).abs().max().item()
     abs_wgrad = (gw_k - gw_on_kernel_dz).abs().max().item()
     err_chain = abs_chain / gb_p.abs().max().item()
     err_wgrad = abs_wgrad / gw_on_kernel_dz.abs().max().item()
     passed = (same_bits and repeat_bits and st_ok and finite
-              and max(rel) <= fr.GRAD_TOL[dt]
+              and rel <= fr.GRAD_TOL[dt]
               and err_fwd <= max(fr.KERNEL_TOL[dt]))
-    t_nostash = time_ms(lambda: fr.render_fwd(kw, o, d, z, noise, exact,
-                                              stash=False, variant="mma"))
-    ms = dict(
-        fwd_stash=time_ms(lambda: fr.render_fwd(kw, o, d, z, noise, exact,
-                                                stash=True)),
-        chain=time_ms(lambda: fr.bwd_chain(kw, z, noise, dir_blk, st, g_ray,
-                                           g_w)),
-        wgrad=time_ms(lambda: fr.bwd_wgrad(kw, st, dz_k)),
-    )
+    if both:
+        passed = (passed and mma["bits"] and stash_ok(*mma["stash_vs_wgmma"])
+                  and mma["err_grad"] <= fr.GRAD_TOL[dt]
+                  and mma["err_fwd"] <= max(fr.KERNEL_TOL[dt])
+                  and (not step_shape or mma["pair_vs_pair"]
+                       <= RECOMPUTE_VS_PLAIN[dt_name]))
+    t_nostash = time_ms(lambda: fwd(fwd_v, stash=False))
+    ms = dict(wgrad=time_ms(lambda: fr.bwd_wgrad(kw, st, dz_k)))
+    if both:
+        ms["fwd_stash"], mma_fwd = turns_ms(lambda: fwd("wgmma"),
+                                            lambda: fwd("mma"), device,
+                                            reps=3)
+        ms["chain"], mma_chain = turns_ms(lambda: chain(st, "wgmma"),
+                                          lambda: chain(st, "mma"), device,
+                                          reps=3)
+        mma["ms"] = dict(fwd_stash=mma_fwd, chain=mma_chain)
+    else:
+        ms["fwd_stash"] = time_ms(lambda: fwd(fwd_v))
+        ms["chain"] = time_ms(lambda: chain(st, chain_v))
     reps = 3 if n == N_RAYS else 1
     plain = dict(fwd_stash=time_ms(lambda: drain(fwd_plain()), reps),
                  chain=time_ms(lambda: drain(chain_plain(st)), reps),
@@ -1212,23 +1331,46 @@ def train_kernels_case(device, params, gen, n: int, s: int, dt,
     pts = n * s
     bounds = train_kernel_bounds(params, kw, n, s, bf16)
     work = dict(zip(("fwd_stash", "chain", "wgrad"), mlp_work(params, s)))
+
+    def rate(key, t):
+        return (f"{t:.3f} ms ({pts * work[key] / t / 1e9:.0f} TFLOP/s, "
+                f"{100 * bounds[key][0] / t:.0f}% of the bound)")
+
     each = " ".join(
         f"{k} {ms[k]:.3f}/{plain[k]:.3f}/{bounds[k][0]:.3f} "
         f"({pts * work[k] / ms[k] / 1e9:.0f} TFLOP/s)" for k in work)
-    dt_name = str(dt)[6:]
-    print(f"[train-kernel] {n} rays x S={s} {dt_name:8s} no-stash bits "
-          f"equal {same_bits}, repeat bits equal {repeat_bits}; fwd "
-          f"max|d|={err_fwd:.3e}; stash: {st_frac:.2e} of entries differ, "
-          f"max {st_max:.3e} of the largest; grads max rel {max(rel):.3e} "
-          f"(tol {fr.GRAD_TOL[dt]}), chain alone {err_chain:.3e}, wgrad "
-          f"alone {err_wgrad:.3e}; ms kernel/plain/bound: forward no stash "
-          f"{t_nostash:.3f}, {each}; the backward as a whole "
-          f"{ms['chain'] + ms['wgrad']:.3f} ms against a bound of "
-          f"{bounds['bwd_whole'][0]:.3f} ms ({bounds['bwd_whole'][1]}, no dz "
-          f"buffer) {'ok' if passed else 'FAIL'}")
+    print(f"[train-kernel] {n} rays x S={s} {dt_name:8s} forward {fwd_v}, "
+          f"chain {chain_v}: no-stash bits equal {same_bits}, repeat bits "
+          f"equal {repeat_bits}; fwd max|d|={err_fwd:.3e}; stash: "
+          f"{st_frac:.2e} of entries differ, max {st_max:.3e} of the "
+          f"largest; grads max rel {rel:.3e} (tol {fr.GRAD_TOL[dt]}), chain "
+          f"alone {err_chain:.3e}, wgrad alone {err_wgrad:.3e}; ms "
+          f"kernel/plain/bound: forward no stash {t_nostash:.3f}, {each}; "
+          f"the backward as a whole {ms['chain'] + ms['wgrad']:.3f} ms "
+          f"against a bound of {bounds['bwd_whole'][0]:.3f} ms "
+          f"({bounds['bwd_whole'][1]}, no dz buffer) "
+          f"{'ok' if passed else 'FAIL'}")
+    if both:
+        frac_m, max_m = mma["stash_vs_wgmma"]
+        print(f"[train-kernel] {n} rays x S={s} {dt_name:8s} mma.sync pair "
+              f"on the same inputs: its no-stash bits equal {mma['bits']}, "
+              f"fwd max|d|={mma['err_fwd']:.3e}; its stash against the "
+              f"wgmma one: {frac_m:.2e} of entries differ, max {max_m:.3e} "
+              f"(bound {STASH_TOL_BF16}); its chain on the wgmma stash: "
+              f"grads max rel {mma['err_grad']:.3e}, chain alone "
+              f"{mma['err_chain']:.3e} (tol {fr.GRAD_TOL[dt]}); the stash "
+              f"backward of each pair from its own forward, one against the "
+              f"other: {mma['pair_vs_pair']:.3e} (bound "
+              f"{RECOMPUTE_VS_PLAIN[dt_name]}"
+              f"{'' if step_shape else ', not held at this shape'}); in "
+              f"turns: stash forward wgmma {rate('fwd_stash', ms['fwd_stash'])}"
+              f" against mma.sync {rate('fwd_stash', mma['ms']['fwd_stash'])}"
+              f", chain wgmma {rate('chain', ms['chain'])} against mma.sync "
+              f"{rate('chain', mma['ms']['chain'])}")
     return dict(N=n, S=s, dtype=dt_name, ok=passed, err_fwd=err_fwd,
-                err_grad=max(rel), abs_chain=abs_chain, abs_wgrad=abs_wgrad,
-                ms=ms, plain_ms=plain, bound=bounds)
+                err_grad=rel, abs_chain=abs_chain, abs_wgrad=abs_wgrad,
+                ms=ms, plain_ms=plain, bound=bounds, fwd_variant=fwd_v,
+                chain_variant=chain_v, mma=mma or None)
 
 
 def phase_train_kernels(device, seed: int):
@@ -1346,11 +1488,12 @@ def recompute_case(device, params, gen, n: int, s: int, dt, exact: bool,
         gw_2, gb_2, _ = kernel()
         repeat_bits = torch.equal(gw_k, gw_2) and torch.equal(gb_k, gb_2)
         del gw_2, gb_2
-        # the stash route on the same inputs
+        # the stash route on the same inputs, on the mma.sync pair whose
+        # stash form the slabs recompute
         _, _, st = fr.render_fwd(kw, origins, d, z, noise, exact, stash=True,
-                                 xyz=xyz)
+                                 xyz=xyz, variant="mma")
         dz_s, gb_s = fr.bwd_chain(kw, z, noise, fr.dir_block(kw, d, exact),
-                                  st, g_ray, g_w)
+                                  st, g_ray, g_w, variant="mma")
         gw_s = fr.bwd_wgrad(kw, st, dz_s)
         # with every ray in one slab the scratch is the stash route's
         rows_equal = None
@@ -2427,7 +2570,7 @@ def main(argv=None) -> int:
                 pallas_render=False)
         print(f"[serve] pallas_render=False: p50 {mlp_p50} ms per frame "
               f"against {p50} on the full route ({card})")
-        train_launches, step_ms, peak, grads = phase_train(
+        train_launches, step_ms, peak, grads, fp32_launches = phase_train(
             device, SEED, args.profile_dir or None)
         print(f"[train] median {step_ms:.2f} ms per step, "
               f"{TRAIN_GRIDS * 1024 / step_ms * 1e3:.0f} train rays/s "
@@ -2435,7 +2578,7 @@ def main(argv=None) -> int:
         route_launches = {}
         for route in ("pallas_stash=False", "pertube_cord=True",
                       "pallas_render=False"):
-            route_launches[route], r_ms, r_peak, r_grads = phase_train(
+            route_launches[route], r_ms, r_peak, r_grads, _ = phase_train(
                 device, SEED, None, route)
             print(f"[train] route {route}: median {r_ms:.2f} ms per step "
                   f"against {step_ms:.2f} on the stash route, "
@@ -2483,8 +2626,20 @@ def main(argv=None) -> int:
                 "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
                 "library_ms": r.get("library_ms")}
 
-    def train_kernel(key):      # one kernel's numbers of the stash pair
-        return {k: tk[k][key] for k in ("ms", "plain_ms", "bound")}
+    def train_kernel(key, variant="wgmma"):   # the stash pair's numbers
+        ms = tk["ms"][key] if variant == "wgmma" else tk["mma"]["ms"][key]
+        return dict(ms=ms, plain_ms=tk["plain_ms"][key],
+                    bound=tk["bound"][key])
+
+    def train_err(key, variant):
+        """The largest error of the stash forward ("fwd") or the chain's
+        sums ("chain") of ``variant`` over the phase's cases."""
+        field = "err_fwd" if key == "fwd" else "abs_chain"
+        own = [r[field] for r in train_records
+               if r[f"{key}_variant"] == variant]
+        if variant == "mma":
+            own += [r["mma"][field] for r in train_records if r["mma"]]
+        return max(own)
 
     def fwd_err(xyz_in, variant="mma"):
         return max(max(r["err_weights"], r["err_fmap"], r["err_depth"])
@@ -2501,6 +2656,7 @@ def main(argv=None) -> int:
     fwd_cu = "crnerf_tpu_torch/csrc/fused_render_fwd.cuh"
     wgmma_cu = "crnerf_tpu_torch/csrc/fused_render_fwd_wgmma.cuh"
     bwd_cu = "crnerf_tpu_torch/csrc/fused_render_bwd.cuh"
+    bwd_wgmma_cu = "crnerf_tpu_torch/csrc/fused_render_bwd_wgmma.cuh"
     rec_cu = "crnerf_tpu_torch/csrc/fused_render_bwd_recompute.cu"
     route_a = route_launches["pallas_stash=False"]
     route_b = route_launches["pertube_cord=True"]
@@ -2519,14 +2675,20 @@ def main(argv=None) -> int:
               fwd_err(False, "wgmma"), main_kernel),
         entry("fused_render_fwd (mma.sync)", fwd_cu, k1,
               route_a["fused_render_fwd_mma"], fwd_err(False), mma_kernel),
-        entry("fused_render_fwd_stash", fwd_cu, k1,
+        # the stash route's pair, wgmma, launched by the bf16 step; its
+        # mma.sync counterparts by the small fp32 step of the same route
+        entry("fused_render_fwd_stash", wgmma_cu, k1,
               train_launches["fused_render_fwd_stash"],
-              max(r["err_fwd"] for r in train_records),
-              train_kernel("fwd_stash")),
-        entry("fused_render_bwd", bwd_cu, k2,
+              train_err("fwd", "wgmma"), train_kernel("fwd_stash")),
+        entry("fused_render_fwd_stash (mma.sync)", fwd_cu, k1,
+              fp32_launches["fused_render_fwd_stash_mma"],
+              train_err("fwd", "mma"), train_kernel("fwd_stash", "mma")),
+        entry("fused_render_bwd", bwd_wgmma_cu, k2,
               train_launches["fused_render_bwd"],
-              max(r["abs_chain"] for r in train_records),
-              train_kernel("chain")),
+              train_err("chain", "wgmma"), train_kernel("chain")),
+        entry("fused_render_bwd (mma.sync)", bwd_cu, k2,
+              fp32_launches["fused_render_bwd_mma"],
+              train_err("chain", "mma"), train_kernel("chain", "mma")),
         entry("fused_render_bwd_wgrad", bwd_cu, k2,
               train_launches["fused_render_bwd_wgrad"],
               max(r["abs_wgrad"] for r in train_records),

@@ -43,8 +43,12 @@
 // Dtype policy as the TPU kernel's: every product operand (activations and
 // dz) rounded to the compute dtype, fp32 accumulation; compositing, the
 // g_fmap . feat products and the bias sums fp32.
-// Left for later: wgmma, TMA, fusing the weight gradient into the chain so
-// dz never reaches device memory.
+// The chain kernel here is the mma.sync one: fp32, widths other than the
+// served MLPs' and the recompute backward's slabs. The stash route's bf16
+// chain at the served widths runs its wgmma / TMA counterpart
+// (fused_render_bwd_wgmma.cuh), chosen by shape in ops/fused_render.py
+// chain_variant. Left for later: the weight gradient on wgmma, fusing it
+// into the chain so dz never reaches device memory.
 //
 // Included by fused_render_bwd.cu (the stash backward's library) and by
 // fused_render_bwd_recompute.cu, which runs both kernels slab by slab on a
@@ -580,6 +584,24 @@ int reduce_partials(const float* part, int n_parts, int total,
   return (int)cudaGetLastError();
 }
 
+// After a chain kernel: the fixed-order sum of its grid partial rows of
+// bias sums into bout[:DC], then the direction-encode weight gradient over
+// ``slices`` slices of the rays and its fixed-order sum into bout[DC:];
+// with ``accumulate`` both sums start from what bout holds.
+int chain_sums(const float* bpart, int grid, int DC, const float* dirb,
+               const float* ddray, int N, int DK, int HP, int slices,
+               float* dpart, float* bout, bool accumulate, cudaStream_t st) {
+  int rc = reduce_partials(bpart, grid, DC, accumulate, bout, st);
+  if (rc != 0) return rc;
+  const int n_dir = DK * HP;
+  const int per_slice = (N + slices - 1) / slices;
+  dir_wgrad_kernel<<<dim3((n_dir + 255) / 256, slices), 256, 0, st>>>(
+      dirb, ddray, N, DK, HP, per_slice, dpart);
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  return reduce_partials(dpart, slices, n_dir, accumulate, bout + DC, st);
+}
+
 constexpr int CHAIN_PTRS = 19;   // pointers before whT[1 .. L-1]
 constexpr int CHAIN_DIMS = 14;
 constexpr int WGRAD_PTRS = 5;
@@ -589,10 +611,7 @@ constexpr int WGRAD_DIMS = 8;
 // DC), ddray (N x HP), dpart (slices x DK*HP), bout (DC + DK*HP), ws, bs,
 // wc, bc, wsv, wcT, wdhT, wfT, then whT[1 .. L-1].
 // dims: N, S, L, WP, HP, CP, C, DK, ldo, SC, DC, slices, BF16, grid.
-// Launches the chain kernel on ``grid`` CTAs, the fixed-order sum of their
-// partial rows into bout[:DC], then the direction-encode weight gradient
-// over ``slices`` slices of the rays and its fixed-order sum into
-// bout[DC:]; with ``accumulate`` both sums start from what bout holds.
+// Launches the chain kernel on ``grid`` CTAs, then chain_sums.
 // Returns cudaGetLastError() (or cudaErrorInvalidValue for arguments the
 // kernels do not take).
 int render_bwd_chain_entry(const void* const* ptrs, int n_ptrs,
@@ -644,17 +663,10 @@ int render_bwd_chain_entry(const void* const* ptrs, int n_ptrs,
                          (int)smem);
     render_bwd_chain_kernel<false><<<grid, NTHREADS, smem, st>>>(a);
   }
-  int rc = (int)cudaGetLastError();
+  const int rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  rc = reduce_partials(a.bpart, grid, a.DC, accumulate, bout, st);
-  if (rc != 0) return rc;
-  const int n_dir = a.DK * a.HP;
-  const int per_slice = (a.N + slices - 1) / slices;
-  dir_wgrad_kernel<<<dim3((n_dir + 255) / 256, slices), 256, 0, st>>>(
-      a.dirb, a.ddray, a.N, a.DK, a.HP, per_slice, dpart);
-  rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  return reduce_partials(dpart, slices, n_dir, accumulate, bout + a.DC, st);
+  return chain_sums(a.bpart, grid, a.DC, a.dirb, a.ddray, a.N, a.DK, a.HP,
+                    slices, dpart, bout, accumulate, st);
 }
 
 // ptrs (host array): stash, dzbuf, tiles (n_tiles x 6 int32), part, wout.

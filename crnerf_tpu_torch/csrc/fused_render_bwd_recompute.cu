@@ -28,9 +28,12 @@
 // kernels find the buffers free. Every sum has a fixed order (within a
 // slab as in the stash backward, across slabs in slab order): two runs on
 // the same inputs give the same bits. Each slab's stash and dz rows are bit
-// for bit those the stash route writes for the same rays; the gradients
-// differ from the stash route's only in how the fp32 sums over the points
-// are grouped.
+// for bit those the stash route's mma.sync pair writes for the same rays
+// (the stash forward and chain that fp32 and other widths take, and that
+// ops/fused_render.py runs with variant="mma"; at the served bf16 widths
+// the stash route itself runs the wgmma pair, whose sums run in another
+// order); the gradients differ from that pair's only in how the fp32 sums
+// over the points are grouped.
 //
 // What bounds it: the forward again (~1.2 MFLOP per point at 8x256) and the
 // backward (~2.4 MFLOP per point) against a few bytes of input per point:

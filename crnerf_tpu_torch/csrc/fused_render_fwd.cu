@@ -3,7 +3,7 @@
 // where it and its notes are), for inference and for the forward of
 // training, rays-in and xyz-in, with or without the stash, bf16 and fp32.
 // crnerf_render_fwd_wgmma: the wgmma kernel (fused_render_fwd_wgmma.cuh),
-// the inference forward at the bf16 widths it takes.
+// the inference forward and the stash forward at the bf16 widths it takes.
 
 #include "fused_render_fwd_wgmma.cuh"
 

@@ -49,10 +49,12 @@
 // per-row scalars and the argument parsing are shared with the pipelined
 // forward (pipe_render_fwd.cu), which runs them with the compositing on a
 // warp of its own.
-// The inference forward at bf16 has a wgmma / TMA counterpart
-// (fused_render_fwd_wgmma.cuh), chosen by shape in ops/fused_render.py
-// render_variant; this kernel keeps fp32, other widths, the stash form and
-// the training forwards (their recompute must give the forward's bits).
+// The forward at bf16 and the served widths, with or without the stash,
+// has a wgmma / TMA counterpart (fused_render_fwd_wgmma.cuh), chosen by
+// shape in ops/fused_render.py render_variant; this kernel keeps fp32,
+// other widths, the no-stash training forwards (routes A and B: their
+// recompute must give the forward's bits) and the recompute backward's
+// stash form.
 
 #pragma once
 

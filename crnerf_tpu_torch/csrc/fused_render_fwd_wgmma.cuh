@@ -1,14 +1,17 @@
-// The fused render forward for inference on Hopper: the same function as
-// render_fwd_kernel (fused_render_fwd.cuh, rays-in and xyz-in, no stash,
-// bf16), with its products on wgmma and its weights streamed by TMA.
+// The fused render forward on Hopper: the same function as
+// render_fwd_kernel (fused_render_fwd.cuh, rays-in and xyz-in, with or
+// without the stash, bf16), with its products on wgmma and its weights
+// streamed by TMA.
 //
 // Replaces crnerf_tpu/ops/fused_render.py:_make_render_fwd_kernel (the
-// Pallas TPU kernel, forward, stash=False) for the bf16 shape that
-// render_variant (ops/fused_render.py) gives to this kernel, the served
-// MLPs': WP = 256, HP = 128, CP = 64, KE <= 128. The widths are template
-// parameters; one instance is built.
-// Included by fused_render_fwd.cu only; the stash forward, the training
-// forwards, fp32 and other widths stay on the mma.sync kernel.
+// Pallas TPU kernel, forward, stash=False and stash=True) for the bf16
+// shape that render_variant (ops/fused_render.py) gives to this kernel,
+// the served MLPs': WP = 256, HP = 128, CP = 64, KE <= 128. The widths are
+// template parameters; one instance is built for each form, the inference
+// forward and the stash forward of the stash route's training step.
+// Included by fused_render_fwd.cu only; fp32, other widths and the no-stash
+// training forwards (routes A and B, whose backward recomputes the mma.sync
+// stash form) stay on the mma.sync kernel.
 //
 // What bounds it: ~1.2 MFLOP of products a sample point at 8x256 against
 // ~8 bytes of per-ray input a point: the tensor cores (5.23 ms at 8192 x
@@ -23,8 +26,8 @@
 //   * Warpgroup 2 is the producer: one lane streams the whole weight
 //     program of a tile (every layer's K-slices of 64, in the order the
 //     products take them) with TMA bulk copies into an NS-slot mbarrier
-//     ring. The slices are packed once on the host (pack_wgmma_b,
-//     wgmma_stream), each the 128-byte-swizzled image of B^T (N rows of 64
+//     ring. The slices are gathered on the host (pack_wgmma_b's layout,
+//     wgmma_weights), each the 128-byte-swizzled image of B^T (N rows of 64
 //     bf16, K-major), so a slice is one contiguous copy and needs no
 //     tensor map. setmaxnreg cuts the producer to 40 registers a thread and
 //     raises the consumers to 232: ptxas gives a wgmma kernel registers by
@@ -53,6 +56,20 @@
 //     the L2 nor the weight stream's latency; the work between products
 //     (each layer's wait and epilogue, the encode, the compositing), done
 //     by both warpgroups at the same time, leaves the tensor cores idle.
+//   * The stash (STASH): the instance with the stash adds stores and
+//     nothing else, so its ray block and weights are the inference
+//     instance's bits. Every buffer a product reads (the encode, each
+//     trunk layer's ReLU output, hf, dd) is, once its epilogue is done, the
+//     image of 64-column x 64-row boxes of the stash in the 128-byte
+//     swizzle; one lane a warpgroup stores it by TMA through a 3-D tensor
+//     map over (rays, samples, columns), which clips at S (a box never
+//     reaches the next ray's rows) and at the row's end (the encode is 96
+//     columns of the stash, 128 here). The stores run while the next
+//     product does; the lane waits for them to have read the buffer
+//     (bulk_wait_read) before the next epilogue writes it again. ~5 KB of
+//     stash a point against ~1.2 MFLOP: per SM and tile ~25 us of device
+//     memory against ~20 us of products at peak, so the stores must
+//     overlap the products, which this order lets them do.
 //   * Dtype policy as render_fwd_kernel: ReLU outputs, hf and dd rounded to
 //     bf16; the sigma head at bf16 with fp32 accumulation; biases,
 //     softplus, sigmoid and compositing fp32. The encode computes the same
@@ -63,19 +80,11 @@
 #pragma once
 
 #include "fused_render_fwd.cuh"
-#include "hopper.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
-constexpr int WG_ROWS = 64;            // rows a consumer warpgroup owns
-constexpr int WG_THREADS = 384;        // two consumer warpgroups + producer
-constexpr int WG_REGS_PRODUCER = 40;   // registers a thread after setmaxnreg
-constexpr int WG_REGS_CONSUMER = 232;
 constexpr int KEW = 128;               // encode columns in this layout
-constexpr int A_SLICE = WG_ROWS * 128; // 64 rows x 64 bf16, swizzled
-constexpr int SIG_N = 8;               // the sigma head's product width
-constexpr int WG_SMEM_MAX = 232448;    // the H100's 227 KB a block
-constexpr int WG_MAX_NS = 8;
 
 // floats of one warpgroup's SIMT state: sig, zc, nz, dl, wts (64 each),
 // xyz (64 x 3), dirt (HP), the feature sums (2 x CP, by item parity) and
@@ -105,94 +114,16 @@ __host__ __device__ constexpr int wg_smem_bytes() {
   return wg_fixed_bytes<WP, HP, CP>() + wg_ring_slots<WP, HP, CP>() * WP * 128;
 }
 
-template <int N>
-__device__ __forceinline__ void wg_mma(float (&d)[N / 2], uint64_t da,
-                                       uint64_t db) {
-  if constexpr (N == 8)
-    wgmma_m64n8k16<0, 0>(d, da, db);
-  else if constexpr (N == 64)
-    wgmma_m64n64k16<0, 0>(d, da, db);
-  else if constexpr (N == 128)
-    wgmma_m64n128k16<0, 0>(d, da, db);
-  else
-    wgmma_m64n256k16<0, 0>(d, da, db);
-}
-
-// Byte offset of element (r, k) in a warpgroup's K-major, 128-byte
-// swizzled buffer: 64-column slices of 64 rows x 128 bytes, the 16-byte
-// chunk q of row r at q ^ (r % 8).
-__device__ __forceinline__ int sw_off(int r, int k) {
-  return (k >> 6) * A_SLICE + r * 128 +
-         ((((k & 63) >> 3) ^ (r & 7)) << 4) + ((k & 7) << 1);
-}
-
-__device__ __forceinline__ void st_bf16(uint8_t* buf, int r, int k,
-                                        float v) {
-  *reinterpret_cast<__nv_bfloat16*>(buf + sw_off(r, k)) =
-      __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ void st_bf16x2(uint8_t* buf, int r, int k,
-                                          float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(buf + sw_off(r, k)) =
-      __floats2bfloat162_rn(v0, v1);
-}
-
-// The ring both sides walk in the same order: slot and phase.
-struct Ring {
-  int s = 0, ph = 0;
-  template <int NS>
-  __device__ __forceinline__ void next() {
-    if (++s == NS) { s = 0; ph ^= 1; }
-  }
-};
-
-// acc += A @ B over nk K-slices of 64: slice kc's A at a_addr(kc) (shared
-// address of a 64-row swizzled slice), B the next ring slot. One product
-// group a slice; a slot is released (one arrival of this warpgroup) once
-// the group after it has been committed and it has retired.
-template <int N, int NS, int SLOT, class AAddr>
-__device__ __forceinline__ void wg_product(float (&acc)[N / 2], int nk,
-                                           AAddr a_addr, uint32_t ring_a,
-                                           uint64_t* full, uint64_t* empty,
-                                           Ring& ring, bool leader) {
-  int prev = -1;
-  for (int kc = 0; kc < nk; ++kc) {
-    mbar_wait(&full[ring.s], ring.ph);
-    const uint32_t aa = a_addr(kc);
-    const uint32_t bb = ring_a + ring.s * SLOT;
-    fence_acc(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      wg_mma<N>(acc, sw128_desc(aa + kk * 32, 16, 1024),
-                sw128_desc(bb + kk * 32, 16, 1024));
-    wgmma_commit();
-    fence_acc(acc);
-    wgmma_wait<1>();
-    fence_acc(acc);
-    if (leader && prev >= 0) mbar_arrive(&empty[prev]);
-    prev = ring.s;
-    ring.next<NS>();
-  }
-  wgmma_wait<0>();
-  fence_acc(acc);
-  if (leader && prev >= 0) mbar_arrive(&empty[prev]);
-}
-
-template <int R>
-__device__ __forceinline__ void zero_acc(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) d[i] = 0.f;
-}
-
 // ------------------------------------------------------------- kernel
 // pair: S <= 64, two rays a tile (warpgroup g takes ray 2 item + g);
 // else one ray an item, tiles of 128 samples (warpgroup g takes samples
-// 128 t + 64 g ..).
-template <int WP, int HP, int CP>
+// 128 t + 64 g ..). STASH: each activation buffer, once written, is also
+// stored by TMA (smap, ray_rows_map over the stash) into its columns of the
+// warpgroup's 64 stash rows while the next product runs.
+template <int WP, int HP, int CP, bool STASH>
 __global__ void __launch_bounds__(WG_THREADS, 1)
-    render_fwd_wgmma_kernel(const KArgs a, const uint8_t* __restrict__ wpack,
+    render_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap smap,
+                            const KArgs a, const uint8_t* __restrict__ wpack,
                             const int pair) {
   constexpr int SLOT = WP * 128;
   constexpr int NS = wg_ring_slots<WP, HP, CP>();
@@ -281,6 +212,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 
   // the accumulator fragment: rows r0 and r0 + 8, columns 8 nb + cq (+1)
   const int r0 = warp * 16 + (lane >> 2), cq = 2 * (lane & 3);
+  // the stash row's columns: h_i at i WP, then hf, dd, the encode
+  const int o_hf = L * WP, o_dd = o_hf + WP, o_enc = o_dd + HP;
 
   Ring rg;
   int tp = 0, ip = 0;
@@ -312,9 +245,28 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 
     for (int t = 0; t < tiles; ++t) {
       const int sb = pair ? 0 : t * 128 + g * WG_ROWS;  // row 0's sample
+      // STASH: nslices 64-column slices of buf into stash columns col..
+      // of this warpgroup's rows (clipped at S; none for a missing ray)
+      auto stash_store = [&](const uint8_t* buf, int nslices, int col) {
+        if constexpr (STASH) {
+          if (leader && ray_ok && sb < S) {
+            for (int k = 0; k < nslices; ++k)
+              tma_store_3d(&smap, buf + k * A_SLICE, col + 64 * k, sb, ray);
+            bulk_commit();
+          }
+        }
+      };
+      // before a buffer those stores read is written again (the leader
+      // waits, a warpgroup barrier follows)
+      auto stash_wait = [&]() {
+        if constexpr (STASH) {
+          if (leader) bulk_wait_read();
+        }
+      };
       // per-row scalars; rows past S repeat the last sample, alpha 0
       if (wtid < WG_ROWS)
         row_scalars(zr, nr, S, sb + wtid, zc[wtid], nz[wtid], dl[wtid]);
+      stash_wait();
       wg_sync();
       // encode: [x, sin 2^0 x, cos 2^0 x, sin 2^1 x, ...], zero past 3 + 6F
       for (int i = wtid; i < WG_ROWS * 3; i += 128) {
@@ -360,6 +312,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       }
       fence_proxy_async();
       wg_sync();
+      stash_store(enc, KEW / 64, o_enc);
 
       // ---- trunk: h_i = relu([enc |] h_{i-1} @ W_i + b_i), in place
       for (int i = 0; i < L; ++i) {
@@ -374,6 +327,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
                              : act_a + (kc - ne) * A_SLICE;
             },
             ring_a, full, empty, rg, leader);
+        stash_wait();
         wg_sync();
         const float* bias = a.b[i];
 #pragma unroll
@@ -387,6 +341,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         }
         fence_proxy_async();
         wg_sync();
+        stash_store(act, WP / 64, i * WP);
       }
 
       // ---- sigma head: column 0 of a 64 x 8 product
@@ -456,6 +411,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       wg_product<WP, NS, SLOT>(
           acc, WP / 64, [&](int kc) { return act_a + kc * A_SLICE; }, ring_a,
           full, empty, rg, leader);
+      stash_wait();
       wg_sync();
 #pragma unroll
       for (int nb = 0; nb < WP / 8; ++nb) {
@@ -466,6 +422,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       }
       fence_proxy_async();
       wg_sync();
+      stash_store(act, WP / 64, o_hf);
 
       // ---- dir branch: dd = relu(hf @ W_dh + dir term + b_d), in place
       {
@@ -474,6 +431,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         wg_product<HP, NS, SLOT>(
             acc_d, WP / 64, [&](int kc) { return act_a + kc * A_SLICE; },
             ring_a, full, empty, rg, leader);
+        stash_wait();
         wg_sync();
 #pragma unroll
         for (int nb = 0; nb < HP / 8; ++nb) {
@@ -488,6 +446,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       }
       fence_proxy_async();
       wg_sync();
+      stash_store(act, HP / 64, o_dd);
 
       // ---- feature head: sigmoid(dd @ W_c + b_c), times the row's weight,
       // summed over the rows
@@ -540,15 +499,19 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     }
     ip ^= 1;
   }
+  if constexpr (STASH) {
+    if (leader) bulk_wait();
+  }
 }
 
-// Launches render_fwd_wgmma_kernel<WP, HP, CP> on ``st`` over
+// Launches render_fwd_wgmma_kernel<WP, HP, CP, STASH> on ``st`` over
 // min(items, SMs) CTAs; cudaGetLastError().
-template <int WP, int HP, int CP>
-int launch_wgmma(const KArgs& a, const void* wpack, cudaStream_t st) {
+template <int WP, int HP, int CP, bool STASH>
+int launch_wgmma(const CUtensorMap& smap, const KArgs& a, const void* wpack,
+                 cudaStream_t st) {
   constexpr int smem = wg_smem_bytes<WP, HP, CP>();
   static_assert(smem <= WG_SMEM_MAX, "shared memory");
-  auto kern = render_fwd_wgmma_kernel<WP, HP, CP>;
+  auto kern = render_fwd_wgmma_kernel<WP, HP, CP, STASH>;
   cudaError_t rc = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (rc != cudaSuccess) return (int)rc;
@@ -558,14 +521,16 @@ int launch_wgmma(const KArgs& a, const void* wpack, cudaStream_t st) {
   const int items = pair ? (a.N + 1) / 2 : a.N;
   const int grid = items < sms ? items : sms;
   kern<<<grid, WG_THREADS, smem, st>>>(
-      a, static_cast<const uint8_t*>(wpack), pair);
+      smap, a, static_cast<const uint8_t*>(wpack), pair);
   return (int)cudaGetLastError();
 }
 
 // Arguments as render_fwd_entry takes them, and after them the weight
-// stream (wgmma_stream in ops/fused_render.py). Only the shape this
-// kernel takes: bf16, no stash, (WP, HP, CP) = (256, 128, 64), KE <= 128.
-// Returns cudaGetLastError() or cudaErrorInvalidValue.
+// stream (wgmma_weights in ops/fused_render.py). Only the shape this
+// kernel takes: bf16, (WP, HP, CP) = (256, 128, 64), KE <= 128; with or
+// without the stash (its columns as parse_fwd_args checks them, the row
+// 16-byte aligned). Returns cudaGetLastError(), a CUresult of the stash's
+// tensor map, or cudaErrorInvalidValue.
 int render_fwd_wgmma_entry(const void* const* ptrs, int n_ptrs,
                            const int* dims, int n_dims, void* stream) {
   if (n_ptrs < 1) return (int)cudaErrorInvalidValue;
@@ -574,12 +539,17 @@ int render_fwd_wgmma_entry(const void* const* ptrs, int n_ptrs,
   const int rc = parse_fwd_args(ptrs, n_ptrs - 1, dims, n_dims, a, bf16);
   if (rc != 0) return rc;
   const void* wpack = ptrs[n_ptrs - 1];
-  if (!bf16 || a.stash || !wpack || ((uintptr_t)wpack & 15) ||
-      a.KE > KEW || 3 + 6 * a.F > KEW || a.WP != 256 || a.HP != 128 ||
-      a.CP != 64)
+  if (!bf16 || !wpack || ((uintptr_t)wpack & 15) || a.KE > KEW ||
+      3 + 6 * a.F > KEW || a.WP != 256 || a.HP != 128 || a.CP != 64 ||
+      (a.stash && (((uintptr_t)a.stash & 15) || a.SC % 8)))
     return (int)cudaErrorInvalidValue;
-  return launch_wgmma<256, 128, 64>(a, wpack,
-                                    static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  CUtensorMap smap = {};
+  if (!a.stash)
+    return launch_wgmma<256, 128, 64, false>(smap, a, wpack, st);
+  const int mrc = ray_rows_map(&smap, a.stash, a.N, a.S, a.SC);
+  if (mrc != 0) return mrc;
+  return launch_wgmma<256, 128, 64, true>(smap, a, wpack, st);
 }
 
 }  // namespace

@@ -2,7 +2,7 @@
 // and stores through a CUtensorMap and bulk copies, wgmma descriptors for
 // the 128-byte swizzled layouts and the warpgroup products that read them,
 // and the host side that encodes a tensor map. Included by conv_fwd.cuh
-// and fused_render_fwd_wgmma.cuh.
+// and wgmma_tile.cuh (the fused render's wgmma kernels).
 //
 // The layouts. A TMA box whose inner dimension is 128 bytes (64 bf16 or 32
 // fp32), loaded or stored with CU_TENSOR_MAP_SWIZZLE_128B, lies in shared
@@ -96,6 +96,16 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
 }
 
 // shared -> global; the box's out-of-range part is not written
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
+      "[%0, {%2, %3, %4}], [%1];\n" ::"l"((uint64_t)map),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
                                              const void* src, int c0, int c1,
                                              int c2, int c3) {

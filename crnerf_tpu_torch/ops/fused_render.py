@@ -47,16 +47,19 @@ selects the anchored double-angle sin/cos recurrence (exact sin/cos every
 ``torch.autograd.Function``) are the wrappers: a CPU tensor goes to the
 plain versions; a CUDA tensor launches the kernels or raises.
 
-The forward has two kernels for the same function. The wgmma kernel
-(``csrc/fused_render_fwd_wgmma.cuh``: TMA-streamed weights, warpgroup
-products over 128-row tiles) takes the inference forward at bf16 and
-the served MLPs' widths, the one shape it is built for; the mma.sync
-kernel (``csrc/fused_render_fwd.cuh``) takes everything else: fp32,
-other widths, the stash forward, and the training forwards, which ask for it (``variant="mma"``) so that a step's
-forward and its backward's recompute are one kernel's bits.
-``render_variant`` chooses by shape before the launch; each variant
-counts its launches apart (``LAUNCH_COUNTS``: the mma.sync kernel's
-no-stash launches under ``*_mma``).
+The forward and the backward's chain each have two kernels for the same
+function. The wgmma kernels (``csrc/fused_render_fwd_wgmma.cuh``,
+``csrc/fused_render_bwd_wgmma.cuh``: TMA-streamed weights, warpgroup
+products over 128-row tiles) take bf16 at the served MLPs' widths, the one
+shape they are built for: the forward with and without the stash, and the
+stash route's chain. The mma.sync kernels (``csrc/fused_render_fwd.cuh``,
+``csrc/fused_render_bwd.cuh``) take everything else: fp32, other widths,
+and the no-stash training forward, which asks for it (``variant="mma"``)
+so that a step's forward and its backward's recompute (which runs the
+mma.sync stash form) are one kernel's bits. ``render_variant`` and
+``chain_variant`` choose by shape before the launch; each variant counts
+its launches apart (``LAUNCH_COUNTS``: the mma.sync kernels' under
+``*_mma``).
 """
 
 from __future__ import annotations
@@ -83,8 +86,10 @@ LAUNCH_COUNTS: Dict[str, int] = {
     "fused_render_fwd_xyz": 0,      # forward, xyz-in, no stash (wgmma)
     "fused_render_fwd_mma": 0,      # the same on the mma.sync kernel
     "fused_render_fwd_xyz_mma": 0,
-    "fused_render_fwd_stash": 0,    # forward with the stash (either form)
-    "fused_render_bwd": 0,          # backward, the per-ray dz chain
+    "fused_render_fwd_stash": 0,    # forward with the stash (wgmma)
+    "fused_render_fwd_stash_mma": 0,
+    "fused_render_bwd": 0,          # backward, the per-ray dz chain (wgmma)
+    "fused_render_bwd_mma": 0,
     "fused_render_bwd_wgrad": 0,    # backward, the split-K weight gradient
     "fused_render_bwd_recompute": 0,      # recompute backward, rays-in
     "fused_render_bwd_recompute_xyz": 0,  # recompute backward, xyz-in
@@ -299,65 +304,167 @@ def pack_mma_b(b: torch.Tensor) -> torch.Tensor:
 
 
 WGMMA_KE = 128     # encode columns of the wgmma kernel (KE padded)
-WGMMA_SIGMA_N = 8  # the wgmma kernel's sigma head: a 64 x 8 product
+WGMMA_SIGMA_N = 8  # the wgmma kernels' sigma head: a 64 x 8 product
+WGMMA_CHAIN_MAX_L = 8    # csrc/fused_render_bwd_wgmma.cuh CW_MAX_L
+WGMMA_CHAIN_MAX_S = 256  # CW_MAX_S
+
+
+@functools.lru_cache(maxsize=None)
+def _swizzle_index(k: int, n: int) -> torch.Tensor:
+    """(K // 64, N, 64) int64 on the CPU: for each element of
+    ``pack_wgmma_b``'s output, the position in the row-major (K, N)
+    matrix of the element it holds."""
+    kc = torch.arange(k // 64).view(-1, 1, 1, 1)
+    col = torch.arange(n).view(1, -1, 1, 1)
+    chunk = torch.arange(8).view(1, 1, -1, 1) ^ (col % 8)
+    row = 64 * kc + 8 * chunk + torch.arange(8).view(1, 1, 1, -1)
+    return (row * n + col).reshape(k // 64, n, 64)
 
 
 def pack_wgmma_b(b: torch.Tensor) -> torch.Tensor:
-    """(K, N) matrix, K % 64 == 0, N % 8 == 0 -> bf16 (K // 64, N, 64):
+    """(K, N) matrix, K % 64 == 0, N % 8 == 0 -> (K // 64, N, 64) of b's
+    dtype (bf16 where the kernels read it; positions for ``_stream_index``):
     per 64-deep K-slice the shared-memory image wgmma reads as a K-major B
     operand in the 128-byte swizzle, row n holding B[64 kc : 64 kc + 64,
     n] with its 16-byte chunk q at q ^ (n % 8). One slice is one
     contiguous bulk copy. XOR is its own inverse: the same gather unpacks
     it."""
     k, n = b.shape
-    v = b.reshape(k // 64, 64, n).permute(0, 2, 1).reshape(k // 64, n, 8, 8)
-    q = torch.arange(8, device=b.device)
-    idx = q[None, :] ^ (torch.arange(n, device=b.device)[:, None] % 8)
-    v = torch.gather(v, 2, idx[None, :, :, None].expand(k // 64, n, 8, 8))
-    return v.reshape(k // 64, n, 64).to(torch.bfloat16).contiguous()
+    return b.reshape(-1)[_swizzle_index(k, n).to(b.device)]
 
 
-def wgmma_stream(dims: Dict[str, int],
-                 pad: Dict[object, torch.Tensor]) -> torch.Tensor:
-    """The wgmma kernel's weights: every product's B as ``pack_wgmma_b``
-    slices, flat, in the order the kernel takes them (its producer streams
-    the whole of it once a 128-row tile): per trunk layer the encode rows
-    (padded to ``WGMMA_KE``) then the hidden rows, the sigma head's first
-    ``WGMMA_SIGMA_N`` columns, the final layer, the dir layer's hidden
-    rows, the feature head."""
-    def rows(m, k):
-        full = m.new_zeros((k, m.shape[1]))
-        full[:m.shape[0]] = m
-        return full
-
-    mats = []
+def _source_keys(dims: Dict[str, int]):
+    """The padded matrices both wgmma streams are cut from, in the order
+    ``_flat_weights`` lays them end to end, with their (K, N) shapes."""
+    wp, hp, cp, ke = dims["WP"], dims["HP"], dims["CP"], dims["KE"]
+    keys = []
     for i in range(dims["L"]):
-        if ("wenc", i) in pad:
-            mats.append(rows(pad["wenc", i], WGMMA_KE))
-        if ("wh", i) in pad:
-            mats.append(pad["wh", i])
-    mats += [pad["ws"][:, :WGMMA_SIGMA_N], pad["wf"], pad["wdh"], pad["wc"]]
-    return torch.cat([pack_wgmma_b(m).reshape(-1) for m in mats])
+        if i == 0 or (dims["skip_mask"] >> i) & 1:
+            keys.append((("wenc", i), (ke, wp)))
+        if i > 0:
+            keys.append((("wh", i), (wp, wp)))
+    keys += [("ws", (wp, 32)), ("wf", (wp, wp)), ("wdh", (wp, hp)),
+             ("wc", (hp, cp))]
+    return keys
 
 
-def wgmma_weights(kw: KernelWeights) -> torch.Tensor:
-    """The layout's wgmma weight stream (``wgmma_stream``), packed at its
-    first use and kept with the layout: the layouts of the training
-    forwards, remade every step, never pack it."""
-    stream = kw.derived.get("wgmma")
+@functools.lru_cache(maxsize=None)
+def _stream_index(dims_key, chain: bool, device_str: str) -> torch.Tensor:
+    """The positions in ``_flat_weights`` of a wgmma stream's elements, on
+    the device, once per dimensions. Forward (``chain=False``): every
+    product's B in the order the forward kernel takes them: per trunk
+    layer the encode rows (zero rows up to ``WGMMA_KE``) then the hidden
+    rows, the sigma head's first ``WGMMA_SIGMA_N`` columns, the final
+    layer, the dir layer's hidden rows, the feature head. Chain: the sigma
+    columns and the feature head as the forward takes them, then W^T of
+    the feature head, the dir layer's hidden rows, the final layer and the
+    trunk layers L-1 .. 1 (hidden rows), in the order the chain takes
+    them. Each matrix as ``pack_wgmma_b`` lays it out."""
+    dims = dict(dims_key)
+    base, off = {}, 0
+    for key, (k, n) in _source_keys(dims):
+        base[key] = (off, k, n)
+        off += k * n
+    zero = off                      # the zero ``_flat_weights`` ends with
+
+    def mat(key, k=None, n=None, transpose=False):
+        """Positions of B = the padded matrix (or its transpose), its K
+        padded with zero rows up to k, its first n columns."""
+        b0, rows, cols = base[key]
+        pos = b0 + torch.arange(rows * cols).reshape(rows, cols)
+        if transpose:
+            pos = pos.T
+        k = k or pos.shape[0]
+        n = n or pos.shape[1]
+        full = torch.full((k, n), zero, dtype=torch.int64)
+        full[:pos.shape[0]] = pos[:, :n]
+        return pack_wgmma_b(full).reshape(-1)
+
+    n_layers = dims["L"]
+    if chain:
+        parts = [mat("ws", n=WGMMA_SIGMA_N), mat("wc"),
+                 mat("wc", transpose=True), mat("wdh", transpose=True),
+                 mat("wf", transpose=True)]
+        parts += [mat(("wh", i), transpose=True)
+                  for i in range(n_layers - 1, 0, -1)]
+    else:
+        parts = []
+        for i in range(n_layers):
+            if ("wenc", i) in base:
+                parts.append(mat(("wenc", i), k=WGMMA_KE))
+            if ("wh", i) in base:
+                parts.append(mat(("wh", i)))
+        parts += [mat("ws", n=WGMMA_SIGMA_N), mat("wf"), mat("wdh"),
+                  mat("wc")]
+    return torch.cat(parts).to(device_str)
+
+
+@functools.lru_cache(maxsize=None)
+def _zero(device_str: str) -> torch.Tensor:
+    return torch.zeros(1, device=device_str)
+
+
+def _flat_weights(kw: "KernelWeights") -> torch.Tensor:
+    """Every padded matrix of the layout end to end at bf16, then a zero:
+    what the wgmma streams gather from. Made once a layout."""
+    flat = kw.derived.get("flat")
+    if flat is None:
+        dev = kw.padded["ws"].device
+        mats = [kw.padded[key].reshape(-1) for key, _ in
+                _source_keys(kw.dims)]
+        flat = torch.cat(mats + [_zero(str(dev))]).to(torch.bfloat16)
+        kw.derived["flat"] = flat
+    return flat
+
+
+def _stream(kw: "KernelWeights", chain: bool) -> torch.Tensor:
+    name = "wgmma_chain" if chain else "wgmma"
+    stream = kw.derived.get(name)
     if stream is None:
-        stream = kw.derived["wgmma"] = wgmma_stream(kw.dims, kw.padded)
+        flat = _flat_weights(kw)
+        idx = _stream_index(tuple(sorted(kw.dims.items())), chain,
+                            str(flat.device))
+        stream = kw.derived[name] = flat[idx]
     return stream
 
 
-def render_variant(dims: Dict[str, int], stash: bool = False) -> str:
-    """The forward kernel for a layout's dimensions: "wgmma" for the bf16
-    inference forward at the one width it is built for, the served MLPs'
-    (WP 256, HP 128, CP 64, the encode within ``WGMMA_KE`` columns), else
-    "mma". A function of the shapes alone, taken before the launch."""
-    fits = (dims["BF16"] and dims["WP"] == 256 and dims["HP"] == 128
-            and dims["CP"] == 64 and 3 + 6 * dims["F"] <= WGMMA_KE)
-    return "wgmma" if fits and not stash else "mma"
+def wgmma_weights(kw: "KernelWeights") -> torch.Tensor:
+    """The wgmma forward's weight stream (``_stream_index``), gathered at
+    its first use in one indexing launch and kept with the layout. A
+    training step makes a new layout, so its stash forward gathers it once
+    a pass."""
+    return _stream(kw, chain=False)
+
+
+def wgmma_chain_weights(kw: "KernelWeights") -> torch.Tensor:
+    """The wgmma chain's weight stream (``_stream_index`` with
+    ``chain=True``), gathered as ``wgmma_weights`` is."""
+    return _stream(kw, chain=True)
+
+
+def _served_widths(dims: Dict[str, int]) -> bool:
+    return bool(dims["BF16"] and dims["WP"] == 256 and dims["HP"] == 128
+                and dims["CP"] == 64)
+
+
+def render_variant(dims: Dict[str, int]) -> str:
+    """The forward kernel for a layout's dimensions, with or without the
+    stash: "wgmma" at bf16 and the one width it is built for, the served
+    MLPs' (WP 256, HP 128, CP 64, the encode within ``WGMMA_KE``
+    columns), else "mma". A function of the shapes alone, taken before
+    the launch (the no-stash training forward names "mma" itself)."""
+    fits = _served_widths(dims) and 3 + 6 * dims["F"] <= WGMMA_KE
+    return "wgmma" if fits else "mma"
+
+
+def chain_variant(dims: Dict[str, int], s: int) -> str:
+    """The backward's chain kernel for a layout's dimensions and s samples
+    a ray: "wgmma" at bf16 and the served MLPs' widths with at most
+    ``WGMMA_CHAIN_MAX_L`` trunk layers (its bias sums' shared memory) and
+    ``WGMMA_CHAIN_MAX_S`` samples (its compositing scan), else "mma"."""
+    fits = (_served_widths(dims) and dims["L"] <= WGMMA_CHAIN_MAX_L
+            and s <= WGMMA_CHAIN_MAX_S)
+    return "wgmma" if fits else "mma"
 
 
 def _dims_of(params: MlpParams, n_emb_xyz: int, n_emb_dir: int,
@@ -674,6 +781,7 @@ def _lib_bwd():
 
     return _build.load("fused_render_bwd.cu",
                        {"crnerf_render_bwd_chain": _C_ARGS,
+                        "crnerf_render_bwd_chain_wgmma": _C_ARGS,
                         "crnerf_render_bwd_wgrad": _C_ARGS})
 
 
@@ -744,10 +852,11 @@ def render_fwd(kw: KernelWeights, origins, dirs, z_vals, noise,
     """-> (ray block, weights, stash or None): the plain version for CPU
     tensors, the kernel for CUDA tensors. ``xyz`` (N, S, 3): the xyz-in
     form (``origins`` may then be None). ``variant``: the kernel, "wgmma"
-    or "mma"; None takes ``render_variant``'s by shape. The training
-    forwards and the checks that compare bits with the mma.sync kernel
-    name it; "wgmma" raises where that kernel does not take the shape."""
-    chosen = render_variant(kw.dims, stash)
+    or "mma"; None takes ``render_variant``'s by shape. The no-stash
+    training forward and the checks that compare bits with the mma.sync
+    kernel name it; "wgmma" raises where that kernel does not take the
+    shape."""
+    chosen = render_variant(kw.dims)
     variant = chosen if variant is None else variant
     if variant not in ("wgmma", "mma"):
         raise ValueError(f"variant {variant!r}: 'wgmma' or 'mma'")
@@ -780,7 +889,7 @@ def render_fwd(kw: KernelWeights, origins, dirs, z_vals, noise,
         _call(_lib(), _C_FN, tensors, dims, _FWD_DIMS, dev)
     key = ("fused_render_fwd_stash" if stash
            else "fused_render_fwd" if xyz is None else "fused_render_fwd_xyz")
-    LAUNCH_COUNTS[key if stash or variant == "wgmma" else key + "_mma"] += 1
+    LAUNCH_COUNTS[key if variant == "wgmma" else key + "_mma"] += 1
     return out, w_out, st
 
 
@@ -819,11 +928,19 @@ def _tile_table(lay: GradLayout, tile: int, device_str: str) -> torch.Tensor:
 
 
 def _chain_grid(kw: KernelWeights, n: int, dev) -> Tuple[int, int]:
-    """-> (CTAs of the chain kernel's persistent grid over n rays: the
-    bf16 kernel fits two on an SM, fp32 one; slices of the rays in the
-    dir-encode gradient)."""
+    """-> (CTAs of the mma.sync chain kernel's persistent grid over n
+    rays: the bf16 kernel fits two on an SM, fp32 one; slices of the rays
+    in the dir-encode gradient)."""
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     return min(n, n_sm * (2 if kw.dims["BF16"] else 1)), min(n, 32)
+
+
+def _chain_grid_wgmma(n: int, s: int, dev) -> Tuple[int, int]:
+    """-> (CTAs of the wgmma chain's grid, one an SM over its items: rays,
+    or pairs of rays when s <= 64; slices as ``_chain_grid``'s)."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    items = (n + 1) // 2 if s <= 64 else n
+    return min(items, n_sm), min(n, 32)
 
 
 def _chain_scratch(kw: KernelWeights, n: int, grid: int, slices: int, dev):
@@ -848,15 +965,25 @@ def _chain_weights(kw: KernelWeights):
     return [wsv, *transposed]
 
 
-def bwd_chain(kw: KernelWeights, z_vals, noise, dir_blk, stash, g_ray, g_w):
-    """The backward's first kernel (``bwd_chain_plain`` on CPU tensors)."""
+def bwd_chain(kw: KernelWeights, z_vals, noise, dir_blk, stash, g_ray, g_w,
+              variant: Optional[str] = None):
+    """The backward's first kernel (``bwd_chain_plain`` on CPU tensors).
+    ``variant``: "wgmma" or "mma"; None takes ``chain_variant``'s by
+    shape; "wgmma" raises where that kernel does not take the shape."""
+    n, s = z_vals.shape
+    chosen = chain_variant(kw.dims, s)
+    variant = chosen if variant is None else variant
+    if variant not in ("wgmma", "mma"):
+        raise ValueError(f"variant {variant!r}: 'wgmma' or 'mma'")
+    if variant == "wgmma" and chosen != "wgmma":
+        raise ValueError(f"the wgmma chain does not take dims {kw.dims} "
+                         f"at S={s}")
     if z_vals.device.type == "cpu":
         return bwd_chain_plain(kw, z_vals, noise, dir_blk, stash, g_ray, g_w)
     if z_vals.device.type != "cuda":
         raise ValueError(f"no fused render for device {z_vals.device}")
     dev, dt, pad = z_vals.device, kw.compute_dtype, kw.padded
     lay = grad_layout(kw.dims)
-    n, s = z_vals.shape
     ldo = _round_up(kw.dims["C"] + 1, LANE)
     _check("z_vals", z_vals, (n, s), dev)
     _check("noise", noise, (n, s), dev)
@@ -864,17 +991,27 @@ def bwd_chain(kw: KernelWeights, z_vals, noise, dir_blk, stash, g_ray, g_w):
     _check("g_ray", g_ray, (n, ldo), dev)
     _check("g_w", g_w, (n, s), dev)
     _check("stash", stash, (n * s, lay.sc), dev, dt)
-    grid, slices = _chain_grid(kw, n, dev)
+    if variant == "wgmma":
+        grid, slices = _chain_grid_wgmma(n, s, dev)
+    else:
+        grid, slices = _chain_grid(kw, n, dev)
     dzbuf = torch.empty((n * s, lay.dc), dtype=dt, device=dev)
     gb = torch.empty((lay.bt,), dtype=torch.float32, device=dev)
     dims = dict(kw.dims, N=n, S=s, ldo=ldo, SC=lay.sc, DC=lay.dc,
                 slices=slices, grid=grid)
-    _call(_lib_bwd(), "crnerf_render_bwd_chain",
-          [z_vals, noise, dir_blk, g_ray, g_w, stash, dzbuf,
-           *_chain_scratch(kw, n, grid, slices, dev), gb, kw.tensors[0],
-           pad["bs"], kw.tensors[7], pad["bc"], *_chain_weights(kw)], dims,
-          _CHAIN_DIMS, dev)
-    LAUNCH_COUNTS["fused_render_bwd"] += 1
+    head = [z_vals, noise, dir_blk, g_ray, g_w, stash, dzbuf,
+            *_chain_scratch(kw, n, grid, slices, dev), gb]
+    if variant == "wgmma":
+        wsv = pad["ws"][:, 0].to(dt).float().contiguous()
+        _call(_lib_bwd(), "crnerf_render_bwd_chain_wgmma",
+              head + [pad["bs"], pad["bc"], wsv, wgmma_chain_weights(kw)],
+              dims, _CHAIN_DIMS, dev)
+        LAUNCH_COUNTS["fused_render_bwd"] += 1
+    else:
+        _call(_lib_bwd(), "crnerf_render_bwd_chain",
+              head + [kw.tensors[0], pad["bs"], kw.tensors[7], pad["bc"],
+                      *_chain_weights(kw)], dims, _CHAIN_DIMS, dev)
+        LAUNCH_COUNTS["fused_render_bwd_mma"] += 1
     return dzbuf, gb
 
 
@@ -913,15 +1050,16 @@ def bwd_wgrad(kw: KernelWeights, stash, dzbuf) -> torch.Tensor:
 
 
 def fused_render_bwd(kw: KernelWeights, z_vals, noise, dirs, stash, g_ray,
-                     g_w, exact_encode: bool = True) -> MlpParams:
+                     g_w, exact_encode: bool = True,
+                     variant: Optional[str] = None) -> MlpParams:
     """Gradients of every tensor of ``kw.params`` from the cotangents of
     the ray block and of the weights and the forward's stash: the two
     backward kernels on CUDA tensors, their plain versions on CPU
-    tensors."""
+    tensors. ``variant``: the chain's, as ``bwd_chain`` takes it."""
     dir_blk = dir_block(kw, dirs, exact_encode)
     dzbuf, gb = bwd_chain(kw, z_vals, noise, dir_blk, stash,
                           g_ray.float().contiguous(),
-                          g_w.float().contiguous())
+                          g_w.float().contiguous(), variant)
     gw = bwd_wgrad(kw, stash, dzbuf)
     return unpack_grads(kw, gw, gb)
 
@@ -1063,9 +1201,12 @@ class FusedRenderTrain(torch.autograd.Function):
     the ``MlpParams`` tensors only; origins, directions, z, noise and xyz
     get none. ``stash=True``: forward = the stash forward, backward = the
     stash backward; the stash lives from forward to backward and is freed
-    there. ``stash=False``: forward = the plain forward kernel, which keeps
-    its inputs only; backward = the recompute backward. Both forwards run
-    the mma.sync kernel."""
+    there; both take their kernels by shape (``render_variant``,
+    ``chain_variant``: wgmma at the served bf16 widths). ``stash=False``:
+    forward = the plain forward kernel, which keeps its inputs only;
+    backward = the recompute backward, which runs the mma.sync stash form
+    again, so this forward asks for the mma.sync kernel: the recomputed
+    rows are the forward's bits."""
 
     @staticmethod
     def forward(ctx, origins, dirs, z_vals, noise, xyz, opts, *flat):
@@ -1073,10 +1214,11 @@ class FusedRenderTrain(torch.autograd.Function):
          slab_rays) = opts
         kw = prepare_kernel_weights(unflatten_params(flat), n_emb_xyz,
                                     n_emb_dir, compute_dtype, skips)
-        # the mma.sync kernel, whose stash form the backward recomputes
+        # no stash: the mma.sync kernel, whose stash form the backward
+        # recomputes
         out, w_out, st = render_fwd(kw, origins, dirs, z_vals, noise,
                                      exact_encode, stash=stash, xyz=xyz,
-                                     variant="mma")
+                                     variant=None if stash else "mma")
         ctx.kw, ctx.stash = kw, st
         ctx.opts = (exact_encode, stash, slab_rays)
         keep = (None, None) if stash else (origins, xyz)

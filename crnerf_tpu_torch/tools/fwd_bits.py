@@ -6,10 +6,12 @@ Prints one sha256 per case (bf16 and fp32, exact encode and recurrence,
 1024 rays x 256 samples, 8x256, C=64) over the bytes of the ray block and
 the weights of the inference forward, with the variant that took it
 (``render_variant``: wgmma at bf16, mma.sync at fp32); then per case of the
-training forwards (the same dtypes and encodes, the first 256 rays, the
-mma.sync kernel as training runs it) one over the ray block, the weights
-and the stash of the stash forward, and one over the ray block and the
-weights of the xyz-in forward on the rays' sample points. The kernels have
+training forwards (the same dtypes and encodes, the first 256 rays) one
+over the ray block, the weights and the stash of the stash forward on the
+mma.sync kernel (the form the recompute backward runs), one over the ray
+block and the weights of the xyz-in forward on the rays' sample points
+(mma.sync, as the pertube_cord route runs it), and at bf16 one over the
+stash forward on the wgmma kernel (the stash route's). The kernels have
 no atomics and a fixed order of sums, so two builds that compute the same
 function print the same digests on the same card: run it in two checkouts
 to show that a change to a kernel's source left its launches
@@ -61,12 +63,16 @@ def main() -> int:
                                  stash=True, variant="mma")
             outs += fr.render_fwd(kw, None, d[:m], z[:m], noise[:m], exact,
                                   stash=False, xyz=pts, variant="mma")[:2]
+            cases = [("stash", "mma", outs[:3]), ("xyz-in", "mma", outs[3:])]
+            if fr.render_variant(kw.dims) == "wgmma":
+                cases.append(("stash", "wgmma", fr.render_fwd(
+                    kw, o[:m], d[:m], z[:m], noise[:m], exact, stash=True)))
             torch.cuda.synchronize()
-            for name, ts in (("stash", outs[:3]), ("xyz-in", outs[3:])):
+            for name, variant, ts in cases:
                 h = hashlib.sha256(b"".join(
                     t.cpu().view(torch.uint8).numpy().tobytes()
                     for t in ts)).hexdigest()
-                print(f"{str(dt)[6:]} exact={exact} {name} (mma) {h}")
+                print(f"{str(dt)[6:]} exact={exact} {name} ({variant}) {h}")
     return 0
 
 

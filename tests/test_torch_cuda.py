@@ -138,13 +138,15 @@ def test_stash_forward_matches_plain(dev, dt, exact, depth, width, c, s):
     (and what those carry downstream): at most 2 % of the entries differ,
     none by more than 2^-6 of the largest activation."""
     params, kw, rays, _, _ = _train_case(dev, dt, exact, depth, width, c, s)
-    # the stash form is the mma.sync kernel's: held to its no-stash launch
+    # held to the no-stash launch of the kernel the stash form takes
+    variant = fr.render_variant(kw.dims)
+    key = "fused_render_fwd_stash" + ("" if variant == "wgmma" else "_mma")
     blk0, w0, _ = fr.render_fwd(kw, *rays, exact, stash=False,
-                                variant="mma")
-    before = fr.LAUNCH_COUNTS["fused_render_fwd_stash"]
+                                variant=variant)
+    before = dict(fr.LAUNCH_COUNTS)
     blk1, w1, st = fr.render_fwd(kw, *rays, exact, stash=True)
     torch.cuda.synchronize()
-    assert fr.LAUNCH_COUNTS["fused_render_fwd_stash"] == before + 1
+    assert fr.LAUNCH_COUNTS == dict(before, **{key: before[key] + 1})
     assert torch.equal(blk0, blk1) and torch.equal(w0, w1)
     _, _, st_p = fr.render_fwd_plain(params, *rays, compute_dtype=dt,
                                      exact_encode=exact, stash=True)
@@ -169,12 +171,13 @@ def test_backward_kernels_match_plain(dev, dt, depth, width, c, s):
                                                c, s)
     o, d, z, noise = rays
     _, _, st = fr.render_fwd(kw, *rays, exact, stash=True)
+    key = "fused_render_bwd" + (
+        "" if fr.chain_variant(kw.dims, s) == "wgmma" else "_mma")
     before = dict(fr.LAUNCH_COUNTS)
     got = fr.fused_render_bwd(kw, z, noise, d, st, g_ray, g_w, exact)
     again = fr.fused_render_bwd(kw, z, noise, d, st, g_ray, g_w, exact)
     torch.cuda.synchronize()
-    assert fr.LAUNCH_COUNTS["fused_render_bwd"] == (
-        before["fused_render_bwd"] + 2)
+    assert fr.LAUNCH_COUNTS[key] == before[key] + 2
     assert fr.LAUNCH_COUNTS["fused_render_bwd_wgrad"] == (
         before["fused_render_bwd_wgrad"] + 2)
     want = fr.render_bwd_plain(params, z, noise, d, st, g_ray, g_w,
@@ -331,9 +334,8 @@ def test_wgmma_variant_refuses_what_it_does_not_take(dev):
     kw32 = fr.prepare_kernel_weights(params, 15, 4, torch.float32)
     with pytest.raises(ValueError, match="does not take"):
         fr.render_fwd(kw32, o, d, z, noise, False, False, variant="wgmma")
-    kw = fr.prepare_kernel_weights(params, 15, 4, torch.bfloat16)
     with pytest.raises(ValueError, match="does not take"):
-        fr.render_fwd(kw, o, d, z, noise, False, True, variant="wgmma")
+        fr.render_fwd(kw32, o, d, z, noise, False, True, variant="wgmma")
     narrow = fr.prepare_kernel_weights(fr.mlp_params_from_module(
         NerfMLP(depth=2, width=128, out_dim=64).to(dev)), 15, 4,
         torch.bfloat16)
@@ -356,6 +358,117 @@ def test_xyz_in_without_jitter_equals_rays_in_bits(dev, dt, stash):
     assert (a[2] is None) == (b[2] is None) == (not stash)
     if stash:
         assert torch.equal(a[2], b[2])
+
+
+# the stash route's wgmma pair at the served widths: S = 64 (two rays a
+# tile, 37 rays: an odd last pair), 100 (a ragged tile), 130 (two tiles a
+# ray, the second one's rows mostly past S), at depth 8 and a ragged 3 x
+# 240 / C 40
+WGMMA_TRAIN_SHAPES = [(8, 256, 64, s) for s in (64, 100, 130)] + [
+    (3, 240, 40, s) for s in (64, 130)]
+
+
+def _stash_close(st, st_p):
+    """The bf16 stash bound of test_stash_forward_matches_plain."""
+    diff = (st.float() - st_p.float()).abs()
+    scale = float(st_p.float().abs().max())
+    return (float((diff > 0).float().mean()) <= 0.02
+            and float(diff.max()) <= scale / 64)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("depth,width,c,s", WGMMA_TRAIN_SHAPES)
+def test_wgmma_stash_forward_matches_plain_and_inference_bits(
+        dev, monkeypatch, exact, depth, width, c, s):
+    """The wgmma stash forward: its ray block and weights are the wgmma
+    inference forward's bits (the stash only adds stores), its stash is
+    the plain version's and the mma.sync stash form's within the bf16
+    stash bound (STASH_TOL_BF16 in chip_smoke.py), every row of every ray
+    is written and none past them; xyz-in without jitter gives the
+    rays-in stash's bits."""
+    params, kw, rays, _, _ = _train_case(dev, torch.bfloat16, exact, depth,
+                                         width, c, s)
+    assert fr.render_variant(kw.dims) == "wgmma"
+    lay = fr.grad_layout(kw.dims)
+    n = rays[2].shape[0]
+    blk0, w0, _ = fr.render_fwd(kw, *rays, exact, stash=False)
+    before = dict(fr.LAUNCH_COUNTS)
+    # the stash allocated over NaN, with a guard row after it: every row
+    # is written, none past N * S
+    buf = torch.full((n * s + 1, lay.sc), float("nan"), device=dev,
+                     dtype=torch.bfloat16)
+    real_empty = torch.empty
+
+    def into_buf(shape, **kw_):
+        if tuple(shape) == (n * s, lay.sc):
+            return buf[:n * s]
+        return real_empty(shape, **kw_)
+
+    monkeypatch.setattr(torch, "empty", into_buf)
+    blk1, w1, st = fr.render_fwd(kw, *rays, exact, stash=True)
+    monkeypatch.undo()
+    torch.cuda.synchronize()
+    assert fr.LAUNCH_COUNTS == dict(
+        before, fused_render_fwd_stash=before["fused_render_fwd_stash"] + 1)
+    assert torch.equal(blk0, blk1) and torch.equal(w0, w1)
+    assert not torch.isnan(st.float()).any()
+    assert torch.isnan(buf[n * s].float()).all()
+    _, _, st_p = fr.render_fwd_plain(params, *rays,
+                                     compute_dtype=torch.bfloat16,
+                                     exact_encode=exact, stash=True)
+    _, _, st_m = fr.render_fwd(kw, *rays, exact, stash=True, variant="mma")
+    assert _stash_close(st, st_p) and _stash_close(st, st_m)
+    o, d, z, noise = rays
+    xyz = (o[:, None] + d[:, None] * z[..., None]).contiguous()
+    _, _, st_x = fr.render_fwd(kw, None, d, z, noise, exact, stash=True,
+                               xyz=xyz)
+    assert torch.equal(st_x, st)
+
+
+@pytest.mark.parametrize("depth,width,c,s", WGMMA_TRAIN_SHAPES)
+def test_wgmma_chain_matches_plain_on_one_stash(dev, depth, width, c, s):
+    """The wgmma chain against bwd_chain_plain on one shared stash (the
+    wgmma forward's): the dz rows (every column of every row; GRAD_TOL of
+    each block's largest value) and the bias and dir-encode sums
+    (GRAD_TOL of the largest); the whole backward against
+    render_bwd_plain on the same stash, GRAD_TOL per tensor; twice: the
+    same bits. Exactly its counter moves."""
+    params, kw, rays, g_ray, g_w = _train_case(dev, torch.bfloat16, False,
+                                               depth, width, c, s)
+    o, d, z, noise = rays
+    assert fr.chain_variant(kw.dims, s) == "wgmma"
+    _, _, st = fr.render_fwd(kw, *rays, False, stash=True)
+    dir_blk = fr.dir_block(kw, d, False)
+    before = dict(fr.LAUNCH_COUNTS)
+    dz, gb = fr.bwd_chain(kw, z, noise, dir_blk, st, g_ray, g_w)
+    dz2, gb2 = fr.bwd_chain(kw, z, noise, dir_blk, st, g_ray, g_w)
+    torch.cuda.synchronize()
+    assert fr.LAUNCH_COUNTS == dict(
+        before, fused_render_bwd=before["fused_render_bwd"] + 2)
+    assert torch.equal(dz, dz2) and torch.equal(gb, gb2)
+    dz_p, gb_p = fr.bwd_chain_plain(kw, z, noise, dir_blk, st, g_ray, g_w)
+    tol = fr.GRAD_TOL[torch.bfloat16]
+    assert float((gb - gb_p).abs().max()) <= tol * float(gb_p.abs().max())
+    lay = fr.grad_layout(kw.dims)
+    wp = kw.dims["WP"]
+    cols = [(i * wp, wp) for i in range(kw.dims["L"])] + [
+        (lay.d_hf, wp), (lay.d_sig, 32), (lay.d_ddd, kw.dims["HP"]),
+        (lay.d_feat, kw.dims["CP"])]
+    for c0, w in cols:
+        a, b = dz_p[:, c0:c0 + w].float(), dz[:, c0:c0 + w].float()
+        assert float((a - b).abs().max()) <= tol * max(
+            float(a.abs().max()), 1e-30), c0
+    assert torch.all(dz[:, lay.d_sig + 1:lay.d_sig + 32] == 0)
+    got = fr.fused_render_bwd(kw, z, noise, d, st, g_ray, g_w, False)
+    again = fr.fused_render_bwd(kw, z, noise, d, st, g_ray, g_w, False)
+    want = fr.render_bwd_plain(params, z, noise, d, st, g_ray, g_w,
+                               compute_dtype=torch.bfloat16,
+                               exact_encode=False)
+    for a, b, r in zip(fr.flatten_params(want), fr.flatten_params(got),
+                       fr.flatten_params(again)):
+        assert torch.equal(b, r) and torch.isfinite(b).all()
+        err = float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+        assert err <= tol, err
 
 
 # the recompute backward against the stash backward on the same inputs, per
@@ -400,8 +513,11 @@ def test_recompute_backward_matches_plain(dev, dt, rays_in, depth, width, c,
     want = fr.render_bwd_recompute_plain(
         params, o, d, z, noise, g_ray, g_w, compute_dtype=dt,
         exact_encode=exact, xyz=xyz, slab_rays=10)
-    _, _, st = fr.render_fwd(kw, o, d, z, noise, exact, stash=True, xyz=xyz)
-    k2 = fr.fused_render_bwd(kw, z, noise, d, st, g_ray, g_w, exact)
+    # the stash route on the mma.sync pair, whose stash the slabs recompute
+    _, _, st = fr.render_fwd(kw, o, d, z, noise, exact, stash=True, xyz=xyz,
+                             variant="mma")
+    k2 = fr.fused_render_bwd(kw, z, noise, d, st, g_ray, g_w, exact,
+                             variant="mma")
     for a, b, r, q in zip(fr.flatten_params(want), fr.flatten_params(got),
                           fr.flatten_params(again), fr.flatten_params(k2)):
         assert a.shape == b.shape
@@ -415,16 +531,17 @@ def test_recompute_backward_matches_plain(dev, dt, rays_in, depth, width, c,
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_recompute_scratch_rows_are_the_stash_routes(dev, dt):
     """One slab over all rays: the scratch the recompute backward leaves is
-    the stash route's stash and dz buffer, bit for bit, and so are the
-    gradients."""
+    the stash route's stash and dz buffer on the mma.sync pair, bit for
+    bit, and so are the gradients."""
     exact = dt == torch.float32
     _, kw, rays, g_ray, g_w = _train_case(dev, dt, exact, 6, 64, 16, 100)
     o, d, z, noise = rays
     gw, gb, (st_r, dz_r) = fr.bwd_recompute(kw, o, d, z, noise, g_ray, g_w,
                                             exact, slab_rays=37)
-    _, _, st = fr.render_fwd(kw, o, d, z, noise, exact, stash=True)
+    _, _, st = fr.render_fwd(kw, o, d, z, noise, exact, stash=True,
+                             variant="mma")
     dz, gb_s = fr.bwd_chain(kw, z, noise, fr.dir_block(kw, d, exact), st,
-                            g_ray, g_w)
+                            g_ray, g_w, variant="mma")
     gw_s = fr.bwd_wgrad(kw, st, dz)
     torch.cuda.synchronize()
     assert torch.equal(st_r, st) and torch.equal(dz_r, dz)

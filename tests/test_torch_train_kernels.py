@@ -262,8 +262,9 @@ def test_cpu_wrappers_launch_no_kernel(case):
     assert fr.LAUNCH_COUNTS == before
     assert set(before) == {"fused_render_fwd", "fused_render_fwd_xyz",
                            "fused_render_fwd_mma", "fused_render_fwd_xyz_mma",
-                           "fused_render_fwd_stash", "fused_render_bwd",
-                           "fused_render_bwd_wgrad",
+                           "fused_render_fwd_stash",
+                           "fused_render_fwd_stash_mma", "fused_render_bwd",
+                           "fused_render_bwd_mma", "fused_render_bwd_wgrad",
                            "fused_render_bwd_recompute",
                            "fused_render_bwd_recompute_xyz"}
 

@@ -1,8 +1,9 @@
 """The host side of the fused render forward's two kernels
 (crnerf_tpu_torch/ops/fused_render.py) on the CPU: the wgmma kernel's
 weight stream unpacks to the padded matrices bit for bit and is packed at
-its first use only, the variant is chosen by dtype and width, training
-always asks for the mma.sync kernel, both variants give the plain version
+its first use only, the variant is chosen by dtype and width, the
+no-stash training forward asks for the mma.sync kernel and the stash
+forward goes by shape, both variants give the plain version
 on CPU tensors and launch nothing; and the sincos wrapper's bound entry
 point (ops/_build.py ``entry``)."""
 
@@ -78,13 +79,13 @@ def test_wgmma_stream_unpacks_to_the_padded_matrices(depth, width, c, dims):
 def test_pack_wgmma_b_swizzles_chunks_by_row():
     b = torch.arange(128 * 16, dtype=torch.float32).reshape(128, 16)
     p = fr.pack_wgmma_b(b)
-    assert p.shape == (2, 16, 64)
+    assert p.shape == (2, 16, 64) and p.dtype == b.dtype
     # row n of slice kc: its 16-byte chunk q' holds chunk q' ^ (n % 8)
     for kc, n, qs in ((0, 0, 0), (0, 3, 1), (1, 13, 6), (1, 7, 7)):
         q = qs ^ (n % 8)
-        want = b[64 * kc + 8 * q:64 * kc + 8 * q + 8, n].to(torch.bfloat16)
+        want = b[64 * kc + 8 * q:64 * kc + 8 * q + 8, n]
         assert torch.equal(p[kc, n, 8 * qs:8 * qs + 8], want)
-    assert torch.equal(_unpack(p, 128, 16), b.to(torch.bfloat16).float())
+    assert torch.equal(_unpack(p, 128, 16), b)
 
 
 @pytest.mark.parametrize("depth,width,c,dt,n_emb,stash,want", [
@@ -93,7 +94,7 @@ def test_pack_wgmma_b_swizzles_chunks_by_row():
     (3, 128, 64, torch.bfloat16, 15, False, "mma"),     # WP 128
     (3, 240, 40, torch.bfloat16, 15, False, "wgmma"),   # pads to 256 / 64
     (8, 256, 64, torch.float32, 15, False, "mma"),      # no IEEE fp32 wgmma
-    (8, 256, 64, torch.bfloat16, 15, True, "mma"),      # the stash form
+    (8, 256, 64, torch.bfloat16, 15, True, "wgmma"),    # the stash form
     (6, 64, 16, torch.bfloat16, 15, False, "mma"),      # WP 64
     (4, 192, 64, torch.bfloat16, 15, False, "mma"),     # WP 192
     (4, 256, 16, torch.bfloat16, 15, False, "mma"),     # CP 32
@@ -109,7 +110,12 @@ def test_render_variant_by_dtype_and_width(depth, width, c, dt, n_emb, stash,
             depth=depth, width=width, out_dim=c,
             in_channels_xyz=3 + 6 * n_emb))
     kw = fr.prepare_kernel_weights(p, n_emb, 4, dt)
-    assert fr.render_variant(kw.dims, stash) == want
+    assert fr.render_variant(kw.dims) == want
+    if stash:   # the stash form takes the kernel its shape takes
+        o, d, z, noise = _rays(2, 4)
+        _, _, st = fr.render_fwd(kw, o, d, z, noise, False, stash=True,
+                                 variant=want)
+        assert st is not None
     assert kw.derived == {}     # the choice packs nothing
 
 
@@ -147,10 +153,10 @@ def test_render_fwd_refuses_a_variant_the_shape_does_not_take():
                                      torch.float32)
     with pytest.raises(ValueError, match="does not take"):
         fr.render_fwd(kw32, o, d, z, noise, False, False, variant="wgmma")
+    with pytest.raises(ValueError, match="does not take"):
+        fr.render_fwd(kw32, o, d, z, noise, False, True, variant="wgmma")
     kw = fr.prepare_kernel_weights(_params(3, 256, 64), 15, 4,
                                    torch.bfloat16)
-    with pytest.raises(ValueError, match="does not take"):
-        fr.render_fwd(kw, o, d, z, noise, False, True, variant="wgmma")
     with pytest.raises(ValueError, match="'wgmma' or 'mma'"):
         fr.render_fwd(kw, o, d, z, noise, False, False, variant="tma")
     # a width the kernel is not built for
@@ -165,9 +171,10 @@ def test_render_fwd_refuses_a_variant_the_shape_does_not_take():
 
 @pytest.mark.parametrize("stash", [True, False])
 def test_training_forward_asks_for_the_mma_kernel(monkeypatch, stash):
-    """fused_render_train runs the mma.sync forward, whose stash form its
-    backward recomputes, at a shape the wgmma kernel would take, and packs
-    no wgmma stream into the layout it makes every step."""
+    """fused_render_train's no-stash forward asks for the mma.sync kernel,
+    whose stash form its backward (the recompute) runs again; the stash
+    forward names no kernel and takes the wgmma one by shape at the served
+    widths. On CPU tensors neither packs a weight stream."""
     seen = []
     real = fr.render_fwd
 
@@ -181,7 +188,8 @@ def test_training_forward_asks_for_the_mma_kernel(monkeypatch, stash):
     out, w = fr.fused_render_train(p, o, d, z, noise,
                                    compute_dtype=torch.bfloat16,
                                    exact_encode=False, stash=stash)
-    assert [(v, r) for _, v, r in seen] == [("mma", "wgmma")]
+    assert [(v, r) for _, v, r in seen] == [
+        (None if stash else "mma", "wgmma")]
     assert seen[0][0].derived == {}
     assert out.shape == (4, 128) and w.shape == (4, 16)
 
