@@ -8,8 +8,9 @@ Phases, each fatal on failure:
   2. build every kernel from csrc/ with nvcc (sm_90a), the sources side by
      side; ptxas's registers and spills printed, and the phase fails on
      its note C7520 (it serialised a kernel's wgmma) or on a spill in a
-     wgmma kernel of the fused render (the forward's two instances, the
-     chain)
+     wgmma kernel of the NeRF MLP (WGMMA_KERNELS: the fused render
+     forward's two instances and its chain, in their own libraries and in
+     the recompute's, and the fused MLP's forward)
   3. the forward kernel's mma.sync variant against its plain PyTorch
      version at full width (8x256, C=64) on 1024 rays, S=256 and S=512,
      bf16 and fp32, exact encode and the recurrence; max abs error of
@@ -22,9 +23,11 @@ Phases, each fatal on failure:
      own launches (16,384 rays, S=64 and 128, bf16), where without jitter
      it gives the rays-in launch's bits; then the wgmma variant (bf16) on
      1024 rays at S=256 and 512 in both encodes, its xyz-in form, and at
-     the serve launches (8192 x 256 and 512), against its plain version
-     and against the mma.sync variant on the same inputs, the two timed in
-     turns (medians of 6 readings) with TFLOP/s and share of the bound
+     the serve launches (8192 x 256 and 512) and at the no-stash steps'
+     launches (routes A and B: 16,384 x 128 rays-in, x 64 and x 128
+     xyz-in), against its plain version and against the mma.sync variant
+     on the same inputs, the two timed in turns (medians of 6 readings)
+     with TFLOP/s and share of the bound
   4. the training kernels at full width on 1024 rays, S=64 and S=128, bf16
      with the recurrence and fp32 with the exact encode: the stash forward
      (outputs bit-identical to its own kernel's no-stash forward, stash
@@ -40,17 +43,25 @@ Phases, each fatal on failure:
      own forward against the other's), each kernel timed in turns with its
      counterpart (medians of 6 readings), TFLOP/s and share of the bound
   4b. the recompute backward (no stash from the forward; rays-in and
-     xyz-in) against its plain version at the same shapes, twice for the
-     same bits, against the stash backward on the same inputs, its scratch
-     rows against the stash route's, and its scratch at two batch sizes
+     xyz-in) on each variant (mma.sync at every shape, wgmma at bf16)
+     against its plain version at the same shapes, twice for the same
+     bits, against the stash backward of the same variant's pair on the
+     same inputs, its scratch rows against that pair's (bit for bit), the
+     wgmma variant timed in turns with mma.sync, and its scratch at two
+     batch sizes
   4c. the compositing kernel against its plain version at 8192 x 512 x 64
      and a ragged shape, on the fused forward's own sigma and features
      against the fused forward's outputs, and once as its users call it
-  4d. the per-point fused MLP pair at full width: the forward against its
-     plain version on 1024 x 128 points, bf16 with the recurrence and fp32
-     exact, one direction per ray and one per point, a ragged shape, then
-     at the launches of its paths (16,384 x 64 and x 128, 8192 x 256 and x
-     512, bf16), and through composite against the fused render's xyz-in
+  4d. the per-point fused MLP pair at full width: the forward's mma.sync
+     variant against its plain version on 1024 x 128 points, bf16 with
+     the recurrence and fp32 exact, one direction per ray and one per
+     point, a ragged shape, then at route C's launches (16,384 x 64 and x
+     128, bf16); its wgmma variant (bf16) on 1024 x 128 in both encodes
+     and both direction forms, a ragged shape, points from p_base > 0, then
+     at the serve launches (8192 x 256 and x 512), each against the plain
+     version and against mma.sync on the same inputs and timed in turns
+     with it (medians of 6 readings), TFLOP/s and share of the bound;
+     the forward through composite against the fused render's xyz-in
      ray block at fp32; the backward against its plain version on one
      shared forward (tight bound) and from the inputs (loose bound), twice
      for the same bits, at its own slab size against one slab, and its
@@ -100,18 +111,20 @@ Phases, each fatal on failure:
      mma.sync one
   7. the two no-stash routes of the same step, pallas_stash=False (rays-in
      forward, recompute backward) and pertube_cord=True (xyz-in forward,
-     recompute backward): warm-up, timed steps, launch counters, no stash
-     alive after a forward, peak memory beside the stash route's, a small
-     fp32 step of each on the card against the CPU, and pallas_stash=False
-     against the stash route on the same batch and draws; neither launches
-     a wgmma training kernel
+     recompute backward): warm-up, timed steps, launch counters (every
+     forward and recompute launch of the bf16 step on the wgmma kernels,
+     every one of the small fp32 step on mma.sync), no stash alive after a
+     forward, peak memory beside the stash route's, a small fp32 step of
+     each on the card against the CPU, and pallas_stash=False against the
+     stash route on the same batch and draws
   8. the per-point route, pallas_render=False, through the same entry
-     points: 2 served frames (two fused-MLP launches per tile, none of the
-     fused render's) against the full route's frame, a small frame card
-     against CPU; the flagship training step (one fused-MLP forward and
-     one backward launch per pass, none of the fused render's), a small
-     fp32 step card against CPU, its NeRF gradients against the stash
-     route's; and one timed reading of the module route, pallas_train=False
+     points: 2 served frames (two fused-MLP launches per tile, all on the
+     wgmma forward, none on mma.sync nor of the fused render's) against
+     the full route's frame, a small frame card against CPU; the flagship
+     training step (one fused-MLP forward, on mma.sync, and one backward
+     launch per pass, none of the fused render's), a small fp32 step card
+     against CPU, its NeRF gradients against the stash route's; and one
+     timed reading of the module route, pallas_train=False
 Prints a {"kernels": [...]} line, the card line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
 phase fails or no CUDA device is present.
@@ -237,6 +250,15 @@ def full_width_params(seed: int, device):
                                           out_dim=64).to(device))
 
 
+# the wgmma kernels of the NeRF MLP, by the name ptxas reports: phase 2
+# fails on a spill in any of their instances (the fused render's forward,
+# both forms, in fused_render_fwd.cu and in the recompute's library; its
+# chain, in fused_render_bwd.cu and the recompute's; the fused MLP's
+# forward)
+WGMMA_KERNELS = ("render_fwd_wgmma_kernel", "render_bwd_chain_wgmma_kernel",
+                 "mlp_fwd_wgmma_kernel")
+
+
 def phase_build():
     """One nvcc per source, all started together."""
     import threading
@@ -294,8 +316,7 @@ def phase_build():
                 print("[build]  " + line.strip())
             if "C7520" in line:
                 serialised.append(source)
-            if (any(k in entry for k in ("render_fwd_wgmma_kernel",
-                                         "render_bwd_chain_wgmma_kernel"))
+            if (any(k in entry for k in WGMMA_KERNELS)
                     and "spill stores" in line
                     and ", 0 bytes spill stores, 0 bytes spill loads"
                     not in line):
@@ -467,6 +488,12 @@ def phase_kernel(device, seed: int):
     cases += [(N_RAYS, 256, torch.bfloat16, False, True, "wgmma")]
     cases += [(SERVE_TILE, s, torch.bfloat16, False, False, "wgmma")
               for s in (256, 512)]
+    # and the no-stash training forwards of routes A and B at their own
+    # launches, each in turns with the mma.sync variant
+    cases += [(TRAIN_GRIDS * 1024, 128, torch.bfloat16, False, False,
+               "wgmma")]
+    cases += [(TRAIN_GRIDS * 1024, s, torch.bfloat16, False, True, "wgmma")
+              for s in (64, 128)]
     before = dict(fr.LAUNCH_COUNTS)
     records = [forward_case(device, params, gen, *case) for case in cases]
     if any(fr.LAUNCH_COUNTS[k] <= before[k]
@@ -630,10 +657,8 @@ def phase_serve(device, seed: int, workdir: str, profile_dir=None,
         raise PhaseError(f"{tag}: launch counters {launches}, expected "
                          f"{want}")
     print(f"[{tag}] launches {launches} ({tiles} tiles a frame)")
-    if cfg.pallas_render:
-        print(f"[{tag}] forward launches on the wgmma kernel: "
-              f"{launches['fused_render_fwd']}, on mma.sync: "
-              f"{launches['fused_render_fwd_mma']}")
+    print(f"[{tag}] forward launches on the wgmma kernel: "
+          f"{launches[key]}, on mma.sync: {launches[key + '_mma']}")
 
     # full outputs (the CGNet mask included) are finite and in range
     full = svc.renderer.fetch(svc.renderer.render_frame_cam_async(
@@ -907,19 +932,28 @@ def profile_step(state, step, batch, out_dir, step_ms: float):
 # H100: 2.7e-7 for the losses, 6e-6 for the deltas (CGNet's; 0 elsewhere).
 SMALL_STEP_TOL = dict(loss=1e-4, delta=1e-3)
 
-# The training routes: Config fields that select them, and the kernels one
-# pass of a step launches (forward, then backward).
+# The training routes: Config fields that select them, the kernels one
+# pass of the flagship step launches (forward, then backward: bf16 at the
+# served widths) and those one pass of the small fp32 step launches (the
+# mma.sync variants).
 ROUTES = {
     "stash": (dict(), ("fused_render_fwd_stash", "fused_render_bwd",
-                       "fused_render_bwd_wgrad")),
+                       "fused_render_bwd_wgrad"),
+              ("fused_render_fwd_stash_mma", "fused_render_bwd_mma",
+               "fused_render_bwd_wgrad")),
     "pallas_stash=False": (dict(pallas_stash=False),
+                           ("fused_render_fwd",
+                            "fused_render_bwd_recompute"),
                            ("fused_render_fwd_mma",
-                            "fused_render_bwd_recompute")),
+                            "fused_render_bwd_recompute_mma")),
     "pertube_cord=True": (dict(pertube_cord=True),
+                          ("fused_render_fwd_xyz",
+                           "fused_render_bwd_recompute_xyz"),
                           ("fused_render_fwd_xyz_mma",
-                           "fused_render_bwd_recompute_xyz")),
+                           "fused_render_bwd_recompute_xyz_mma")),
     "pallas_render=False": (dict(pallas_render=False),
-                            ("fused_mlp_fwd", "fused_mlp_bwd")),
+                            ("fused_mlp_fwd_mma", "fused_mlp_bwd"),
+                            ("fused_mlp_fwd_mma", "fused_mlp_bwd")),
 }
 
 
@@ -1045,16 +1079,8 @@ def phase_train(device, seed: int, profile_dir=None, route: str = "stash"):
     if launches != want:
         raise PhaseError(f"{route}: launch counters {launches}, expected "
                          f"{want}")
-    if route == "stash":
-        print(f"[train] {route}: forward launches on the wgmma kernel "
-              f"{launches['fused_render_fwd_stash']}, on mma.sync "
-              f"{launches['fused_render_fwd_stash_mma']}; chain launches on "
-              f"the wgmma kernel {launches['fused_render_bwd']}, on mma.sync "
-              f"{launches['fused_render_bwd_mma']}")
-    elif route != "pallas_render=False":
-        print(f"[train] {route}: wgmma training kernels launched: stash "
-              f"forward {launches['fused_render_fwd_stash']}, chain "
-              f"{launches['fused_render_bwd']}")
+    print(f"[train] {route}: the step's forward and backward launches "
+          f"{ {k: launches[k] for k in ROUTES[route][1]} }, none elsewhere")
     ts = torch.unique(torch.cat([b["ts"][:, 0] for b in staged]).long())
     valid = state.embedding_valid
     if not (valid[ts].all() and int(valid.sum()) == ts.numel()
@@ -1085,16 +1111,13 @@ def phase_train(device, seed: int, profile_dir=None, route: str = "stash"):
     zero_counts()
     grads = small_step_check(device, seed, route)
     small = read_counts()
-    if route == "stash":
-        # fp32 stays on the mma.sync pair: the small step's two passes
-        want = {k: (2 if k in ("fused_render_fwd_stash_mma",
-                               "fused_render_bwd_mma",
-                               "fused_render_bwd_wgrad") else 0)
-                for k in small}
-        print(f"[train] {route}: the small fp32 step's launches {small}")
-        if small != want:
-            raise PhaseError(f"the fp32 stash step's launches {small}, "
-                             f"expected {want}")
+    # fp32 stays on the mma.sync kernels: the small step's two passes
+    want = {k: (2 if k in ROUTES[route][2] else 0) for k in small}
+    print(f"[train] {route}: the small fp32 step's launches "
+          f"{ {k: small[k] for k in ROUTES[route][2]} }, none elsewhere")
+    if small != want:
+        raise PhaseError(f"the fp32 {route} step's launches {small}, "
+                         f"expected {want}")
     return launches, med, peak_gb, grads, small
 
 
@@ -1428,14 +1451,19 @@ def recompute_bound(params, n: int, s: int, bf16: bool, xyz_in: bool):
 def recompute_case(device, params, gen, n: int, s: int, dt, exact: bool,
                    xyz_in: bool):
     """The recompute backward on n rays x s samples, rays-in or xyz-in
-    (jittered points), at its own slab size, against its plain version on
-    the same inputs and cotangents (1024-ray slices, gradients summed in
-    fp64), against the plain backward on the stash the forward kernel
-    writes for these inputs (the rows the slabs recompute), run twice, and
-    against the stash backward. -> record."""
+    (jittered points), on each variant the dtype takes (mma.sync; at bf16
+    also wgmma), all on the same inputs and cotangents: each at its own
+    slab size against the plain version from those inputs (1024-ray
+    slices, gradients summed in fp64), against the plain backward on the
+    stash the same variant's stash forward writes for these inputs (the
+    rows the slabs recompute), run twice, and against the stash backward
+    of the same variant's pair; with one slab its scratch rows against
+    that pair's, bit for bit. The wgmma variant is also held to the
+    mma.sync one and timed in turns with it. -> records, mma.sync first."""
     import torch
 
     from crnerf_tpu_torch.ops import fused_render as fr
+    from crnerf_tpu_torch.tools._common import turns_ms
 
     c = 64
     dt_name = str(dt)[6:]
@@ -1450,9 +1478,9 @@ def recompute_case(device, params, gen, n: int, s: int, dt, exact: bool,
     g_w = torch.randn(n, s, generator=gen, device=device) * 0.1
     origins = None if xyz_in else o
 
-    def kernel(slab_rays=None):
+    def kernel(v, slab_rays=None):
         return fr.bwd_recompute(kw, origins, d, z, noise, g_ray, g_w, exact,
-                                xyz, slab_rays)
+                                xyz, slab_rays, v)
 
     def plain():
         gw = torch.zeros(lay.wt, dtype=torch.float64, device=device)
@@ -1479,70 +1507,97 @@ def recompute_case(device, params, gen, n: int, s: int, dt, exact: bool,
             gb += gb_s
         return gw, gb
 
-    key = ("fused_render_bwd_recompute_xyz" if xyz_in
-           else "fused_render_bwd_recompute")
-    before = dict(fr.LAUNCH_COUNTS)
-    slab = fr.slab_rays_for(kw, n, s, device)
+    def grads(gw, gb):
+        return fr.flatten_params(fr.unpack_grads(kw, gw, gb))
+
     with full_fp32():
-        gw_k, gb_k, scratch = kernel()
-        gw_2, gb_2, _ = kernel()
-        repeat_bits = torch.equal(gw_k, gw_2) and torch.equal(gb_k, gb_2)
-        del gw_2, gb_2
-        # the stash route on the same inputs, on the mma.sync pair whose
-        # stash form the slabs recompute
-        _, _, st = fr.render_fwd(kw, origins, d, z, noise, exact, stash=True,
-                                 xyz=xyz, variant="mma")
-        dz_s, gb_s = fr.bwd_chain(kw, z, noise, fr.dir_block(kw, d, exact),
-                                  st, g_ray, g_w, variant="mma")
-        gw_s = fr.bwd_wgrad(kw, st, dz_s)
-        # with every ray in one slab the scratch is the stash route's
-        rows_equal = None
-        if slab >= n:
-            rows_equal = (torch.equal(scratch[0], st)
-                          and torch.equal(scratch[1], dz_s))
-        del scratch, dz_s
-        gw_o, gb_o = plain_on(st)
-        del st
         gw_p, gb_p = plain()
-        torch.cuda.synchronize()
-    counted = (fr.LAUNCH_COUNTS[key] == before[key] + 2)
-    got = fr.flatten_params(fr.unpack_grads(kw, gw_k, gb_k))
-    want = fr.flatten_params(fr.unpack_grads(kw, gw_p, gb_p))
-    k2 = fr.flatten_params(fr.unpack_grads(kw, gw_s, gb_s))
-    on_stash = fr.flatten_params(fr.unpack_grads(kw, gw_o, gb_o))
+    want = grads(gw_p, gb_p)
     scale = [a.abs().max().clamp_min(1e-30) for a in want]
 
-    def worst(other):
+    def worst(a_list, b_list):
         return max(((a - b).abs().max() / m).item()
-                   for a, b, m in zip(other, got, scale))
+                   for a, b, m in zip(a_list, b_list, scale))
 
-    rel, vs_k2, rel_stash = worst(want), worst(k2), worst(on_stash)
-    abs_err = max((gw_k - gw_p).abs().max().item(),
-                  (gb_k - gb_p).abs().max().item())
-    finite = all(bool(torch.isfinite(t).all()) for t in got)
-    passed = (repeat_bits and finite and counted and rows_equal is not False
-              and rel <= RECOMPUTE_VS_PLAIN[dt_name]
-              and rel_stash <= fr.GRAD_TOL[dt]
-              and vs_k2 <= RECOMPUTE_VS_STASH[dt_name])
-    ms = time_ms(kernel)
     plain_ms = time_ms(plain, reps=3 if n == N_RAYS else 1)
     b_ms, b_by = recompute_bound(params, n, s, dt == torch.bfloat16, xyz_in)
     work = n * s * sum(mlp_work(params, s))
-    print(f"[recompute] {'xyz-in ' if xyz_in else 'rays-in'} {n} rays x "
-          f"S={s} {dt_name:8s} slabs of {slab} rays: grads max rel "
-          f"{rel:.3e} against the plain version from the inputs (tol "
-          f"{RECOMPUTE_VS_PLAIN[dt_name]}), {rel_stash:.3e} against the "
-          f"plain backward on the forward kernel's stash (tol "
-          f"{fr.GRAD_TOL[dt]}), against the stash backward "
-          f"{vs_k2:.3e} (bound {RECOMPUTE_VS_STASH[dt_name]}), repeat bits "
-          f"equal {repeat_bits}, scratch rows equal the stash route's "
-          f"{rows_equal}; kernel {ms:.3f} ms ({work / ms / 1e9:.0f} "
-          f"TFLOP/s) plain {plain_ms:.3f} ms bound {b_ms:.3f} ms ({b_by}) "
-          f"{'ok' if passed else 'FAIL'}")
-    return dict(N=n, S=s, dtype=dt_name, xyz_in=xyz_in, ok=passed,
-                err_grad=rel, err_on_stash=rel_stash, vs_stash=vs_k2,
-                abs_err=abs_err, ms=ms,
-                plain_ms=plain_ms, bound=(b_ms, b_by), slab=slab)
+    records, got_mma = [], None
+    for variant in (("mma", "wgmma") if dt == torch.bfloat16 else ("mma",)):
+        key = ("fused_render_bwd_recompute_xyz" if xyz_in
+               else "fused_render_bwd_recompute")
+        key += "" if variant == "wgmma" else "_mma"
+        before = dict(fr.LAUNCH_COUNTS)
+        slab = fr.slab_rays_for(kw, n, s, device, variant=variant)
+        with full_fp32():
+            gw_k, gb_k, scratch = kernel(variant)
+            gw_2, gb_2, _ = kernel(variant)
+            repeat_bits = torch.equal(gw_k, gw_2) and torch.equal(gb_k, gb_2)
+            del gw_2, gb_2
+            # the stash route on the same inputs, on the pair of this
+            # variant, whose stash form the slabs recompute
+            _, _, st = fr.render_fwd(kw, origins, d, z, noise, exact,
+                                     stash=True, xyz=xyz, variant=variant)
+            dz_s, gb_s = fr.bwd_chain(kw, z, noise,
+                                      fr.dir_block(kw, d, exact), st, g_ray,
+                                      g_w, variant=variant)
+            gw_s = fr.bwd_wgrad(kw, st, dz_s)
+            # with every ray in one slab the scratch is the stash route's
+            rows_equal = None
+            if slab >= n:
+                rows_equal = (torch.equal(scratch[0], st)
+                              and torch.equal(scratch[1], dz_s))
+            del scratch, dz_s
+            gw_o, gb_o = plain_on(st)
+            del st
+            torch.cuda.synchronize()
+        counted = (fr.LAUNCH_COUNTS[key] == before[key] + 2)
+        got = grads(gw_k, gb_k)
+        rel, vs_k2 = worst(want, got), worst(grads(gw_s, gb_s), got)
+        rel_stash = worst(grads(gw_o, gb_o), got)
+        vs_mma = None if got_mma is None else worst(got_mma, got)
+        abs_err = max((gw_k - gw_p).abs().max().item(),
+                      (gb_k - gb_p).abs().max().item())
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        passed = (repeat_bits and finite and counted
+                  and rows_equal is not False
+                  and rel <= RECOMPUTE_VS_PLAIN[dt_name]
+                  and rel_stash <= fr.GRAD_TOL[dt]
+                  and vs_k2 <= RECOMPUTE_VS_STASH[dt_name]
+                  and (vs_mma is None
+                       or vs_mma <= RECOMPUTE_VS_PLAIN[dt_name]))
+        mma_ms = None
+        if variant == "wgmma":
+            ms, mma_ms = turns_ms(lambda: kernel("wgmma"),
+                                  lambda: kernel("mma"), device, reps=3)
+        else:
+            ms = time_ms(lambda: kernel("mma"))
+            got_mma = got
+        turns = ("" if mma_ms is None else
+                 f" in turns with mma.sync {mma_ms:.3f} ms "
+                 f"({work / mma_ms / 1e9:.0f} TFLOP/s),")
+        against_mma = ("" if vs_mma is None else
+                       f" against the mma.sync variant on the same inputs "
+                       f"{vs_mma:.3e} (bound {RECOMPUTE_VS_PLAIN[dt_name]}),")
+        print(f"[recompute] {variant} {'xyz-in ' if xyz_in else 'rays-in'} "
+              f"{n} rays x S={s} {dt_name:8s} slabs of {slab} rays: grads "
+              f"max rel {rel:.3e} against the plain version from the inputs "
+              f"(tol {RECOMPUTE_VS_PLAIN[dt_name]}), {rel_stash:.3e} against "
+              f"the plain backward on the forward kernel's stash (tol "
+              f"{fr.GRAD_TOL[dt]}), against the stash backward "
+              f"{vs_k2:.3e} (bound {RECOMPUTE_VS_STASH[dt_name]}),"
+              f"{against_mma} repeat bits equal {repeat_bits}, scratch rows "
+              f"equal the stash route's {rows_equal}; kernel {ms:.3f} ms "
+              f"({work / ms / 1e9:.0f} TFLOP/s),{turns} plain "
+              f"{plain_ms:.3f} ms bound {b_ms:.3f} ms ({b_by}) "
+              f"{'ok' if passed else 'FAIL'}")
+        records.append(dict(N=n, S=s, dtype=dt_name, xyz_in=xyz_in,
+                            variant=variant, ok=passed, err_grad=rel,
+                            err_on_stash=rel_stash, vs_stash=vs_k2,
+                            vs_mma=vs_mma, abs_err=abs_err, ms=ms,
+                            mma_ms=mma_ms, plain_ms=plain_ms,
+                            bound=(b_ms, b_by), slab=slab))
+    return records
 
 
 def recompute_scratch_check(device, params, gen):
@@ -1583,7 +1638,8 @@ def phase_recompute(device, seed: int):
     """The recompute backward against its plain version, both input forms:
     1024 rays at S=64 and S=128, bf16 with the recurrence and fp32 with the
     exact encode, then the no-stash steps' own launches (16,384 rays, S=64
-    and S=128, bf16, recurrence). Returns the per-case records."""
+    and S=128, bf16, recurrence); the mma.sync variant at every shape, the
+    wgmma one at bf16 on the same inputs. Returns the records."""
     import torch
 
     params = full_width_params(seed, device)
@@ -1594,7 +1650,8 @@ def phase_recompute(device, seed: int):
                                (torch.float32, True))]
     cases += [(TRAIN_GRIDS * 1024, s, torch.bfloat16, False, xyz_in)
               for xyz_in in (False, True) for s in (64, 128)]
-    records = [recompute_case(device, params, gen, *case) for case in cases]
+    records = [r for case in cases
+               for r in recompute_case(device, params, gen, *case)]
     if not all(r["ok"] for r in records):
         raise PhaseError("the recompute backward disagrees with its plain "
                          "version or with the stash backward")
@@ -1630,53 +1687,86 @@ def mlp_fwd_bound(params, m: int, n_dirs: int, c: int, bf16: bool):
 
 
 def mlp_forward_case(device, params, gen, n: int, s: int, dt, exact: bool,
-                     dir_rep: int):
-    """The fused-MLP forward kernel on n*s points against mlp_fwd_plain on
-    the same inputs (slice by slice) -> record."""
+                     dir_rep: int, variant: str = "mma", p_base: int = 0):
+    """The fused-MLP forward kernel's ``variant`` on the points of n rays x
+    s samples from point ``p_base`` on (the directions: all n rays', one
+    per ray or one per point) against mlp_fwd_plain on the same inputs
+    (slice by slice) -> record. The wgmma variant is also held to the
+    mma.sync one on the same inputs (KERNEL_TOL) and the two are timed in
+    turns."""
     import torch
 
     from crnerf_tpu_torch.ops import fused_mlp as fm
+    from crnerf_tpu_torch.tools._common import turns_ms
 
     c = 64
     xyz, d = mlp_inputs(n, s, dir_rep, gen, device)
+    xyz = xyz[p_base:].contiguous()
     m = xyz.shape[0]
     mkw = fm.prepare_mlp_weights(params, 15, 4, dt)
-    slices = point_slices(m, dir_rep)
 
     def plain():
-        for pts, dirs in slices:
-            yield pts, fm.mlp_fwd_plain(mkw, xyz[pts], d[dirs], exact,
-                                        dir_rep)
+        if p_base == 0:
+            for pts, dirs in point_slices(m, dir_rep):
+                yield pts, fm.mlp_fwd_plain(mkw, xyz[pts], d[dirs], exact,
+                                            dir_rep)
+            return
+        for i in range(0, m, N_RAYS * 128):
+            pts = slice(i, min(i + N_RAYS * 128, m))
+            yield pts, fm.mlp_fwd_plain(mkw, xyz[pts], d, exact, dir_rep,
+                                        p_base=p_base + i)
 
-    def kernel():
-        return fm.fused_mlp_apply(mkw, xyz, d, exact, dir_rep)
+    def kernel(v=variant):
+        return fm.mlp_fwd(mkw, xyz, d, exact, dir_rep, p_base, v)
 
     err_f = err_s = 0.0
+    err_mma = None
     with full_fp32():
         feat, sigma = kernel()
         scale = max(1.0, sigma.max().item())
         for pts, (f_p, s_p) in plain():
             err_f = max(err_f, (feat[pts] - f_p).abs().max().item())
             err_s = max(err_s, (sigma[pts] - s_p).abs().max().item() / scale)
+        if variant == "wgmma":
+            f_m, s_m = kernel("mma")
+            err_mma = ((feat - f_m).abs().max().item(),
+                       (sigma - s_m).abs().max().item() / scale)
+            del f_m, s_m
     tol = fm.KERNEL_TOL[dt]
     passed = (bool(torch.isfinite(feat).all() and torch.isfinite(sigma).all())
               and bool((sigma >= 0).all()) and err_f <= tol[0]
-              and err_s <= tol[1])
-    ms = time_ms(kernel)
+              and err_s <= tol[1]
+              and (err_mma is None
+                   or (err_mma[0] <= tol[0] and err_mma[1] <= tol[1])))
+    mma_ms = None
+    if variant == "wgmma":
+        ms, mma_ms = turns_ms(kernel, lambda: kernel("mma"), device, reps=3)
+    else:
+        ms = time_ms(kernel)
     plain_ms = time_ms(lambda: drain(plain()), reps=3 if n == N_RAYS else 1)
     b_ms, b_by = mlp_fwd_bound(params, m, d.shape[0], c,
                                dt == torch.bfloat16)
     dt_name = str(dt)[6:]
     work = m * mlp_work(params, dir_rep)[0]
-    print(f"[mlp-kernel] forward {n} x {s} = {m} points, dir_rep {dir_rep} "
+    vs_mma = ("" if err_mma is None else
+              " vs mma.sync max|dfeat|={:.3e} max|dsigma|={:.3e};".format(
+                  *err_mma))
+    turns = ("" if mma_ms is None else
+             f" in turns with mma.sync {mma_ms:.3f} ms "
+             f"({work / mma_ms / 1e9:.0f} TFLOP/s, "
+             f"{100 * b_ms / mma_ms:.0f}% of the bound),")
+    print(f"[mlp-kernel] forward {variant} {n} x {s} = {n * s} points"
+          f"{f' from {p_base}' if p_base else ''}, dir_rep {dir_rep} "
           f"{dt_name:8s} exact={exact!s:5s} max|dfeat|={err_f:.3e} "
-          f"max|dsigma|={err_s:.3e} (of max(1, {scale:.2f})) tol={tol} "
-          f"kernel {ms:.3f} ms ({work / ms / 1e9:.0f} "
-          f"TFLOP/s, {m * (c + 1) * 4 / ms / 1e6:.1f} GB/s of stores) plain "
+          f"max|dsigma|={err_s:.3e} (of max(1, {scale:.2f})) tol={tol};"
+          f"{vs_mma} kernel {ms:.3f} ms ({work / ms / 1e9:.0f} "
+          f"TFLOP/s, {100 * b_ms / ms:.0f}% of the bound, "
+          f"{m * (c + 1) * 4 / ms / 1e6:.1f} GB/s of stores),{turns} plain "
           f"{plain_ms:.3f} ms bound {b_ms:.3f} ms ({b_by}) "
           f"{'ok' if passed else 'FAIL'}")
-    return dict(N=n, S=s, dtype=dt_name, dir_rep=dir_rep,
-                err=max(err_f, err_s * scale), ms=ms, plain_ms=plain_ms,
+    return dict(N=n, S=s, dtype=dt_name, dir_rep=dir_rep, variant=variant,
+                p_base=p_base, err=max(err_f, err_s * scale),
+                err_mma=err_mma, ms=ms, mma_ms=mma_ms, plain_ms=plain_ms,
                 bound=(b_ms, b_by), ok=passed)
 
 
@@ -1864,21 +1954,47 @@ def phase_mlp_kernels(device, seed: int):
     records, backward records)."""
     import torch
 
+    from crnerf_tpu_torch.ops import fused_mlp as fm
+
     params = full_width_params(seed, device)
     gen = torch.Generator(device=device).manual_seed(seed + 6)
     both = ((torch.bfloat16, False), (torch.float32, True))
+    # the mma.sync variant: both dtypes, then route C's training forward
     fwd_cases = [(N_RAYS, 128, dt, exact, rep)
                  for dt, exact in both for rep in (128, 1)]
     fwd_cases += [(999, 77, torch.bfloat16, False, 77)]      # ragged
     fwd_cases += [(TRAIN_GRIDS * 1024, s, torch.bfloat16, False, s)
                   for s in (64, 128)]
-    fwd_cases += [(SERVE_TILE, s, torch.bfloat16, False, s)
+    # the wgmma variant (bf16): both encodes, a direction per ray and per
+    # point, a ragged run, points from p_base > 0 (inside a ray and a
+    # tile), then the serve launches
+    fwd_cases += [(N_RAYS, 128, torch.bfloat16, exact, rep, "wgmma")
+                  for exact in (False, True) for rep in (128, 1)]
+    fwd_cases += [(999, 77, torch.bfloat16, False, rep, "wgmma")
+                  for rep in (77, 1)]
+    fwd_cases += [(N_RAYS, 128, torch.bfloat16, False, rep, "wgmma", 1000)
+                  for rep in (128, 1)]
+    fwd_cases += [(SERVE_TILE, s, torch.bfloat16, False, s, "wgmma")
                   for s in (256, 512)]
-    fwd = [mlp_forward_case(device, params, gen, *case)
+    # the wgmma cases draw from a generator of their own, so that the
+    # mma.sync cases and the backward's draw what they drew before them
+    gen_w = torch.Generator(device=device).manual_seed(seed + 10)
+    before = dict(fm.LAUNCH_COUNTS)
+    fwd = [mlp_forward_case(device, params,
+                            gen_w if "wgmma" in case else gen, *case)
            for case in fwd_cases]
+    if any(fm.LAUNCH_COUNTS[k] <= before[k]
+           for k in ("fused_mlp_fwd", "fused_mlp_fwd_mma")):
+        raise PhaseError("a fused MLP forward counter did not rise")
     if not all(r["ok"] for r in fwd):
         raise PhaseError("the fused MLP forward disagrees with its plain "
                          "version")
+    slower = [(r["S"], r["ms"], r["mma_ms"]) for r in fwd
+              if r["variant"] == "wgmma" and r["N"] == SERVE_TILE
+              and r["ms"] >= r["mma_ms"]]
+    if slower:
+        print(f"[mlp-kernel] the wgmma forward is not faster than mma.sync "
+              f"at the serve launches (S, ms, mma.sync ms): {slower}")
     mlp_composite_check(device, params, gen)
     bwd_cases = [(N_RAYS, s, dt, exact) for s in (64, 128)
                  for dt, exact in both]
@@ -2575,11 +2691,11 @@ def main(argv=None) -> int:
         print(f"[train] median {step_ms:.2f} ms per step, "
               f"{TRAIN_GRIDS * 1024 / step_ms * 1e3:.0f} train rays/s "
               f"({card})")
-        route_launches = {}
+        route_launches, route_small = {}, {}
         for route in ("pallas_stash=False", "pertube_cord=True",
                       "pallas_render=False"):
-            route_launches[route], r_ms, r_peak, r_grads, _ = phase_train(
-                device, SEED, None, route)
+            (route_launches[route], r_ms, r_peak, r_grads,
+             route_small[route]) = phase_train(device, SEED, None, route)
             print(f"[train] route {route}: median {r_ms:.2f} ms per step "
                   f"against {step_ms:.2f} on the stash route, "
                   f"{TRAIN_GRIDS * 1024 / r_ms * 1e3:.0f} train rays/s, peak "
@@ -2607,17 +2723,14 @@ def main(argv=None) -> int:
     # (16,384 rays x S=128), bf16, recurrence encode
     main_kernel = next(r for r in records if r["variant"] == "wgmma"
                        and r["N"] == SERVE_TILE and r["S"] == 512)
-    # the mma.sync forward at the pallas_stash=False step's fine pass
-    mma_kernel = next(r for r in records if r["variant"] == "mma"
-                      and r["N"] == TRAIN_GRIDS * 1024 and r["S"] == 128
-                      and not r["xyz_in"])
     tk = next(r for r in train_records
               if r["N"] == TRAIN_GRIDS * 1024 and r["S"] == 128)
 
-    def at_fine_pass(recs, xyz_in):
+    def at_fine_pass(recs, xyz_in, variant="mma"):
+        """The record at the no-stash steps' fine pass (16,384 x 128)."""
         return next(r for r in recs if r["N"] == TRAIN_GRIDS * 1024
                     and r["S"] == 128 and r["xyz_in"] == xyz_in
-                    and r.get("variant", "mma") == "mma")
+                    and r["variant"] == variant)
 
     def entry(name, source, replaces, n_launch, err, r):
         return {"name": name, "route": "cuda", "source": source,
@@ -2646,9 +2759,13 @@ def main(argv=None) -> int:
                    for r in records
                    if r["xyz_in"] == xyz_in and r["variant"] == variant)
 
-    def recompute_err(xyz_in):
+    def recompute_err(xyz_in, variant):
         return max(r["abs_err"] for r in recompute_records
-                   if r["xyz_in"] == xyz_in)
+                   if r["xyz_in"] == xyz_in and r["variant"] == variant)
+
+    def mlp_fwd_err(variant):
+        return max(r["err"] for r in mlp_fwd_records
+                   if r["variant"] == variant)
 
     k1, k2, k3 = ("crnerf_tpu/ops/fused_render.py:348",
                   "crnerf_tpu/ops/fused_render.py:648",
@@ -2661,20 +2778,27 @@ def main(argv=None) -> int:
     route_a = route_launches["pallas_stash=False"]
     route_b = route_launches["pertube_cord=True"]
     route_c = route_launches["pallas_render=False"]
-    k4_fwd = next(r for r in mlp_fwd_records
-                  if r["N"] == SERVE_TILE and r["S"] == 512)
+    # the mma.sync kernels of routes A and B: their small fp32 steps'
+    small_a = route_small["pallas_stash=False"]
+    small_b = route_small["pertube_cord=True"]
+    k4_fwd = next(r for r in mlp_fwd_records if r["variant"] == "wgmma"
+                  and r["N"] == SERVE_TILE and r["S"] == 512)
+    k4_fwd_mma = next(r for r in mlp_fwd_records if r["variant"] == "mma"
+                      and r["N"] == TRAIN_GRIDS * 1024 and r["S"] == 128)
     k4_bwd = next(r for r in mlp_bwd_records
                   if r["N"] == TRAIN_GRIDS * 1024 and r["S"] == 128)
     conv_cuh = "crnerf_tpu_torch/csrc/conv_fwd.cuh"
     conv3_train = [r for r in conv3_records
                    if r["shape"] == CONV3_SHAPES[1]]
     print(json.dumps({"kernels": [
-        # the wgmma forward, launched by the serve path; the mma.sync one
-        # by the pallas_stash=False route
+        # the wgmma forward, launched by the serve path (and by route A's
+        # step); the mma.sync one by route A's small fp32 step, its numbers
+        # at route A's fine pass
         entry("fused_render_fwd", wgmma_cu, k1, launches,
               fwd_err(False, "wgmma"), main_kernel),
         entry("fused_render_fwd (mma.sync)", fwd_cu, k1,
-              route_a["fused_render_fwd_mma"], fwd_err(False), mma_kernel),
+              small_a["fused_render_fwd_mma"], fwd_err(False),
+              at_fine_pass(records, False)),
         # the stash route's pair, wgmma, launched by the bf16 step; its
         # mma.sync counterparts by the small fp32 step of the same route
         entry("fused_render_fwd_stash", wgmma_cu, k1,
@@ -2693,23 +2817,41 @@ def main(argv=None) -> int:
               train_launches["fused_render_bwd_wgrad"],
               max(r["abs_wgrad"] for r in train_records),
               train_kernel("wgrad")),
-        entry("K1 xyz-in", fwd_cu, k1, route_b["fused_render_fwd_xyz_mma"],
-              fwd_err(True), at_fine_pass(records, True)),
+        # route B's forward; route A's and B's recompute backward (the
+        # wgmma pair a slab), the mma.sync ones by their small fp32 steps
+        entry("K1 xyz-in", wgmma_cu, k1, route_b["fused_render_fwd_xyz"],
+              fwd_err(True, "wgmma"), at_fine_pass(records, True, "wgmma")),
+        entry("K1 xyz-in (mma.sync)", fwd_cu, k1,
+              small_b["fused_render_fwd_xyz_mma"], fwd_err(True),
+              at_fine_pass(records, True)),
         entry("K3 rays-in", rec_cu, k3,
-              route_a["fused_render_bwd_recompute"], recompute_err(False),
+              route_a["fused_render_bwd_recompute"],
+              recompute_err(False, "wgmma"),
+              at_fine_pass(recompute_records, False, "wgmma")),
+        entry("K3 rays-in (mma.sync)", rec_cu, k3,
+              small_a["fused_render_bwd_recompute_mma"],
+              recompute_err(False, "mma"),
               at_fine_pass(recompute_records, False)),
         entry("K3 xyz-in", rec_cu, k3,
-              route_b["fused_render_bwd_recompute_xyz"], recompute_err(True),
+              route_b["fused_render_bwd_recompute_xyz"],
+              recompute_err(True, "wgmma"),
+              at_fine_pass(recompute_records, True, "wgmma")),
+        entry("K3 xyz-in (mma.sync)", rec_cu, k3,
+              small_b["fused_render_bwd_recompute_xyz_mma"],
+              recompute_err(True, "mma"),
               at_fine_pass(recompute_records, True)),
         entry("K5", "crnerf_tpu_torch/csrc/composite.cu",
               "crnerf_tpu/ops/composite.py:34", composite_launches,
               max(r["err"] for r in composite_records),
               composite_records[0]),
-        # launched by the pallas_render=False serve path and training step
-        entry("K4 fwd", "crnerf_tpu_torch/csrc/fused_mlp_fwd.cuh",
+        # the wgmma forward, launched by the pallas_render=False serve
+        # path; the mma.sync one by route C's training step
+        entry("K4 fwd", "crnerf_tpu_torch/csrc/fused_mlp_fwd_wgmma.cuh",
+              "crnerf_tpu/ops/fused_mlp.py:431", mlp_serve_launches,
+              mlp_fwd_err("wgmma"), k4_fwd),
+        entry("K4 fwd (mma.sync)", "crnerf_tpu_torch/csrc/fused_mlp_fwd.cuh",
               "crnerf_tpu/ops/fused_mlp.py:431",
-              mlp_serve_launches + route_c["fused_mlp_fwd"],
-              max(r["err"] for r in mlp_fwd_records), k4_fwd),
+              route_c["fused_mlp_fwd_mma"], mlp_fwd_err("mma"), k4_fwd_mma),
         entry("K4 bwd", "crnerf_tpu_torch/csrc/fused_mlp_bwd.cu",
               "crnerf_tpu/ops/fused_mlp.py:494", route_c["fused_mlp_bwd"],
               max(r["err"] for r in mlp_bwd_records), k4_bwd),

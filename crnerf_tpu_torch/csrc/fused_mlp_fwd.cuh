@@ -44,7 +44,11 @@
 //   * Stash (the backward's recompute): per point [h_0 .. h_{L-1} | hf | dd
 //     | encode | dir encode] at the compute dtype, the fused render stash
 //     plus DKP columns, bit for bit what the products consumed.
-// Left for later: wgmma, TMA, persistent CTAs.
+// At bf16 and the served widths the inference forward runs the wgmma
+// kernel instead (fused_mlp_fwd_wgmma.cuh, mlp_variant in
+// ops/fused_mlp.py); this one keeps fp32, other widths, and the forward and
+// stash form of training (route C), whose backward recomputes this
+// kernel's bits.
 
 #pragma once
 
@@ -210,17 +214,17 @@ constexpr int MLP_FWD_DIMS = 16;
 // dims: M, R (points per direction), p_base (index of xyz[0] among all the
 // points, for the direction lookup), L, skip_mask, WP, HP, CP, C, KE, F, DK,
 // DKP, exact, BF16, SC.
-// Launches on ``stream`` and returns cudaGetLastError() (or
-// cudaErrorInvalidValue for arguments the kernel does not take).
-int mlp_fwd_entry(const void* const* ptrs, int n_ptrs, const int* dims,
-                  int n_dims, void* stream) {
+// Fills a and bf16; returns 0, or cudaErrorInvalidValue for arguments the
+// kernels do not take.
+int parse_mlp_args(const void* const* ptrs, int n_ptrs, const int* dims,
+                   int n_dims, MArgs& a, bool& bf16) {
   if (n_dims != MLP_FWD_DIMS) return (int)cudaErrorInvalidValue;
-  MArgs a = {};
+  a = MArgs{};
   a.M = dims[0]; a.R = dims[1]; a.p_base = dims[2]; a.L = dims[3];
   a.skip_mask = dims[4]; a.WP = dims[5]; a.HP = dims[6]; a.CP = dims[7];
   a.C = dims[8]; a.KE = dims[9]; a.F = dims[10]; a.DK = dims[11];
   a.DKP = dims[12]; a.exact = dims[13];
-  const bool bf16 = dims[14] != 0;
+  bf16 = dims[14] != 0;
   a.SC = dims[15];
   if (a.M < 1 || a.R < 1 || a.p_base < 0 || a.L < 1 || a.L > MAXL)
     return (int)cudaErrorInvalidValue;
@@ -251,6 +255,18 @@ int mlp_fwd_entry(const void* const* ptrs, int n_ptrs, const int* dims,
     if ((with_enc && !a.wenc[i]) || (i > 0 && !a.wh[i]) || !a.b[i])
       return (int)cudaErrorInvalidValue;
   }
+  return 0;
+}
+
+// Arguments as parse_mlp_args takes them. Launches on ``stream`` and
+// returns cudaGetLastError() (or cudaErrorInvalidValue for arguments the
+// kernel does not take).
+int mlp_fwd_entry(const void* const* ptrs, int n_ptrs, const int* dims,
+                  int n_dims, void* stream) {
+  MArgs a;
+  bool bf16;
+  const int rc = parse_mlp_args(ptrs, n_ptrs, dims, n_dims, a, bf16);
+  if (rc != 0) return rc;
   const size_t smem = mlp_fwd_smem_bytes(a, bf16);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -23,5 +23,6 @@ extern "C" int crnerf_render_bwd_wgrad(const void* const* ptrs, int n_ptrs,
 extern "C" int crnerf_render_bwd_chain_wgmma(const void* const* ptrs,
                                              int n_ptrs, const int* dims,
                                              int n_dims, void* stream) {
-  return render_bwd_chain_wgmma_entry(ptrs, n_ptrs, dims, n_dims, stream);
+  return render_bwd_chain_wgmma_entry(ptrs, n_ptrs, dims, n_dims, stream,
+                                      false);
 }

@@ -9,8 +9,9 @@
 // chain_variant (ops/fused_render.py) gives to this kernel: the served
 // MLPs' widths WP = 256, HP = 128, CP = 64, at most CW_MAX_L trunk layers
 // and CW_MAX_S samples a ray. One instance is built. Included by
-// fused_render_bwd.cu only; fp32, other shapes and the recompute backward
-// (fused_render_bwd_recompute.cu) stay on the mma.sync chain. Its outputs
+// fused_render_bwd.cu (the stash route) and fused_render_bwd_recompute.cu
+// (the recompute backward's slabs at the same shapes); fp32 and other
+// shapes stay on the mma.sync chain. Its outputs
 // are the mma.sync chain's: the dz rows [dz_0 .. dz_{L-1} | dhf | dz_sigma
 // (32, column 0) | ddd | dz_feat] at bf16, one partial row of bias sums a
 // CTA, and each ray's summed ddd, so reduce_partials, dir_wgrad_kernel and
@@ -617,11 +618,13 @@ constexpr int CW_PTRS = 15;
 // dims as render_bwd_chain_entry takes them; only the shape this kernel
 // takes: bf16, (WP, HP, CP) = (256, 128, 64), L <= CW_MAX_L, S <= CW_MAX_S,
 // grid <= the items (rays, or pairs of rays when S <= 64). Launches the
-// kernel, then the sums as render_bwd_chain_entry does (chain_sums).
+// kernel, then the sums as render_bwd_chain_entry does (chain_sums; with
+// ``accumulate`` onto what bout holds: the recompute backward's slabs).
 // Returns cudaGetLastError(), a CUresult of a tensor map, or
 // cudaErrorInvalidValue.
 int render_bwd_chain_wgmma_entry(const void* const* ptrs, int n_ptrs,
-                                 const int* dims, int n_dims, void* stream) {
+                                 const int* dims, int n_dims, void* stream,
+                                 bool accumulate) {
   if (n_dims != CHAIN_DIMS || n_ptrs != CW_PTRS)
     return (int)cudaErrorInvalidValue;
   for (int i = 0; i < n_ptrs; ++i)
@@ -664,7 +667,7 @@ int render_bwd_chain_wgmma_entry(const void* const* ptrs, int n_ptrs,
   rc = launch_chain_wgmma<256, 128, 64>(smap, dmap, a, ptrs[14], grid, st);
   if (rc != 0) return rc;
   return chain_sums(a.bpart, grid, a.DC, dirb, a.ddray, a.N, DK, HP, slices,
-                    dpart, bout, false, st);
+                    dpart, bout, accumulate, st);
 }
 
 }  // namespace

@@ -7,11 +7,13 @@
 // Pallas TPU kernel, forward, stash=False and stash=True) for the bf16
 // shape that render_variant (ops/fused_render.py) gives to this kernel,
 // the served MLPs': WP = 256, HP = 128, CP = 64, KE <= 128. The widths are
-// template parameters; one instance is built for each form, the inference
-// forward and the stash forward of the stash route's training step.
-// Included by fused_render_fwd.cu only; fp32, other widths and the no-stash
-// training forwards (routes A and B, whose backward recomputes the mma.sync
-// stash form) stay on the mma.sync kernel.
+// template parameters; one instance is built for each form: the inference
+// forward, which is also the no-stash training forward of routes A and B,
+// and the stash forward, which the stash route's step runs and the
+// recompute backward (fused_render_bwd_recompute.cu) runs again slab by
+// slab. Included by fused_render_fwd.cu and fused_render_bwd_recompute.cu;
+// fp32, other widths and the shapes the wgmma chain does not take
+// (recompute_variant in ops/fused_render.py) stay on the mma.sync kernel.
 //
 // What bounds it: ~1.2 MFLOP of products a sample point at 8x256 against
 // ~8 bytes of per-ray input a point: the tensor cores (5.23 ms at 8192 x
@@ -83,8 +85,6 @@
 #include "wgmma_tile.cuh"
 
 namespace {
-
-constexpr int KEW = 128;               // encode columns in this layout
 
 // floats of one warpgroup's SIMT state: sig, zc, nz, dl, wts (64 each),
 // xyz (64 x 3), dirt (HP), the feature sums (2 x CP, by item parity) and
@@ -170,12 +170,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     };
     for (int item = blockIdx.x; item < items; item += gridDim.x)
       for (int t = 0; t < tiles; ++t) {
-        const uint8_t* p = wpack;
-        for (int i = 0; i < L; ++i) {
-          const bool with_enc = i == 0 || ((a.skip_mask >> i) & 1);
-          const int nk = (with_enc ? KEW / 64 : 0) + (i > 0 ? WP / 64 : 0);
-          for (int k = 0; k < nk; ++k, p += SLOT) put(p, SLOT);
-        }
+        const uint8_t* p = wg_put_trunk<WP, SLOT>(wpack, L, a.skip_mask, put);
         for (int k = 0; k < WP / 64; ++k, p += SIG_N * 128)
           put(p, SIG_N * 128);
         for (int k = 0; k < WP / 64; ++k, p += WP * 128) put(p, WP * 128);
@@ -276,73 +271,18 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
         xyz[i] = x;
         st_bf16(enc, r, c, x);
       }
-      {
-        const int w0 = KEW - 3 - 6 * F;
-        for (int i = wtid; i < WG_ROWS * w0; i += 128)
-          st_bf16(enc, i / w0, 3 + 6 * F + i % w0, 0.f);
-      }
+      wg_encode_pad(enc, F, wtid);
       wg_sync();
-      if (a.exact) {
-        for (int i = wtid; i < WG_ROWS * 3 * F; i += 128) {
-          const int r = i / (3 * F), rem = i % (3 * F), k = rem / 3,
-                    c = rem % 3;
-          const float arg = __fmul_rn(xyz[r * 3 + c], pow2f(k));
-          st_bf16(enc, r, 3 + 6 * k + c, sinf(arg));
-          st_bf16(enc, r, 6 + 6 * k + c, cosf(arg));
-        }
-      } else {
-        const int n_anchor = (F + ANCHOR_SPAN - 1) / ANCHOR_SPAN;
-        for (int i = wtid; i < WG_ROWS * 3 * n_anchor; i += 128) {
-          const int r = i / (3 * n_anchor), rem = i % (3 * n_anchor);
-          const int a0 = (rem / 3) * ANCHOR_SPAN, c = rem % 3;
-          const float va = __fmul_rn(xyz[r * 3 + c], pow2f(a0));
-          float s = sinf(va), co = cosf(va);
-          const int k_end = min(a0 + ANCHOR_SPAN, F);
-          for (int k = a0; k < k_end; ++k) {
-            if (k > a0) {
-              const float two_s = __fmul_rn(2.f, s);
-              const float s2 = __fmul_rn(two_s, co);
-              co = __fsub_rn(1.f, __fmul_rn(two_s, s));
-              s = s2;
-            }
-            st_bf16(enc, r, 3 + 6 * k + c, s);
-            st_bf16(enc, r, 6 + 6 * k + c, co);
-          }
-        }
-      }
+      wg_encode_sincos(enc, xyz, F, a.exact, wtid);
       fence_proxy_async();
       wg_sync();
       stash_store(enc, KEW / 64, o_enc);
 
       // ---- trunk: h_i = relu([enc |] h_{i-1} @ W_i + b_i), in place
-      for (int i = 0; i < L; ++i) {
-        const bool with_enc = i == 0 || ((a.skip_mask >> i) & 1);
-        const int ne = with_enc ? KEW / 64 : 0;
-        const int nk = ne + (i > 0 ? WP / 64 : 0);
-        zero_acc(acc);
-        wg_product<WP, NS, SLOT>(
-            acc, nk,
-            [&](int kc) {
-              return kc < ne ? enc_a + kc * A_SLICE
-                             : act_a + (kc - ne) * A_SLICE;
-            },
-            ring_a, full, empty, rg, leader);
-        stash_wait();
-        wg_sync();
-        const float* bias = a.b[i];
-#pragma unroll
-        for (int nb = 0; nb < WP / 8; ++nb) {
-          const int c = nb * 8 + cq;
-          const float b0 = bias[c], b1 = bias[c + 1];
-          st_bf16x2(act, r0, c, fmaxf(acc[nb * 4] + b0, 0.f),
-                    fmaxf(acc[nb * 4 + 1] + b1, 0.f));
-          st_bf16x2(act, r0 + 8, c, fmaxf(acc[nb * 4 + 2] + b0, 0.f),
-                    fmaxf(acc[nb * 4 + 3] + b1, 0.f));
-        }
-        fence_proxy_async();
-        wg_sync();
-        stash_store(act, WP / 64, i * WP);
-      }
+      wg_trunk<WP, NS, SLOT>(
+          a, acc, enc_a, act_a, act, ring_a, full, empty, rg, leader, r0,
+          cq, wg_sync, stash_wait,
+          [&](int i) { stash_store(act, WP / 64, i * WP); });
 
       // ---- sigma head: column 0 of a 64 x 8 product
       {

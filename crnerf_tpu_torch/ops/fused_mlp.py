@@ -35,6 +35,15 @@ the two policies coincide.
 that policy; ``fused_mlp_apply`` (inference) and ``fused_mlp_train`` (a
 ``torch.autograd.Function``) are the wrappers: a CPU tensor goes to the
 plain versions; a CUDA tensor launches the kernels or raises.
+
+The forward has two kernels for the same function, chosen by shape before
+the launch (``mlp_variant``): at bf16 and the served MLPs' widths (WP 256,
+HP 128, CP 64) the wgmma kernel (``csrc/fused_mlp_fwd_wgmma.cuh``: the
+fused render's wgmma body, TMA-streamed weights, 128-point tiles), else
+the mma.sync one. The forward of training asks for the mma.sync kernel
+(``variant="mma"``), whose stash form its backward recomputes. Each
+variant counts its launches apart (``LAUNCH_COUNTS``: the mma.sync
+forward's under ``fused_mlp_fwd_mma``).
 """
 
 from __future__ import annotations
@@ -46,6 +55,8 @@ import torch
 
 from crnerf_tpu_torch.models.nerf_mlp import softplus
 from crnerf_tpu_torch.ops.fused_render import (
+    WGMMA_DIR_K,
+    WGMMA_KE,
     GradLayout,
     KernelWeights,
     MlpParams,
@@ -56,6 +67,8 @@ from crnerf_tpu_torch.ops.fused_render import (
     _chain_weights,
     _mm,
     _round_up,
+    _served_widths,
+    _stream,
     _wgrad_plan,
     bwd_wgrad_plain,
     dir_block,
@@ -69,7 +82,8 @@ from crnerf_tpu_torch.ops.fused_render import (
 
 # launches of each kernel, counted by its wrapper where it launches
 LAUNCH_COUNTS: Dict[str, int] = {
-    "fused_mlp_fwd": 0,     # forward (inference and the forward of training)
+    "fused_mlp_fwd": 0,     # forward, wgmma (inference at the served widths)
+    "fused_mlp_fwd_mma": 0,  # forward, mma.sync (and the forward of training)
     "fused_mlp_bwd": 0,     # recompute backward: every slab, one count
 }
 
@@ -199,32 +213,62 @@ def unpack_mlp_grads(mkw: MlpKernelWeights, gw: torch.Tensor,
     )
 
 
+def mlp_variant(dims: Dict[str, int]) -> str:
+    """The inference forward's kernel for a layout's dimensions: "wgmma"
+    at bf16 and the one width it is built for, the served MLPs' (WP 256,
+    HP 128, CP 64, the encode within ``WGMMA_KE`` columns and the
+    direction's within ``WGMMA_DIR_K``), else "mma". A function of the
+    shapes alone, taken before the launch."""
+    fits = (_served_widths(dims) and 3 + 6 * dims["F"] <= WGMMA_KE
+            and dims["DK"] <= WGMMA_DIR_K)
+    return "wgmma" if fits else "mma"
+
+
+def wgmma_mlp_weights(mkw: MlpKernelWeights) -> torch.Tensor:
+    """The wgmma forward's weight stream (``fused_render._stream_index``,
+    form "mlp": the trunk, the final layer, the dir layer's hidden rows
+    and its dir-encode rows as one more slice, the feature head), gathered
+    at its first use in one indexing launch and kept with the layout."""
+    return _stream(mkw.kw, "mlp")
+
+
 # ------------------------------------------------------------ plain forward
-def _dims_check(xyz: torch.Tensor, dirs: torch.Tensor, dir_rep: int) -> int:
+def _dims_check(xyz: torch.Tensor, dirs: torch.Tensor, dir_rep: int,
+                p_base: int = 0) -> int:
+    """-> M. The directions cover the points: exactly with ``p_base`` 0;
+    else point p's is dirs[(p_base + p) // dir_rep], which must exist."""
     if xyz.dim() != 2 or xyz.shape[1] != 3 or xyz.shape[0] == 0:
         raise ValueError(f"xyz must be (M, 3), M >= 1, got "
                          f"{tuple(xyz.shape)}")
     m = xyz.shape[0]
-    if dir_rep < 1 or dirs.dim() != 2 or dirs.shape[1] != 3 \
-            or dirs.shape[0] * dir_rep != m:
+    n_dirs = dirs.shape[0] if dirs.dim() == 2 else 0
+    covered = (n_dirs * dir_rep == m if p_base == 0
+               else n_dirs * dir_rep >= p_base + m)
+    if dir_rep < 1 or p_base < 0 or dirs.dim() != 2 or dirs.shape[1] != 3 \
+            or not covered:
         raise ValueError(f"dirs {tuple(dirs.shape)} x dir_rep {dir_rep} "
-                         f"does not cover {m} points")
+                         f"does not cover {m} points from {p_base}")
     return m
 
 
 def mlp_fwd_plain(mkw: MlpKernelWeights, xyz, dirs,
                   exact_encode: bool = True, dir_rep: int = 1,
-                  stash: bool = False):
+                  stash: bool = False, p_base: int = 0):
     """Plain PyTorch version of the forward kernel on laid-out weights ->
     (features (M, C) f32, sigma (M,) f32), and with ``stash`` also the
     activation stash (M, SC) at the compute dtype in the kernel's layout
-    (``mlp_grad_layout``)."""
+    (``mlp_grad_layout``). ``p_base``: the index of xyz[0] among the
+    points ``dirs`` cover (point p's direction is dirs[(p_base + p) //
+    dir_rep])."""
     kw = mkw.kw
     params, dt = kw.params, kw.compute_dtype
-    m = _dims_check(xyz, dirs, dir_rep)
+    m = _dims_check(xyz, dirs, dir_rep, p_base)
     enc = sincos_encode(xyz.float(), kw.n_emb_xyz, exact_encode)
     d_xyz = enc.shape[1]
-    denc = dir_block(kw, dirs, exact_encode).repeat_interleave(dir_rep, 0)
+    first = p_base // dir_rep
+    denc = dir_block(kw, dirs[first:-(-(p_base + m) // dir_rep)],
+                     exact_encode).repeat_interleave(dir_rep, 0)
+    denc = denc[p_base - first * dir_rep:p_base - first * dir_rep + m]
     h = None
     acts = []
     for i, (w, b) in enumerate(zip(params.trunk_w, params.trunk_b)):
@@ -387,7 +431,8 @@ _BWD_DIMS = ("M", "R", "L", "skip_mask", "WP", "HP", "CP", "C", "KE", "F",
 def _lib_fwd():
     from crnerf_tpu_torch.ops import _build
 
-    return _build.load("fused_mlp_fwd.cu", {"crnerf_mlp_fwd": _C_ARGS})
+    return _build.load("fused_mlp_fwd.cu", {"crnerf_mlp_fwd": _C_ARGS,
+                                            "crnerf_mlp_fwd_wgmma": _C_ARGS})
 
 
 def _lib_bwd():
@@ -403,16 +448,57 @@ def _fwd_weights(mkw: MlpKernelWeights):
     return [mkw.ws_row, *t[1:6], mkw.wde, *t[7:]]
 
 
-def _check_points(mkw: MlpKernelWeights, xyz, dirs, dir_rep: int):
+def _check_points(mkw: MlpKernelWeights, xyz, dirs, dir_rep: int,
+                  p_base: int = 0):
     """The inputs on one CUDA device -> (M, device)."""
-    m = _dims_check(xyz, dirs, dir_rep)
+    m = _dims_check(xyz, dirs, dir_rep, p_base)
     dev = xyz.device
     _check("xyz", xyz, (m, 3), dev)
-    _check("dirs", dirs, (m // dir_rep, 3), dev)
+    _check("dirs", dirs, (dirs.shape[0], 3), dev)
     for t in (mkw.ws_row, mkw.wde, *mkw.kw.tensors):
         if t is not None and t.device != dev:
             raise ValueError(f"kernel weights on {t.device}, points on {dev}")
     return m, dev
+
+
+def mlp_fwd(mkw: MlpKernelWeights, xyz, dirs, exact_encode: bool = True,
+            dir_rep: int = 1, p_base: int = 0,
+            variant: Optional[str] = None):
+    """-> (features (M, C) f32, sigma (M,) f32): the plain version for CPU
+    tensors, the kernel for CUDA tensors. ``p_base``: the index of xyz[0]
+    among the points ``dirs`` cover (point p's direction is dirs[(p_base
+    + p) // dir_rep]). ``variant``: the kernel, "wgmma" or "mma"; None
+    takes ``mlp_variant``'s by shape. The forward of training and the
+    checks that compare with the mma.sync kernel name it; "wgmma" raises
+    where that kernel does not take the shape."""
+    kw = mkw.kw
+    chosen = mlp_variant(kw.dims)
+    variant = chosen if variant is None else variant
+    if variant not in ("wgmma", "mma"):
+        raise ValueError(f"variant {variant!r}: 'wgmma' or 'mma'")
+    if variant == "wgmma" and chosen != "wgmma":
+        raise ValueError(f"the wgmma fused MLP does not take dims {kw.dims}")
+    if xyz.device.type == "cpu":
+        return mlp_fwd_plain(mkw, xyz, dirs, exact_encode, dir_rep,
+                             p_base=p_base)
+    if xyz.device.type != "cuda":
+        raise ValueError(f"no fused MLP for device {xyz.device}")
+    m, dev = _check_points(mkw, xyz, dirs, dir_rep, p_base)
+    feat = torch.empty((m, kw.dims["C"]), dtype=torch.float32, device=dev)
+    sigma = torch.empty((m,), dtype=torch.float32, device=dev)
+    dims = dict(kw.dims, M=m, R=dir_rep, p_base=p_base,
+                DKP=_round_up(kw.dims["DK"], 16), exact=int(exact_encode),
+                SC=mlp_grad_layout(kw.dims).sc)
+    tensors = [xyz, dir_block(kw, dirs, exact_encode), feat, sigma, None,
+               *_fwd_weights(mkw)]
+    if variant == "wgmma":
+        _call(_lib_fwd(), "crnerf_mlp_fwd_wgmma",
+              tensors + [wgmma_mlp_weights(mkw)], dims, _FWD_DIMS, dev)
+        LAUNCH_COUNTS["fused_mlp_fwd"] += 1
+    else:
+        _call(_lib_fwd(), "crnerf_mlp_fwd", tensors, dims, _FWD_DIMS, dev)
+        LAUNCH_COUNTS["fused_mlp_fwd_mma"] += 1
+    return feat, sigma
 
 
 def fused_mlp_apply(
@@ -425,24 +511,9 @@ def fused_mlp_apply(
     """-> (features (M, C) f32 in [0, 1], sigma (M,) f32 >= 0) for weights
     laid out by ``prepare_mlp_weights`` (which fixes the compute dtype,
     frequencies and skips). CPU tensors take ``mlp_fwd_plain``; CUDA
-    tensors launch the kernel. No gradient: training goes through
-    ``fused_mlp_train``, whose forward this is."""
-    if xyz.device.type == "cpu":
-        return mlp_fwd_plain(mkw, xyz, dirs, exact_encode, dir_rep)
-    if xyz.device.type != "cuda":
-        raise ValueError(f"no fused MLP for device {xyz.device}")
-    kw = mkw.kw
-    m, dev = _check_points(mkw, xyz, dirs, dir_rep)
-    feat = torch.empty((m, kw.dims["C"]), dtype=torch.float32, device=dev)
-    sigma = torch.empty((m,), dtype=torch.float32, device=dev)
-    dims = dict(kw.dims, M=m, R=dir_rep, p_base=0,
-                DKP=_round_up(kw.dims["DK"], 16), exact=int(exact_encode),
-                SC=mlp_grad_layout(kw.dims).sc)
-    _call(_lib_fwd(), "crnerf_mlp_fwd",
-          [xyz, dir_block(kw, dirs, exact_encode), feat, sigma, None,
-           *_fwd_weights(mkw)], dims, _FWD_DIMS, dev)
-    LAUNCH_COUNTS["fused_mlp_fwd"] += 1
-    return feat, sigma
+    tensors launch ``mlp_variant``'s kernel: the wgmma one at the served
+    bf16 widths. No gradient: training goes through ``fused_mlp_train``."""
+    return mlp_fwd(mkw, xyz, dirs, exact_encode, dir_rep)
 
 
 def mlp_bwd(mkw: MlpKernelWeights, xyz, dirs, g_feat, g_sigma,
@@ -501,7 +572,9 @@ def fused_mlp_bwd(mkw: MlpKernelWeights, xyz, dirs, g_feat, g_sigma,
 class FusedMlpTrain(torch.autograd.Function):
     """Counterpart of ``make_fused_mlp_train``. Gradients come back for the
     ``MlpParams`` tensors only; points and directions get none. Nothing
-    but the inputs lives from forward to backward."""
+    but the inputs lives from forward to backward. The forward asks for
+    the mma.sync kernel, whose stash form the backward recomputes: the
+    recomputed rows are the forward's bits."""
 
     @staticmethod
     def forward(ctx, xyz, dirs, opts, *flat):
@@ -509,7 +582,8 @@ class FusedMlpTrain(torch.autograd.Function):
          slab_points) = opts
         mkw = prepare_mlp_weights(unflatten_params(flat), n_emb_xyz,
                                   n_emb_dir, compute_dtype, skips)
-        feat, sigma = fused_mlp_apply(mkw, xyz, dirs, exact_encode, dir_rep)
+        feat, sigma = mlp_fwd(mkw, xyz, dirs, exact_encode, dir_rep,
+                              variant="mma")
         ctx.mkw = mkw
         ctx.opts = (exact_encode, dir_rep, slab_points)
         ctx.save_for_backward(xyz, dirs)

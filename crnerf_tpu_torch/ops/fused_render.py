@@ -47,19 +47,20 @@ selects the anchored double-angle sin/cos recurrence (exact sin/cos every
 ``torch.autograd.Function``) are the wrappers: a CPU tensor goes to the
 plain versions; a CUDA tensor launches the kernels or raises.
 
-The forward and the backward's chain each have two kernels for the same
-function. The wgmma kernels (``csrc/fused_render_fwd_wgmma.cuh``,
-``csrc/fused_render_bwd_wgmma.cuh``: TMA-streamed weights, warpgroup
-products over 128-row tiles) take bf16 at the served MLPs' widths, the one
-shape they are built for: the forward with and without the stash, and the
-stash route's chain. The mma.sync kernels (``csrc/fused_render_fwd.cuh``,
+The forward, the backward's chain and the recompute backward each have
+two kernels for the same function. The wgmma kernels
+(``csrc/fused_render_fwd_wgmma.cuh``, ``csrc/fused_render_bwd_wgmma.cuh``:
+TMA-streamed weights, warpgroup products over 128-row tiles) take bf16 at
+the served MLPs' widths, the one shape they are built for: the forward
+with and without the stash, the chain, and the recompute's slabs, which
+run those two. The mma.sync kernels (``csrc/fused_render_fwd.cuh``,
 ``csrc/fused_render_bwd.cuh``) take everything else: fp32, other widths,
-and the no-stash training forward, which asks for it (``variant="mma"``)
-so that a step's forward and its backward's recompute (which runs the
-mma.sync stash form) are one kernel's bits. ``render_variant`` and
-``chain_variant`` choose by shape before the launch; each variant counts
-its launches apart (``LAUNCH_COUNTS``: the mma.sync kernels' under
-``*_mma``).
+deeper trunks and longer rays than the wgmma chain takes. The no-stash
+training forward takes the recompute's variant (``recompute_variant``),
+so that a step's forward and its backward's recompute are one kernel's
+bits. ``render_variant``, ``chain_variant`` and ``recompute_variant``
+choose by shape before the launch; each variant counts its launches apart
+(``LAUNCH_COUNTS``: the mma.sync kernels' under ``*_mma``).
 """
 
 from __future__ import annotations
@@ -93,15 +94,18 @@ LAUNCH_COUNTS: Dict[str, int] = {
     "fused_render_bwd_wgrad": 0,    # backward, the split-K weight gradient
     "fused_render_bwd_recompute": 0,      # recompute backward, rays-in
     "fused_render_bwd_recompute_xyz": 0,  # recompute backward, xyz-in
+    "fused_render_bwd_recompute_mma": 0,  # the same on the mma.sync triple
+    "fused_render_bwd_recompute_xyz_mma": 0,
 }
 
 # Scratch of the recompute backward: the slab's stash and dz buffer together
 # stay under this many bytes (``slab_rays_for``). 2 GiB holds ~1,600 rays
-# of 128 samples at 8x256 bf16 (10,112 bytes a point), six grids of the
-# chain kernel. The time hardly depends on it (``tools/slab_ab`` on an H100,
-# 16,384 x 128 bf16: 72.4 ms with slabs of one grid and 366 MiB, 69.7 ms at
-# 1.3 GiB, 69.3 ms here, 70.5 ms with one slab of 20 GB), so the budget is
-# what a step can always spare beside its other ~2 GiB.
+# of 128 samples at 8x256 bf16 (10,112 bytes a point): twelve waves of the
+# wgmma kernels, six grids of the mma.sync chain. The mma.sync triple's
+# time hardly depends on it (``tools/slab_ab`` on an H100, 16,384 x 128
+# bf16: 72.4 ms with slabs of one grid and 366 MiB, 69.7 ms at 1.3 GiB,
+# 69.3 ms here, 70.5 ms with one slab of 20 GB), so the budget is what a
+# step can always spare beside its other ~2 GiB.
 RECOMPUTE_SCRATCH_BYTES = 2 << 30
 
 # Kernel against render_fwd_plain on the same inputs, per compute dtype:
@@ -334,8 +338,9 @@ def pack_wgmma_b(b: torch.Tensor) -> torch.Tensor:
 
 
 def _source_keys(dims: Dict[str, int]):
-    """The padded matrices both wgmma streams are cut from, in the order
-    ``_flat_weights`` lays them end to end, with their (K, N) shapes."""
+    """The padded matrices the wgmma streams are cut from, in the order
+    ``_flat_weights`` lays them end to end, with their (K, N) shapes (the
+    dir-encode rows last: only the fused MLP's stream reads them)."""
     wp, hp, cp, ke = dims["WP"], dims["HP"], dims["CP"], dims["KE"]
     keys = []
     for i in range(dims["L"]):
@@ -344,22 +349,29 @@ def _source_keys(dims: Dict[str, int]):
         if i > 0:
             keys.append((("wh", i), (wp, wp)))
     keys += [("ws", (wp, 32)), ("wf", (wp, wp)), ("wdh", (wp, hp)),
-             ("wc", (hp, cp))]
+             ("wc", (hp, cp)), ("wde", (dims["DK"], hp))]
     return keys
 
 
+WGMMA_DIR_K = 64   # the fused MLP's dir-encode slice (csrc MW_DIR_K)
+
+
 @functools.lru_cache(maxsize=None)
-def _stream_index(dims_key, chain: bool, device_str: str) -> torch.Tensor:
+def _stream_index(dims_key, form: str, device_str: str) -> torch.Tensor:
     """The positions in ``_flat_weights`` of a wgmma stream's elements, on
-    the device, once per dimensions. Forward (``chain=False``): every
-    product's B in the order the forward kernel takes them: per trunk
-    layer the encode rows (zero rows up to ``WGMMA_KE``) then the hidden
-    rows, the sigma head's first ``WGMMA_SIGMA_N`` columns, the final
-    layer, the dir layer's hidden rows, the feature head. Chain: the sigma
-    columns and the feature head as the forward takes them, then W^T of
-    the feature head, the dir layer's hidden rows, the final layer and the
-    trunk layers L-1 .. 1 (hidden rows), in the order the chain takes
-    them. Each matrix as ``pack_wgmma_b`` lays it out."""
+    the device, once per dimensions. ``form`` "fwd": every product's B in
+    the order the fused render's forward takes them: per trunk layer the
+    encode rows (zero rows up to ``WGMMA_KE``) then the hidden rows, the
+    sigma head's first ``WGMMA_SIGMA_N`` columns, the final layer, the dir
+    layer's hidden rows, the feature head. "mlp": the fused MLP's forward
+    (``ops.fused_mlp``): the trunk as "fwd", the final layer, the dir
+    layer's hidden rows, its dir-encode rows (zero rows up to
+    ``WGMMA_DIR_K``: one more slice of the same product), the feature
+    head. "chain": the sigma columns and the feature head as the forward
+    takes them, then W^T of the feature head, the dir layer's hidden rows,
+    the final layer and the trunk layers L-1 .. 1 (hidden rows), in the
+    order the chain takes them. Each matrix as ``pack_wgmma_b`` lays it
+    out."""
     dims = dict(dims_key)
     base, off = {}, 0
     for key, (k, n) in _source_keys(dims):
@@ -381,7 +393,7 @@ def _stream_index(dims_key, chain: bool, device_str: str) -> torch.Tensor:
         return pack_wgmma_b(full).reshape(-1)
 
     n_layers = dims["L"]
-    if chain:
+    if form == "chain":
         parts = [mat("ws", n=WGMMA_SIGMA_N), mat("wc"),
                  mat("wc", transpose=True), mat("wdh", transpose=True),
                  mat("wf", transpose=True)]
@@ -394,8 +406,12 @@ def _stream_index(dims_key, chain: bool, device_str: str) -> torch.Tensor:
                 parts.append(mat(("wenc", i), k=WGMMA_KE))
             if ("wh", i) in base:
                 parts.append(mat(("wh", i)))
-        parts += [mat("ws", n=WGMMA_SIGMA_N), mat("wf"), mat("wdh"),
-                  mat("wc")]
+        if form == "mlp":
+            parts += [mat("wf"), mat("wdh"), mat("wde", k=WGMMA_DIR_K),
+                      mat("wc")]
+        else:
+            parts += [mat("ws", n=WGMMA_SIGMA_N), mat("wf"), mat("wdh"),
+                      mat("wc")]
     return torch.cat(parts).to(device_str)
 
 
@@ -417,12 +433,17 @@ def _flat_weights(kw: "KernelWeights") -> torch.Tensor:
     return flat
 
 
-def _stream(kw: "KernelWeights", chain: bool) -> torch.Tensor:
-    name = "wgmma_chain" if chain else "wgmma"
+_STREAM_NAMES = {"fwd": "wgmma", "chain": "wgmma_chain", "mlp": "wgmma_mlp"}
+
+
+def _stream(kw: "KernelWeights", form: str) -> torch.Tensor:
+    """The ``_stream_index`` form's stream, gathered at its first use in
+    one indexing launch and kept in ``kw.derived``."""
+    name = _STREAM_NAMES[form]
     stream = kw.derived.get(name)
     if stream is None:
         flat = _flat_weights(kw)
-        idx = _stream_index(tuple(sorted(kw.dims.items())), chain,
+        idx = _stream_index(tuple(sorted(kw.dims.items())), form,
                             str(flat.device))
         stream = kw.derived[name] = flat[idx]
     return stream
@@ -433,13 +454,13 @@ def wgmma_weights(kw: "KernelWeights") -> torch.Tensor:
     its first use in one indexing launch and kept with the layout. A
     training step makes a new layout, so its stash forward gathers it once
     a pass."""
-    return _stream(kw, chain=False)
+    return _stream(kw, "fwd")
 
 
 def wgmma_chain_weights(kw: "KernelWeights") -> torch.Tensor:
     """The wgmma chain's weight stream (``_stream_index`` with
-    ``chain=True``), gathered as ``wgmma_weights`` is."""
-    return _stream(kw, chain=True)
+    form "chain"), gathered as ``wgmma_weights`` is."""
+    return _stream(kw, "chain")
 
 
 def _served_widths(dims: Dict[str, int]) -> bool:
@@ -452,7 +473,8 @@ def render_variant(dims: Dict[str, int]) -> str:
     stash: "wgmma" at bf16 and the one width it is built for, the served
     MLPs' (WP 256, HP 128, CP 64, the encode within ``WGMMA_KE``
     columns), else "mma". A function of the shapes alone, taken before
-    the launch (the no-stash training forward names "mma" itself)."""
+    the launch (the no-stash training forward names
+    ``recompute_variant``'s itself)."""
     fits = _served_widths(dims) and 3 + 6 * dims["F"] <= WGMMA_KE
     return "wgmma" if fits else "mma"
 
@@ -465,6 +487,16 @@ def chain_variant(dims: Dict[str, int], s: int) -> str:
     fits = (_served_widths(dims) and dims["L"] <= WGMMA_CHAIN_MAX_L
             and s <= WGMMA_CHAIN_MAX_S)
     return "wgmma" if fits else "mma"
+
+
+def recompute_variant(dims: Dict[str, int], s: int) -> str:
+    """The recompute backward's kernels for a layout's dimensions and s
+    samples a ray, and so the no-stash training forward's, whose bits the
+    recompute must give again: "wgmma" (the wgmma stash forward and chain
+    a slab) where both wgmma kernels take the shape, else "mma" (the
+    mma.sync triple, forward included)."""
+    both = render_variant(dims) == chain_variant(dims, s) == "wgmma"
+    return "wgmma" if both else "mma"
 
 
 def _dims_of(params: MlpParams, n_emb_xyz: int, n_emb_dir: int,
@@ -789,7 +821,8 @@ def _lib_recompute():
     from crnerf_tpu_torch.ops import _build
 
     return _build.load("fused_render_bwd_recompute.cu",
-                       {"crnerf_render_bwd_recompute": _C_ARGS})
+                       {"crnerf_render_bwd_recompute": _C_ARGS,
+                        "crnerf_render_bwd_recompute_wgmma": _C_ARGS})
 
 
 def _call(lib, fn_name: str, tensors, dims: Dict[str, int], order, dev):
@@ -853,9 +886,9 @@ def render_fwd(kw: KernelWeights, origins, dirs, z_vals, noise,
     tensors, the kernel for CUDA tensors. ``xyz`` (N, S, 3): the xyz-in
     form (``origins`` may then be None). ``variant``: the kernel, "wgmma"
     or "mma"; None takes ``render_variant``'s by shape. The no-stash
-    training forward and the checks that compare bits with the mma.sync
-    kernel name it; "wgmma" raises where that kernel does not take the
-    shape."""
+    training forward (``recompute_variant``'s) and the checks that compare
+    bits with the mma.sync kernel name it; "wgmma" raises where that
+    kernel does not take the shape."""
     chosen = render_variant(kw.dims)
     variant = chosen if variant is None else variant
     if variant not in ("wgmma", "mma"):
@@ -927,20 +960,28 @@ def _tile_table(lay: GradLayout, tile: int, device_str: str) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.int32, device=device_str)
 
 
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _chain_grid(kw: KernelWeights, n: int, dev) -> Tuple[int, int]:
     """-> (CTAs of the mma.sync chain kernel's persistent grid over n
     rays: the bf16 kernel fits two on an SM, fp32 one; slices of the rays
     in the dir-encode gradient)."""
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    return min(n, n_sm * (2 if kw.dims["BF16"] else 1)), min(n, 32)
+    return min(n, _sm_count(dev) * (2 if kw.dims["BF16"] else 1)), min(n, 32)
+
+
+def _rays_per_item(s: int) -> int:
+    """Rays a work item of the wgmma kernels: two when s <= 64 (a
+    warpgroup a ray), else one (tiles of 128 samples)."""
+    return 2 if s <= 64 else 1
 
 
 def _chain_grid_wgmma(n: int, s: int, dev) -> Tuple[int, int]:
     """-> (CTAs of the wgmma chain's grid, one an SM over its items: rays,
     or pairs of rays when s <= 64; slices as ``_chain_grid``'s)."""
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    items = (n + 1) // 2 if s <= 64 else n
-    return min(items, n_sm), min(n, 32)
+    items = -(-n // _rays_per_item(s))
+    return min(items, _sm_count(dev)), min(n, 32)
 
 
 def _chain_scratch(kw: KernelWeights, n: int, grid: int, slices: int, dev):
@@ -1021,8 +1062,8 @@ def _wgrad_plan(kw: KernelWeights, m: int, dev,
     CTAs for a few waves, each with at least four steps of points."""
     tile, pts = _WGRAD_TILE[kw.compute_dtype]
     tiles = _tile_table(lay or grad_layout(kw.dims), tile, str(dev))
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    splits = max(1, min(-(-m // (4 * pts)), -(-4 * n_sm // tiles.shape[0])))
+    splits = max(1, min(-(-m // (4 * pts)),
+                        -(-4 * _sm_count(dev) // tiles.shape[0])))
     return tiles, splits, _round_up(-(-m // splits), pts)
 
 
@@ -1065,20 +1106,33 @@ def fused_render_bwd(kw: KernelWeights, z_vals, noise, dirs, stash, g_ray,
 
 
 def slab_rays_for(kw: KernelWeights, n: int, s: int, device=None,
-                  budget: int = RECOMPUTE_SCRATCH_BYTES) -> int:
+                  budget: int = RECOMPUTE_SCRATCH_BYTES,
+                  variant: Optional[str] = None) -> int:
     """Rays per slab of the recompute backward over n rays of s samples:
     as many as keep the slab's stash and dz buffer under ``budget`` bytes,
-    whatever n is; on a card, a whole number of the chain kernel's grids
-    when it is more than one (no nearly empty last wave)."""
+    whatever n is; on a card, no nearly empty last wave: with the wgmma
+    kernels (``variant``, default ``recompute_variant``'s) a whole number
+    of their waves of items (an SM's worth of rays, or of pairs of rays
+    when s <= 64) and an even number of rays (two waves where a wave is
+    odd), an even number below that; with mma.sync a whole number of the
+    chain kernel's grids when it is more than one."""
     lay = grad_layout(kw.dims)
     per_ray = s * (lay.sc + lay.dc) * (2 if kw.dims["BF16"] else 4)
     r = max(1, budget // per_ray)
     if r >= n:
         return n
     if device is not None and torch.device(device).type == "cuda":
-        grid, _ = _chain_grid(kw, r, device)
-        if r > grid:
-            r -= r % grid
+        if (variant or recompute_variant(kw.dims, s)) == "wgmma":
+            wave = _sm_count(device) * _rays_per_item(s)
+            step = wave if wave % 2 == 0 else 2 * wave
+            if r >= step:
+                r -= r % step
+            elif r > 1:
+                r -= r % 2
+        else:
+            grid, _ = _chain_grid(kw, r, device)
+            if r > grid:
+                r -= r % grid
     return r
 
 
@@ -1130,11 +1184,22 @@ def render_bwd_recompute_plain(params: MlpParams, origins, dirs, z_vals,
 
 def bwd_recompute(kw: KernelWeights, origins, dirs, z_vals, noise, g_ray,
                   g_w, exact_encode: bool = True, xyz=None,
-                  slab_rays: Optional[int] = None):
+                  slab_rays: Optional[int] = None,
+                  variant: Optional[str] = None):
     """The recompute backward kernel (``bwd_recompute_plain`` on CPU
     tensors) -> (gw (WT,), gb (BT,), the scratch (stash, dz buffer) as the
     last slab left it). One call walks every slab; the scratch holds
-    ``slab_rays`` rays (default ``slab_rays_for``) whatever N is."""
+    ``slab_rays`` rays (default ``slab_rays_for``) whatever N is.
+    ``variant``: "wgmma" or "mma"; None takes ``recompute_variant``'s by
+    shape; "wgmma" raises where its kernels do not take the shape."""
+    n, s = z_vals.shape
+    chosen = recompute_variant(kw.dims, s)
+    variant = chosen if variant is None else variant
+    if variant not in ("wgmma", "mma"):
+        raise ValueError(f"variant {variant!r}: 'wgmma' or 'mma'")
+    if variant == "wgmma" and chosen != "wgmma":
+        raise ValueError(f"the wgmma recompute does not take dims {kw.dims} "
+                         f"at S={s}")
     if z_vals.device.type == "cpu":
         return bwd_recompute_plain(kw, origins, dirs, z_vals, noise, g_ray,
                                    g_w, exact_encode, xyz, slab_rays)
@@ -1142,15 +1207,17 @@ def bwd_recompute(kw: KernelWeights, origins, dirs, z_vals, noise, g_ray,
         raise ValueError(f"no fused render for device {z_vals.device}")
     dev, dt = z_vals.device, kw.compute_dtype
     lay = grad_layout(kw.dims)
-    n, s = z_vals.shape
     ldo = _round_up(kw.dims["C"] + 1, LANE)
     od = _check_rays(kw, origins, dirs, z_vals, noise, xyz)
     _check("g_ray", g_ray, (n, ldo), dev)
     _check("g_w", g_w, (n, s), dev)
-    r = min(n, slab_rays or slab_rays_for(kw, n, s, dev))
+    r = min(n, slab_rays or slab_rays_for(kw, n, s, dev, variant=variant))
     if r < 1:
         raise ValueError(f"slab of {r} rays")
-    grid, slices = _chain_grid(kw, r, dev)
+    if variant == "wgmma":
+        grid, slices = _chain_grid_wgmma(r, s, dev)
+    else:
+        grid, slices = _chain_grid(kw, r, dev)
     tiles, splits, m_per = _wgrad_plan(kw, r * s, dev)
     stash = torch.empty((r * s, lay.sc), dtype=dt, device=dev)
     dzbuf = torch.empty((r * s, lay.dc), dtype=dt, device=dev)
@@ -1160,28 +1227,37 @@ def bwd_recompute(kw: KernelWeights, origins, dirs, z_vals, noise, g_ray,
     dims = dict(kw.dims, N=n, S=s, exact=int(exact_encode), ldo=ldo,
                 SC=lay.sc, DC=lay.dc, slices=slices, grid=grid, WT=lay.wt,
                 n_tiles=tiles.shape[0], splits=splits, m_per=m_per, R=r)
-    _call(_lib_recompute(), "crnerf_render_bwd_recompute",
-          [od, xyz, z_vals, noise, dir_block(kw, dirs, exact_encode), g_ray,
-           g_w, stash, dzbuf, *_chain_scratch(kw, r, grid, slices, dev), gb,
-           tiles, part, gw, *_chain_weights(kw), *kw.tensors], dims,
-          _RECOMPUTE_DIMS, dev)
-    LAUNCH_COUNTS["fused_render_bwd_recompute" if xyz is None
-                  else "fused_render_bwd_recompute_xyz"] += 1
+    head = [od, xyz, z_vals, noise, dir_block(kw, dirs, exact_encode), g_ray,
+            g_w, stash, dzbuf, *_chain_scratch(kw, r, grid, slices, dev), gb,
+            tiles, part, gw]
+    if variant == "wgmma":
+        wsv = kw.padded["ws"][:, 0].to(dt).float().contiguous()
+        _call(_lib_recompute(), "crnerf_render_bwd_recompute_wgmma",
+              head + [wsv, wgmma_chain_weights(kw), wgmma_weights(kw),
+                      *kw.tensors], dims, _RECOMPUTE_DIMS, dev)
+    else:
+        _call(_lib_recompute(), "crnerf_render_bwd_recompute",
+              head + [*_chain_weights(kw), *kw.tensors], dims,
+              _RECOMPUTE_DIMS, dev)
+    key = ("fused_render_bwd_recompute" if xyz is None
+           else "fused_render_bwd_recompute_xyz")
+    LAUNCH_COUNTS[key if variant == "wgmma" else key + "_mma"] += 1
     return gw, gb, (stash, dzbuf)
 
 
 def fused_render_bwd_recompute(kw: KernelWeights, origins, dirs, z_vals,
                                noise, g_ray, g_w, exact_encode: bool = True,
-                               xyz=None, slab_rays: Optional[int] = None
-                               ) -> MlpParams:
+                               xyz=None, slab_rays: Optional[int] = None,
+                               variant: Optional[str] = None) -> MlpParams:
     """Gradients of every tensor of ``kw.params`` from the forward's inputs
     and the cotangents of the ray block and of the weights, with no stash
     from the forward: the recompute backward kernel on CUDA tensors, its
-    plain version on CPU tensors."""
+    plain version on CPU tensors. ``variant`` as ``bwd_recompute`` takes
+    it."""
     gw, gb, _ = bwd_recompute(kw, origins, dirs, z_vals, noise,
                               g_ray.float().contiguous(),
                               g_w.float().contiguous(), exact_encode, xyz,
-                              slab_rays)
+                              slab_rays, variant)
     return unpack_grads(kw, gw, gb)
 
 
@@ -1204,9 +1280,10 @@ class FusedRenderTrain(torch.autograd.Function):
     there; both take their kernels by shape (``render_variant``,
     ``chain_variant``: wgmma at the served bf16 widths). ``stash=False``:
     forward = the plain forward kernel, which keeps its inputs only;
-    backward = the recompute backward, which runs the mma.sync stash form
-    again, so this forward asks for the mma.sync kernel: the recomputed
-    rows are the forward's bits."""
+    backward = the recompute backward, which runs the stash form of the
+    same variant again, so both ask for ``recompute_variant``'s kernels
+    (wgmma at the served bf16 widths): the recomputed rows are the
+    forward's bits."""
 
     @staticmethod
     def forward(ctx, origins, dirs, z_vals, noise, xyz, opts, *flat):
@@ -1214,11 +1291,13 @@ class FusedRenderTrain(torch.autograd.Function):
          slab_rays) = opts
         kw = prepare_kernel_weights(unflatten_params(flat), n_emb_xyz,
                                     n_emb_dir, compute_dtype, skips)
-        # no stash: the mma.sync kernel, whose stash form the backward
-        # recomputes
+        # no stash: the recompute's variant, whose stash form the backward
+        # runs again
+        variant = (None if stash
+                   else recompute_variant(kw.dims, z_vals.shape[1]))
         out, w_out, st = render_fwd(kw, origins, dirs, z_vals, noise,
                                      exact_encode, stash=stash, xyz=xyz,
-                                     variant=None if stash else "mma")
+                                     variant=variant)
         ctx.kw, ctx.stash = kw, st
         ctx.opts = (exact_encode, stash, slab_rays)
         keep = (None, None) if stash else (origins, xyz)

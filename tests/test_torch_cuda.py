@@ -485,39 +485,44 @@ RECOMPUTE_VS_STASH = {torch.float32: 1e-5, torch.bfloat16: 5e-4}
 RECOMPUTE_VS_PLAIN = {torch.float32: 2e-3, torch.bfloat16: 1e-2}
 
 
+@pytest.mark.parametrize("variant", [None, "mma"])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rays_in", [True, False])
 @pytest.mark.parametrize("depth,width,c,s", TRAIN_SHAPES)
-def test_recompute_backward_matches_plain(dev, dt, rays_in, depth, width, c,
-                                          s):
+def test_recompute_backward_matches_plain(dev, variant, dt, rays_in, depth,
+                                          width, c, s):
     """The recompute backward (slabs of 10 of the 37 rays: a ragged last
-    slab) against its plain version, RECOMPUTE_VS_PLAIN per tensor;
-    twice: the same bits; against the stash backward on a stash of the
-    same inputs: RECOMPUTE_VS_STASH."""
+    slab), on the variant its shape takes (wgmma at bf16 8x256) and on
+    mma.sync, against its plain version, RECOMPUTE_VS_PLAIN per tensor;
+    twice: the same bits; against the stash backward of the same variant's
+    pair on a stash of the same inputs: RECOMPUTE_VS_STASH."""
     exact = dt == torch.float32
     params, kw, rays, g_ray, g_w = _train_case(dev, dt, exact, depth, width,
                                                c, s)
     o, d, z, noise = rays
     xyz = None if rays_in else _jittered(rays)
+    variant = variant or fr.recompute_variant(kw.dims, s)
     key = ("fused_render_bwd_recompute" if rays_in
            else "fused_render_bwd_recompute_xyz")
+    key += "" if variant == "wgmma" else "_mma"
     before = dict(fr.LAUNCH_COUNTS)
     got = fr.fused_render_bwd_recompute(kw, o, d, z, noise, g_ray, g_w,
-                                        exact, xyz, slab_rays=10)
+                                        exact, xyz, slab_rays=10,
+                                        variant=variant)
     again = fr.fused_render_bwd_recompute(kw, o, d, z, noise, g_ray, g_w,
-                                          exact, xyz, slab_rays=10)
+                                          exact, xyz, slab_rays=10,
+                                          variant=variant)
     torch.cuda.synchronize()
-    assert fr.LAUNCH_COUNTS[key] == before[key] + 2
-    assert fr.LAUNCH_COUNTS["fused_render_fwd_stash"] == (
-        before["fused_render_fwd_stash"])
+    assert fr.LAUNCH_COUNTS == dict(before, **{key: before[key] + 2})
     want = fr.render_bwd_recompute_plain(
         params, o, d, z, noise, g_ray, g_w, compute_dtype=dt,
         exact_encode=exact, xyz=xyz, slab_rays=10)
-    # the stash route on the mma.sync pair, whose stash the slabs recompute
+    # the stash route on the pair of the same variant, whose stash the
+    # slabs recompute
     _, _, st = fr.render_fwd(kw, o, d, z, noise, exact, stash=True, xyz=xyz,
-                             variant="mma")
+                             variant=variant)
     k2 = fr.fused_render_bwd(kw, z, noise, d, st, g_ray, g_w, exact,
-                             variant="mma")
+                             variant=variant)
     for a, b, r, q in zip(fr.flatten_params(want), fr.flatten_params(got),
                           fr.flatten_params(again), fr.flatten_params(k2)):
         assert a.shape == b.shape
@@ -529,38 +534,51 @@ def test_recompute_backward_matches_plain(dev, dt, rays_in, depth, width, c,
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
-def test_recompute_scratch_rows_are_the_stash_routes(dev, dt):
+@pytest.mark.parametrize("depth,width,c,s", [(6, 64, 16, 100),
+                                             (8, 256, 64, 100),
+                                             (3, 240, 40, 64)])
+def test_recompute_scratch_rows_are_the_stash_routes(dev, dt, depth, width,
+                                                     c, s):
     """One slab over all rays: the scratch the recompute backward leaves is
-    the stash route's stash and dz buffer on the mma.sync pair, bit for
-    bit, and so are the gradients."""
+    the stash route's stash and dz buffer on the pair of the variant the
+    shape takes (wgmma at bf16 and the served widths, else mma.sync), bit
+    for bit, and so are the gradients."""
     exact = dt == torch.float32
-    _, kw, rays, g_ray, g_w = _train_case(dev, dt, exact, 6, 64, 16, 100)
+    _, kw, rays, g_ray, g_w = _train_case(dev, dt, exact, depth, width, c, s)
     o, d, z, noise = rays
+    variant = fr.recompute_variant(kw.dims, s)
     gw, gb, (st_r, dz_r) = fr.bwd_recompute(kw, o, d, z, noise, g_ray, g_w,
                                             exact, slab_rays=37)
     _, _, st = fr.render_fwd(kw, o, d, z, noise, exact, stash=True,
-                             variant="mma")
+                             variant=variant)
     dz, gb_s = fr.bwd_chain(kw, z, noise, fr.dir_block(kw, d, exact), st,
-                            g_ray, g_w, variant="mma")
+                            g_ray, g_w, variant=variant)
     gw_s = fr.bwd_wgrad(kw, st, dz)
     torch.cuda.synchronize()
     assert torch.equal(st_r, st) and torch.equal(dz_r, dz)
     assert torch.equal(gb, gb_s) and torch.equal(gw, gw_s)
 
 
+@pytest.mark.parametrize("dt,width,c", [(torch.float32, 64, 16),
+                                        (torch.bfloat16, 256, 64)])
 @pytest.mark.parametrize("slab_rays", [1, 5, 37, 1000])
-def test_recompute_slab_size_does_not_change_the_gradients(dev, slab_rays):
-    _, kw, rays, g_ray, g_w = _train_case(dev, torch.float32, True, 6, 64,
-                                          16, 24)
-    want = fr.fused_render_bwd_recompute(kw, *rays, g_ray, g_w, True, None,
+def test_recompute_slab_size_does_not_change_the_gradients(dev, dt, width, c,
+                                                           slab_rays):
+    """Each variant (mma.sync at fp32, wgmma at bf16 8x256): slabs of any
+    size give the same dz rows, so the gradients of one slab's bits, up to
+    the grouping of the fp32 sums over the points (RECOMPUTE_VS_STASH)."""
+    exact = dt == torch.float32
+    _, kw, rays, g_ray, g_w = _train_case(dev, dt, exact, 6, width, c, 24)
+    want = fr.fused_render_bwd_recompute(kw, *rays, g_ray, g_w, exact, None,
                                          slab_rays=37)
-    got = fr.fused_render_bwd_recompute(kw, *rays, g_ray, g_w, True, None,
+    got = fr.fused_render_bwd_recompute(kw, *rays, g_ray, g_w, exact, None,
                                         slab_rays=slab_rays)
     for a, b in zip(fr.flatten_params(want), fr.flatten_params(got)):
         if slab_rays >= 37:
             assert torch.equal(a, b)
         else:
-            assert float((a - b).abs().max()) <= 1e-5 * float(a.abs().max())
+            assert float((a - b).abs().max()) <= (
+                RECOMPUTE_VS_STASH[dt] * float(a.abs().max()))
 
 
 @pytest.mark.parametrize("rays_in", [True, False])
@@ -662,11 +680,13 @@ def test_mlp_forward_matches_plain(dev, dt, exact, per_ray, depth, width, c,
     one per point; widths and C that need zero padding."""
     rep = s if per_ray else 1
     fm, mkw, xyz, d, _, _ = _mlp_case(dev, dt, depth, width, c, s, rep)
-    before = fm.LAUNCH_COUNTS["fused_mlp_fwd"]
+    key = ("fused_mlp_fwd" if fm.mlp_variant(mkw.kw.dims) == "wgmma"
+           else "fused_mlp_fwd_mma")
+    before = dict(fm.LAUNCH_COUNTS)
     f_k, s_k = fm.fused_mlp_apply(mkw, xyz, d, exact, rep)
     f_p, s_p = fm.mlp_fwd_plain(mkw, xyz, d, exact, rep)
     torch.cuda.synchronize()
-    assert fm.LAUNCH_COUNTS["fused_mlp_fwd"] == before + 1
+    assert fm.LAUNCH_COUNTS == dict(before, **{key: before[key] + 1})
     assert f_k.shape == (37 * s, c) and s_k.shape == (37 * s,)
     tf, ts = fm.KERNEL_TOL[dt]
     assert float((f_k - f_p).abs().max()) <= tf
@@ -702,6 +722,73 @@ def test_mlp_backward_matches_plain_on_one_forward(dev, dt, exact, slab,
         scale = float(a.abs().max().clamp_min(1e-30))
         assert float((a - b).abs().max()) <= fm.GRAD_TOL[dt] * scale
         assert float((b - k).abs().max()) <= 5e-4 * scale
+
+
+# the wgmma forward at the shapes of chip_smoke.py's phase 4d: (rays,
+# samples, dir_rep (0: one a ray), p_base)
+WGMMA_MLP_SHAPES = [(1024, 128, 0, 0), (1024, 128, 1, 0), (999, 77, 0, 0),
+                    (999, 77, 1, 0), (1024, 128, 0, 1000),
+                    (1024, 128, 1, 1000), (8192, 256, 0, 0),
+                    (8192, 512, 0, 0)]
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("n,s,rep,p_base", WGMMA_MLP_SHAPES)
+def test_wgmma_mlp_forward_matches_plain_and_mma(dev, exact, n, s, rep,
+                                                 p_base):
+    """The wgmma fused-MLP forward (8x256, C 64, bf16) on the points of n
+    rays x s samples from point p_base on, against mlp_fwd_plain (over
+    slices of 128 Ki points) and against the mma.sync forward on the same
+    inputs: KERNEL_TOL[bf16] both. Exactly its counter moves."""
+    from crnerf_tpu_torch.ops import fused_mlp as fm
+
+    rep = rep or s
+    torch.manual_seed(9)
+    params = fr.mlp_params_from_module(
+        NerfMLP(depth=8, width=256, out_dim=64).to(dev))
+    mkw = fm.prepare_mlp_weights(params, 15, 4, torch.bfloat16)
+    assert fm.mlp_variant(mkw.kw.dims) == "wgmma"
+    o, d, z, _ = _inputs(dev, n, s)
+    xyz = (o[:, None] + d[:, None] * z[..., None]).reshape(-1, 3)
+    xyz = xyz[p_base:].contiguous()
+    if rep == 1:
+        d = d.repeat_interleave(s, 0).contiguous()
+    before = dict(fm.LAUNCH_COUNTS)
+    f_k, s_k = fm.mlp_fwd(mkw, xyz, d, exact, rep, p_base)
+    torch.cuda.synchronize()
+    assert fm.LAUNCH_COUNTS == dict(
+        before, fused_mlp_fwd=before["fused_mlp_fwd"] + 1)
+    f_m, s_m = fm.mlp_fwd(mkw, xyz, d, exact, rep, p_base, variant="mma")
+    tf, ts = fm.KERNEL_TOL[torch.bfloat16]
+    scale = max(1.0, float(s_k.max()))
+    assert float((f_k - f_m).abs().max()) <= tf
+    assert float((s_k - s_m).abs().max()) <= ts * scale
+    m, per = xyz.shape[0], (128 * 1024 // rep) * rep
+    for i in range(0, m, per):
+        pts = slice(i, min(i + per, m))
+        if p_base + i:
+            f_p, s_p = fm.mlp_fwd_plain(mkw, xyz[pts], d, exact, rep,
+                                        p_base=p_base + i)
+        else:   # the directions of exactly these points
+            f_p, s_p = fm.mlp_fwd_plain(mkw, xyz[pts], d[:pts.stop // rep],
+                                        exact, rep)
+        assert float((f_k[pts] - f_p).abs().max()) <= tf
+        assert float((s_k[pts] - s_p).abs().max()) <= ts * scale
+
+
+def test_wgmma_mlp_forward_refuses_what_it_does_not_take(dev):
+    from crnerf_tpu_torch.ops import fused_mlp as fm
+
+    _, mkw32, xyz, d, _, _ = _mlp_case(dev, torch.float32, 2, 256, 64, 16,
+                                       16)
+    with pytest.raises(ValueError, match="does not take"):
+        fm.mlp_fwd(mkw32, xyz, d, False, 16, variant="wgmma")
+    _, narrow, xyz, d, _, _ = _mlp_case(dev, torch.bfloat16, 2, 128, 64, 16,
+                                        16)
+    with pytest.raises(ValueError, match="does not take"):
+        fm.mlp_fwd(narrow, xyz, d, False, 16, variant="wgmma")
+    with pytest.raises(ValueError, match="'wgmma' or 'mma'"):
+        fm.mlp_fwd(narrow, xyz, d, False, 16, variant="tma")
 
 
 def test_mlp_train_function_on_card_matches_cpu(dev):
@@ -770,10 +857,12 @@ def test_per_point_routes_on_card_match_cpu(dev, field):
         r = Renderer(cfg, system)
         out[name] = r.fetch(r.render_frame_cam_async(c2w, K, 0.5, 2.5,
                                                      (24, 32), style))
-    # 768 rays in tiles of 256: a coarse and a fine launch per tile
+    # 768 rays in tiles of 256: a coarse and a fine launch per tile, on
+    # the mma.sync kernel at fp32
     want = 6 if field == "pallas_render" else 0
-    assert (fm.LAUNCH_COUNTS["fused_mlp_fwd"]
-            == before_mlp["fused_mlp_fwd"] + want)
+    assert fm.LAUNCH_COUNTS == dict(
+        before_mlp,
+        fused_mlp_fwd_mma=before_mlp["fused_mlp_fwd_mma"] + want)
     assert fr.LAUNCH_COUNTS == before_render
     np.testing.assert_allclose(out["card"]["rgb"], out["cpu"]["rgb"],
                                atol=1e-3)

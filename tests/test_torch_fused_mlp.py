@@ -386,4 +386,5 @@ def test_cpu_tensors_launch_no_kernel(skip_case):
     fm.fused_mlp_apply(mkw, torch.from_numpy(skip_case["xyz"]),
                        torch.from_numpy(_dirs(skip_case, S)), dir_rep=S)
     assert fm.LAUNCH_COUNTS == before == {"fused_mlp_fwd": 0,
+                                          "fused_mlp_fwd_mma": 0,
                                           "fused_mlp_bwd": 0}

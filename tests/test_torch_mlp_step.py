@@ -81,17 +81,19 @@ def route(request):
     opt, psched = make_optimizer(tcfg, pipe.iterations, system.parameters())
     state = TrainState.create(system, opt, tcfg.N_vocab, 32,
                               tcfg.nerf_out_dim)
-    calls = {"mlp_fwd": [], "mlp_bwd": [], "render_fwd": 0, "module": 0}
+    calls = {"mlp_fwd": [], "mlp_bwd": [], "render_fwd": 0, "module": 0,
+             "mlp_fwd_variant": []}
     with pytest.MonkeyPatch.context() as mp:
-        real_fwd, real_bwd = (fused_mlp.fused_mlp_apply,
-                              fused_mlp.fused_mlp_bwd)
+        real_fwd, real_bwd = (fused_mlp.mlp_fwd, fused_mlp.fused_mlp_bwd)
         real_render, real_module = (fused_render.render_fwd,
                                     renderer._module_points)
 
-        def count_fwd(mkw, xyz, dirs, exact, dir_rep):
+        def count_fwd(mkw, xyz, dirs, exact, dir_rep, p_base=0,
+                      variant=None):
             calls["mlp_fwd"].append((tuple(xyz.shape), tuple(dirs.shape),
                                      dir_rep))
-            return real_fwd(mkw, xyz, dirs, exact, dir_rep)
+            calls["mlp_fwd_variant"].append(variant)
+            return real_fwd(mkw, xyz, dirs, exact, dir_rep, p_base, variant)
 
         def count_bwd(mkw, xyz, dirs, g_feat, g_sigma, *a):
             calls["mlp_bwd"].append((tuple(g_feat.shape),
@@ -106,7 +108,7 @@ def route(request):
             calls["module"] += 1
             return real_module(*a, **k)
 
-        mp.setattr(fused_mlp, "fused_mlp_apply", count_fwd)
+        mp.setattr(fused_mlp, "mlp_fwd", count_fwd)
         mp.setattr(fused_mlp, "fused_mlp_bwd", count_bwd)
         mp.setattr(fused_render, "render_fwd", count_render)
         mp.setattr(renderer, "_module_points", count_module)
@@ -146,7 +148,8 @@ def test_route_per_leaf_gradients_match(route):
 
 
 def test_route_runs_what_the_config_selects(route):
-    """pallas_render=False: one fused-MLP forward and one backward per
+    """pallas_render=False: one fused-MLP forward (naming the mma.sync
+    kernel, whose stash form the backward recomputes) and one backward per
     pass, per point over all G*B rays with one direction per ray, and no
     fused render; pallas_train=False: the module twice and no kernel
     wrapper at all."""
@@ -158,6 +161,7 @@ def test_route_runs_what_the_config_selects(route):
         assert calls["module"] == 0
         assert calls["mlp_fwd"] == [((n * s, 3), (n, 3), s),
                                     ((n * (s + i), 3), (n, 3), s + i)]
+        assert calls["mlp_fwd_variant"] == ["mma", "mma"]
         assert sorted(calls["mlp_bwd"]) == [((n * s, c), (n * s,)),
                                             ((n * (s + i), c),
                                              (n * (s + i),))]

@@ -266,7 +266,9 @@ def test_cpu_wrappers_launch_no_kernel(case):
                            "fused_render_fwd_stash_mma", "fused_render_bwd",
                            "fused_render_bwd_mma", "fused_render_bwd_wgrad",
                            "fused_render_bwd_recompute",
-                           "fused_render_bwd_recompute_xyz"}
+                           "fused_render_bwd_recompute_xyz",
+                           "fused_render_bwd_recompute_mma",
+                           "fused_render_bwd_recompute_xyz_mma"}
 
 
 def test_tile_table_covers_every_gradient_once(case):

@@ -2,7 +2,7 @@
 (crnerf_tpu_torch/ops/fused_render.py) on the CPU: the wgmma kernel's
 weight stream unpacks to the padded matrices bit for bit and is packed at
 its first use only, the variant is chosen by dtype and width, the
-no-stash training forward asks for the mma.sync kernel and the stash
+no-stash training forward asks for the recompute's variant and the stash
 forward goes by shape, both variants give the plain version
 on CPU tensors and launch nothing; and the sincos wrapper's bound entry
 point (ops/_build.py ``entry``)."""
@@ -170,11 +170,12 @@ def test_render_fwd_refuses_a_variant_the_shape_does_not_take():
 
 
 @pytest.mark.parametrize("stash", [True, False])
-def test_training_forward_asks_for_the_mma_kernel(monkeypatch, stash):
-    """fused_render_train's no-stash forward asks for the mma.sync kernel,
-    whose stash form its backward (the recompute) runs again; the stash
-    forward names no kernel and takes the wgmma one by shape at the served
-    widths. On CPU tensors neither packs a weight stream."""
+def test_training_forward_asks_for_the_recompute_variant(monkeypatch, stash):
+    """fused_render_train's no-stash forward names the recompute's variant
+    (recompute_variant: the wgmma kernel at the served widths), whose stash
+    form its backward runs again; the stash forward names no kernel and
+    takes the wgmma one by shape at the served widths. On CPU tensors
+    neither packs a weight stream."""
     seen = []
     real = fr.render_fwd
 
@@ -188,8 +189,9 @@ def test_training_forward_asks_for_the_mma_kernel(monkeypatch, stash):
     out, w = fr.fused_render_train(p, o, d, z, noise,
                                    compute_dtype=torch.bfloat16,
                                    exact_encode=False, stash=stash)
+    assert fr.recompute_variant(seen[0][0].dims, 16) == "wgmma"
     assert [(v, r) for _, v, r in seen] == [
-        (None if stash else "mma", "wgmma")]
+        (None if stash else "wgmma", "wgmma")]
     assert seen[0][0].derived == {}
     assert out.shape == (4, 128) and w.shape == (4, 16)
 
