@@ -15,30 +15,49 @@
 // directions (12 bytes a point instead of an encode block):
 //
 //   for each slab of P points, in point order
-//     1. the forward kernel's stash instantiation (fused_mlp_fwd.cuh) fills
-//        the slab stash; features and sigma are not written again;
-//     2. mlp_bwd_chain_kernel (here) fills the slab dz buffer from the slab
-//        stash and the slab's rows of the cotangents, and sums the bias and
-//        sigma-weight gradients;
+//     1. the forward's stash form fills the slab stash; features and sigma
+//        are not written again;
+//     2. the chain fills the slab dz buffer from the slab stash and the
+//        slab's rows of the cotangents, and sums the bias and sigma-weight
+//        gradients;
 //     3. the split-K weight-gradient kernel (fused_render_bwd.cuh) writes
 //        its partial tiles: dW = A^T dZ for every product, the dir-encode
 //        rows included (their A is the stash's dir-encode columns);
 //     4. the fixed-order sums of 2. and 3. add onto the slabs before.
 //
-// The chain kernel, a persistent grid over tiles of CH = 64 points: from the
-// stash it recomputes z_sigma (fp32, as the forward) and the features, then
+// Two entries, one slab loop; the variant is chosen on the host by shape
+// (mlp_bwd_variant in ops/fused_mlp.py), and route C's training forward
+// takes the same variant, so that the slabs recompute the bits that
+// forward computed (a ReLU mask open on one side and shut on the other
+// would move a point's whole gradient term):
+//   * crnerf_mlp_bwd_wgmma, at bf16 and the served widths with at most 8
+//     trunk layers: 1. is the wgmma forward's STASH instance
+//     (fused_mlp_fwd_wgmma.cuh), which adds stores to the inference
+//     instance and nothing else, so its rows are the bits of the wgmma
+//     forward route C runs; 2. is the wgmma chain (fused_mlp_bwd_wgmma.cuh).
+//     A slab is a whole number of those kernels' waves of 128-point tiles.
+//   * crnerf_mlp_bwd (fp32, other widths, deeper trunks): 1. is the
+//     mma.sync forward's stash instantiation (fused_mlp_fwd.cuh), the
+//     forward route C runs at those shapes; 2. is mlp_bwd_chain_kernel
+//     (here).
+// Step 3 is K2's mma.sync weight gradient in both.
+//
+// The mma.sync chain kernel, a persistent grid over tiles of CH = 64
+// points: from the stash it recomputes z_sigma (fp32, as the forward) and
+// the features, then
 //   dz_feat = g_feat * f * (1 - f),  dz_sig = g_sigma * sigmoid(z_sigma)
 // per point (where the fused render backward has the compositing backward),
 // and walks feature head -> direction layer -> final layer + sigma head ->
 // trunk with dz @ W^T products on transposed, packed weights. Each dz is
 // written at the compute dtype to the dz buffer (the operands of step 3);
 // the ReLU masks come from the stashed activations. Dtype policy as the TPU
-// kernel's: dz rounded to the compute dtype for both A^T dZ and dZ W^T, bias
-// gradients from the unrounded fp32 dz, and the sigma branch wholly fp32:
-// dz_sig and the sigma weights enter dh unrounded, and the sigma weight
-// gradient h^T dz_sig is summed here in fp32 (one thread per column, rows in
-// order), not by the bf16 weight-gradient kernel. The dir-encode gradient is
-// per point with ddd rounded per point, as the TPU kernel's mm_t(enc, ddd).
+// kernel's, in both chains: dz rounded to the compute dtype for both A^T dZ
+// and dZ W^T, bias gradients from the unrounded fp32 dz, and the sigma
+// branch wholly fp32: dz_sig and the sigma weights enter dh unrounded, and
+// the sigma weight gradient h^T dz_sig is summed in the chain in fp32 (one
+// thread per column, rows in order), not by the bf16 weight-gradient
+// kernel. The dir-encode gradient is per point with ddd rounded per point,
+// as the TPU kernel's mm_t(enc, ddd).
 //
 // Every sum has a fixed order (per CTA in shared memory with one owner per
 // address, across CTAs, splits and slabs in index order): two runs on the
@@ -48,13 +67,14 @@
 // backward (~2.4 MFLOP per point) against 12 bytes of input and 4 (C + 1)
 // bytes of cotangent per point: operations. What it costs as built: the
 // stash and dz traffic through device memory (~15 KB per point).
-// Left for later: chaining from shared memory so that neither the stash nor
-// dz reaches device memory.
+// Left for later, in both variants: chaining from shared memory so that
+// neither the stash nor dz reaches device memory; and K2's weight gradient
+// on wgmma (step 3 runs the mma.sync kernel in both).
 
 #include <algorithm>
 
-#include "fused_mlp_fwd.cuh"
-#include "fused_render_bwd.cuh"
+#include "fused_mlp_bwd_wgmma.cuh"
+#include "fused_mlp_fwd_wgmma.cuh"
 
 namespace {
 
@@ -247,9 +267,93 @@ int mlp_bwd_chain_launch(const CArgs& a, bool bf16, int grid, float* bout,
   return reduce_partials(a.bpart, grid, a.DC + a.WP, accumulate, bout, st);
 }
 
-constexpr int MB_PTRS = 14;    // pointers before whT[1 .. L-1]
+constexpr int MB_PTRS = 14;    // pointers before whT[1 .. L-1] (mma.sync)
+constexpr int MBW_PTRS = 13;   // pointers before the forward's (wgmma)
 constexpr int MB_DIMS = 22;
 constexpr int MB_FWD_W = 9;    // wsrow, bs, wf, bf, wdh, bd, wde, wc, bc
+
+// The slab loop of both entries (their pointers and dims below).
+int mlp_bwd_slabs(const void* const* ptrs, int n_ptrs, const int* dims,
+                  int n_dims, void* stream, bool wgmma) {
+  if (n_dims != MB_DIMS) return (int)cudaErrorInvalidValue;
+  const int M = dims[0], R = dims[1], L = dims[2];
+  const int WP = dims[4], HP = dims[5], CP = dims[6], C = dims[7];
+  const int bf16 = dims[13], SC = dims[14], DC = dims[15], grid = dims[16];
+  const int P = dims[21];
+  if (M < 1 || R < 1 || L < 1 || L > MAXL || P < 1 || grid < 1)
+    return (int)cudaErrorInvalidValue;
+  if (WP % 32 || WP > 32 * MAX_NTW || HP % 32 || HP > WP || CP % 32 ||
+      CP > WP || C > CP || C < 1 || SC % 16 ||
+      DC != (L + 1) * WP + 32 + HP + CP)
+    return (int)cudaErrorInvalidValue;
+  const int n_bwd = wgmma ? MBW_PTRS : MB_PTRS + (L - 1);
+  if (n_ptrs != n_bwd + MB_FWD_W + 3 * L) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < n_bwd; ++i)
+    if (!ptrs[i]) return (int)cudaErrorInvalidValue;
+  const void* const* fw = ptrs + n_bwd;   // wsrow, bs, ..., bc, layer triples
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+
+  // the forward's pointers: no features, no sigma, the slab stash
+  const void* fp[MLP_FWD_PTRS + 3 * MAXL + 1];
+  fp[1] = ptrs[1];
+  fp[2] = nullptr; fp[3] = nullptr;
+  fp[4] = ptrs[4];
+  for (int i = 0; i < MB_FWD_W + 3 * L; ++i) fp[5 + i] = fw[i];
+  int n_fp = MLP_FWD_PTRS + 3 * L;
+  if (wgmma) fp[n_fp++] = ptrs[12];       // the forward's weight stream
+
+  CArgs c = {};
+  MWArgs w = {};
+  c.stash = ptrs[4]; c.dzbuf = const_cast<void*>(ptrs[5]);
+  c.bpart = (float*)ptrs[6];
+  float* bout = (float*)ptrs[7];
+  c.wsrow = (const float*)fw[0]; c.bs = (const float*)fw[1];
+  c.wc = fw[7]; c.bc = (const float*)fw[8];
+  if (!wgmma) {
+    c.wcT = ptrs[11]; c.wdhT = ptrs[12]; c.wfT = ptrs[13];
+    for (int i = 1; i < L; ++i) c.whT[i] = ptrs[13 + i];
+  }
+  c.L = L; c.WP = WP; c.HP = HP; c.CP = CP; c.C = C; c.SC = SC; c.DC = DC;
+  w.dzbuf = (__nv_bfloat16*)c.dzbuf; w.bpart = c.bpart;
+  w.wsrow = c.wsrow; w.bs = c.bs; w.bc = c.bc;
+  w.L = L; w.C = C; w.DC = DC;
+  const void* wp[WGRAD_PTRS] = {ptrs[4], ptrs[5], ptrs[8], ptrs[9], ptrs[10]};
+
+  for (int r0 = 0; r0 < M; r0 += P) {
+    const int n = std::min(P, M - r0);
+    const bool accumulate = r0 > 0;
+    fp[0] = static_cast<const float*>(ptrs[0]) + (size_t)r0 * 3;
+    // M, R, p_base, L, skip_mask, WP, HP, CP, C, KE, F, DK, DKP, exact,
+    // BF16, SC
+    const int fd[MLP_FWD_DIMS] = {n, R, r0, L, dims[3], WP, HP, CP, C,
+                                  dims[8], dims[9], dims[10], dims[11],
+                                  dims[12], bf16, SC};
+    int rc = wgmma ? mlp_fwd_wgmma_entry(fp, n_fp, fd, MLP_FWD_DIMS, stream)
+                   : mlp_fwd_entry(fp, n_fp, fd, MLP_FWD_DIMS, stream);
+    if (rc != 0) return rc;
+    const float* gfeat = static_cast<const float*>(ptrs[2]) + (size_t)r0 * C;
+    const float* gsig = static_cast<const float*>(ptrs[3]) + r0;
+    if (wgmma) {   // the chain's grid: at most its 128-point tiles
+      w.M = n; w.gfeat = gfeat; w.gsig = gsig;
+      rc = mlp_bwd_chain_wgmma_launch(w, c.stash, SC, ptrs[11],
+                                      std::min(grid, (n + 127) / 128), bout,
+                                      accumulate, st);
+    } else {
+      c.M = n; c.gfeat = gfeat; c.gsig = gsig;
+      rc = mlp_bwd_chain_launch(c, bf16 != 0,
+                                std::min(grid, (n + CH - 1) / CH), bout,
+                                accumulate, st);
+    }
+    if (rc != 0) return rc;
+    // M, SC, DC, WT, n_tiles, splits, m_per, BF16
+    const int wd[WGRAD_DIMS] = {n, SC, DC, dims[17], dims[18], dims[19],
+                                dims[20], bf16};
+    rc = render_bwd_wgrad_entry(wp, WGRAD_PTRS, wd, WGRAD_DIMS, stream,
+                                accumulate);
+    if (rc != 0) return rc;
+  }
+  return 0;
+}
 
 }  // namespace
 
@@ -264,65 +368,16 @@ constexpr int MB_FWD_W = 9;    // wsrow, bs, wf, bf, wdh, bd, wde, wc, bc
 // Writes bout and wout; returns the first error of any launch.
 extern "C" int crnerf_mlp_bwd(const void* const* ptrs, int n_ptrs,
                               const int* dims, int n_dims, void* stream) {
-  if (n_dims != MB_DIMS) return (int)cudaErrorInvalidValue;
-  const int M = dims[0], R = dims[1], L = dims[2];
-  const int WP = dims[4], HP = dims[5], CP = dims[6], C = dims[7];
-  const int bf16 = dims[13], SC = dims[14], DC = dims[15], grid = dims[16];
-  const int P = dims[21];
-  if (M < 1 || R < 1 || L < 1 || L > MAXL || P < 1 || grid < 1)
-    return (int)cudaErrorInvalidValue;
-  if (WP % 32 || WP > 32 * MAX_NTW || HP % 32 || HP > WP || CP % 32 ||
-      CP > WP || C > CP || C < 1 || SC % 16 ||
-      DC != (L + 1) * WP + 32 + HP + CP)
-    return (int)cudaErrorInvalidValue;
-  const int n_bwd = MB_PTRS + (L - 1);
-  if (n_ptrs != n_bwd + MB_FWD_W + 3 * L) return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < n_bwd; ++i)
-    if (!ptrs[i]) return (int)cudaErrorInvalidValue;
-  const void* const* fw = ptrs + n_bwd;   // wsrow, bs, ..., bc, layer triples
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return mlp_bwd_slabs(ptrs, n_ptrs, dims, n_dims, stream, false);
+}
 
-  const void* fp[MLP_FWD_PTRS + 3 * MAXL];
-  fp[1] = ptrs[1];
-  fp[2] = nullptr; fp[3] = nullptr;       // no features, no sigma out
-  fp[4] = ptrs[4];
-  for (int i = 0; i < MB_FWD_W + 3 * L; ++i) fp[5 + i] = fw[i];
-
-  CArgs c = {};
-  c.stash = ptrs[4]; c.dzbuf = const_cast<void*>(ptrs[5]);
-  c.bpart = (float*)ptrs[6];
-  float* bout = (float*)ptrs[7];
-  c.wsrow = (const float*)fw[0]; c.bs = (const float*)fw[1];
-  c.wc = fw[7]; c.bc = (const float*)fw[8];
-  c.wcT = ptrs[11]; c.wdhT = ptrs[12]; c.wfT = ptrs[13];
-  for (int i = 1; i < L; ++i) c.whT[i] = ptrs[13 + i];
-  c.L = L; c.WP = WP; c.HP = HP; c.CP = CP; c.C = C; c.SC = SC; c.DC = DC;
-  const void* wp[WGRAD_PTRS] = {ptrs[4], ptrs[5], ptrs[8], ptrs[9], ptrs[10]};
-
-  for (int r0 = 0; r0 < M; r0 += P) {
-    const int n = std::min(P, M - r0);
-    const bool accumulate = r0 > 0;
-    fp[0] = static_cast<const float*>(ptrs[0]) + (size_t)r0 * 3;
-    // M, R, p_base, L, skip_mask, WP, HP, CP, C, KE, F, DK, DKP, exact,
-    // BF16, SC
-    const int fd[MLP_FWD_DIMS] = {n, R, r0, L, dims[3], WP, HP, CP, C,
-                                  dims[8], dims[9], dims[10], dims[11],
-                                  dims[12], bf16, SC};
-    int rc = mlp_fwd_entry(fp, MLP_FWD_PTRS + 3 * L, fd, MLP_FWD_DIMS, stream);
-    if (rc != 0) return rc;
-    c.M = n;
-    c.gfeat = static_cast<const float*>(ptrs[2]) + (size_t)r0 * C;
-    c.gsig = static_cast<const float*>(ptrs[3]) + r0;
-    rc = mlp_bwd_chain_launch(c, bf16 != 0,
-                              std::min(grid, (n + CH - 1) / CH), bout,
-                              accumulate, st);
-    if (rc != 0) return rc;
-    // M, SC, DC, WT, n_tiles, splits, m_per, BF16
-    const int wd[WGRAD_DIMS] = {n, SC, DC, dims[17], dims[18], dims[19],
-                                dims[20], bf16};
-    rc = render_bwd_wgrad_entry(wp, WGRAD_PTRS, wd, WGRAD_DIMS, stream,
-                                accumulate);
-    if (rc != 0) return rc;
-  }
-  return 0;
+// ptrs: as crnerf_mlp_bwd's up to wout, then the wgmma chain's weight
+// stream (wgmma_chain_weights), the wgmma forward's (wgmma_mlp_weights),
+// then the forward's weights. dims as there, ``grid`` at most the wgmma
+// chain's 128-point tiles of P points and the SMs. Only the shapes both
+// wgmma kernels take (each refuses others).
+extern "C" int crnerf_mlp_bwd_wgmma(const void* const* ptrs, int n_ptrs,
+                                    const int* dims, int n_dims,
+                                    void* stream) {
+  return mlp_bwd_slabs(ptrs, n_ptrs, dims, n_dims, stream, true);
 }

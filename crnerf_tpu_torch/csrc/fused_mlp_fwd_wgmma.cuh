@@ -3,13 +3,15 @@
 // wgmma and its weights streamed by TMA.
 //
 // Replaces crnerf_tpu/ops/fused_mlp.py:_make_fwd_kernel (the Pallas TPU
-// kernel behind fused_mlp_apply) for the bf16 shape that mlp_variant
-// (ops/fused_mlp.py) gives to this kernel, the served MLPs': WP = 256,
-// HP = 128, CP = 64, KE <= 128, a direction encode of at most 64 columns.
-// The widths are template parameters; one instance is built, the
-// inference forward. Included by fused_mlp_fwd.cu only; fp32, other widths
-// and the forward of training (route C, whose backward recomputes the
-// mma.sync stash form) stay on the mma.sync kernel.
+// kernel behind fused_mlp_apply and the forward of make_fused_mlp_train)
+// for the bf16 shape that mlp_variant (ops/fused_mlp.py) gives to this
+// kernel, the served MLPs': WP = 256, HP = 128, CP = 64, KE <= 128, a
+// direction encode of at most 64 columns. The widths are template
+// parameters; two instances are built: the inference forward, which is
+// also route C's training forward where the wgmma backward takes the shape
+// (mlp_bwd_variant), and the stash forward (STASH), which that backward
+// (fused_mlp_bwd.cu) runs slab by slab. Included by fused_mlp_fwd.cu and
+// fused_mlp_bwd.cu; fp32 and other widths stay on the mma.sync kernel.
 //
 // What bounds it: ~1.2 MFLOP of products a point at 8x256 against 12 bytes
 // read and 4 (C + 1) written a point (260 at C = 64; 1.09 GB at 8192 x 512,
@@ -47,6 +49,19 @@
 //     has retired) and written out as the warpgroup's nrows * C
 //     consecutive floats of the (M, C) output, neighbouring threads on
 //     neighbouring addresses; sigma likewise.
+//   * The stash (STASH): the instance with the stash adds stores and
+//     nothing else, so its masks are the inference instance's bits. Every
+//     buffer a product reads (the encode, each trunk layer's ReLU output,
+//     hf, dd, the dir encode) is, once its epilogue is done, the image of
+//     64-column x 64-row boxes of the stash rows [h_0 .. h_{L-1} | hf | dd
+//     | encode | dir encode] (ops/fused_mlp.py mlp_grad_layout); one lane a
+//     warpgroup stores it by TMA while the next product runs, through two
+//     tensor maps over the points: one over each row's columns up to the
+//     dir encode (the encode's 128-column buffer is clipped to its KE
+//     columns there) and one over the whole row (the dir encode's slice,
+//     clipped at the row's end to its DKP columns). Rows past M are not
+//     stored. The lane waits for the stores to have read a buffer
+//     (bulk_wait_read) before an epilogue writes it again.
 //   * Dtype policy as mlp_fwd_kernel's: ReLU outputs, hf and dd rounded to
 //     bf16; the sigma head fp32 on unrounded weights; biases, softplus and
 //     sigmoid fp32. Sums run in another order than the mma.sync kernel's,
@@ -83,9 +98,13 @@ __host__ __device__ constexpr int mw_smem_bytes() {
 }
 
 // ------------------------------------------------------------- kernel
-template <int WP, int HP, int CP>
+// STASH: smap (the stash's columns up to the dir encode) and dmap (its
+// whole rows), ray_rows_map over the M points, take the stores.
+template <int WP, int HP, int CP, bool STASH>
 __global__ void __launch_bounds__(WG_THREADS, 1)
-    mlp_fwd_wgmma_kernel(const MArgs a, const uint8_t* __restrict__ wpack) {
+    mlp_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap smap,
+                         const __grid_constant__ CUtensorMap dmap,
+                         const MArgs a, const uint8_t* __restrict__ wpack) {
   constexpr int SLOT = WP * 128;
   constexpr int NS = mw_ring_slots<WP>();
   constexpr int LDF = CP + 4;          // a staged feature row, floats
@@ -161,12 +180,38 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 
   // the accumulator fragment: rows r0 and r0 + 8, columns 8 nb + cq (+1)
   const int r0 = warp * 16 + (lane >> 2), cq = 2 * (lane & 3);
+  // the stash row's columns: h_i at i WP, then hf, dd, the encode, the
+  // dir encode
+  const int o_hf = a.L * WP, o_dd = o_hf + WP, o_enc = o_dd + HP;
 
   Ring rg;
   float acc[WP / 2];
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
     const int pb = item * MW_TILE + g * WG_ROWS;   // row 0's point
     const int nrows = max(0, min(WG_ROWS, a.M - pb));
+    // STASH: nslices 64-column slices of buf into the stash columns col..
+    // of this warpgroup's rows (clipped at M and at the map's columns)
+    auto stash_store = [&](const CUtensorMap* map, const uint8_t* buf,
+                           int nslices, int col) {
+      if constexpr (STASH) {
+        if (leader && nrows > 0) {
+          for (int k = 0; k < nslices; ++k)
+            tma_store_3d(map, buf + k * A_SLICE, col + 64 * k, pb, 0);
+          bulk_commit();
+        }
+      }
+    };
+    // before a buffer those stores read is written again (the leader
+    // waits, a warpgroup barrier follows)
+    auto stash_wait = [&]() {
+      if constexpr (STASH) {
+        if (leader) bulk_wait_read();
+      }
+    };
+    if constexpr (STASH) {   // the last item's stores have read enc, denc
+      stash_wait();
+      wg_sync();
+    }
     // the points (rows past M repeat the last one) and their dir encode
     for (int i = wtid; i < WG_ROWS * 3; i += 128) {
       const int r = i / 3, c = i % 3;
@@ -186,26 +231,17 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     wg_encode_sincos(enc, xyz, a.F, a.exact, wtid);
     fence_proxy_async();
     wg_sync();
+    stash_store(&smap, enc, KEW / 64, o_enc);
+    stash_store(&dmap, denc, 1, o_enc + a.KE);
 
     // ---- trunk: h_i = relu([enc |] h_{i-1} @ W_i + b_i), in place
-    wg_trunk<WP, NS, SLOT>(a, acc, enc_a, act_a, act, ring_a, full, empty,
-                           rg, leader, r0, cq, wg_sync, []() {},
-                           [](int) {});
+    wg_trunk<WP, NS, SLOT>(
+        a, acc, enc_a, act_a, act, ring_a, full, empty, rg, leader, r0, cq,
+        wg_sync, stash_wait,
+        [&](int i) { stash_store(&smap, act, WP / 64, i * WP); });
 
-    // ---- sigma head in fp32 on the unrounded sigma row: warp w takes
-    // rows 16 w .. 16 w + 15, lane l the columns l, l + 32, ..
-    for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-      float s = 0.f;
-#pragma unroll
-      for (int k = lane; k < WP; k += 32)
-        s += __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
-                 act + sw_off(r, k))) *
-             __ldg(a.wsrow + k);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      if (lane == 0) sig[r] = s + a.bs[0];
-    }
+    // ---- sigma head in fp32 on the unrounded sigma row
+    wg_sigma_rows<WP>(act, a.wsrow, a.bs[0], sig, warp, lane);
 
     // ---- xyz_encoding_final: hf = h @ W_f + b_f, in place (after every
     // warp's sigma rows have read h)
@@ -213,6 +249,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     wg_product<WP, NS, SLOT>(
         acc, WP / 64, [&](int kc) { return act_a + kc * A_SLICE; }, ring_a,
         full, empty, rg, leader);
+    stash_wait();
     wg_sync();
 #pragma unroll
     for (int nb = 0; nb < WP / 8; ++nb) {
@@ -223,6 +260,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     }
     fence_proxy_async();
     wg_sync();
+    stash_store(&smap, act, WP / 64, o_hf);
 
     // ---- dir layer: dd = relu([hf | dir encode] @ [W_dh ; W_de] + b_d),
     // in place
@@ -235,6 +273,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
             return kc < WP / 64 ? act_a + kc * A_SLICE : denc_a;
           },
           ring_a, full, empty, rg, leader);
+      stash_wait();
       wg_sync();
 #pragma unroll
       for (int nb = 0; nb < HP / 8; ++nb) {
@@ -248,6 +287,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     }
     fence_proxy_async();
     wg_sync();
+    stash_store(&smap, act, HP / 64, o_dd);
 
     // ---- feature head: sigmoid(dd @ W_c + b_c), fp32, staged over dd
     {
@@ -256,6 +296,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
       wg_product<CP, NS, SLOT>(
           acc_c, HP / 64, [&](int kc) { return act_a + kc * A_SLICE; },
           ring_a, full, empty, rg, leader);
+      stash_wait();
       wg_sync();
 #pragma unroll
       for (int nb = 0; nb < CP / 8; ++nb) {
@@ -280,13 +321,36 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     if (a.sig != nullptr && wtid < nrows)
       a.sig[pb + wtid] = softplusf(sig[wtid]);
   }
+  if constexpr (STASH) {
+    if (leader) bulk_wait();
+  }
+}
+
+// Launches mlp_fwd_wgmma_kernel<WP, HP, CP, STASH> on ``st`` over
+// min(tiles of 128 points, SMs) CTAs; cudaGetLastError().
+template <int WP, int HP, int CP, bool STASH>
+int launch_mlp_wgmma(const CUtensorMap& smap, const CUtensorMap& dmap,
+                     const MArgs& a, const void* wpack, cudaStream_t st) {
+  constexpr int smem = mw_smem_bytes<WP>();
+  static_assert(smem <= WG_SMEM_MAX, "shared memory");
+  auto kern = mlp_fwd_wgmma_kernel<WP, HP, CP, STASH>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int sms = sm_count();
+  if (sms < 1) return (int)cudaErrorInvalidDevice;
+  const int items = (a.M + MW_TILE - 1) / MW_TILE;
+  const int grid = items < sms ? items : sms;
+  kern<<<grid, WG_THREADS, smem, st>>>(smap, dmap, a,
+                                       static_cast<const uint8_t*>(wpack));
+  return (int)cudaGetLastError();
 }
 
 // Arguments as parse_mlp_args takes them, and after them the weight stream
 // (wgmma_mlp_weights in ops/fused_mlp.py). Only the shape this kernel
-// takes: bf16, (WP, HP, CP) = (256, 128, 64), KE <= 128, DK <= 64, no
-// stash. Launches over min(tiles of 128 points, SMs) CTAs; returns
-// cudaGetLastError() or cudaErrorInvalidValue.
+// takes: bf16, (WP, HP, CP) = (256, 128, 64), KE <= 128, DK <= 64; with or
+// without the stash (its row 16-byte aligned). Returns cudaGetLastError(),
+// a CUresult of the stash's tensor maps, or cudaErrorInvalidValue.
 int mlp_fwd_wgmma_entry(const void* const* ptrs, int n_ptrs, const int* dims,
                         int n_dims, void* stream) {
   if (n_ptrs < 1) return (int)cudaErrorInvalidValue;
@@ -295,23 +359,19 @@ int mlp_fwd_wgmma_entry(const void* const* ptrs, int n_ptrs, const int* dims,
   int rc = parse_mlp_args(ptrs, n_ptrs - 1, dims, n_dims, a, bf16);
   if (rc != 0) return rc;
   const void* wpack = ptrs[n_ptrs - 1];
-  if (!bf16 || !wpack || ((uintptr_t)wpack & 15) || a.stash ||
-      a.KE > KEW || 3 + 6 * a.F > KEW || a.DK > MW_DIR_K || a.WP != 256 ||
-      a.HP != 128 || a.CP != 64)
+  if (!bf16 || !wpack || ((uintptr_t)wpack & 15) || a.KE > KEW ||
+      3 + 6 * a.F > KEW || a.DK > MW_DIR_K || a.DKP > MW_DIR_K ||
+      a.WP != 256 || a.HP != 128 || a.CP != 64 ||
+      (a.stash && (((uintptr_t)a.stash & 15) || a.SC % 8)))
     return (int)cudaErrorInvalidValue;
-  constexpr int smem = mw_smem_bytes<256>();
-  static_assert(smem <= WG_SMEM_MAX, "shared memory");
-  auto kern = mlp_fwd_wgmma_kernel<256, 128, 64>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const int sms = sm_count();
-  if (sms < 1) return (int)cudaErrorInvalidDevice;
-  const int items = (a.M + MW_TILE - 1) / MW_TILE;
-  const int grid = items < sms ? items : sms;
-  kern<<<grid, WG_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, static_cast<const uint8_t*>(wpack));
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  CUtensorMap smap = {}, dmap = {};
+  if (!a.stash)
+    return launch_mlp_wgmma<256, 128, 64, false>(smap, dmap, a, wpack, st);
+  rc = ray_rows_map(&smap, a.stash, 1, a.M, a.SC - a.DKP, a.SC);
+  if (!rc) rc = ray_rows_map(&dmap, a.stash, 1, a.M, a.SC);
+  if (rc) return rc;
+  return launch_mlp_wgmma<256, 128, 64, true>(smap, dmap, a, wpack, st);
 }
 
 }  // namespace

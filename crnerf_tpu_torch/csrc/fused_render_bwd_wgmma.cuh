@@ -98,33 +98,6 @@ __host__ __device__ constexpr int cw_fixed_bytes() {
          cw_floats<WP, HP, CP>() * 4;
 }
 
-// the four warps' column sums (rd, after a warpgroup barrier) onto dst, in
-// warp order
-__device__ __forceinline__ void add_colsums(const float* rd, int n,
-                                            float* dst, int wtid) {
-  for (int c = wtid; c < n; c += 128)
-    dst[c] += (rd[c] + rd[n + c]) + (rd[2 * n + c] + rd[3 * n + c]);
-}
-
-// columns c, c + 1 summed over the warp's 16 rows (the thread's two rows
-// in s0, s1) into rdw[c], rdw[c + 1]
-__device__ __forceinline__ void warp_colsum(float s0, float s1, float* rdw,
-                                            int c, int lane) {
-#pragma unroll
-  for (int off = 4; off < 32; off <<= 1) {
-    s0 += __shfl_xor_sync(0xffffffffu, s0, off);
-    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-  }
-  if (lane < 4) {
-    rdw[c] = s0;
-    rdw[c + 1] = s1;
-  }
-}
-
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
 // The compositing forward and backward of one ray by one warp, samples
 // 8 lane .. 8 lane + 7: pa holds z_sigma and pb g_fmap . feat of samples
 // j < S; after it pa holds dz_sigma and pb the weights of samples j <
@@ -257,36 +230,23 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     setmaxnreg_dec<WG_REGS_PRODUCER>();
     if (tid != 256) return;
     Ring rg;
-    // n slices of ``bytes`` each, from byte ``off`` of the stream on; one
-    // copy site and no unrolling: this warpgroup has 40 registers
+    using O = ChainStream<WP, HP, CP>;
     auto put_run = [&](uint32_t off, int n, uint32_t bytes) {
-#pragma unroll 1
-      for (int k = 0; k < n; ++k, off += bytes) {
-        mbar_wait(&empty[rg.s], rg.ph ^ 1);
-        mbar_expect_tx(&full[rg.s], bytes);
-        bulk_load(ring + rg.s * SLOT, wpack + off, bytes, &full[rg.s]);
-        rg.next<NS>();
-      }
+      wg_put_run<NS, SLOT>(wpack, off, n, bytes, ring, full, empty, rg);
     };
-    // the stream: the sigma columns, the feature head, then W^T of the
-    // feature head, the dir layer, the final layer, trunk layers L-1 .. 1
-    constexpr uint32_t O_WC = (WP / 64) * SIG_N * 128;
-    constexpr uint32_t O_WCT = O_WC + (HP / 64) * CP * 128;
-    constexpr uint32_t O_WDHT = O_WCT + (CP / 64) * HP * 128;
-    constexpr uint32_t O_WFT = O_WDHT + (HP / 64) * WP * 128;
 #pragma unroll 1
     for (int item = blockIdx.x; item < items; item += gridDim.x) {
 #pragma unroll 1
       for (int t = 0; t < tiles; ++t) {
         put_run(0, WP / 64, SIG_N * 128);
-        put_run(O_WC, HP / 64, CP * 128);
+        put_run(O::WC, HP / 64, CP * 128);
       }
 #pragma unroll 1
       for (int t = 0; t < tiles; ++t) {
-        if (tiles > 1) put_run(O_WC, HP / 64, CP * 128);
-        put_run(O_WCT, CP / 64, HP * 128);
-        put_run(O_WDHT, HP / 64, WP * 128);
-        put_run(O_WFT, L * (WP / 64), WP * 128);
+        if (tiles > 1) put_run(O::WC, HP / 64, CP * 128);
+        put_run(O::WCT, CP / 64, HP * 128);
+        put_run(O::WDHT, HP / 64, WP * 128);
+        put_run(O::WFT, L * (WP / 64), WP * 128);
       }
     }
     return;
@@ -476,20 +436,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
             [&](int kc) { return abuf_a + (HP / 64 + kc) * A_SLICE; },
             ring_a, full, empty, rg, leader);
         wg_sync();
-        float* rdw = rd + warp * HP;
-#pragma unroll
-        for (int nb = 0; nb < HP / 8; ++nb) {
-          const int c = nb * 8 + cq;
-          const __nv_bfloat162 m0 = ld_bf16x2(abuf, r0, c);
-          const __nv_bfloat162 m1 = ld_bf16x2(abuf, r0 + 8, c);
-          const float v0 = __low2float(m0) > 0.f ? acc_d[nb * 4] : 0.f;
-          const float v1 = __high2float(m0) > 0.f ? acc_d[nb * 4 + 1] : 0.f;
-          const float v2 = __low2float(m1) > 0.f ? acc_d[nb * 4 + 2] : 0.f;
-          const float v3 = __high2float(m1) > 0.f ? acc_d[nb * 4 + 3] : 0.f;
-          st_bf16x2(abuf, r0, c, v0, v1);
-          st_bf16x2(abuf, r0 + 8, c, v2, v3);
-          warp_colsum(v0 + v2, v1 + v3, rdw, c, lane);
-        }
+        wg_dz_epilogue<HP>(acc_d, abuf, abuf, nullptr, 0.f, 0.f,
+                           rd + warp * HP, r0, cq, lane);
       }
       fence_proxy_async();
       wg_sync();
@@ -503,72 +451,30 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
           full, empty, rg, leader);
       if (leader) bulk_wait_read();
       wg_sync();
-      {
-        float* rdw = rd + warp * WP;
-#pragma unroll
-        for (int nb = 0; nb < WP / 8; ++nb) {
-          const int c = nb * 8 + cq;
-          st_bf16x2(abuf, r0, c, acc[nb * 4], acc[nb * 4 + 1]);
-          st_bf16x2(abuf, r0 + 8, c, acc[nb * 4 + 2], acc[nb * 4 + 3]);
-          warp_colsum(acc[nb * 4] + acc[nb * 4 + 2],
-                      acc[nb * 4 + 1] + acc[nb * 4 + 3], rdw, c, lane);
-        }
-      }
+      wg_dz_epilogue<WP>(acc, abuf, nullptr, nullptr, 0.f, 0.f,
+                         rd + warp * WP, r0, cq, lane);
       fence_proxy_async();
       wg_sync();
       add_colsums(rd, WP, bac + d_hf, wtid);
       store_dz(abuf, WP / 64, d_hf);
 
-      // dz_{L-1} = (h_{L-1} > 0) * (dhf @ W_f^T + dz_sigma w_sigma^T), then
-      // dz_i = (h_i > 0) * (dz_{i+1} @ W_{i+1}^T) down to dz_0
-      for (int i = L - 1; i >= 0; --i) {
-        const bool top = i == L - 1;
-        zero_acc(acc);
-        wg_product<WP, NS, SLOT>(
-            acc, WP / 64, [&](int kc) { return abuf_a + kc * A_SLICE; },
-            ring_a, full, empty, rg, leader);
-        if (leader) bulk_wait_read();
-        if (!top) {   // h_i, loaded during the product
-          mbar_wait(&mfull[g], mph);
-          mph ^= 1;
-        }
-        wg_sync();
-        const float ds0 = top ? bf16_round(pa[pj + r0]) : 0.f;
-        const float ds1 = top ? bf16_round(pa[pj + r0 + 8]) : 0.f;
-        float* rdw = rd + warp * WP;
-#pragma unroll
-        for (int nb = 0; nb < WP / 8; ++nb) {
-          const int c = nb * 8 + cq;
-          float v0 = acc[nb * 4], v1 = acc[nb * 4 + 1];
-          float v2 = acc[nb * 4 + 2], v3 = acc[nb * 4 + 3];
-          if (top) {
-            const float w0 = a.wsv[c], w1 = a.wsv[c + 1];
-            v0 += ds0 * w0;
-            v1 += ds0 * w1;
-            v2 += ds1 * w0;
-            v3 += ds1 * w1;
-          }
-          const __nv_bfloat162 m0 = ld_bf16x2(mbuf, r0, c);
-          const __nv_bfloat162 m1 = ld_bf16x2(mbuf, r0 + 8, c);
-          v0 = __low2float(m0) > 0.f ? v0 : 0.f;
-          v1 = __high2float(m0) > 0.f ? v1 : 0.f;
-          v2 = __low2float(m1) > 0.f ? v2 : 0.f;
-          v3 = __high2float(m1) > 0.f ? v3 : 0.f;
-          st_bf16x2(abuf, r0, c, v0, v1);
-          st_bf16x2(abuf, r0 + 8, c, v2, v3);
-          warp_colsum(v0 + v2, v1 + v3, rdw, c, lane);
-        }
-        fence_proxy_async();
-        wg_sync();
-        add_colsums(rd, WP, bac + i * WP, wtid);
-        store_dz(abuf, WP / 64, i * WP);
-        if (i > 0 && leader) {   // h_{i-1}, for the next epilogue
-          mbar_expect_tx(&mfull[g], (WP / 64) * A_SLICE);
-          for (int k = 0; k < WP / 64; ++k)
-            tma_load_3d(mbuf + k * A_SLICE, &smap, &mfull[g],
-                        (i - 1) * WP + 64 * k, sb, ray);
-        }
-      }
+      // dz_{L-1} .. dz_0 down the trunk, the sigma branch at bf16: dz_sigma
+      // rounded and the bf16 sigma weights
+      wg_chain_trunk<WP, NS, SLOT>(
+          L, acc, abuf, abuf_a, mbuf, ring_a, full, empty, rg, leader, warp,
+          lane, wtid, r0, cq, rd, bac, a.wsv, bf16_round(pa[pj + r0]),
+          bf16_round(pa[pj + r0 + 8]), wg_sync,
+          [&]() {
+            mbar_wait(&mfull[g], mph);
+            mph ^= 1;
+          },
+          [&](int i) {
+            mbar_expect_tx(&mfull[g], (WP / 64) * A_SLICE);
+            for (int k = 0; k < WP / 64; ++k)
+              tma_load_3d(mbuf + k * A_SLICE, &smap, &mfull[g],
+                          i * WP + 64 * k, sb, ray);
+          },
+          [&](int i) { store_dz(abuf, WP / 64, i * WP); });
     }
 
     // ---- the ray's direction-layer sums: the bias, and the ray's summed

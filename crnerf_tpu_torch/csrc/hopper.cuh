@@ -357,10 +357,13 @@ EncodeTiledFn encode_tiled() {
 
 // A row-major tensor of ``rank`` dimensions (dims innermost first, each
 // row of dims[0] elements contiguous) and a box of ``box`` elements,
-// 128-byte swizzle, zero fill out of range. Returns 0 or a CUresult.
+// 128-byte swizzle, zero fill out of range. ``strides``: the byte strides
+// of dims 1 .. rank - 1 where rows are longer than dims[0] (a map over the
+// first columns of each row); null for a dense tensor. Returns 0 or a
+// CUresult.
 int encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
                const void* base, int rank, const long long* dims,
-               const int* box) {
+               const int* box, const long long* strides = nullptr) {
   EncodeTiledFn fn = encode_tiled();
   if (!fn) return (int)cudaErrorNotSupported;
   cuuint64_t gdim[5], gstride[4];
@@ -370,7 +373,8 @@ int encode_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
     gdim[i] = (cuuint64_t)dims[i];
     bdim[i] = (cuuint32_t)box[i];
     estride[i] = 1;
-    if (i > 0) gstride[i - 1] = (cuuint64_t)stride;
+    if (i > 0) gstride[i - 1] = (cuuint64_t)(strides ? strides[i - 1]
+                                                     : stride);
     stride *= dims[i];
   }
   return (int)fn(map, type, (cuuint32_t)rank, const_cast<void*>(base), gdim,

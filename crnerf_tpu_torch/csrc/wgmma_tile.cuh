@@ -1,14 +1,18 @@
 // What the wgmma kernels of the NeRF MLP share (fused_render_fwd_wgmma.cuh,
 // the fused render's forward; fused_render_bwd_wgmma.cuh, its backward's dz
-// chain; fused_mlp_fwd_wgmma.cuh, the per-point forward): a persistent CTA
-// of two consumer warpgroups, 64 rows each, and a producer warpgroup whose
-// one lane streams every product's B operand, pre-packed on the host as
-// 64-deep K-slices (ops/fused_render.py pack_wgmma_b), through an mbarrier
-// ring of weight slots; the warpgroup's activation buffers as
+// chain; fused_mlp_fwd_wgmma.cuh, the per-point forward;
+// fused_mlp_bwd_wgmma.cuh, the per-point backward's dz chain): a persistent
+// CTA of two consumer warpgroups, 64 rows each, and a producer warpgroup
+// whose one lane streams every product's B operand, pre-packed on the host
+// as 64-deep K-slices (ops/fused_render.py pack_wgmma_b), through an
+// mbarrier ring of weight slots; the warpgroup's activation buffers as
 // 128-byte-swizzled, K-major 64-column slices of 64 rows, which are at once
 // wgmma's A operand and the image of a SWIZZLE_128B tensor-map box; the
-// product loop over the ring; and what the two forwards share: the encode
-// of a warpgroup's rows, the trunk, and the producer's program for it.
+// product loop over the ring; what the forwards share: the encode of a
+// warpgroup's rows, the trunk, and the producer's program for it; what the
+// per-point kernels share: the fp32 sigma head; and what the two chains
+// share: the layout of their weight stream, its producer, the masked dz
+// epilogue with its fixed-order column sums, and the walk down the trunk.
 
 #pragma once
 
@@ -117,13 +121,18 @@ __device__ __forceinline__ void zero_acc(float (&d)[R]) {
 // tensor map with 64-column x 64-row boxes of one ray, 128-byte swizzle:
 // a box is one A_SLICE; rows past s and columns past cols are zero-filled
 // on a load and not written on a store, so a warpgroup's 64 rows never
-// reach the next ray. Returns 0 or a CUresult.
-int ray_rows_map(CUtensorMap* map, const void* base, int n, int s,
-                 int cols) {
+// reach the next ray. ``ld``: the row's length in elements where it is
+// longer than ``cols`` (the map then covers each row's first cols
+// columns); 0: cols. The per-point kernels take n = 1 and s points.
+// Returns 0 or a CUresult.
+int ray_rows_map(CUtensorMap* map, const void* base, int n, int s, int cols,
+                 int ld = 0) {
+  const long long row = 2LL * (ld > 0 ? ld : cols);
   const long long dims[3] = {cols, s, n};
+  const long long strides[2] = {row, row * s};
   const int box[3] = {64, WG_ROWS, 1};
   return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, 3, dims,
-                    box);
+                    box, strides);
 }
 
 // ------------------------------------------------ what the forwards share
@@ -234,6 +243,162 @@ __device__ __forceinline__ const uint8_t* wg_put_trunk(const uint8_t* p,
     for (int k = 0; k < nk; ++k, p += SLOT) put(p, SLOT);
   }
   return p;
+}
+
+// ------------------------------------------------ what the chains share
+// Byte offsets in the chains' weight stream (ops/fused_render.py
+// _stream_index, form "chain"): the sigma columns (WP / 64 slices of
+// SIG_N x 64), the feature head as the forward takes it, then W^T of the
+// feature head, the dir layer's hidden rows, the final layer and the trunk
+// layers L-1 .. 1, in the order the chains take them.
+template <int WP, int HP, int CP>
+struct ChainStream {
+  static constexpr uint32_t WC = (WP / 64) * SIG_N * 128;
+  static constexpr uint32_t WCT = WC + (HP / 64) * CP * 128;
+  static constexpr uint32_t WDHT = WCT + (CP / 64) * HP * 128;
+  static constexpr uint32_t WFT = WDHT + (HP / 64) * WP * 128;
+};
+
+// The producer lane's copies: n slices of ``bytes`` each from byte ``off``
+// of the stream into the ring; one copy site and no unrolling (the
+// producer warpgroup has 40 registers a thread).
+template <int NS, int SLOT>
+__device__ __forceinline__ void wg_put_run(const uint8_t* wpack, uint32_t off,
+                                           int n, uint32_t bytes,
+                                           uint8_t* ring, uint64_t* full,
+                                           uint64_t* empty, Ring& rg) {
+#pragma unroll 1
+  for (int k = 0; k < n; ++k, off += bytes) {
+    mbar_wait(&empty[rg.s], rg.ph ^ 1);
+    mbar_expect_tx(&full[rg.s], bytes);
+    bulk_load(ring + rg.s * SLOT, wpack + off, bytes, &full[rg.s]);
+    rg.next<NS>();
+  }
+}
+
+// the four warps' column sums (rd, after a warpgroup barrier) onto dst, in
+// warp order
+__device__ __forceinline__ void add_colsums(const float* rd, int n,
+                                            float* dst, int wtid) {
+  for (int c = wtid; c < n; c += 128)
+    dst[c] += (rd[c] + rd[n + c]) + (rd[2 * n + c] + rd[3 * n + c]);
+}
+
+// columns c, c + 1 summed over the warp's 16 rows (the thread's two rows
+// in s0, s1) into rdw[c], rdw[c + 1]
+__device__ __forceinline__ void warp_colsum(float s0, float s1, float* rdw,
+                                            int c, int lane) {
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+  }
+  if (lane < 4) {
+    rdw[c] = s0;
+    rdw[c + 1] = s1;
+  }
+}
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// The chains' epilogue of one N-wide product on a warpgroup's rows: each
+// value of acc, plus ds_r * wtop[c] where wtop is given (the sigma branch
+// of the final layer), zeroed where the mask buffer's entry is not > 0
+// (with a mask buffer: a ReLU's output), rounded to bf16 into ``out`` as
+// the next product's A, its unrounded fp32 value summed per column over
+// the warp's rows into rdw (the caller adds the warps in order).
+template <int N>
+__device__ __forceinline__ void wg_dz_epilogue(const float (&acc)[N / 2],
+                                               uint8_t* out,
+                                               const uint8_t* mask,
+                                               const float* wtop, float ds0,
+                                               float ds1, float* rdw, int r0,
+                                               int cq, int lane) {
+#pragma unroll
+  for (int nb = 0; nb < N / 8; ++nb) {
+    const int c = nb * 8 + cq;
+    float v0 = acc[nb * 4], v1 = acc[nb * 4 + 1];
+    float v2 = acc[nb * 4 + 2], v3 = acc[nb * 4 + 3];
+    if (wtop != nullptr) {
+      const float w0 = wtop[c], w1 = wtop[c + 1];
+      v0 += ds0 * w0;
+      v1 += ds0 * w1;
+      v2 += ds1 * w0;
+      v3 += ds1 * w1;
+    }
+    if (mask != nullptr) {
+      const __nv_bfloat162 m0 = ld_bf16x2(mask, r0, c);
+      const __nv_bfloat162 m1 = ld_bf16x2(mask, r0 + 8, c);
+      v0 = __low2float(m0) > 0.f ? v0 : 0.f;
+      v1 = __high2float(m0) > 0.f ? v1 : 0.f;
+      v2 = __low2float(m1) > 0.f ? v2 : 0.f;
+      v3 = __high2float(m1) > 0.f ? v3 : 0.f;
+    }
+    st_bf16x2(out, r0, c, v0, v1);
+    st_bf16x2(out, r0 + 8, c, v2, v3);
+    warp_colsum(v0 + v2, v1 + v3, rdw, c, lane);
+  }
+}
+
+// The chains' walk down the trunk on a warpgroup's 64 rows, dz in abuf (the
+// warpgroup's WP-column buffer, holding dhf on entry): dz_{L-1} = (h_{L-1} >
+// 0) * (dhf @ W_f^T + ds_r w_sigma^T), then dz_i = (h_i > 0) * (dz_{i+1} @
+// W_{i+1}^T) down to dz_0, each product over the ring, each epilogue
+// (wg_dz_epilogue) masked by h_i in mbuf (h_{L-1} there on entry) and its
+// column sums added in warp order onto bac + i WP. store_dz(i) stores dz_i
+// from abuf while the next product runs (one lane, TMA); load_h(i) loads
+// h_i into mbuf during that product and wait_h() waits for it.
+template <int WP, int NS, int SLOT, class Sync, class WaitH, class LoadH,
+          class Store>
+__device__ __forceinline__ void wg_chain_trunk(
+    int L, float (&acc)[WP / 2], uint8_t* abuf, uint32_t abuf_a,
+    const uint8_t* mbuf, uint32_t ring_a, uint64_t* full, uint64_t* empty,
+    Ring& rg, bool leader, int warp, int lane, int wtid, int r0, int cq,
+    float* rd, float* bac, const float* wsig, float ds0, float ds1,
+    Sync wg_sync, WaitH wait_h, LoadH load_h, Store store_dz) {
+  for (int i = L - 1; i >= 0; --i) {
+    const bool top = i == L - 1;
+    zero_acc(acc);
+    wg_product<WP, NS, SLOT>(
+        acc, WP / 64, [&](int kc) { return abuf_a + kc * A_SLICE; }, ring_a,
+        full, empty, rg, leader);
+    if (leader) bulk_wait_read();
+    if (!top) wait_h();   // h_i, loaded during the product
+    wg_sync();
+    wg_dz_epilogue<WP>(acc, abuf, mbuf, top ? wsig : nullptr, ds0, ds1,
+                       rd + warp * WP, r0, cq, lane);
+    fence_proxy_async();
+    wg_sync();
+    add_colsums(rd, WP, bac + i * WP, wtid);
+    store_dz(i);
+    if (i > 0 && leader) load_h(i - 1);   // for the next epilogue
+  }
+}
+
+// ------------------------------------------ what the per-point kernels share
+// The per-point MLP's sigma head in fp32 on the unrounded fp32 sigma row:
+// z[r] = buf[r] . wsrow + bs for a warpgroup's 64 rows of the swizzled
+// buffer buf (h_{L-1}), warp w its 16 rows, lane l the columns l, l + 32,
+// .., a shuffle tree: the mma.sync kernel's order (fused_mlp_fwd.cuh
+// rowdot_f32).
+template <int WP>
+__device__ __forceinline__ void wg_sigma_rows(const uint8_t* buf,
+                                              const float* wsrow, float bs,
+                                              float* z, int warp, int lane) {
+  for (int r = warp * 16; r < warp * 16 + 16; ++r) {
+    float s = 0.f;
+#pragma unroll
+    for (int k = lane; k < WP; k += 32)
+      s += __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+               buf + sw_off(r, k))) *
+           __ldg(wsrow + k);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane == 0) z[r] = s + bs;
+  }
 }
 
 }  // namespace

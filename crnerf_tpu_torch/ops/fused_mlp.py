@@ -40,10 +40,14 @@ The forward has two kernels for the same function, chosen by shape before
 the launch (``mlp_variant``): at bf16 and the served MLPs' widths (WP 256,
 HP 128, CP 64) the wgmma kernel (``csrc/fused_mlp_fwd_wgmma.cuh``: the
 fused render's wgmma body, TMA-streamed weights, 128-point tiles), else
-the mma.sync one. The forward of training asks for the mma.sync kernel
-(``variant="mma"``), whose stash form its backward recomputes. Each
-variant counts its launches apart (``LAUNCH_COUNTS``: the mma.sync
-forward's under ``fused_mlp_fwd_mma``).
+the mma.sync one. So has the backward (``mlp_bwd_variant``: the wgmma
+forward's shape with at most ``WGMMA_CHAIN_MAX_L`` trunk layers): its
+wgmma slabs run the wgmma forward's stash instance and the wgmma chain
+(``csrc/fused_mlp_bwd_wgmma.cuh``), its mma.sync slabs the mma.sync pair.
+The forward of training asks for the backward's variant, whose stash form
+the backward recomputes: the recomputed masks are the forward's bits.
+Each variant counts its launches apart (``LAUNCH_COUNTS``: the mma.sync
+kernels' under ``fused_mlp_fwd_mma`` and ``fused_mlp_bwd_mma``).
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ import torch
 
 from crnerf_tpu_torch.models.nerf_mlp import softplus
 from crnerf_tpu_torch.ops.fused_render import (
+    WGMMA_CHAIN_MAX_L,
     WGMMA_DIR_K,
     WGMMA_KE,
     GradLayout,
@@ -68,6 +73,7 @@ from crnerf_tpu_torch.ops.fused_render import (
     _mm,
     _round_up,
     _served_widths,
+    _sm_count,
     _stream,
     _wgrad_plan,
     bwd_wgrad_plain,
@@ -78,13 +84,15 @@ from crnerf_tpu_torch.ops.fused_render import (
     prepare_kernel_weights,
     sincos_encode,
     unflatten_params,
+    wgmma_chain_weights,
 )
 
 # launches of each kernel, counted by its wrapper where it launches
 LAUNCH_COUNTS: Dict[str, int] = {
-    "fused_mlp_fwd": 0,     # forward, wgmma (inference at the served widths)
-    "fused_mlp_fwd_mma": 0,  # forward, mma.sync (and the forward of training)
-    "fused_mlp_bwd": 0,     # recompute backward: every slab, one count
+    "fused_mlp_fwd": 0,      # forward, wgmma (the served widths, bf16)
+    "fused_mlp_fwd_mma": 0,  # forward, mma.sync (fp32, other widths)
+    "fused_mlp_bwd": 0,      # recompute backward, wgmma: every slab, one
+    "fused_mlp_bwd_mma": 0,  # recompute backward, mma.sync
 }
 
 # Scratch of the backward: the slab's stash and dz buffer together stay under
@@ -224,6 +232,29 @@ def mlp_variant(dims: Dict[str, int]) -> str:
     return "wgmma" if fits else "mma"
 
 
+def mlp_bwd_variant(dims: Dict[str, int]) -> str:
+    """The backward's kernels for a layout's dimensions, and so the
+    training forward's, whose bits the backward's slabs recompute: "wgmma"
+    (the wgmma forward's stash instance and the wgmma chain a slab) where
+    the wgmma forward takes the shape (``mlp_variant``) and the trunk has
+    at most ``WGMMA_CHAIN_MAX_L`` layers (the chain's sums' shared
+    memory), else "mma" (the mma.sync pair, forward included)."""
+    fits = mlp_variant(dims) == "wgmma" and dims["L"] <= WGMMA_CHAIN_MAX_L
+    return "wgmma" if fits else "mma"
+
+
+def _pick(variant: Optional[str], chosen: str, what: str, dims) -> str:
+    """``variant`` checked against the shape's choice: None takes it;
+    "wgmma" raises where the shape does not take the wgmma kernels."""
+    variant = chosen if variant is None else variant
+    if variant not in ("wgmma", "mma"):
+        raise ValueError(f"variant {variant!r}: 'wgmma' or 'mma'")
+    if variant == "wgmma" and chosen != "wgmma":
+        raise ValueError(f"the wgmma fused MLP {what} does not take dims "
+                         f"{dims}")
+    return variant
+
+
 def wgmma_mlp_weights(mkw: MlpKernelWeights) -> torch.Tensor:
     """The wgmma forward's weight stream (``fused_render._stream_index``,
     form "mlp": the trunk, the final layer, the dir layer's hidden rows
@@ -360,11 +391,14 @@ def mlp_chain_plain(mkw: MlpKernelWeights, stash, g_feat, g_sigma):
 
 
 def slab_points_for(mkw: MlpKernelWeights, m: int, device=None,
-                    budget: int = BWD_SCRATCH_BYTES) -> int:
+                    budget: int = BWD_SCRATCH_BYTES,
+                    variant: Optional[str] = None) -> int:
     """Points per slab of the backward over m points: as many as keep the
     slab's stash and dz buffer under ``budget`` bytes, whatever m is; on a
-    card, a whole number of the chain kernel's grids of 64-point tiles
-    when it is more than one."""
+    card, a whole number of the chain kernel's waves when it is more than
+    one: the mma.sync chain's grids of 64-point tiles, or for the wgmma
+    variant (``variant``, default ``mlp_bwd_variant``'s) the wgmma
+    kernels' waves of 128-point tiles, one CTA an SM."""
     kw = mkw.kw
     lay = mlp_grad_layout(kw.dims)
     per_point = (lay.sc + lay.dc) * (2 if kw.dims["BF16"] else 4)
@@ -372,7 +406,10 @@ def slab_points_for(mkw: MlpKernelWeights, m: int, device=None,
     if p >= m:
         return m
     if device is not None and torch.device(device).type == "cuda":
-        wave = 64 * _chain_grid(kw, p, device)[0]
+        if (variant or mlp_bwd_variant(kw.dims)) == "wgmma":
+            wave = 128 * _sm_count(device)
+        else:
+            wave = 64 * _chain_grid(kw, p, device)[0]
         if p > wave:
             p -= p % wave
     return p
@@ -438,7 +475,8 @@ def _lib_fwd():
 def _lib_bwd():
     from crnerf_tpu_torch.ops import _build
 
-    return _build.load("fused_mlp_bwd.cu", {"crnerf_mlp_bwd": _C_ARGS})
+    return _build.load("fused_mlp_bwd.cu", {"crnerf_mlp_bwd": _C_ARGS,
+                                            "crnerf_mlp_bwd_wgmma": _C_ARGS})
 
 
 def _fwd_weights(mkw: MlpKernelWeights):
@@ -463,33 +501,34 @@ def _check_points(mkw: MlpKernelWeights, xyz, dirs, dir_rep: int,
 
 def mlp_fwd(mkw: MlpKernelWeights, xyz, dirs, exact_encode: bool = True,
             dir_rep: int = 1, p_base: int = 0,
-            variant: Optional[str] = None):
-    """-> (features (M, C) f32, sigma (M,) f32): the plain version for CPU
-    tensors, the kernel for CUDA tensors. ``p_base``: the index of xyz[0]
-    among the points ``dirs`` cover (point p's direction is dirs[(p_base
-    + p) // dir_rep]). ``variant``: the kernel, "wgmma" or "mma"; None
-    takes ``mlp_variant``'s by shape. The forward of training and the
-    checks that compare with the mma.sync kernel name it; "wgmma" raises
-    where that kernel does not take the shape."""
+            variant: Optional[str] = None, stash: bool = False):
+    """-> (features (M, C) f32, sigma (M,) f32), and with ``stash`` also
+    the stash (M, SC) at the compute dtype (``mlp_grad_layout``): the
+    plain version for CPU tensors, the kernel for CUDA tensors (the stash
+    from its stash instance, which the backward's slabs run). ``p_base``:
+    the index of xyz[0] among the points ``dirs`` cover (point p's
+    direction is dirs[(p_base + p) // dir_rep]). ``variant``: the kernel,
+    "wgmma" or "mma"; None takes ``mlp_variant``'s by shape. The forward
+    of training names ``mlp_bwd_variant``'s, and the checks that compare
+    the two kernels name theirs; "wgmma" raises where that kernel does not
+    take the shape."""
     kw = mkw.kw
-    chosen = mlp_variant(kw.dims)
-    variant = chosen if variant is None else variant
-    if variant not in ("wgmma", "mma"):
-        raise ValueError(f"variant {variant!r}: 'wgmma' or 'mma'")
-    if variant == "wgmma" and chosen != "wgmma":
-        raise ValueError(f"the wgmma fused MLP does not take dims {kw.dims}")
+    variant = _pick(variant, mlp_variant(kw.dims), "forward", kw.dims)
     if xyz.device.type == "cpu":
         return mlp_fwd_plain(mkw, xyz, dirs, exact_encode, dir_rep,
-                             p_base=p_base)
+                             stash=stash, p_base=p_base)
     if xyz.device.type != "cuda":
         raise ValueError(f"no fused MLP for device {xyz.device}")
     m, dev = _check_points(mkw, xyz, dirs, dir_rep, p_base)
+    lay = mlp_grad_layout(kw.dims)
     feat = torch.empty((m, kw.dims["C"]), dtype=torch.float32, device=dev)
     sigma = torch.empty((m,), dtype=torch.float32, device=dev)
+    st = (torch.empty((m, lay.sc), dtype=kw.compute_dtype, device=dev)
+          if stash else None)
     dims = dict(kw.dims, M=m, R=dir_rep, p_base=p_base,
                 DKP=_round_up(kw.dims["DK"], 16), exact=int(exact_encode),
-                SC=mlp_grad_layout(kw.dims).sc)
-    tensors = [xyz, dir_block(kw, dirs, exact_encode), feat, sigma, None,
+                SC=lay.sc)
+    tensors = [xyz, dir_block(kw, dirs, exact_encode), feat, sigma, st,
                *_fwd_weights(mkw)]
     if variant == "wgmma":
         _call(_lib_fwd(), "crnerf_mlp_fwd_wgmma",
@@ -498,7 +537,7 @@ def mlp_fwd(mkw: MlpKernelWeights, xyz, dirs, exact_encode: bool = True,
     else:
         _call(_lib_fwd(), "crnerf_mlp_fwd", tensors, dims, _FWD_DIMS, dev)
         LAUNCH_COUNTS["fused_mlp_fwd_mma"] += 1
-    return feat, sigma
+    return (feat, sigma, st) if stash else (feat, sigma)
 
 
 def fused_mlp_apply(
@@ -518,26 +557,34 @@ def fused_mlp_apply(
 
 def mlp_bwd(mkw: MlpKernelWeights, xyz, dirs, g_feat, g_sigma,
             exact_encode: bool = True, dir_rep: int = 1,
-            slab_points: Optional[int] = None):
+            slab_points: Optional[int] = None,
+            variant: Optional[str] = None):
     """The backward kernel (``mlp_bwd_slabs_plain`` on CPU tensors) -> (gw
     (WT,), gb (BT,), the scratch (stash, dz buffer) as the last slab left
     it). One call walks every slab; the scratch holds ``slab_points``
-    points (default ``slab_points_for``) whatever M is."""
+    points (default ``slab_points_for``) whatever M is. ``variant``: the
+    kernels, "wgmma" or "mma"; None takes ``mlp_bwd_variant``'s by shape;
+    "wgmma" raises where those kernels do not take the shape."""
+    kw = mkw.kw
+    variant = _pick(variant, mlp_bwd_variant(kw.dims), "backward", kw.dims)
     if xyz.device.type == "cpu":
         return mlp_bwd_slabs_plain(mkw, xyz, dirs, g_feat, g_sigma,
                                    exact_encode, dir_rep, slab_points)
     if xyz.device.type != "cuda":
         raise ValueError(f"no fused MLP for device {xyz.device}")
-    kw = mkw.kw
     dt = kw.compute_dtype
     m, dev = _check_points(mkw, xyz, dirs, dir_rep)
     lay = mlp_grad_layout(kw.dims)
     _check("g_feat", g_feat, (m, kw.dims["C"]), dev)
     _check("g_sigma", g_sigma, (m,), dev)
-    p = min(m, slab_points or slab_points_for(mkw, m, dev))
+    p = min(m, slab_points
+            or slab_points_for(mkw, m, dev, variant=variant))
     if p < 1:
         raise ValueError(f"slab of {p} points")
-    grid = min(-(-p // 64), _chain_grid(kw, p, dev)[0])
+    if variant == "wgmma":
+        grid = min(-(-p // 128), _sm_count(dev))
+    else:
+        grid = min(-(-p // 64), _chain_grid(kw, p, dev)[0])
     tiles, splits, m_per = _wgrad_plan(kw, p, dev, lay)
     stash = torch.empty((p, lay.sc), dtype=dt, device=dev)
     dzbuf = torch.empty((p, lay.dc), dtype=dt, device=dev)
@@ -549,11 +596,18 @@ def mlp_bwd(mkw: MlpKernelWeights, xyz, dirs, g_feat, g_sigma,
                 exact=int(exact_encode), SC=lay.sc, DC=lay.dc, grid=grid,
                 WT=lay.wt, n_tiles=tiles.shape[0], splits=splits,
                 m_per=m_per, P=p)
-    _call(_lib_bwd(), "crnerf_mlp_bwd",
-          [xyz, dir_block(kw, dirs, exact_encode), g_feat, g_sigma, stash,
-           dzbuf, bpart, gb, tiles, part, gw, *_chain_weights(kw)[1:],
-           *_fwd_weights(mkw)], dims, _BWD_DIMS, dev)
-    LAUNCH_COUNTS["fused_mlp_bwd"] += 1
+    head = [xyz, dir_block(kw, dirs, exact_encode), g_feat, g_sigma, stash,
+            dzbuf, bpart, gb, tiles, part, gw]
+    if variant == "wgmma":
+        _call(_lib_bwd(), "crnerf_mlp_bwd_wgmma",
+              head + [wgmma_chain_weights(kw), wgmma_mlp_weights(mkw),
+                      *_fwd_weights(mkw)], dims, _BWD_DIMS, dev)
+        LAUNCH_COUNTS["fused_mlp_bwd"] += 1
+    else:
+        _call(_lib_bwd(), "crnerf_mlp_bwd",
+              head + [*_chain_weights(kw)[1:], *_fwd_weights(mkw)], dims,
+              _BWD_DIMS, dev)
+        LAUNCH_COUNTS["fused_mlp_bwd_mma"] += 1
     return gw, gb, (stash, dzbuf)
 
 
@@ -561,8 +615,9 @@ def fused_mlp_bwd(mkw: MlpKernelWeights, xyz, dirs, g_feat, g_sigma,
                   exact_encode: bool = True, dir_rep: int = 1,
                   slab_points: Optional[int] = None) -> MlpParams:
     """Gradients of every tensor of ``mkw.kw.params`` from the forward's
-    inputs and the per-point cotangents: the backward kernel on CUDA
-    tensors, its plain version on CPU tensors."""
+    inputs and the per-point cotangents: the backward kernels of
+    ``mlp_bwd_variant`` on CUDA tensors, their plain version on CPU
+    tensors."""
     gw, gb, _ = mlp_bwd(mkw, xyz, dirs, g_feat.float().contiguous(),
                         g_sigma.float().contiguous(), exact_encode, dir_rep,
                         slab_points)
@@ -573,8 +628,10 @@ class FusedMlpTrain(torch.autograd.Function):
     """Counterpart of ``make_fused_mlp_train``. Gradients come back for the
     ``MlpParams`` tensors only; points and directions get none. Nothing
     but the inputs lives from forward to backward. The forward asks for
-    the mma.sync kernel, whose stash form the backward recomputes: the
-    recomputed rows are the forward's bits."""
+    the backward's variant (``mlp_bwd_variant``: at bf16 and the served
+    widths with at most ``WGMMA_CHAIN_MAX_L`` trunk layers the wgmma
+    forward, else the mma.sync one), whose stash form the backward
+    recomputes: the recomputed masks are the forward's bits."""
 
     @staticmethod
     def forward(ctx, xyz, dirs, opts, *flat):
@@ -583,7 +640,7 @@ class FusedMlpTrain(torch.autograd.Function):
         mkw = prepare_mlp_weights(unflatten_params(flat), n_emb_xyz,
                                   n_emb_dir, compute_dtype, skips)
         feat, sigma = mlp_fwd(mkw, xyz, dirs, exact_encode, dir_rep,
-                              variant="mma")
+                              variant=mlp_bwd_variant(mkw.kw.dims))
         ctx.mkw = mkw
         ctx.opts = (exact_encode, dir_rep, slab_points)
         ctx.save_for_backward(xyz, dirs)

@@ -16,7 +16,10 @@ B (xyz-in) as ``fused_render_train(stash=False)`` runs it, with its
 variant (``recompute_variant``) and whether its outputs are the inference
 forward's bits on the same rays; then per case the fused MLP's forward
 (``ops.fused_mlp``) on those rays' sample points, one direction a ray, on
-each variant the case takes (wgmma at bf16 and mma.sync). The kernels have
+each variant the case takes (wgmma at bf16 and mma.sync), and route C's
+training forward (``fused_mlp_train``) with its variant
+(``mlp_bwd_variant``) and whether its outputs are that variant's
+inference forward's bits. The kernels have
 no atomics and a fixed order of sums, so two builds that compute the same
 function print the same digests on the same card: run it in two checkouts
 to show that a change to a kernel's source left its launches
@@ -108,6 +111,18 @@ def main() -> int:
                 torch.cuda.synchronize()
                 print(f"{str(dt)[6:]} exact={exact} fused MLP ({variant}) "
                       f"{_digest(out)}")
+            # route C: the training forward as the autograd Function runs
+            # it, on the backward's variant, beside that variant's
+            # inference forward
+            variant = fm.mlp_bwd_variant(mkw.kw.dims)
+            got = fm.fused_mlp_train(params, xyz, d, 15, 4, dt, exact,
+                                     dir_rep=s)
+            inf = fm.mlp_fwd(mkw, xyz, d, exact, s, variant=variant)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, inf))
+            print(f"{str(dt)[6:]} exact={exact} route C training forward "
+                  f"({variant}; the inference forward's bits: {same}) "
+                  f"{_digest(got)}")
     return 0
 
 

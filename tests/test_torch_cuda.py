@@ -699,29 +699,106 @@ def test_mlp_forward_matches_plain(dev, dt, exact, per_ray, depth, width, c,
 @pytest.mark.parametrize("depth,width,c,s", MLP_SHAPES)
 def test_mlp_backward_matches_plain_on_one_forward(dev, dt, exact, slab,
                                                    depth, width, c, s):
-    """The backward kernel with every point in one slab against the plain
-    chain and weight gradient on the stash it recomputed (GRAD_TOL); twice
-    for the same bits; in slabs of 100 points (which end inside a tile and
-    inside a ray) against one slab, up to the grouping of fp32 sums."""
+    """The backward kernels, each variant the shape takes (mma.sync; at
+    bf16 and the served widths also wgmma), with every point in one slab
+    against the plain chain and weight gradient on the stash they
+    recomputed (GRAD_TOL); twice for the same bits; in slabs of 100 points
+    (which end inside a tile and inside a ray) against one slab, up to the
+    grouping of fp32 sums. Each launch counts under its variant."""
     fm, mkw, xyz, d, g_feat, g_sig = _mlp_case(dev, dt, depth, width, c, s, s)
     m = xyz.shape[0]
     lay = fm.mlp_grad_layout(mkw.kw.dims)
-    before = fm.LAUNCH_COUNTS["fused_mlp_bwd"]
-    gw_1, gb_1, (st, dz) = fm.mlp_bwd(mkw, xyz, d, g_feat, g_sig, exact, s, m)
-    gw_k, gb_k, _ = fm.mlp_bwd(mkw, xyz, d, g_feat, g_sig, exact, s, slab)
-    gw_2, gb_2, _ = fm.mlp_bwd(mkw, xyz, d, g_feat, g_sig, exact, s, slab)
+    variants = ["mma"] + (["wgmma"] if fm.mlp_bwd_variant(mkw.kw.dims)
+                          == "wgmma" else [])
+    for variant in variants:
+        key = "fused_mlp_bwd" if variant == "wgmma" else "fused_mlp_bwd_mma"
+        before = dict(fm.LAUNCH_COUNTS)
+        gw_1, gb_1, (st, dz) = fm.mlp_bwd(mkw, xyz, d, g_feat, g_sig, exact,
+                                          s, m, variant=variant)
+        gw_k, gb_k, _ = fm.mlp_bwd(mkw, xyz, d, g_feat, g_sig, exact, s,
+                                   slab, variant=variant)
+        gw_2, gb_2, _ = fm.mlp_bwd(mkw, xyz, d, g_feat, g_sig, exact, s,
+                                   slab, variant=variant)
+        torch.cuda.synchronize()
+        assert fm.LAUNCH_COUNTS == dict(before, **{key: before[key] + 3})
+        assert torch.equal(gw_k, gw_2) and torch.equal(gb_k, gb_2)
+        dz_p, gb_p = fm.mlp_chain_plain(mkw, st, g_feat, g_sig)
+        gw_p = fr.bwd_wgrad_plain(mkw.kw, st, dz_p, lay)
+        want = fr.flatten_params(fm.unpack_mlp_grads(mkw, gw_p, gb_p))
+        one = fr.flatten_params(fm.unpack_mlp_grads(mkw, gw_1, gb_1))
+        got = fr.flatten_params(fm.unpack_mlp_grads(mkw, gw_k, gb_k))
+        for a, b, k in zip(want, one, got):
+            scale = float(a.abs().max().clamp_min(1e-30))
+            assert float((a - b).abs().max()) <= fm.GRAD_TOL[dt] * scale
+            assert float((b - k).abs().max()) <= 5e-4 * scale
+
+
+def _served_mlp_case(dev, n, s, rep=0, seed=9):
+    """8x256, C 64, bf16 (the wgmma backward's shape): the points of n rays
+    x s samples, a direction a ray (or a point: rep 1), cotangents."""
+    from crnerf_tpu_torch.ops import fused_mlp as fm
+
+    torch.manual_seed(seed)
+    params = fr.mlp_params_from_module(
+        NerfMLP(depth=8, width=256, out_dim=64).to(dev))
+    mkw = fm.prepare_mlp_weights(params, 15, 4, torch.bfloat16)
+    assert fm.mlp_bwd_variant(mkw.kw.dims) == "wgmma"
+    o, d, z, _ = _inputs(dev, n, s)
+    xyz = (o[:, None] + d[:, None] * z[..., None]).reshape(-1, 3).contiguous()
+    rep = rep or s
+    if rep == 1:
+        d = d.repeat_interleave(s, 0).contiguous()
+    g = torch.Generator().manual_seed(seed + 7)
+    g_feat = (torch.randn(n * s, 64, generator=g) * 0.1).to(dev)
+    g_sig = (torch.randn(n * s, generator=g) * 0.1).to(dev)
+    return fm, mkw, xyz, d, rep, g_feat, g_sig
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("n,s,rep", [(37, 20, 0), (999, 77, 0), (300, 64, 1)])
+def test_wgmma_mlp_slab_stash_rows_are_the_forward_bits(dev, exact, n, s,
+                                                        rep):
+    """The wgmma backward's slab stash rows (every point in one slab) are,
+    bit for bit, the wgmma stash forward's, and that forward's features
+    and sigma are the wgmma no-stash forward's (route C's training
+    forward): the stores change nothing, so the slabs recompute the masks
+    the forward used. In slabs of 1000 points the last slab's rows are
+    those points' rows."""
+    fm, mkw, xyz, d, rep, g_feat, g_sig = _served_mlp_case(dev, n, s, rep)
+    m = xyz.shape[0]
+    f0, s0 = fm.mlp_fwd(mkw, xyz, d, exact, rep)
+    f1, s1, st = fm.mlp_fwd(mkw, xyz, d, exact, rep, stash=True)
+    _, _, (st_1, _) = fm.mlp_bwd(mkw, xyz, d, g_feat, g_sig, exact, rep, m)
+    _, _, (st_s, _) = fm.mlp_bwd(mkw, xyz, d, g_feat, g_sig, exact, rep, 1000)
     torch.cuda.synchronize()
-    assert fm.LAUNCH_COUNTS["fused_mlp_bwd"] == before + 3
+    assert torch.equal(f0, f1) and torch.equal(s0, s1)
+    assert torch.equal(st_1, st)
+    last = (m - 1) // 1000 * 1000
+    assert torch.equal(st_s[:m - last], st[last:])
+    # the stash itself: the plain stash forward's rows, up to bf16 steps
+    _, _, st_p = fm.mlp_fwd_plain(mkw, xyz, d, exact, rep, stash=True)
+    diff = (st.float() - st_p.float()).abs()
+    assert float(diff.max()) <= float(st_p.float().abs().max()) / 64
+    assert float((diff > 0).float().mean()) <= 0.02
+
+
+@pytest.mark.parametrize("slab", [100, 1000, 5000])
+def test_wgmma_mlp_slab_size_keeps_the_gradients(dev, slab):
+    """The wgmma backward at other slab sizes than one: the same gradients
+    up to the grouping of the fp32 sums over the points (the bf16 slab
+    bound, 5e-4 of each tensor's largest), and the same bits twice."""
+    fm, mkw, xyz, d, rep, g_feat, g_sig = _served_mlp_case(dev, 101, 99)
+    m = xyz.shape[0]
+    gw_1, gb_1, _ = fm.mlp_bwd(mkw, xyz, d, g_feat, g_sig, False, rep, m)
+    gw_k, gb_k, _ = fm.mlp_bwd(mkw, xyz, d, g_feat, g_sig, False, rep, slab)
+    gw_2, gb_2, _ = fm.mlp_bwd(mkw, xyz, d, g_feat, g_sig, False, rep, slab)
+    torch.cuda.synchronize()
     assert torch.equal(gw_k, gw_2) and torch.equal(gb_k, gb_2)
-    dz_p, gb_p = fm.mlp_chain_plain(mkw, st, g_feat, g_sig)
-    gw_p = fr.bwd_wgrad_plain(mkw.kw, st, dz_p, lay)
-    want = fr.flatten_params(fm.unpack_mlp_grads(mkw, gw_p, gb_p))
     one = fr.flatten_params(fm.unpack_mlp_grads(mkw, gw_1, gb_1))
     got = fr.flatten_params(fm.unpack_mlp_grads(mkw, gw_k, gb_k))
-    for a, b, k in zip(want, one, got):
+    for a, b in zip(one, got):
         scale = float(a.abs().max().clamp_min(1e-30))
-        assert float((a - b).abs().max()) <= fm.GRAD_TOL[dt] * scale
-        assert float((b - k).abs().max()) <= 5e-4 * scale
+        assert float((a - b).abs().max()) <= 5e-4 * scale
 
 
 # the wgmma forward at the shapes of chip_smoke.py's phase 4d: (rays,
@@ -791,29 +868,48 @@ def test_wgmma_mlp_forward_refuses_what_it_does_not_take(dev):
         fm.mlp_fwd(narrow, xyz, d, False, 16, variant="tma")
 
 
-def test_mlp_train_function_on_card_matches_cpu(dev):
-    """fused_mlp_train under autograd, fp32: the card's kernels against
-    the CPU's plain versions from the same inputs (the loose bound)."""
+@pytest.mark.parametrize("dt,exact,depth,width,c,n,s,keys", [
+    (torch.float32, True, 6, 64, 16, 37, 20,
+     ("fused_mlp_fwd_mma", "fused_mlp_bwd_mma")),
+    (torch.bfloat16, False, 3, 256, 64, 1024, 64,
+     ("fused_mlp_fwd", "fused_mlp_bwd")),
+])
+def test_mlp_train_function_on_card_matches_cpu(dev, dt, exact, depth, width,
+                                                c, n, s, keys):
+    """fused_mlp_train under autograd, on each variant (fp32: mma.sync;
+    bf16 at the served widths: wgmma): the card's kernels against the
+    CPU's plain versions from the same inputs (the loose bound: another
+    forward, whose knife-edge ReLUs move a point's whole term, so at bf16
+    enough points that one such term is small beside a gradient's
+    largest); the forward and the backward each launch once, on the
+    backward's variant."""
     from crnerf_tpu_torch.ops import fused_mlp as fm
 
     torch.manual_seed(5)
-    mlp = NerfMLP(depth=6, width=64, out_dim=16)
-    o, d, z, _ = _inputs(torch.device("cpu"), 37, 20)
+    mlp = NerfMLP(depth=depth, width=width, out_dim=c)
+    o, d, z, _ = _inputs(torch.device("cpu"), n, s)
     xyz = (o[:, None] + d[:, None] * z[..., None]).reshape(-1, 3)
     g = torch.Generator().manual_seed(6)
-    g_feat = torch.randn(37 * 20, 16, generator=g) * 0.1
-    g_sig = torch.randn(37 * 20, generator=g) * 0.1
+    g_feat = torch.randn(n * s, c, generator=g) * 0.1
+    g_sig = torch.randn(n * s, generator=g) * 0.1
     grads = {}
     for name, where in (("cpu", torch.device("cpu")), ("card", dev)):
-        m = NerfMLP(depth=6, width=64, out_dim=16)
+        m = NerfMLP(depth=depth, width=width, out_dim=c)
         m.load_state_dict(mlp.state_dict())
         m.to(where)
         p = fr.mlp_params_from_module(m, detach=False)
-        f, s = fm.fused_mlp_train(p, xyz.to(where), d.to(where), dir_rep=20)
-        ((f * g_feat.to(where)).sum() + (s * g_sig.to(where)).sum()).backward()
+        before = dict(fm.LAUNCH_COUNTS)
+        f, sig = fm.fused_mlp_train(p, xyz.to(where), d.to(where),
+                                    compute_dtype=dt, exact_encode=exact,
+                                    dir_rep=s)
+        ((f * g_feat.to(where)).sum()
+         + (sig * g_sig.to(where)).sum()).backward()
+        want = dict(before, **{k: before[k] + 1 for k in keys}) \
+            if name == "card" else before
+        assert fm.LAUNCH_COUNTS == want
         grads[name] = {k: v.grad.cpu() for k, v in m.named_parameters()}
     for k, a in grads["cpu"].items():
-        tol = fm.GRAD_TOL_FROM_INPUTS[torch.float32] * float(a.abs().max())
+        tol = fm.GRAD_TOL_FROM_INPUTS[dt] * float(a.abs().max())
         assert float((grads["card"][k] - a).abs().max()) <= tol, k
 
 

@@ -387,4 +387,5 @@ def test_cpu_tensors_launch_no_kernel(skip_case):
                        torch.from_numpy(_dirs(skip_case, S)), dir_rep=S)
     assert fm.LAUNCH_COUNTS == before == {"fused_mlp_fwd": 0,
                                           "fused_mlp_fwd_mma": 0,
-                                          "fused_mlp_bwd": 0}
+                                          "fused_mlp_bwd": 0,
+                                          "fused_mlp_bwd_mma": 0}

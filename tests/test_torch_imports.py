@@ -32,7 +32,7 @@ for needed in ("train.step", "train.losses", "train.optim", "train.state",
                "tools.spike_packed_conv", "tools.spike_kernel_sincos",
                "ops.pipe_render", "ops.sublane_stores",
                "tools.spike_interleave", "tools.spike_sublane_stores",
-               "tools.tf32_ab"):
+               "tools.tf32_ab", "tools.draw_spread"):
     assert "crnerf_tpu_torch." + needed in names, needed
 import chip_smoke
 chip_smoke.serve_config()
@@ -156,6 +156,19 @@ def test_spike_tool_stops_without_a_card(tool):
         env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert "no CUDA device" in out.stderr and "--device cpu" in out.stderr
+    assert out.stdout == ""
+
+
+@pytest.mark.parametrize("check", ["recompute", "slabs"])
+def test_draw_spread_stops_without_a_card(check):
+    """The check-spread tool measures on the card only: without one it
+    stops at start and prints no result."""
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "-m", "crnerf_tpu_torch.tools.draw_spread", check],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert "needs a CUDA device" in out.stderr
     assert out.stdout == ""
 
 

@@ -148,8 +148,9 @@ def test_route_per_leaf_gradients_match(route):
 
 
 def test_route_runs_what_the_config_selects(route):
-    """pallas_render=False: one fused-MLP forward (naming the mma.sync
-    kernel, whose stash form the backward recomputes) and one backward per
+    """pallas_render=False: one fused-MLP forward (naming the backward's
+    variant, whose stash form the backward recomputes: mma.sync at this
+    fp32 config) and one backward per
     pass, per point over all G*B rays with one direction per ray, and no
     fused render; pallas_train=False: the module twice and no kernel
     wrapper at all."""

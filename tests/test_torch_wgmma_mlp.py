@@ -4,8 +4,8 @@ ops/fused_render.py) on the CPU: the fused MLP's wgmma weight stream, its
 dir-encode slice included, unpacks to the padded matrices bit for bit;
 each variant is chosen by dtype and width (the recompute's also by depth
 and samples); both forward variants give the plain version on CPU tensors
-and launch nothing; the forward of training asks for the mma.sync kernel
-and packs no stream; the wgmma recompute's slab is a whole number of
+and launch nothing; the forward of training asks for the backward's
+variant and packs no stream; the wgmma recompute's slab is a whole number of
 waves; and, at the served widths (WP 256, HP 128, CP 64, depth 3), the
 per-point forward against the JAX package's fused_mlp_apply and the
 no-stash pair (forward and recompute backward) against
@@ -132,7 +132,7 @@ def test_both_mlp_variants_give_the_plain_version_on_cpu():
         assert torch.equal(s, want[1][p_base:])
     assert fm.LAUNCH_COUNTS == before
     assert set(before) == {"fused_mlp_fwd", "fused_mlp_fwd_mma",
-                           "fused_mlp_bwd"}
+                           "fused_mlp_bwd", "fused_mlp_bwd_mma"}
     assert mkw.kw.derived == {}     # the plain version needs no stream
     with pytest.raises(ValueError, match="'wgmma' or 'mma'"):
         fm.mlp_fwd(mkw, xyz, d, False, 70, variant="tma")
@@ -143,15 +143,20 @@ def test_both_mlp_variants_give_the_plain_version_on_cpu():
         fm.mlp_fwd(mkw32, xyz, d, False, 70, variant="wgmma")
 
 
-def test_mlp_training_forward_asks_for_the_mma_kernel(monkeypatch):
-    """fused_mlp_train's forward names the mma.sync kernel, whose stash
-    form its backward recomputes, at the served widths too; nothing packs
+@pytest.mark.parametrize("dt,want", [(torch.bfloat16, "wgmma"),
+                                      (torch.float32, "mma")])
+def test_mlp_training_forward_asks_for_the_backward_variant(monkeypatch, dt,
+                                                            want):
+    """fused_mlp_train's forward names the kernel whose stash form its
+    backward recomputes (mlp_bwd_variant): at the served widths the wgmma
+    one at bf16 and the mma.sync one at fp32; on CPU tensors nothing packs
     a wgmma stream."""
     seen = []
     real = fm.mlp_fwd
 
     def spy(mkw, *args, **kwargs):
-        seen.append((mkw, kwargs.get("variant"), fm.mlp_variant(mkw.kw.dims)))
+        seen.append((mkw, kwargs.get("variant"),
+                     fm.mlp_bwd_variant(mkw.kw.dims)))
         return real(mkw, *args, **kwargs)
 
     monkeypatch.setattr(fm, "mlp_fwd", spy)
@@ -159,10 +164,10 @@ def test_mlp_training_forward_asks_for_the_mma_kernel(monkeypatch):
     m = NerfMLP(depth=3, width=256, out_dim=64)
     xyz, d = _points(4, 16)
     f, s = fm.fused_mlp_train(fr.mlp_params_from_module(m, detach=False),
-                              xyz, d, compute_dtype=torch.bfloat16,
+                              xyz, d, compute_dtype=dt,
                               exact_encode=False, dir_rep=16)
     (f.sum() + s.sum()).backward()
-    assert [(v, r) for _, v, r in seen] == [("mma", "wgmma")]
+    assert [(v, r) for _, v, r in seen] == [(want, want)]
     assert seen[0][0].kw.derived == {}
     assert m.trunk(0).weight.grad is not None
 
