@@ -253,17 +253,18 @@ def read_counts():
     return {k: v for counts in _counters() for k, v in counts.items()}
 
 
-def full_width_params(seed: int, device):
-    """Seeded 8x256, C=64 NerfMLP weights (PyTorch's default init) in the
-    kernel's (in, out) layout."""
+def full_width_params(seed: int, device, depth: int = 8, width: int = 256,
+                      c: int = 64):
+    """Seeded NerfMLP weights (PyTorch's default init) in the kernel's (in,
+    out) layout: 8x256, C=64 unless named."""
     import torch
 
     from crnerf_tpu_torch.models.nerf_mlp import NerfMLP
     from crnerf_tpu_torch.ops.fused_render import mlp_params_from_module
 
     torch.manual_seed(seed)
-    return mlp_params_from_module(NerfMLP(depth=8, width=256,
-                                          out_dim=64).to(device))
+    return mlp_params_from_module(NerfMLP(depth=depth, width=width,
+                                          out_dim=c).to(device))
 
 
 # the wgmma kernels of the NeRF MLP, by the name ptxas reports: phase 2
@@ -271,9 +272,11 @@ def full_width_params(seed: int, device):
 # both forms, in fused_render_fwd.cu and in the recompute's library; its
 # chain, in fused_render_bwd.cu and the recompute's; the fused MLP's
 # forward, both forms, in fused_mlp_fwd.cu and fused_mlp_bwd.cu; the fused
-# MLP's chain)
+# MLP's chain; K2's weight gradient, in the three backward libraries; the
+# ping-pong S2, in pipe_render_fwd.cu)
 WGMMA_KERNELS = ("render_fwd_wgmma_kernel", "render_bwd_chain_wgmma_kernel",
-                 "mlp_fwd_wgmma_kernel", "mlp_bwd_chain_wgmma_kernel")
+                 "mlp_fwd_wgmma_kernel", "mlp_bwd_chain_wgmma_kernel",
+                 "wgrad_wgmma_kernel", "pipe_render_wgmma_kernel")
 
 
 def phase_build():
@@ -897,8 +900,9 @@ def profile_step(state, step, batch, out_dir, step_ms: float):
               ("mlp_bwd_chain_wgmma_kernel",)),
              ("K4 chain mma.sync mlp_bwd_chain_kernel",
               ("mlp_bwd_chain_kernel",)),
-             ("wgrad_bf16_kernel + reduce_partials",
-              ("wgrad_bf16_kernel", "wgrad_f32_kernel",
+             ("K2 weight gradient wgrad_wgmma_kernel (or the mma.sync / "
+              "fp32 one) + reduce_partials",
+              ("wgrad_wgmma_kernel", "wgrad_bf16_kernel", "wgrad_f32_kernel",
                "reduce_partials_kernel")),
              ("convolutions (cuDNN)", ("conv", "cudnn", "wgrad", "dgrad",
                                        "implicit_gemm", "xmma", "cutlass")),
@@ -957,26 +961,57 @@ SMALL_STEP_TOL = dict(loss=1e-4, delta=1e-3)
 # The training routes: Config fields that select them, the kernels one
 # pass of the flagship step launches (forward, then backward: bf16 at the
 # served widths) and those one pass of the small fp32 step launches (the
-# mma.sync variants).
+# mma.sync variants and the fp32 weight gradient). K2's weight gradient runs
+# in every route's backward: once a pass on the stash route, once a slab
+# inside the recompute backwards (``slab_launches``); at bf16 the wgmma
+# kernel, one slab a pass in the small fp32 steps.
 ROUTES = {
     "stash": (dict(), ("fused_render_fwd_stash", "fused_render_bwd",
                        "fused_render_bwd_wgrad"),
               ("fused_render_fwd_stash_mma", "fused_render_bwd_mma",
-               "fused_render_bwd_wgrad")),
+               "fused_render_bwd_wgrad_fp32")),
     "pallas_stash=False": (dict(pallas_stash=False),
                            ("fused_render_fwd",
-                            "fused_render_bwd_recompute"),
+                            "fused_render_bwd_recompute",
+                            "fused_render_bwd_wgrad"),
                            ("fused_render_fwd_mma",
-                            "fused_render_bwd_recompute_mma")),
+                            "fused_render_bwd_recompute_mma",
+                            "fused_render_bwd_wgrad_fp32")),
     "pertube_cord=True": (dict(pertube_cord=True),
                           ("fused_render_fwd_xyz",
-                           "fused_render_bwd_recompute_xyz"),
+                           "fused_render_bwd_recompute_xyz",
+                           "fused_render_bwd_wgrad"),
                           ("fused_render_fwd_xyz_mma",
-                           "fused_render_bwd_recompute_xyz_mma")),
+                           "fused_render_bwd_recompute_xyz_mma",
+                           "fused_render_bwd_wgrad_fp32")),
     "pallas_render=False": (dict(pallas_render=False),
-                            ("fused_mlp_fwd", "fused_mlp_bwd"),
-                            ("fused_mlp_fwd_mma", "fused_mlp_bwd_mma")),
+                            ("fused_mlp_fwd", "fused_mlp_bwd",
+                             "fused_render_bwd_wgrad"),
+                            ("fused_mlp_fwd_mma", "fused_mlp_bwd_mma",
+                             "fused_render_bwd_wgrad_fp32")),
 }
+
+
+def slab_launches(route: str, n: int, device) -> int:
+    """K2's weight-gradient launches of one coarse (S=64) and one fine
+    (S=128) pass of n rays on a recompute route of the flagship step: one a
+    slab of K3 (routes A, B) or of K4-bwd (route C), the slabs as the
+    wrappers cut them."""
+    import torch
+
+    from crnerf_tpu_torch.ops import fused_mlp as fm
+    from crnerf_tpu_torch.ops import fused_render as fr
+
+    kw = fr.prepare_kernel_weights(full_width_params(SEED, device), 15, 4,
+                                   torch.bfloat16)
+    total = 0
+    for s in (64, 128):
+        if route == "pallas_render=False":
+            mkw = fm.prepare_mlp_weights(kw.params, 15, 4, torch.bfloat16)
+            total += -(-n * s // fm.slab_points_for(mkw, n * s, device))
+        else:
+            total += -(-n // fr.slab_rays_for(kw, n, s, device))
+    return total
 
 
 def small_step_check(device, seed: int, route: str = "stash"):
@@ -1098,6 +1133,9 @@ def phase_train(device, seed: int, profile_dir=None, route: str = "stash"):
     per_step = 2 * chunks     # coarse + fine pass of every chunk
     want = {k: (per_step * TRAIN_STEPS if k in ROUTES[route][1] else 0)
             for k in launches}
+    if route != "stash":      # the weight gradient: one launch a slab
+        want["fused_render_bwd_wgrad"] = TRAIN_STEPS * chunks * slab_launches(
+            route, cfg.grids_per_step * cfg.batch_size // chunks, device)
     if launches != want:
         raise PhaseError(f"{route}: launch counters {launches}, expected "
                          f"{want}")
@@ -1191,6 +1229,53 @@ def train_kernel_bounds(params, kw, n: int, s: int, bf16: bool):
     )
 
 
+# K2's wgmma weight gradient against the mma.sync one on the same stash and
+# dz buffer (and against itself over two halves of the points, the second
+# adding onto the first), over the largest gradient: both sum the same
+# exact bf16 products in fp32, in other splits and another order inside
+# the tensor cores, ~1e5-2e5 terms a split. Each side is ~2.4e-4 from an
+# fp64 sum at 16,384 x 128 (GRAD_TOL's note); twice that, rounded up.
+WGRAD_VS_MMA = 5e-4
+
+
+def wgrad_checks(kw, st, dz, gw, n: int, s: int, device, step_shape: bool):
+    """K2's wgmma weight gradient (``gw``, on the whole stash and dz
+    buffer) against the mma.sync kernel on the same inputs, over two halves
+    of the points with ``accumulate``, and at the step's launches also on
+    the rows of a K3 slab and of a K4-bwd slab against both the mma.sync
+    kernel and the plain version (fp64 over slices) -> (ok, readings)."""
+    import torch
+
+    from crnerf_tpu_torch.ops import fused_mlp as fm
+    from crnerf_tpu_torch.ops import fused_render as fr
+
+    def rel(got, want):
+        return ((got.double() - want.double()).abs().max()
+                / want.double().abs().max()).item()
+
+    out = dict(vs_mma=rel(gw, fr.bwd_wgrad(kw, st, dz, variant="mma")))
+    half = st.shape[0] // 2
+    first = fr.bwd_wgrad(kw, st[:half], dz[:half])
+    out["accumulate"] = rel(fr.bwd_wgrad(kw, st[half:], dz[half:],
+                                         out=first), gw)
+    ok = out["vs_mma"] <= WGRAD_VS_MMA and out["accumulate"] <= WGRAD_VS_MMA
+    if step_shape:
+        mkw = fm.prepare_mlp_weights(kw.params, 15, 4, kw.compute_dtype)
+        for name, pts in (("K3", fr.slab_rays_for(kw, n, s, device) * s),
+                          ("K4-bwd", fm.slab_points_for(mkw, n * s,
+                                                        device))):
+            got = fr.bwd_wgrad(kw, st[:pts], dz[:pts])
+            plain = torch.zeros_like(got, dtype=torch.float64)
+            for p0 in range(0, pts, N_RAYS * s):
+                p1 = min(pts, p0 + N_RAYS * s)
+                plain += fr.bwd_wgrad_plain(kw, st[p0:p1], dz[p0:p1])
+            mma = fr.bwd_wgrad(kw, st[:pts], dz[:pts], variant="mma")
+            out[name] = (pts, rel(got, plain), rel(got, mma))
+            ok = (ok and out[name][1] <= fr.GRAD_TOL[kw.compute_dtype]
+                  and out[name][2] <= WGRAD_VS_MMA)
+    return ok, out
+
+
 def train_kernels_case(device, params, gen, n: int, s: int, dt,
                        exact: bool):
     """K1-stash and the two K2 kernels on n rays x s samples against their
@@ -1216,6 +1301,7 @@ def train_kernels_case(device, params, gen, n: int, s: int, dt,
     lay = fr.grad_layout(kw.dims)
     fwd_v = fr.render_variant(kw.dims)
     chain_v = fr.chain_variant(kw.dims, s)
+    wgrad_v = fr.wgrad_variant(kw.dims)
     both = fwd_v == "wgmma"       # the mma.sync pair beside the wgmma one
     step_shape = n == TRAIN_GRIDS * 1024
     slices = ray_slices(n)
@@ -1317,6 +1403,10 @@ def train_kernels_case(device, params, gen, n: int, s: int, dt,
             gw_p += fr.bwd_wgrad_plain(kw, st[points(sl)], dz_p)
         # each kernel alone against its plain version on the same inputs
         gw_on_kernel_dz = wgrad_plain(st, dz_k)
+        wg_ok, wg = True, None
+        if wgrad_v == "wgmma":
+            wg_ok, wg = wgrad_checks(kw, st, dz_k, gw_k, n, s, device,
+                                     step_shape)
         if both:
             # the mma.sync pair: its stash against the wgmma one's, its
             # chain on the wgmma stash against the plain version
@@ -1347,8 +1437,8 @@ def train_kernels_case(device, params, gen, n: int, s: int, dt,
     abs_wgrad = (gw_k - gw_on_kernel_dz).abs().max().item()
     err_chain = abs_chain / gb_p.abs().max().item()
     err_wgrad = abs_wgrad / gw_on_kernel_dz.abs().max().item()
-    passed = (same_bits and repeat_bits and st_ok and finite
-              and rel <= fr.GRAD_TOL[dt]
+    passed = (same_bits and repeat_bits and st_ok and finite and wg_ok
+              and rel <= fr.GRAD_TOL[dt] and err_wgrad <= fr.GRAD_TOL[dt]
               and err_fwd <= max(fr.KERNEL_TOL[dt]))
     if both:
         passed = (passed and mma["bits"] and stash_ok(*mma["stash_vs_wgmma"])
@@ -1357,12 +1447,18 @@ def train_kernels_case(device, params, gen, n: int, s: int, dt,
                   and (not step_shape or mma["pair_vs_pair"]
                        <= RECOMPUTE_VS_PLAIN[dt_name]))
     t_nostash = time_ms(lambda: fwd(fwd_v, stash=False))
-    library = {}
-    if both and step_shape:   # the weight gradient against cuBLAS, in turns
-        table = fr._tile_table(lay, fr._WGRAD_TILE[dt][0],
-                               str(device)).tolist()
+    library, wgrad_turns = {}, None
+    if both and step_shape:
+        # the weight gradient in turns with the mma.sync kernel, then with
+        # cuBLAS, one torch.mm a tile of the kernel's own tile table
+        tile, tile_n, _ = fr._WGRAD_TILES[wgrad_v]
+        table = fr._tile_table(lay, tile, str(device), tile_n).tolist()
         ms = {}
-        ms["wgrad"], library["wgrad"] = turns_ms(
+        ms["wgrad"], mma["wgrad_ms"] = turns_ms(
+            lambda: fr.bwd_wgrad(kw, st, dz_k),
+            lambda: fr.bwd_wgrad(kw, st, dz_k, variant="mma"), device,
+            reps=3)
+        wgrad_turns, library["wgrad"] = turns_ms(
             lambda: fr.bwd_wgrad(kw, st, dz_k),
             lambda: cublas_tiles(table, st, dz_k), device, reps=3)
     else:
@@ -1403,10 +1499,25 @@ def train_kernels_case(device, params, gen, n: int, s: int, dt,
           f"the backward as a whole {ms['chain'] + ms['wgrad']:.3f} ms "
           f"against a bound of {bounds['bwd_whole'][0]:.3f} ms "
           f"({bounds['bwd_whole'][1]}, no dz buffer)"
-          + (f"; the weight gradient in turns with cuBLAS, one torch.mm a "
-             f"tile (bf16 in, fp32 out): {rate('wgrad', ms['wgrad'])} "
-             f"against {rate('wgrad', library['wgrad'])}" if library else "")
+          + (f"; the weight gradient ({wgrad_v}) in turns with mma.sync: "
+             f"{rate('wgrad', ms['wgrad'])} against "
+             f"{rate('wgrad', mma['wgrad_ms'])}; with cuBLAS, one torch.mm "
+             f"a tile of its table (bf16 in, fp32 out): "
+             f"{rate('wgrad', wgrad_turns)} against "
+             f"{rate('wgrad', library['wgrad'])}" if library else "")
           + f" {'ok' if passed else 'FAIL'}")
+    if wg:
+        slabs = "".join(
+            f"; on a {k} slab's {wg[k][0]} points: {wg[k][1]:.3e} of the "
+            f"plain version (tol {fr.GRAD_TOL[dt]}), {wg[k][2]:.3e} of "
+            f"mma.sync" for k in ("K3", "K4-bwd") if k in wg)
+        print(f"[train-kernel] {n} rays x S={s} {dt_name:8s} the wgmma "
+              f"weight gradient: {wg['vs_mma']:.3e} of the mma.sync kernel "
+              f"on the same inputs, {wg['accumulate']:.3e} of itself over "
+              f"two halves of the points, the second accumulating (bound "
+              f"{WGRAD_VS_MMA}){slabs}; {err_wgrad:.3e} of the plain "
+              f"version (tol {fr.GRAD_TOL[dt]}); the same bits twice "
+              f"{repeat_bits} {'ok' if wg_ok else 'FAIL'}")
     if both:
         frac_m, max_m = mma["stash_vs_wgmma"]
         print(f"[train-kernel] {n} rays x S={s} {dt_name:8s} mma.sync pair "
@@ -1427,7 +1538,8 @@ def train_kernels_case(device, params, gen, n: int, s: int, dt,
     return dict(N=n, S=s, dtype=dt_name, ok=passed, err_fwd=err_fwd,
                 err_grad=rel, abs_chain=abs_chain, abs_wgrad=abs_wgrad,
                 ms=ms, plain_ms=plain, bound=bounds, library_ms=library,
-                fwd_variant=fwd_v, chain_variant=chain_v, mma=mma or None)
+                fwd_variant=fwd_v, chain_variant=chain_v,
+                wgrad_variant=wgrad_v, wgrad=wg, mma=mma or None)
 
 
 def cublas_tiles(table, st, dz):
@@ -2336,7 +2448,7 @@ def slab_sum_z(mkw, st, dz, gw_a, gb_a, gw_b, gb_b, m: int, slab_a: int,
         levels = [(1, len(slabs), slab)]
         for n_s in slabs:
             if weights:
-                _, splits, m_per = fr._wgrad_plan(kw, n_s, device, lay)
+                _, splits, m_per, _ = fr._wgrad_plan(kw, n_s, device, lay)
                 levels += [(n_s // m_per, m_per, 1),
                            (1, -(-n_s // m_per), m_per)]
                 if n_s % m_per:
@@ -2840,42 +2952,52 @@ SUBLANE_TILES = (2048, 37)        # the spike's count, and an odd one
 # block rows each S5 mode zeroes (the TPU kernel leaves them unwritten)
 SUBLANE_ZERO_ROWS = {"base": range(8, 96), "stores": range(93, 96),
                      "dmatrix": range(0)}
-SPIKE_RUNS_4F = (("spike_interleave", []), ("spike_sublane_stores", []))
+# the interleave tool at the spike's widths (the ping-pong S2), then at a
+# width only the mma.sync S2 takes
+SPIKE_RUNS_4F = (("spike_interleave", []),
+                 ("spike_interleave", ["--width", "128", "--rays", "1024"]),
+                 ("spike_sublane_stores", []))
 
 
-def pipe_case(device, params, gen, n: int, s: int):
-    """S2 at n rays x s samples, bf16, recurrence, every P, against K1 on the same inputs (the same bits; else KERNEL_TOL[bf16])
-    and, on N_RAYS rays, against pipe_render_plain -> records."""
+def pipe_case(device, params, gen, n: int, s: int, turns: bool = True):
+    """S2 at n rays x s samples, bf16, recurrence, every P, against K1 of
+    S2's own variant on the same inputs (the same bits; else
+    KERNEL_TOL[bf16]) and, on N_RAYS rays, against pipe_render_plain; at
+    the served widths the ping-pong kernel, timed in turns with the wgmma
+    K1 (medians of 6 readings) -> records."""
     import torch
 
     from crnerf_tpu_torch.ops import fused_render as fr
     from crnerf_tpu_torch.ops import pipe_render as pr
+    from crnerf_tpu_torch.tools._common import turns_ms
 
     dt = torch.bfloat16
     o, d, z, noise = ray_inputs(n, s, gen, device)
     kw = fr.prepare_kernel_weights(params, 15, 4, dt)
-    # K1's mma.sync variant: the code S2 shares
-    blk1, w1, _ = fr.render_fwd(kw, o, d, z, noise, False, False,
-                                variant="mma")
+    c = kw.dims["C"]
+    variant = pr.pipe_variant(kw.dims)
+
+    def k1():
+        return fr.render_fwd(kw, o, d, z, noise, False, False,
+                             variant=variant)
+
+    blk1, w1, _ = k1()
 
     def errs(blk, w, blk_r, w_r):
         return ((w - w_r).abs().max().item(),
-                (blk[:, :64] - blk_r[:, :64]).abs().max().item(),
-                (blk[:, 64] - blk_r[:, 64]).abs().max().item())
+                (blk[:, :c] - blk_r[:, :c]).abs().max().item(),
+                (blk[:, c] - blk_r[:, c]).abs().max().item())
 
     tol = fr.KERNEL_TOL[dt]
     f_fwd, _, _ = mlp_work(params, s)
     b_ms, b_by = bound(n * s * f_fwd, n * (8 + 2 * s + 27 + 128 + s) * 4)
-    k1_ms = time_ms(lambda: fr.render_fwd(kw, o, d, z, noise, False, False,
-                                          variant="mma"))
-    plain_ms = None
-    if n == N_RAYS or (n, s) == PIPE_ENTRY:
-        plain_ms = time_ms(lambda: drain(
-            pr.pipe_render_plain(params, o[sl], d[sl], z[sl], noise[sl], 15,
-                                 4, dt, False) for sl in ray_slices(n)),
-            reps=3 if n == N_RAYS else 1)
+    plain_ms = time_ms(lambda: drain(
+        pr.pipe_render_plain(params, o[sl], d[sl], z[sl], noise[sl], 15, 4,
+                             dt, False) for sl in ray_slices(n)),
+        reps=3 if n == N_RAYS else 1)
     recs = []
-    occ = pr.pipe_render_occupancy(kw, device)
+    occ = (pr.pipe_render_occupancy(kw, device) if variant == "mma"
+           else 1)
     for p in pr.PHASES:
         blk, w = pr.pipe_render_apply(kw, o, d, z, noise, False, p)
         same = torch.equal(blk, blk1) and torch.equal(w, w1)
@@ -2892,20 +3014,27 @@ def pipe_case(device, params, gen, n: int, s: int):
               and (err_plain is None
                    or all(e <= t for e, t in zip(err_plain, tol))))
         del blk, w
-        ms = time_ms(lambda: pr.pipe_render_apply(kw, o, d, z, noise,
-                                                  False, p))
+
+        def s2():
+            return pr.pipe_render_apply(kw, o, d, z, noise, False, p)
+
+        if turns:
+            ms, k1_ms = turns_ms(s2, k1, device, reps=3)
+        else:
+            ms, k1_ms = time_ms(s2), time_ms(k1)
         vs_plain = ("" if err_plain is None else
                     " vs plain max|dw|={:.3e} max|dfmap|={:.3e} "
                     "max|ddepth|={:.3e} (tol {}),".format(*err_plain, tol))
-        print(f"[pipe] S2 P={p} {n} rays x S={s} bf16: vs K1 "
+        print(f"[pipe] S2 ({variant}) P={p} {n} rays x S={s} bf16, "
+              f"{kw.dims['WP']} wide: vs K1 ({variant}) "
               f"{'the same bits' if same else 'OTHER BITS, max err %s' % (err_k1,)},"
               f"{vs_plain} kernel {ms:.3f} ms "
-              f"({n * s * f_fwd / ms / 1e9:.0f} TFLOP/s), K1 {k1_ms:.3f} "
-              f"ms, plain "
-              f"{'not timed' if plain_ms is None else '%.3f ms' % plain_ms}"
-              f", bound {b_ms:.3f} ms ({b_by}), {occ} CTAs an SM "
+              f"({n * s * f_fwd / ms / 1e9:.0f} TFLOP/s, "
+              f"{100 * b_ms / ms:.0f}% of the bound), K1 {k1_ms:.3f} ms"
+              f"{' in turns' if turns else ''}, plain {plain_ms:.3f} ms, "
+              f"bound {b_ms:.3f} ms ({b_by}), {occ} CTA(s) an SM "
               f"{'ok' if ok else 'FAIL'}")
-        recs.append(dict(N=n, S=s, P=p, same_bits=same,
+        recs.append(dict(N=n, S=s, P=p, variant=variant, same_bits=same,
                          err_k1=max(err_k1),
                          err_plain=None if err_plain is None
                          else max(err_plain),
@@ -2995,6 +3124,9 @@ def phase_spikes_4f(device, seed: int):
     gen = torch.Generator(device=device).manual_seed(seed + 9)
     pipe = [r for n, s in PIPE_SHAPES
             for r in pipe_case(device, params, gen, n, s)]
+    # the mma.sync S2 at a width the ping-pong kernel does not take
+    pipe += pipe_case(device, full_width_params(seed, device, 6, 128, 32),
+                      gen, N_RAYS, 256, turns=False)
     sub = [sublane_case(device, mode, tiles) for tiles in SUBLANE_TILES
            for mode in ("base", "stores", "dmatrix")]
     if not all(r["ok"] for r in pipe + sub):
@@ -3008,11 +3140,12 @@ def phase_spikes_4f(device, seed: int):
             raise PhaseError(f"{tool} {' '.join(argv)} failed")
     torch.cuda.synchronize()
     launches = read_counts()
-    # the interleave tool also launches K1 (mma.sync) as its yardstick
-    new = ("pipe_render_fwd", "sublane_stores")
+    # the interleave tool also launches K1 of each variant as its yardstick
+    new = ("pipe_render_fwd", "pipe_render_fwd_mma", "sublane_stores")
     if not (all(launches[k] > 0 for k in new)
             and not any(v for k, v in launches.items()
-                        if k not in new + ("fused_render_fwd_mma",))):
+                        if k not in new + ("fused_render_fwd",
+                                           "fused_render_fwd_mma"))):
         raise PhaseError(f"4f tools: launch counters {launches}")
     print(f"[pipe] the two spike tools' launches: {launches}")
     return pipe, sub, launches
@@ -3183,6 +3316,10 @@ def main(argv=None) -> int:
         return max(r["abs_err"] for r in recompute_records
                    if r["xyz_in"] == xyz_in and r["variant"] == variant)
 
+    def pipe_err(variant):
+        return max(r["err_plain"] for r in pipe_records
+                   if r["variant"] == variant and r["err_plain"] is not None)
+
     def mlp_fwd_err(variant):
         return max(r["err"] for r in mlp_fwd_records
                    if r["variant"] == variant)
@@ -3240,10 +3377,25 @@ def main(argv=None) -> int:
         entry("fused_render_bwd (mma.sync)", bwd_cu, k2,
               fp32_launches["fused_render_bwd_mma"],
               train_err("chain", "mma"), train_kernel("chain", "mma")),
-        entry("fused_render_bwd_wgrad", bwd_cu, k2,
+        # K2's weight gradient: the wgmma kernel, launched by every bf16
+        # step (the stash route's twice, routes A-C's once a slab); the
+        # fp32 one by the small fp32 step of the stash route, its numbers
+        # at 1024 x 128
+        entry("fused_render_bwd_wgrad",
+              "crnerf_tpu_torch/csrc/wgrad_wgmma.cuh", k2,
               train_launches["fused_render_bwd_wgrad"],
-              max(r["abs_wgrad"] for r in train_records),
+              max(r["abs_wgrad"] for r in train_records
+                  if r["wgrad_variant"] == "wgmma"),
               train_kernel("wgrad")),
+        entry("fused_render_bwd_wgrad (fp32)", bwd_cu, k2,
+              fp32_launches["fused_render_bwd_wgrad_fp32"],
+              max(r["abs_wgrad"] for r in train_records
+                  if r["wgrad_variant"] == "fp32"),
+              next(dict(ms=r["ms"]["wgrad"],
+                        plain_ms=r["plain_ms"]["wgrad"],
+                        bound=r["bound"]["wgrad"], library_ms=None)
+                   for r in train_records if r["wgrad_variant"] == "fp32"
+                   and r["N"] == N_RAYS and r["S"] == 128)),
         # route B's forward; route A's and B's recompute backward (the
         # wgmma pair a slab), the mma.sync ones by their small fp32 steps
         entry("K1 xyz-in", wgmma_cu, k1, route_b["fused_render_fwd_xyz"],
@@ -3309,16 +3461,22 @@ def main(argv=None) -> int:
               "scripts/spike_kernel_sincos.py:24", spike_launches["sincos"],
               max(r["err"] for r in sincos_records),
               next(r for r in sincos_records if r["scale"] == 1280.0)),
-        # launched by the two spike tools of phase 4f; S2's numbers at the
-        # spike's 8192 x 128 with P = 2, its error against its plain version
-        # (it gives K1's bits); S5's at 2048 tiles, stores mode
-        entry("pipe render fwd", "crnerf_tpu_torch/csrc/pipe_render_fwd.cu",
+        # launched by the spike tools of phase 4f; S2's numbers at the
+        # spike's 8192 x 128 with P = 2 (the mma.sync one's at 1024 x 256, 6
+        # x 128 wide), its error against its plain version (it gives K1's
+        # bits); S5's at 2048 tiles, stores mode
+        entry("pipe render fwd",
+              "crnerf_tpu_torch/csrc/pipe_render_fwd_wgmma.cuh",
               "scripts/spike_interleave.py:47",
-              launches_4f["pipe_render_fwd"],
-              max(r["err_plain"] for r in pipe_records
-                  if r["err_plain"] is not None),
-              next(r for r in pipe_records
-                   if (r["N"], r["S"]) == PIPE_ENTRY and r["P"] == 2)),
+              launches_4f["pipe_render_fwd"], pipe_err("wgmma"),
+              next(r for r in pipe_records if r["variant"] == "wgmma"
+                   and (r["N"], r["S"]) == PIPE_ENTRY and r["P"] == 2)),
+        entry("pipe render fwd (mma.sync)",
+              "crnerf_tpu_torch/csrc/pipe_render_fwd.cu",
+              "scripts/spike_interleave.py:47",
+              launches_4f["pipe_render_fwd_mma"], pipe_err("mma"),
+              next(r for r in pipe_records if r["variant"] == "mma"
+                   and r["P"] == 2)),
         entry("sublane stores", "crnerf_tpu_torch/csrc/sublane_stores.cu",
               "scripts/spike_sublane_stores.py:40",
               launches_4f["sublane_stores"],

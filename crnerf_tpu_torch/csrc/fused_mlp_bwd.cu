@@ -40,7 +40,8 @@
 //     mma.sync forward's stash instantiation (fused_mlp_fwd.cuh), the
 //     forward route C runs at those shapes; 2. is mlp_bwd_chain_kernel
 //     (here).
-// Step 3 is K2's mma.sync weight gradient in both.
+// Step 3 is K2's weight gradient in both, the kernel the Python side names
+// (wgrad_variant: wgmma at bf16 and the served widths, wgrad_wgmma.cuh).
 //
 // The mma.sync chain kernel, a persistent grid over tiles of CH = 64
 // points: from the stash it recomputes z_sigma (fp32, as the forward) and
@@ -68,8 +69,7 @@
 // bytes of cotangent per point: operations. What it costs as built: the
 // stash and dz traffic through device memory (~15 KB per point).
 // Left for later, in both variants: chaining from shared memory so that
-// neither the stash nor dz reaches device memory; and K2's weight gradient
-// on wgmma (step 3 runs the mma.sync kernel in both).
+// neither the stash nor dz reaches device memory.
 
 #include <algorithm>
 
@@ -269,7 +269,7 @@ int mlp_bwd_chain_launch(const CArgs& a, bool bf16, int grid, float* bout,
 
 constexpr int MB_PTRS = 14;    // pointers before whT[1 .. L-1] (mma.sync)
 constexpr int MBW_PTRS = 13;   // pointers before the forward's (wgmma)
-constexpr int MB_DIMS = 22;
+constexpr int MB_DIMS = 23;
 constexpr int MB_FWD_W = 9;    // wsrow, bs, wf, bf, wdh, bd, wde, wc, bc
 
 // The slab loop of both entries (their pointers and dims below).
@@ -345,9 +345,9 @@ int mlp_bwd_slabs(const void* const* ptrs, int n_ptrs, const int* dims,
                                 accumulate, st);
     }
     if (rc != 0) return rc;
-    // M, SC, DC, WT, n_tiles, splits, m_per, BF16
+    // M, SC, DC, WT, n_tiles, splits, m_per, kernel
     const int wd[WGRAD_DIMS] = {n, SC, DC, dims[17], dims[18], dims[19],
-                                dims[20], bf16};
+                                dims[20], dims[22]};
     rc = render_bwd_wgrad_entry(wp, WGRAD_PTRS, wd, WGRAD_DIMS, stream,
                                 accumulate);
     if (rc != 0) return rc;
@@ -363,8 +363,10 @@ int mlp_bwd_slabs(const void* const* ptrs, int n_ptrs, const int* dims,
 // forward's weights as crnerf_mlp_fwd takes them (wsrow .. bc, then per
 // trunk layer wenc, wh, b).
 // dims: M, R, L, skip_mask, WP, HP, CP, C, KE, F, DK, DKP, exact, BF16, SC,
-// DC, grid, WT, n_tiles, splits, m_per, P (points per slab). ``splits`` and
-// ``m_per`` cut P points; ``grid`` is at most the tiles of P points.
+// DC, grid, WT, n_tiles, splits, m_per, P (points per slab), WK (the
+// weight gradient's kernel, as render_bwd_wgrad_entry takes it; the tile
+// table is that kernel's). ``splits`` and ``m_per`` cut P points; ``grid``
+// is at most the tiles of P points.
 // Writes bout and wout; returns the first error of any launch.
 extern "C" int crnerf_mlp_bwd(const void* const* ptrs, int n_ptrs,
                               const int* dims, int n_dims, void* stream) {

@@ -31,7 +31,9 @@
 //      the points, streams both operands through shared memory with
 //      cp.async double buffering, reads them transposed with
 //      ldmatrix.trans into mma.sync m16n8k16 (bf16 in, fp32 accumulate)
-//      and writes one partial tile.
+//      and writes one partial tile. At bf16 and the served widths its
+//      wgmma / TMA counterpart runs instead (wgrad_wgmma.cuh, which holds
+//      the entry that picks the kernel).
 //   Both end in reduce_partials: out[i] = sum over partials in index
 //   order. Every sum has a fixed order, so two runs on the same inputs on
 //   the same card give the same bits.
@@ -47,8 +49,8 @@
 // served MLPs' and the recompute backward's slabs. The stash route's bf16
 // chain at the served widths runs its wgmma / TMA counterpart
 // (fused_render_bwd_wgmma.cuh), chosen by shape in ops/fused_render.py
-// chain_variant. Left for later: the weight gradient on wgmma, fusing it
-// into the chain so dz never reaches device memory.
+// chain_variant. Left for later: fusing the weight gradient into the
+// chain so dz never reaches device memory.
 //
 // Included by fused_render_bwd.cu (the stash backward's library) and by
 // fused_render_bwd_recompute.cu, which runs both kernels slab by slab on a
@@ -667,47 +669,6 @@ int render_bwd_chain_entry(const void* const* ptrs, int n_ptrs,
   if (rc != 0) return rc;
   return chain_sums(a.bpart, grid, a.DC, a.dirb, a.ddray, a.N, a.DK, a.HP,
                     slices, dpart, bout, accumulate, st);
-}
-
-// ptrs (host array): stash, dzbuf, tiles (n_tiles x 6 int32), part, wout.
-// dims: M, SC, DC, WT, n_tiles, splits, m_per, BF16.
-// Launches the split-K weight-gradient kernel on (n_tiles, splits) CTAs,
-// CTA (t, s) over points [s * m_per, (s + 1) * m_per), then the fixed-order
-// sum of the splits into wout (WT), with ``accumulate`` onto what wout
-// holds. The tile table is made for 128x128 tiles at bf16 and 64x64 at
-// fp32.
-int render_bwd_wgrad_entry(const void* const* ptrs, int n_ptrs,
-                           const int* dims, int n_dims, void* stream,
-                           bool accumulate) {
-  if (n_dims != WGRAD_DIMS || n_ptrs != WGRAD_PTRS)
-    return (int)cudaErrorInvalidValue;
-  WArgs a = {};
-  a.M = dims[0]; a.SC = dims[1]; a.DC = dims[2]; a.WT = dims[3];
-  const int n_tiles = dims[4], splits = dims[5];
-  a.m_per = dims[6];
-  const bool bf16 = dims[7] != 0;
-  if (a.M < 1 || n_tiles < 1 || splits < 1 || splits > 65535 || a.m_per < 1 ||
-      (long long)a.m_per * splits < a.M || a.SC % 16 || a.DC % 16)
-    return (int)cudaErrorInvalidValue;
-  for (int i = 0; i < n_ptrs; ++i)
-    if (!ptrs[i]) return (int)cudaErrorInvalidValue;
-  a.stash = ptrs[0]; a.dzbuf = ptrs[1];
-  a.tiles = (const Tile*)ptrs[2];
-  a.part = (float*)ptrs[3];
-  float* wout = (float*)ptrs[4];
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n_tiles, splits);
-  if (bf16) {
-    const int smem = 4 * WG_PT * WG_LD * (int)sizeof(__nv_bfloat16);
-    cudaFuncSetAttribute(wgrad_bf16_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    wgrad_bf16_kernel<<<grid, NTHREADS, smem, st>>>(a);
-  } else {
-    wgrad_f32_kernel<<<grid, NTHREADS, 0, st>>>(a);
-  }
-  const int rc = (int)cudaGetLastError();
-  if (rc != 0) return rc;
-  return reduce_partials(a.part, splits, a.WT, accumulate, wout, st);
 }
 
 }  // namespace

@@ -51,9 +51,10 @@
 //     fused_render_bwd.cuh), whose rows are bit for bit the mma.sync stash
 //     pair's (the stash route's pair at those shapes), and the mma.sync
 //     forward is that of the no-stash training forward.
-// Step 3 is K2's mma.sync weight gradient in both. The gradients differ
-// from the stash route's only in how the fp32 sums over the points are
-// grouped.
+// Step 3 is K2's weight gradient in both, the kernel the Python side names
+// (wgrad_variant: wgmma at bf16 and the served widths, wgrad_wgmma.cuh).
+// The gradients differ from the stash route's only in how the fp32 sums
+// over the points are grouped.
 //
 // What bounds it: the forward again (~1.2 MFLOP per point at 8x256) and the
 // backward (~2.4 MFLOP per point) against a few bytes of input per point:
@@ -72,7 +73,7 @@ namespace {
 
 constexpr int RC_PTRS = 20;    // pointers before whT[1 .. L-1] (mma.sync)
 constexpr int RCW_PTRS = 19;   // pointers before the forward's (wgmma)
-constexpr int RC_DIMS = 23;
+constexpr int RC_DIMS = 24;
 constexpr int FWD_W = 9;       // ws, bs, wf, bf, wdh, bd, wde, wc, bc
 
 const float* rows(const void* base, size_t row, size_t width) {
@@ -147,9 +148,9 @@ int recompute_slabs(const void* const* ptrs, int n_ptrs, const int* dims,
                : render_bwd_chain_entry(cp, n_cp, cd, CHAIN_DIMS, stream,
                                         accumulate);
     if (rc != 0) return rc;
-    // M, SC, DC, WT, n_tiles, splits, m_per, BF16
+    // M, SC, DC, WT, n_tiles, splits, m_per, kernel
     const int wd[WGRAD_DIMS] = {n * S, SC, DC, dims[18], dims[19], dims[20],
-                                dims[21], dims[13]};
+                                dims[21], dims[23]};
     rc = render_bwd_wgrad_entry(wp, WGRAD_PTRS, wd, WGRAD_DIMS, stream,
                                 accumulate);
     if (rc != 0) return rc;
@@ -166,8 +167,10 @@ int recompute_slabs(const void* const* ptrs, int n_ptrs, const int* dims,
 // forward's weights as crnerf_render_fwd takes them (ws .. bc, then per
 // trunk layer wenc, wh, b).
 // dims: N, S, L, skip_mask, WP, HP, CP, C, KE, F, DK, exact, ldo, BF16, SC,
-// DC, slices, grid, WT, n_tiles, splits, m_per, R. ``splits`` and ``m_per``
-// cut R*S points; ``grid`` and ``slices`` are at most R.
+// DC, slices, grid, WT, n_tiles, splits, m_per, R, WK (the weight
+// gradient's kernel, as render_bwd_wgrad_entry takes it; the tile table
+// is that kernel's). ``splits`` and ``m_per`` cut R*S points; ``grid`` and
+// ``slices`` are at most R.
 // Writes bout and wout; returns the first error of any launch.
 extern "C" int crnerf_render_bwd_recompute(const void* const* ptrs,
                                            int n_ptrs, const int* dims,

@@ -60,7 +60,7 @@
 
 #pragma once
 
-#include "fused_render_bwd.cuh"
+#include "wgrad_wgmma.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {

@@ -114,6 +114,221 @@ __host__ __device__ constexpr int wg_smem_bytes() {
   return wg_fixed_bytes<WP, HP, CP>() + wg_ring_slots<WP, HP, CP>() * WP * 128;
 }
 
+// ------------------------------------------ the pieces of a tile's work
+// What K1 and the ping-pong S2 (pipe_render_fwd_wgmma.cuh) run on a
+// warpgroup's 64 rows. Every product goes over the weight ring. The hooks
+// are K1's stash and S2's hand-over of the tensor cores: turn(n) before a
+// product of n K-slices, done() once its last group is issued (both
+// nothing in K1).
+
+// The ray's dir term, once: dir encode @ W_dir_enc (fp32 sums of
+// compute-dtype operands) into dirt (HP).
+template <int HP>
+__device__ __forceinline__ void wg_dir_term(const KArgs& a, int ray,
+                                            float* dirt, int wtid) {
+  for (int n = wtid; n < HP; n += 128) {
+    const float* db = a.dirb + (size_t)ray * a.DK;
+    float s = 0.f;
+    for (int e = 0; e < a.DK; ++e) s += db[e] * a.wde[e * HP + n];
+    dirt[n] = s;
+  }
+}
+
+// The rows' scalars from sample sb of the ray on (rows past S repeat the
+// last sample; row_scalars) and the encode of their points (o + d z, or the
+// points xr) into enc, zero past 3 + 6F. before() runs between the two,
+// ahead of the barrier before the encode's stores (the stash forward waits
+// there for its stores to have read enc).
+template <class Sync, class Before>
+__device__ __forceinline__ void wg_tile_encode(
+    const KArgs& a, uint8_t* enc, float* xyz, float* zc, float* nz,
+    float* dl, const float* zr, const float* nr, const float* xr,
+    const float (&o)[3], const float (&d)[3], int sb, int wtid, Sync wg_sync,
+    Before before) {
+  if (wtid < WG_ROWS)
+    row_scalars(zr, nr, a.S, sb + wtid, zc[wtid], nz[wtid], dl[wtid]);
+  before();
+  wg_sync();
+  // encode: [x, sin 2^0 x, cos 2^0 x, sin 2^1 x, ...], zero past 3 + 6F
+  for (int i = wtid; i < WG_ROWS * 3; i += 128) {
+    const int r = i / 3, c = i % 3;
+    const float x = xr ? xr[min(sb + r, a.S - 1) * 3 + c]
+                       : __fadd_rn(o[c], __fmul_rn(d[c], zc[r]));
+    xyz[i] = x;
+    st_bf16(enc, r, c, x);
+  }
+  wg_encode_pad(enc, a.F, wtid);
+  wg_sync();
+  wg_encode_sincos(enc, xyz, a.F, a.exact, wtid);
+  fence_proxy_async();
+  wg_sync();
+}
+
+// The sigma head: column 0 of a 64 x 8 product of h_{L-1} (act) into sig;
+// done() once it is issued.
+template <int WP, int NS, int SLOT, class Sync, class Done>
+__device__ __forceinline__ void wg_sigma_head(const KArgs& a, uint32_t act_a,
+                                              float* sig, uint32_t ring_a,
+                                              uint64_t* full, uint64_t* empty,
+                                              Ring& rg, bool leader, int r0,
+                                              int lane, Sync wg_sync,
+                                              Done done) {
+  float acc_s[SIG_N / 2];
+  zero_acc(acc_s);
+  wg_product<SIG_N, NS, SLOT>(
+      acc_s, WP / 64, [&](int kc) { return act_a + kc * A_SLICE; }, ring_a,
+      full, empty, rg, leader, LocalRelease{}, done);
+  if ((lane & 3) == 0) {
+    sig[r0] = acc_s[0] + a.bs[0];
+    sig[r0 + 8] = acc_s[2] + a.bs[0];
+  }
+  wg_sync();
+}
+
+// The compositing scan of the rows on warp 0, two rows a lane (2 lane,
+// 2 lane + 1): their alphas (0 past S or for a missing ray), the product
+// of (1 - alpha) over the rows before the lane's (excl) and over all 64
+// (total).
+__device__ __forceinline__ void wg_composite_scan(const float* sig,
+                                                  const float* nz,
+                                                  const float* dl,
+                                                  bool ray_ok, int sb, int S,
+                                                  int lane, float (&al)[2],
+                                                  float& excl, float& total) {
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int r = 2 * lane + q;
+    const float actv = fmaxf(softplusf(sig[r]) + nz[r], 0.f);
+    al[q] = (ray_ok && sb + r < S) ? 1.f - expf(-dl[r] * actv) : 0.f;
+  }
+  float incl = (1.f - al[0]) * (1.f - al[1]);
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl *= y;
+  }
+  excl = __shfl_up_sync(0xffffffffu, incl, 1);
+  if (lane == 0) excl = 1.f;
+  total = __shfl_sync(0xffffffffu, incl, 31);
+}
+
+// The rows' weights from the transmittance t0_in entering them, into wts
+// and, where wo (the ray's row of the weights output) is given, into its
+// samples < S -> the rows' depth sum, in every lane of warp 0.
+__device__ __forceinline__ float wg_composite_weights(
+    float t0_in, const float (&al)[2], float excl, const float* zc,
+    float* wts, float* wo, int sb, int S, int lane) {
+  const float t0 = t0_in * excl;
+  const float w0 = al[0] * t0;
+  const float w1 = al[1] * (t0 * (1.f - al[0]));
+  const int ra = 2 * lane;
+  wts[ra] = w0;
+  wts[ra + 1] = w1;
+  if (wo != nullptr) {
+    if (sb + ra < S) wo[sb + ra] = w0;
+    if (sb + ra + 1 < S) wo[sb + ra + 1] = w1;
+  }
+  float pd = w0 * zc[ra] + w1 * zc[ra + 1];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    pd += __shfl_xor_sync(0xffffffffu, pd, off);
+  return pd;
+}
+
+// The heads after sigma (h_{L-1} in act): hf = h @ W_f + b_f, then dd =
+// relu(hf @ W_dh + dir term + b_d), both in place, then the feature head
+// sigmoid(dd @ W_c + b_c) times each row's weight (wts), summed over the
+// rows onto fm[0 .. CP) in warp order (red: the warps' sums).
+// before_epi() runs before the barrier ahead of the hf and dd epilogues
+// (the stash's wait), after_epi(col, nslices) once hf or dd is written
+// (their stash stores).
+template <int WP, int HP, int CP, int NS, int SLOT, class Sync, class Turn,
+          class Done, class BeforeEpi, class AfterEpi>
+__device__ __forceinline__ void wg_heads(
+    const KArgs& a, float (&acc)[WP / 2], uint8_t* act, uint32_t act_a,
+    const float* dirt, const float* wts, float* red, float* fm,
+    uint32_t ring_a, uint64_t* full, uint64_t* empty, Ring& rg, bool leader,
+    int warp, int lane, int wtid, int r0, int cq, int o_hf, int o_dd,
+    Sync wg_sync, Turn turn, Done done, BeforeEpi before_epi,
+    AfterEpi after_epi) {
+  // ---- xyz_encoding_final: hf = h @ W_f + b_f, in place
+  turn(WP / 64);
+  zero_acc(acc);
+  wg_product<WP, NS, SLOT>(
+      acc, WP / 64, [&](int kc) { return act_a + kc * A_SLICE; }, ring_a,
+      full, empty, rg, leader, LocalRelease{}, done);
+  before_epi();
+  wg_sync();
+#pragma unroll
+  for (int nb = 0; nb < WP / 8; ++nb) {
+    const int c = nb * 8 + cq;
+    const float b0 = a.bf[c], b1 = a.bf[c + 1];
+    st_bf16x2(act, r0, c, acc[nb * 4] + b0, acc[nb * 4 + 1] + b1);
+    st_bf16x2(act, r0 + 8, c, acc[nb * 4 + 2] + b0, acc[nb * 4 + 3] + b1);
+  }
+  fence_proxy_async();
+  wg_sync();
+  after_epi(o_hf, WP / 64);
+
+  // ---- dir branch: dd = relu(hf @ W_dh + dir term + b_d), in place
+  {
+    float acc_d[HP / 2];
+    turn(WP / 64);
+    zero_acc(acc_d);
+    wg_product<HP, NS, SLOT>(
+        acc_d, WP / 64, [&](int kc) { return act_a + kc * A_SLICE; },
+        ring_a, full, empty, rg, leader, LocalRelease{}, done);
+    before_epi();
+    wg_sync();
+#pragma unroll
+    for (int nb = 0; nb < HP / 8; ++nb) {
+      const int c = nb * 8 + cq;
+      const float e0 = dirt[c], e1 = dirt[c + 1];
+      const float b0 = a.bd[c], b1 = a.bd[c + 1];
+      st_bf16x2(act, r0, c, fmaxf(acc_d[nb * 4] + e0 + b0, 0.f),
+                fmaxf(acc_d[nb * 4 + 1] + e1 + b1, 0.f));
+      st_bf16x2(act, r0 + 8, c, fmaxf(acc_d[nb * 4 + 2] + e0 + b0, 0.f),
+                fmaxf(acc_d[nb * 4 + 3] + e1 + b1, 0.f));
+    }
+  }
+  fence_proxy_async();
+  wg_sync();
+  after_epi(o_dd, HP / 64);
+
+  // ---- feature head: sigmoid(dd @ W_c + b_c), times the row's weight,
+  // summed over the rows
+  {
+    float acc_c[CP / 2];
+    turn(HP / 64);
+    zero_acc(acc_c);
+    wg_product<CP, NS, SLOT>(
+        acc_c, HP / 64, [&](int kc) { return act_a + kc * A_SLICE; },
+        ring_a, full, empty, rg, leader, LocalRelease{}, done);
+    const float wa = wts[r0], wb = wts[r0 + 8];
+#pragma unroll
+    for (int nb = 0; nb < CP / 8; ++nb) {
+      const int c = nb * 8 + cq;
+      const float b0 = a.bc[c], b1 = a.bc[c + 1];
+      float p0 = wa * (1.f / (1.f + expf(-(acc_c[nb * 4] + b0)))) +
+                 wb * (1.f / (1.f + expf(-(acc_c[nb * 4 + 2] + b0))));
+      float p1 = wa * (1.f / (1.f + expf(-(acc_c[nb * 4 + 1] + b1)))) +
+                 wb * (1.f / (1.f + expf(-(acc_c[nb * 4 + 3] + b1))));
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        p0 += __shfl_xor_sync(0xffffffffu, p0, off);
+        p1 += __shfl_xor_sync(0xffffffffu, p1, off);
+      }
+      if (lane < 4) {
+        red[warp * CP + c] = p0;
+        red[warp * CP + c + 1] = p1;
+      }
+    }
+    wg_sync();
+    for (int c = wtid; c < CP; c += 128)
+      fm[c] += (red[c] + red[CP + c]) + (red[2 * CP + c] + red[3 * CP + c]);
+  }
+}
+
 // ------------------------------------------------------------- kernel
 // pair: S <= 64, two rays a tile (warpgroup g takes ray 2 item + g);
 // else one ray an item, tiles of 128 samples (warpgroup g takes samples
@@ -154,7 +369,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   }
   __syncthreads();
 
-  const int S = a.S, F = a.F, L = a.L;
+  const int S = a.S, L = a.L;
   const int items = pair ? (a.N + 1) / 2 : a.N;
   const int tiles = pair ? 1 : (S + 127) / 128;
 
@@ -188,6 +403,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
   const int wg_bar = 2 + g;  // named barrier of this warpgroup
   auto wg_sync = [&]() { named_bar_sync(wg_bar, 128); };
   auto both_sync = [&]() { named_bar_sync(1, 256); };
+  auto nothing = [&]() {};
 
   uint8_t* enc = encb + g * (KEW / 64) * A_SLICE;
   uint8_t* act = actb + g * (WP / 64) * A_SLICE;
@@ -217,14 +433,7 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
     const int ray_raw = pair ? 2 * item + g : item;
     const bool ray_ok = ray_raw < a.N;
     const int ray = ray_ok ? ray_raw : a.N - 1;
-    // dir term of the ray, once: dir encode @ W_dir_enc (fp32 sums of
-    // compute-dtype operands)
-    for (int n = wtid; n < HP; n += 128) {
-      const float* db = a.dirb + (size_t)ray * a.DK;
-      float s = 0.f;
-      for (int e = 0; e < a.DK; ++e) s += db[e] * a.wde[e * HP + n];
-      dirt[n] = s;
-    }
+    wg_dir_term<HP>(a, ray, dirt, wtid);
     for (int c = wtid; c < CP; c += 128) fm[ip * CP + c] = 0.f;
     const float* xr = a.xyz ? a.xyz + (size_t)ray * S * 3 : nullptr;
     float o[3] = {0.f, 0.f, 0.f}, d[3] = {0.f, 0.f, 0.f};
@@ -258,24 +467,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
           if (leader) bulk_wait_read();
         }
       };
-      // per-row scalars; rows past S repeat the last sample, alpha 0
-      if (wtid < WG_ROWS)
-        row_scalars(zr, nr, S, sb + wtid, zc[wtid], nz[wtid], dl[wtid]);
-      stash_wait();
-      wg_sync();
-      // encode: [x, sin 2^0 x, cos 2^0 x, sin 2^1 x, ...], zero past 3 + 6F
-      for (int i = wtid; i < WG_ROWS * 3; i += 128) {
-        const int r = i / 3, c = i % 3;
-        const float x = xr ? xr[min(sb + r, S - 1) * 3 + c]
-                           : __fadd_rn(o[c], __fmul_rn(d[c], zc[r]));
-        xyz[i] = x;
-        st_bf16(enc, r, c, x);
-      }
-      wg_encode_pad(enc, F, wtid);
-      wg_sync();
-      wg_encode_sincos(enc, xyz, F, a.exact, wtid);
-      fence_proxy_async();
-      wg_sync();
+      wg_tile_encode(a, enc, xyz, zc, nz, dl, zr, nr, xr, o, d, sb, wtid,
+                     wg_sync, stash_wait);
       stash_store(enc, KEW / 64, o_enc);
 
       // ---- trunk: h_i = relu([enc |] h_{i-1} @ W_i + b_i), in place
@@ -284,142 +477,38 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
           cq, wg_sync, stash_wait,
           [&](int i) { stash_store(act, WP / 64, i * WP); });
 
-      // ---- sigma head: column 0 of a 64 x 8 product
-      {
-        float acc_s[SIG_N / 2];
-        zero_acc(acc_s);
-        wg_product<SIG_N, NS, SLOT>(
-            acc_s, WP / 64, [&](int kc) { return act_a + kc * A_SLICE; },
-            ring_a, full, empty, rg, leader);
-        if ((lane & 3) == 0) {
-          sig[r0] = acc_s[0] + a.bs[0];
-          sig[r0 + 8] = acc_s[2] + a.bs[0];
-        }
-      }
-      wg_sync();
+      wg_sigma_head<WP, NS, SLOT>(a, act_a, sig, ring_a, full, empty, rg,
+                                  leader, r0, lane, wg_sync, nothing);
 
       // ---- compositing, warp 0 of each warpgroup, two rows a lane; the
       // second warpgroup's rows of a ray's tile come after the first's
       {
-        float al[2] = {0.f, 0.f}, incl = 1.f, excl = 1.f, total = 1.f;
+        float al[2] = {0.f, 0.f}, excl = 1.f, total = 1.f;
         if (warp == 0) {
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            const int r = 2 * lane + q;
-            const float actv = fmaxf(softplusf(sig[r]) + nz[r], 0.f);
-            al[q] = (ray_ok && sb + r < S) ? 1.f - expf(-dl[r] * actv) : 0.f;
-          }
-          incl = (1.f - al[0]) * (1.f - al[1]);
-#pragma unroll
-          for (int off = 1; off < 32; off <<= 1) {
-            const float y = __shfl_up_sync(0xffffffffu, incl, off);
-            if (lane >= off) incl *= y;
-          }
-          excl = __shfl_up_sync(0xffffffffu, incl, 1);
-          if (lane == 0) excl = 1.f;
-          total = __shfl_sync(0xffffffffu, incl, 31);
+          wg_composite_scan(sig, nz, dl, ray_ok, sb, S, lane, al, excl,
+                            total);
           if (lane == 0) tot[tp * 2 + g] = total;
         }
         both_sync();
         if (warp == 0) {
           const float t0_in =
               (pair || g == 0) ? t_carry : t_carry * tot[tp * 2];
-          const float t0 = t0_in * excl;
-          const float w0 = al[0] * t0;
-          const float w1 = al[1] * (t0 * (1.f - al[0]));
           t_carry = pair ? t_carry * total
                          : (t_carry * tot[tp * 2]) * tot[tp * 2 + 1];
-          const int ra = 2 * lane;
-          wts[ra] = w0;
-          wts[ra + 1] = w1;
-          if (a.wout != nullptr && ray_ok) {
-            float* wo = a.wout + (size_t)ray * S;
-            if (sb + ra < S) wo[sb + ra] = w0;
-            if (sb + ra + 1 < S) wo[sb + ra + 1] = w1;
-          }
-          float pd = w0 * zc[ra] + w1 * zc[ra + 1];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            pd += __shfl_xor_sync(0xffffffffu, pd, off);
-          dep += pd;
+          dep += wg_composite_weights(
+              t0_in, al, excl, zc, wts,
+              (a.wout != nullptr && ray_ok) ? a.wout + (size_t)ray * S
+                                            : nullptr,
+              sb, S, lane);
         }
         tp ^= 1;
       }
 
-      // ---- xyz_encoding_final: hf = h @ W_f + b_f, in place
-      zero_acc(acc);
-      wg_product<WP, NS, SLOT>(
-          acc, WP / 64, [&](int kc) { return act_a + kc * A_SLICE; }, ring_a,
-          full, empty, rg, leader);
-      stash_wait();
-      wg_sync();
-#pragma unroll
-      for (int nb = 0; nb < WP / 8; ++nb) {
-        const int c = nb * 8 + cq;
-        const float b0 = a.bf[c], b1 = a.bf[c + 1];
-        st_bf16x2(act, r0, c, acc[nb * 4] + b0, acc[nb * 4 + 1] + b1);
-        st_bf16x2(act, r0 + 8, c, acc[nb * 4 + 2] + b0, acc[nb * 4 + 3] + b1);
-      }
-      fence_proxy_async();
-      wg_sync();
-      stash_store(act, WP / 64, o_hf);
-
-      // ---- dir branch: dd = relu(hf @ W_dh + dir term + b_d), in place
-      {
-        float acc_d[HP / 2];
-        zero_acc(acc_d);
-        wg_product<HP, NS, SLOT>(
-            acc_d, WP / 64, [&](int kc) { return act_a + kc * A_SLICE; },
-            ring_a, full, empty, rg, leader);
-        stash_wait();
-        wg_sync();
-#pragma unroll
-        for (int nb = 0; nb < HP / 8; ++nb) {
-          const int c = nb * 8 + cq;
-          const float e0 = dirt[c], e1 = dirt[c + 1];
-          const float b0 = a.bd[c], b1 = a.bd[c + 1];
-          st_bf16x2(act, r0, c, fmaxf(acc_d[nb * 4] + e0 + b0, 0.f),
-                    fmaxf(acc_d[nb * 4 + 1] + e1 + b1, 0.f));
-          st_bf16x2(act, r0 + 8, c, fmaxf(acc_d[nb * 4 + 2] + e0 + b0, 0.f),
-                    fmaxf(acc_d[nb * 4 + 3] + e1 + b1, 0.f));
-        }
-      }
-      fence_proxy_async();
-      wg_sync();
-      stash_store(act, HP / 64, o_dd);
-
-      // ---- feature head: sigmoid(dd @ W_c + b_c), times the row's weight,
-      // summed over the rows
-      {
-        float acc_c[CP / 2];
-        zero_acc(acc_c);
-        wg_product<CP, NS, SLOT>(
-            acc_c, HP / 64, [&](int kc) { return act_a + kc * A_SLICE; },
-            ring_a, full, empty, rg, leader);
-        const float wa = wts[r0], wb = wts[r0 + 8];
-#pragma unroll
-        for (int nb = 0; nb < CP / 8; ++nb) {
-          const int c = nb * 8 + cq;
-          const float b0 = a.bc[c], b1 = a.bc[c + 1];
-          float p0 = wa * (1.f / (1.f + expf(-(acc_c[nb * 4] + b0)))) +
-                     wb * (1.f / (1.f + expf(-(acc_c[nb * 4 + 2] + b0))));
-          float p1 = wa * (1.f / (1.f + expf(-(acc_c[nb * 4 + 1] + b1)))) +
-                     wb * (1.f / (1.f + expf(-(acc_c[nb * 4 + 3] + b1))));
-#pragma unroll
-          for (int off = 4; off < 32; off <<= 1) {
-            p0 += __shfl_xor_sync(0xffffffffu, p0, off);
-            p1 += __shfl_xor_sync(0xffffffffu, p1, off);
-          }
-          if (lane < 4) {
-            red[warp * CP + c] = p0;
-            red[warp * CP + c + 1] = p1;
-          }
-        }
-        wg_sync();
-        for (int c = wtid; c < CP; c += 128)
-          fm[ip * CP + c] += (red[c] + red[CP + c]) +
-                             (red[2 * CP + c] + red[3 * CP + c]);
-      }
+      wg_heads<WP, HP, CP, NS, SLOT>(
+          a, acc, act, act_a, dirt, wts, red, fm + ip * CP, ring_a, full,
+          empty, rg, leader, warp, lane, wtid, r0, cq, o_hf, o_dd, wg_sync,
+          [](int) {}, nothing, stash_wait,
+          [&](int col, int nslices) { stash_store(act, nslices, col); });
     }
 
     // ---- the item's ray block(s): [feature map | depth | 0]

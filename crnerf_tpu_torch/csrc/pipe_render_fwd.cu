@@ -1,4 +1,6 @@
-// Pipelined fused render forward: K1's rays-in, no-stash forward
+// Pipelined fused render forward, the mma.sync kernel (bf16 at the widths
+// the wgmma one, pipe_render_fwd_wgmma.cuh, does not take; this file also
+// holds both kernels' C entries): K1's rays-in, no-stash forward
 // (fused_render_fwd.cuh) with the compositing on a warp of its own, so that
 // one chunk's compositing runs while the product warps work on the next
 // chunk, of the same ray or of the CTA's next ray.
@@ -42,7 +44,7 @@
 //     3.4x slower than K1 (PERF.md section 6), so it is built for one CTA an
 //     SM: up to 168 registers a thread (three warps a sub-partition).
 
-#include "fused_render_fwd.cuh"
+#include "pipe_render_fwd_wgmma.cuh"
 
 namespace {
 
@@ -238,4 +240,27 @@ extern "C" int crnerf_pipe_render_occupancy(const int* dims, int n_dims,
   a.WP = dims[4]; a.HP = dims[5]; a.CP = dims[6]; a.KE = dims[8];
   *blocks = 0;
   return occupancy(pipe_smem_bytes(a), blocks);
+}
+
+// ptrs as crnerf_pipe_render_fwd takes them, then the weight stream
+// (wgmma_weights in ops/fused_render.py); dims as there. Only the shape the
+// wgmma K1 takes: bf16, (WP, HP, CP) = (256, 128, 64), KE <= 128, C <= CP.
+// Launches on ``stream``; returns cudaGetLastError() (or
+// cudaErrorInvalidValue for arguments the kernel does not take).
+extern "C" int crnerf_pipe_render_fwd_wgmma(const void* const* ptrs,
+                                            int n_ptrs, const int* dims,
+                                            int n_dims, void* stream) {
+  if (n_dims != PIPE_DIMS || n_ptrs < 1) return (int)cudaErrorInvalidValue;
+  KArgs a;
+  bool bf16;
+  const int rc = parse_fwd_args(ptrs, n_ptrs - 1, dims, FWD_DIMS, a, bf16);
+  if (rc != 0) return rc;
+  const int P = dims[FWD_DIMS];
+  const void* wpack = ptrs[n_ptrs - 1];
+  if (!bf16 || !wpack || ((uintptr_t)wpack & 15) || P < 1 || a.stash ||
+      a.xyz || !a.od || !a.out || !a.wout || a.KE > KEW ||
+      3 + 6 * a.F > KEW || a.WP != 256 || a.HP != 128 || a.CP != 64)
+    return (int)cudaErrorInvalidValue;
+  return launch_pipe_wgmma<256, 128, 64>(a, wpack, P,
+                                         static_cast<cudaStream_t>(stream));
 }

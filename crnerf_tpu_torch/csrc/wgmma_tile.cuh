@@ -31,17 +31,18 @@ constexpr int WG_SMEM_MAX = 232448;    // the H100's 227 KB a block
 constexpr int WG_MAX_NS = 8;
 constexpr int KEW = 128;               // encode columns in this layout
 
-template <int N>
+// one m64nNk16 product; T: both operands K-major (0) or MN-major (1)
+template <int N, int T = 0>
 __device__ __forceinline__ void wg_mma(float (&d)[N / 2], uint64_t da,
                                        uint64_t db) {
   if constexpr (N == 8)
-    wgmma_m64n8k16<0, 0>(d, da, db);
+    wgmma_m64n8k16<T, T>(d, da, db);
   else if constexpr (N == 64)
-    wgmma_m64n64k16<0, 0>(d, da, db);
+    wgmma_m64n64k16<T, T>(d, da, db);
   else if constexpr (N == 128)
-    wgmma_m64n128k16<0, 0>(d, da, db);
+    wgmma_m64n128k16<T, T>(d, da, db);
   else
-    wgmma_m64n256k16<0, 0>(d, da, db);
+    wgmma_m64n256k16<T, T>(d, da, db);
 }
 
 // Byte offset of element (r, k) in a warpgroup's K-major, 128-byte
@@ -79,14 +80,36 @@ struct Ring {
 };
 
 // acc += A @ B over nk K-slices of 64: slice kc's A at a_addr(kc) (shared
-// address of a 64-row swizzled slice), B the next ring slot. One product
-// group a slice; a slot is released (one arrival of this warpgroup) once
-// the group after it has been committed and it has retired.
-template <int N, int NS, int SLOT, class AAddr>
+// address of a 64-row swizzled slice, read once the slot is full), B at
+// ring_a + SLOT * (the next ring slot). One product group a slice; a slot
+// is released (one arrival of this warpgroup) once the group after it has
+// been committed and it has retired (``release``: its arrival, on this
+// CTA's barrier, or also on a cluster peer's that loads into this slot).
+// issued() runs once the last group is committed, before it retires.
+// MN_LBO = 0: both operands K-major
+// (the K-slice along the 128-byte row); else both MN-major, the rows of a
+// box its 64 K-steps and its 64-wide M or N chunks MN_LBO bytes apart (a
+// TMA box of 64 rows as it lies).
+struct LocalRelease {
+  __device__ __forceinline__ void operator()(uint64_t* bar) const {
+    mbar_arrive(bar);
+  }
+};
+
+struct NoHook {
+  __device__ __forceinline__ void operator()() const {}
+};
+
+template <int N, int NS, int SLOT, int MN_LBO = 0, class AAddr,
+          class Release = LocalRelease, class Issued = NoHook>
 __device__ __forceinline__ void wg_product(float (&acc)[N / 2], int nk,
                                            AAddr a_addr, uint32_t ring_a,
                                            uint64_t* full, uint64_t* empty,
-                                           Ring& ring, bool leader) {
+                                           Ring& ring, bool leader,
+                                           Release release = {},
+                                           Issued issued = {}) {
+  constexpr uint32_t KSTEP = MN_LBO ? 16 * 128 : 32;
+  constexpr uint32_t LBO = MN_LBO ? MN_LBO : 16;
   int prev = -1;
   for (int kc = 0; kc < nk; ++kc) {
     mbar_wait(&full[ring.s], ring.ph);
@@ -96,19 +119,20 @@ __device__ __forceinline__ void wg_product(float (&acc)[N / 2], int nk,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wg_mma<N>(acc, sw128_desc(aa + kk * 32, 16, 1024),
-                sw128_desc(bb + kk * 32, 16, 1024));
+      wg_mma<N, MN_LBO ? 1 : 0>(acc, sw128_desc(aa + kk * KSTEP, LBO, 1024),
+                                sw128_desc(bb + kk * KSTEP, LBO, 1024));
     wgmma_commit();
     fence_acc(acc);
     wgmma_wait<1>();
     fence_acc(acc);
-    if (leader && prev >= 0) mbar_arrive(&empty[prev]);
+    if (leader && prev >= 0) release(&empty[prev]);
     prev = ring.s;
     ring.next<NS>();
   }
+  issued();
   wgmma_wait<0>();
   fence_acc(acc);
-  if (leader && prev >= 0) mbar_arrive(&empty[prev]);
+  if (leader && prev >= 0) release(&empty[prev]);
 }
 
 template <int R>
@@ -136,6 +160,15 @@ int ray_rows_map(CUtensorMap* map, const void* base, int n, int s, int cols,
 }
 
 // ------------------------------------------------ what the forwards share
+// K-slices of 64 of trunk layer i's product: the encode's KEW / 64 where
+// the layer takes the encode (layer 0, the skips), then the hidden rows'
+// WP / 64 (every layer but 0).
+template <int WP>
+__device__ __forceinline__ int wg_layer_slices(int i, int skip_mask) {
+  const bool with_enc = i == 0 || ((skip_mask >> i) & 1);
+  return (with_enc ? KEW / 64 : 0) + (i > 0 ? WP / 64 : 0);
+}
+
 // The encode's columns past the point: zero from 3 + 6F to KEW. The caller
 // stores x, y, z into columns 0..2 and into xyz[64 x 3]; a warpgroup
 // barrier lies between those stores and wg_encode_sincos.
@@ -187,10 +220,11 @@ __device__ __forceinline__ void wg_encode_sincos(uint8_t* enc,
 // epilogue (bias, ReLU, bf16) into act in place. before_epi() runs once
 // the layer's products have retired, before the warpgroup barrier that
 // precedes the epilogue; after_epi(i) once layer i's rows are written and
-// visible to the async proxy (the stash forward stores them from there).
+// visible to the async proxy (the stash forward stores them from there);
+// issued() once the layer's last product group is committed.
 // Args: the kernel's arguments (L, skip_mask, b).
 template <int WP, int NS, int SLOT, class Args, class Sync, class Before,
-          class After>
+          class After, class Issued = NoHook>
 __device__ __forceinline__ void wg_trunk(const Args& a, float (&acc)[WP / 2],
                                          uint32_t enc_a, uint32_t act_a,
                                          uint8_t* act, uint32_t ring_a,
@@ -198,7 +232,8 @@ __device__ __forceinline__ void wg_trunk(const Args& a, float (&acc)[WP / 2],
                                          Ring& rg, bool leader, int r0,
                                          int cq, Sync wg_sync,
                                          Before before_epi,
-                                         After after_epi) {
+                                         After after_epi,
+                                         Issued issued = {}) {
   for (int i = 0; i < a.L; ++i) {
     const bool with_enc = i == 0 || ((a.skip_mask >> i) & 1);
     const int ne = with_enc ? KEW / 64 : 0;
@@ -210,7 +245,7 @@ __device__ __forceinline__ void wg_trunk(const Args& a, float (&acc)[WP / 2],
           return kc < ne ? enc_a + kc * A_SLICE
                          : act_a + (kc - ne) * A_SLICE;
         },
-        ring_a, full, empty, rg, leader);
+        ring_a, full, empty, rg, leader, LocalRelease{}, issued);
     before_epi();
     wg_sync();
     const float* bias = a.b[i];
@@ -238,8 +273,7 @@ __device__ __forceinline__ const uint8_t* wg_put_trunk(const uint8_t* p,
                                                        int L, int skip_mask,
                                                        Put put) {
   for (int i = 0; i < L; ++i) {
-    const bool with_enc = i == 0 || ((skip_mask >> i) & 1);
-    const int nk = (with_enc ? KEW / 64 : 0) + (i > 0 ? WP / 64 : 0);
+    const int nk = wg_layer_slices<WP>(i, skip_mask);
     for (int k = 0; k < nk; ++k, p += SLOT) put(p, SLOT);
   }
   return p;

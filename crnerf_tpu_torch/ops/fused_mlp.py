@@ -58,6 +58,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from crnerf_tpu_torch.models.nerf_mlp import softplus
+from crnerf_tpu_torch.ops.fused_render import LAUNCH_COUNTS as FR_LAUNCH_COUNTS
 from crnerf_tpu_torch.ops.fused_render import (
     WGMMA_CHAIN_MAX_L,
     WGMMA_DIR_K,
@@ -75,6 +76,7 @@ from crnerf_tpu_torch.ops.fused_render import (
     _served_widths,
     _sm_count,
     _stream,
+    _wgrad_key,
     _wgrad_plan,
     bwd_wgrad_plain,
     dir_block,
@@ -85,6 +87,7 @@ from crnerf_tpu_torch.ops.fused_render import (
     sincos_encode,
     unflatten_params,
     wgmma_chain_weights,
+    wgrad_variant,
 )
 
 # launches of each kernel, counted by its wrapper where it launches
@@ -462,7 +465,7 @@ _FWD_DIMS = ("M", "R", "p_base", "L", "skip_mask", "WP", "HP", "CP", "C",
              "KE", "F", "DK", "DKP", "exact", "BF16", "SC")
 _BWD_DIMS = ("M", "R", "L", "skip_mask", "WP", "HP", "CP", "C", "KE", "F",
              "DK", "DKP", "exact", "BF16", "SC", "DC", "grid", "WT",
-             "n_tiles", "splits", "m_per", "P")
+             "n_tiles", "splits", "m_per", "P", "WK")
 
 
 def _lib_fwd():
@@ -585,7 +588,7 @@ def mlp_bwd(mkw: MlpKernelWeights, xyz, dirs, g_feat, g_sigma,
         grid = min(-(-p // 128), _sm_count(dev))
     else:
         grid = min(-(-p // 64), _chain_grid(kw, p, dev)[0])
-    tiles, splits, m_per = _wgrad_plan(kw, p, dev, lay)
+    tiles, splits, m_per, wk = _wgrad_plan(kw, p, dev, lay)
     stash = torch.empty((p, lay.sc), dtype=dt, device=dev)
     dzbuf = torch.empty((p, lay.dc), dtype=dt, device=dev)
     bpart = torch.empty((grid, lay.bt), dtype=torch.float32, device=dev)
@@ -595,7 +598,7 @@ def mlp_bwd(mkw: MlpKernelWeights, xyz, dirs, g_feat, g_sigma,
     dims = dict(kw.dims, M=m, R=dir_rep, DKP=_round_up(kw.dims["DK"], 16),
                 exact=int(exact_encode), SC=lay.sc, DC=lay.dc, grid=grid,
                 WT=lay.wt, n_tiles=tiles.shape[0], splits=splits,
-                m_per=m_per, P=p)
+                m_per=m_per, P=p, WK=wk)
     head = [xyz, dir_block(kw, dirs, exact_encode), g_feat, g_sigma, stash,
             dzbuf, bpart, gb, tiles, part, gw]
     if variant == "wgmma":
@@ -608,6 +611,8 @@ def mlp_bwd(mkw: MlpKernelWeights, xyz, dirs, g_feat, g_sigma,
               head + [*_chain_weights(kw)[1:], *_fwd_weights(mkw)], dims,
               _BWD_DIMS, dev)
         LAUNCH_COUNTS["fused_mlp_bwd_mma"] += 1
+    # the weight gradient, one launch a slab inside the entry
+    FR_LAUNCH_COUNTS[_wgrad_key(wgrad_variant(kw.dims))] += -(-m // p)
     return gw, gb, (stash, dzbuf)
 
 

@@ -55,12 +55,19 @@ the served MLPs' widths, the one shape they are built for: the forward
 with and without the stash, the chain, and the recompute's slabs, which
 run those two. The mma.sync kernels (``csrc/fused_render_fwd.cuh``,
 ``csrc/fused_render_bwd.cuh``) take everything else: fp32, other widths,
-deeper trunks and longer rays than the wgmma chain takes. The no-stash
+deeper trunks and longer rays than the wgmma chain takes. The weight
+gradient has three kernels, chosen by ``wgrad_variant``: on wgmma
+(``csrc/wgrad_wgmma.cuh``: 128-row tiles of a job's whole dz width in
+clusters of two, both operands TMA boxes, a job's dz boxes loaded once for
+its two tiles) at bf16 and the served widths, on mma.sync at other
+bf16 widths, and an fp32 one; the stash backward and the slabs of the
+recompute and of the fused MLP's backward all take it. The no-stash
 training forward takes the recompute's variant (``recompute_variant``),
 so that a step's forward and its backward's recompute are one kernel's
 bits. ``render_variant``, ``chain_variant`` and ``recompute_variant``
 choose by shape before the launch; each variant counts its launches apart
-(``LAUNCH_COUNTS``: the mma.sync kernels' under ``*_mma``).
+(``LAUNCH_COUNTS``: the mma.sync kernels' under ``*_mma``, the fp32
+weight gradient's under ``*_fp32``).
 """
 
 from __future__ import annotations
@@ -92,6 +99,10 @@ LAUNCH_COUNTS: Dict[str, int] = {
     "fused_render_bwd": 0,          # backward, the per-ray dz chain (wgmma)
     "fused_render_bwd_mma": 0,
     "fused_render_bwd_wgrad": 0,    # backward, the split-K weight gradient
+                                    # (wgmma), also inside K3's and K4-bwd's
+                                    # slabs: one a slab
+    "fused_render_bwd_wgrad_mma": 0,     # the same, bf16 on mma.sync
+    "fused_render_bwd_wgrad_fp32": 0,    # the same, the fp32 kernel
     "fused_render_bwd_recompute": 0,      # recompute backward, rays-in
     "fused_render_bwd_recompute_xyz": 0,  # recompute backward, xyz-in
     "fused_render_bwd_recompute_mma": 0,  # the same on the mma.sync triple
@@ -489,6 +500,16 @@ def chain_variant(dims: Dict[str, int], s: int) -> str:
     return "wgmma" if fits else "mma"
 
 
+def wgrad_variant(dims: Dict[str, int]) -> str:
+    """The weight gradient's kernel for a layout's dimensions, by one rule
+    for every caller (the stash backward, the recompute's and the fused
+    MLP's slabs): "wgmma" at bf16 and the served MLPs' widths, "mma" at
+    other bf16 widths, "fp32" at fp32."""
+    if not dims["BF16"]:
+        return "fp32"
+    return "wgmma" if _served_widths(dims) else "mma"
+
+
 def recompute_variant(dims: Dict[str, int], s: int) -> str:
     """The recompute backward's kernels for a layout's dimensions and s
     samples a ray, and so the no-stash training forward's, whose bits the
@@ -790,15 +811,27 @@ _FWD_DIMS = ("N", "S", "L", "skip_mask", "WP", "HP", "CP", "C", "KE", "F",
              "DK", "exact", "ldo", "BF16", "SC")
 _CHAIN_DIMS = ("N", "S", "L", "WP", "HP", "CP", "C", "DK", "ldo", "SC", "DC",
                "slices", "BF16", "grid")
-_WGRAD_DIMS = ("M", "SC", "DC", "WT", "n_tiles", "splits", "m_per", "BF16")
+_WGRAD_DIMS = ("M", "SC", "DC", "WT", "n_tiles", "splits", "m_per", "WK")
 _RECOMPUTE_DIMS = _FWD_DIMS + ("DC", "slices", "grid", "WT", "n_tiles",
-                               "splits", "m_per", "R")
+                               "splits", "m_per", "R", "WK")
 _C_FN = "crnerf_render_fwd"
 _C_FN_WGMMA = "crnerf_render_fwd_wgmma"
 _C_ARGS = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
            ctypes.c_void_p)
-# the weight-gradient kernel's output tile and points per step, by dtype
-_WGRAD_TILE = {torch.bfloat16: (128, 64), torch.float32: (64, 32)}
+# each weight-gradient kernel's output tile (rows, columns: the wgmma
+# kernel's a job's whole dz width), points a step, and its number in the C
+# entry (csrc/wgrad_wgmma.cuh WgradKernel)
+_WGRAD_TILES = {"wgmma": (128, MAX_WIDTH, 64), "mma": (128, 128, 64),
+                "fp32": (64, 64, 32)}
+_WGRAD_KERNEL = {"fp32": 0, "mma": 1, "wgmma": 2}
+# the wgmma weight gradient's grid: about this many waves of (tile, split)
+# items, one CTA an SM, each split at least WGRAD_MIN_STEPS steps of points.
+# Two waves keep the partials (splits x WT fp32) at 26 MiB at 8x256, under
+# the mma.sync kernel's 31 MiB, for under 2% (tools/wgrad_ab on an H100 at
+# 700 W: 9.996 ms against eight waves' 9.929 at 16,384 x 128, 0.945
+# against 0.927 on a K3 slab, eight waves' partials 105 MiB).
+WGRAD_WAVES = 2
+WGRAD_MIN_STEPS = 16
 
 
 def _lib():
@@ -948,16 +981,44 @@ def fused_render_apply(
 
 
 @functools.lru_cache(maxsize=None)
-def _tile_table(lay: GradLayout, tile: int, device_str: str) -> torch.Tensor:
+def _tile_table(lay: GradLayout, tile: int, device_str: str,
+                tile_n: int = 0) -> torch.Tensor:
     """(n_tiles, 6) int32 on the device: a_col, k_valid, b_col, n_valid,
-    out_off, ld_out of every ``tile`` x ``tile`` output tile of ``jobs``."""
+    out_off, ld_out of every ``tile`` x ``tile_n`` (default ``tile``)
+    output tile of ``jobs``, job by job, the tiles of a job row block by
+    row block."""
+    tile_n = tile_n or tile
     rows = []
     for _, a_col, k, b_col, n, off in lay.jobs:
         for tm in range(0, k, tile):
-            for tn in range(0, n, tile):
+            for tn in range(0, n, tile_n):
                 rows.append([a_col + tm, min(tile, k - tm), b_col + tn,
-                             min(tile, n - tn), off + tm * n + tn, n])
+                             min(tile_n, n - tn), off + tm * n + tn, n])
     return torch.tensor(rows, dtype=torch.int32, device=device_str)
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_table(lay: GradLayout, device_str: str) -> torch.Tensor:
+    """The wgmma weight gradient's table for clusters of two CTAs (rows 2i
+    and 2i + 1 a cluster; csrc/wgrad_wgmma.cuh): a job's two 128-row tiles
+    of its whole dz width side by side, then the jobs of one 128-row tile
+    two by two, the last beside a row of zeros (k_valid 0: nothing to
+    do)."""
+    table = _tile_table(lay, 128, "cpu", MAX_WIDTH).tolist()
+    rows, single = [], []
+    i = 0
+    for _, _, k, _, _, _ in lay.jobs:
+        tiles = table[i:i + -(-k // 128)]
+        i += len(tiles)
+        if len(tiles) > 2:
+            raise ValueError(f"a job of {k} rows: the pairs take <= 256")
+        if len(tiles) == 2:
+            rows += tiles
+        else:
+            single += tiles
+    if len(single) % 2:
+        single.append([0] * 6)
+    return torch.tensor(rows + single, dtype=torch.int32, device=device_str)
 
 
 def _sm_count(dev) -> int:
@@ -1056,21 +1117,60 @@ def bwd_chain(kw: KernelWeights, z_vals, noise, dir_blk, stash, g_ray, g_w,
     return dzbuf, gb
 
 
+def wgrad_splits(variant: str, n_tiles: int, m: int, sms: int) -> int:
+    """Splits of m points for the weight gradient's grid of n_tiles tiles
+    on a card of ``sms`` SMs. wgmma: about ``WGRAD_WAVES`` waves of (tile,
+    split) items, one CTA an SM, each split at least ``WGRAD_MIN_STEPS``
+    steps of points. The others: a few waves, at least four steps a
+    split."""
+    pts = _WGRAD_TILES[variant][2]
+    if variant == "wgmma":
+        return max(1, min(-(-m // (WGRAD_MIN_STEPS * pts)),
+                          WGRAD_WAVES * sms // n_tiles))
+    return max(1, min(-(-m // (4 * pts)), -(-4 * sms // n_tiles)))
+
+
 def _wgrad_plan(kw: KernelWeights, m: int, dev,
-                lay: Optional[GradLayout] = None):
-    """-> (tile table, splits of the m points, points per split): enough
-    CTAs for a few waves, each with at least four steps of points."""
-    tile, pts = _WGRAD_TILE[kw.compute_dtype]
-    tiles = _tile_table(lay or grad_layout(kw.dims), tile, str(dev))
-    splits = max(1, min(-(-m // (4 * pts)),
-                        -(-4 * _sm_count(dev) // tiles.shape[0])))
-    return tiles, splits, _round_up(-(-m // splits), pts)
+                lay: Optional[GradLayout] = None,
+                variant: Optional[str] = None):
+    """-> (tile table, splits of the m points, points per split (a
+    multiple of the kernel's step), the kernel's number in the C entry)
+    for ``variant`` (default ``wgrad_variant``'s)."""
+    variant = variant or wgrad_variant(kw.dims)
+    tile, tile_n, pts = _WGRAD_TILES[variant]
+    lay = lay or grad_layout(kw.dims)
+    tiles = (_pair_table(lay, str(dev)) if variant == "wgmma"
+             else _tile_table(lay, tile, str(dev), tile_n))
+    splits = wgrad_splits(variant, tiles.shape[0], m, _sm_count(dev))
+    return (tiles, splits, _round_up(-(-m // splits), pts),
+            _WGRAD_KERNEL[variant])
 
 
-def bwd_wgrad(kw: KernelWeights, stash, dzbuf) -> torch.Tensor:
-    """The backward's second kernel (``bwd_wgrad_plain`` on CPU tensors)."""
+def _wgrad_key(variant: str) -> str:
+    """The launch counter of a weight-gradient kernel."""
+    return ("fused_render_bwd_wgrad" if variant == "wgmma"
+            else f"fused_render_bwd_wgrad_{variant}")
+
+
+def bwd_wgrad(kw: KernelWeights, stash, dzbuf,
+              variant: Optional[str] = None,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The backward's second kernel (``bwd_wgrad_plain`` on CPU tensors).
+    ``variant``: "wgmma", "mma" or "fp32"; None takes ``wgrad_variant``'s
+    by shape. At bf16 "mma" may be named at every width (the checks that
+    compare with the mma.sync kernel), "wgmma" only where
+    ``wgrad_variant`` takes it; at fp32 only "fp32". ``out`` (WT,) f32:
+    the sums are added onto it, in place (as the recompute's slabs add
+    theirs), and it is returned."""
+    chosen = wgrad_variant(kw.dims)
+    variant = chosen if variant is None else variant
+    allowed = {chosen, "mma"} if kw.dims["BF16"] else {"fp32"}
+    if variant not in allowed:
+        raise ValueError(f"the weight gradient takes {sorted(allowed)} at "
+                         f"dims {kw.dims}, not {variant!r}")
     if stash.device.type == "cpu":
-        return bwd_wgrad_plain(kw, stash, dzbuf)
+        gw = bwd_wgrad_plain(kw, stash, dzbuf)
+        return gw if out is None else out.add_(gw)
     if stash.device.type != "cuda":
         raise ValueError(f"no fused render for device {stash.device}")
     dev, dt = stash.device, kw.compute_dtype
@@ -1078,15 +1178,19 @@ def bwd_wgrad(kw: KernelWeights, stash, dzbuf) -> torch.Tensor:
     m = stash.shape[0]
     _check("stash", stash, (m, lay.sc), dev, dt)
     _check("dz buffer", dzbuf, (m, lay.dc), dev, dt)
-    tiles, splits, m_per = _wgrad_plan(kw, m, dev)
+    if out is not None:
+        _check("out", out, (lay.wt,), dev)
+    tiles, splits, m_per, wk = _wgrad_plan(kw, m, dev, variant=variant)
     part = torch.empty((splits, lay.wt), dtype=torch.float32, device=dev)
-    gw = torch.empty((lay.wt,), dtype=torch.float32, device=dev)
+    gw = (torch.empty((lay.wt,), dtype=torch.float32, device=dev)
+          if out is None else out)
     dims = dict(M=m, SC=lay.sc, DC=lay.dc, WT=lay.wt,
-                n_tiles=tiles.shape[0], splits=splits, m_per=m_per,
-                BF16=kw.dims["BF16"])
+                n_tiles=tiles.shape[0], splits=splits, m_per=m_per, WK=wk,
+                acc=int(out is not None))
     _call(_lib_bwd(), "crnerf_render_bwd_wgrad",
-          [stash, dzbuf, tiles, part, gw], dims, _WGRAD_DIMS, dev)
-    LAUNCH_COUNTS["fused_render_bwd_wgrad"] += 1
+          [stash, dzbuf, tiles, part, gw], dims, _WGRAD_DIMS + ("acc",),
+          dev)
+    LAUNCH_COUNTS[_wgrad_key(variant)] += 1
     return gw
 
 
@@ -1218,7 +1322,7 @@ def bwd_recompute(kw: KernelWeights, origins, dirs, z_vals, noise, g_ray,
         grid, slices = _chain_grid_wgmma(r, s, dev)
     else:
         grid, slices = _chain_grid(kw, r, dev)
-    tiles, splits, m_per = _wgrad_plan(kw, r * s, dev)
+    tiles, splits, m_per, wk = _wgrad_plan(kw, r * s, dev)
     stash = torch.empty((r * s, lay.sc), dtype=dt, device=dev)
     dzbuf = torch.empty((r * s, lay.dc), dtype=dt, device=dev)
     part = torch.empty((splits, lay.wt), dtype=torch.float32, device=dev)
@@ -1226,7 +1330,8 @@ def bwd_recompute(kw: KernelWeights, origins, dirs, z_vals, noise, g_ray,
     gb = torch.empty((lay.bt,), dtype=torch.float32, device=dev)
     dims = dict(kw.dims, N=n, S=s, exact=int(exact_encode), ldo=ldo,
                 SC=lay.sc, DC=lay.dc, slices=slices, grid=grid, WT=lay.wt,
-                n_tiles=tiles.shape[0], splits=splits, m_per=m_per, R=r)
+                n_tiles=tiles.shape[0], splits=splits, m_per=m_per, R=r,
+                WK=wk)
     head = [od, xyz, z_vals, noise, dir_block(kw, dirs, exact_encode), g_ray,
             g_w, stash, dzbuf, *_chain_scratch(kw, r, grid, slices, dev), gb,
             tiles, part, gw]
@@ -1242,6 +1347,8 @@ def bwd_recompute(kw: KernelWeights, origins, dirs, z_vals, noise, g_ray,
     key = ("fused_render_bwd_recompute" if xyz is None
            else "fused_render_bwd_recompute_xyz")
     LAUNCH_COUNTS[key if variant == "wgmma" else key + "_mma"] += 1
+    # the weight gradient, one launch a slab inside the entry
+    LAUNCH_COUNTS[_wgrad_key(wgrad_variant(kw.dims))] += -(-n // r)
     return gw, gb, (stash, dzbuf)
 
 

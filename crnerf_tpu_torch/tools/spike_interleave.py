@@ -3,22 +3,26 @@
 points. Counterpart of ``scripts/spike_interleave.py``.
 
     python -m crnerf_tpu_torch.tools.spike_interleave
+    python -m crnerf_tpu_torch.tools.spike_interleave --width 128
     python -m crnerf_tpu_torch.tools.spike_interleave --rays 4 --s 64 --device cpu
 
 Inputs as the spike's, from a seeded ``torch.Generator`` (the JAX script's
-``jax.random`` numbers are not reproduced): 8x256 weights, C = 64, every
-weight N(0, 0.1) and every bias zero; origins N(0, 1), directions the
-origins normalised, z sorted in [0.5, 3.5], zero noise; bf16 with the
-recurrence encode. The CTAs an SM the kernel gets, then per ``phases``
-P (rays a CTA; ``ops.pipe_render.PHASES``) the max abs error against K1 on the same inputs and ms per call, then K1's
-ms as the yardstick (no single PyTorch call computes a fused render: the
-library column is none), at ``--rays`` x ``--s`` and at the serve tile,
-8192 x 512. The spike's r_half has no
-counterpart: a CTA walks its rays in 64-sample chunks whatever their
-number, so P alone names a variant (the spike's (2, 16) and (2, 32) are
-both P = 2). Returns 1 unless every P gives K1's bits. Without a card the
-tool stops unless given ``--device cpu`` (plain versions, one shape, times
-on the host clock).
+``jax.random`` numbers are not reproduced): 8 x ``--width`` (256) weights,
+C = 64, every weight N(0, 0.1) and every bias zero; origins N(0, 1),
+directions the origins normalised, z sorted in [0.5, 3.5], zero noise;
+bf16 with the recurrence encode. S2's kernel for the width
+(``ops.pipe_render.pipe_variant``: the ping-pong wgmma kernel at 256, the
+mma.sync one at other widths), then per ``phases`` P (rays a CTA;
+``ops.pipe_render.PHASES``) the max abs error against K1 of the same
+variant on the same inputs and ms per call, then that K1's ms as the
+yardstick (no single PyTorch call computes a fused render: the library
+column is none), at ``--rays`` x ``--s`` and at the serve tile, 8192 x
+512. The spike's r_half has no counterpart: a warpgroup (a CTA on
+mma.sync) walks its rays in 64-sample tiles whatever their number, so P
+alone names a variant (the spike's (2, 16) and (2, 32) are both P = 2).
+Returns 1 unless every P gives K1's bits. Without a card the tool stops
+unless given ``--device cpu`` (plain versions, one shape, times on the
+host clock).
 """
 
 from __future__ import annotations
@@ -74,26 +78,30 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rays", type=int, default=8192)
     ap.add_argument("--s", type=int, default=128)
+    ap.add_argument("--width", type=int, default=256)
     add_device_flag(ap)
     args = ap.parse_args(argv)
     device = pick_device(args.device, "spike_interleave")
     if device is None:
         return 1
     print(device_line(device))
-    kw = fr.prepare_kernel_weights(spike_params(device), 15, 4,
-                                   torch.bfloat16)
+    kw = fr.prepare_kernel_weights(spike_params(device, width=args.width),
+                                   15, 4, torch.bfloat16)
+    variant = pr.pipe_variant(kw.dims)
     if device.type == "cuda":
-        print(f"CTAs an SM: pipelined {pr.pipe_render_occupancy(kw, device)}"
-              " (any P); K1 2 (launch bounds)")
+        occ = (pr.pipe_render_occupancy(kw, device) if variant == "mma"
+               else 1)
+        print(f"8 x {args.width}: the {variant} kernels; CTAs an SM: "
+              f"pipelined {occ} (any P)")
     shapes = [(args.rays, args.s)]
     if device.type == "cuda" and shapes[0] != SERVE:
         shapes.append(SERVE)
     ok = True
     for n, s in shapes:
         o, d, z, noise = spike_rays(n, s, device)
-        # K1's mma.sync variant: the code S2 shares
+        # K1 of S2's variant: the code S2 shares
         blk_k1, w_k1, _ = fr.render_fwd(kw, o, d, z, noise, False, False,
-                                        variant="mma")
+                                        variant=variant)
         for p in pr.PHASES:
             blk, w = pr.pipe_render_apply(kw, o, d, z, noise, False, p)
             err = max(float((blk - blk_k1).abs().max()),
@@ -106,8 +114,8 @@ def main(argv=None) -> int:
                   f"({'same bits' if same else 'OTHER BITS'}), {ms:.3f} ms "
                   f"({n * s / ms / 1e3:.1f} Mpts/s)")
         ms = time_ms(lambda: fr.render_fwd(kw, o, d, z, noise, False, False,
-                                           variant="mma"), device, ITERS)
-        print(f"K1 fused render (mma.sync) at ({n} x {s}): {ms:.3f} ms "
+                                           variant=variant), device, ITERS)
+        print(f"K1 fused render ({variant}) at ({n} x {s}): {ms:.3f} ms "
               f"({n * s / ms / 1e3:.1f} Mpts/s); library: none")
         del blk_k1, w_k1
     if not ok:

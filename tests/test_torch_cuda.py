@@ -173,13 +173,13 @@ def test_backward_kernels_match_plain(dev, dt, depth, width, c, s):
     _, _, st = fr.render_fwd(kw, *rays, exact, stash=True)
     key = "fused_render_bwd" + (
         "" if fr.chain_variant(kw.dims, s) == "wgmma" else "_mma")
+    key_w = fr._wgrad_key(fr.wgrad_variant(kw.dims))
     before = dict(fr.LAUNCH_COUNTS)
     got = fr.fused_render_bwd(kw, z, noise, d, st, g_ray, g_w, exact)
     again = fr.fused_render_bwd(kw, z, noise, d, st, g_ray, g_w, exact)
     torch.cuda.synchronize()
     assert fr.LAUNCH_COUNTS[key] == before[key] + 2
-    assert fr.LAUNCH_COUNTS["fused_render_bwd_wgrad"] == (
-        before["fused_render_bwd_wgrad"] + 2)
+    assert fr.LAUNCH_COUNTS[key_w] == before[key_w] + 2
     want = fr.render_bwd_plain(params, z, noise, d, st, g_ray, g_w,
                                compute_dtype=dt, exact_encode=exact)
     for a, b, r in zip(fr.flatten_params(want), fr.flatten_params(got),
@@ -191,23 +191,31 @@ def test_backward_kernels_match_plain(dev, dt, depth, width, c, s):
         assert err <= fr.GRAD_TOL[dt], err
 
 
-def test_weight_gradient_kernel_alone(dev):
-    """dW = A^T dZ on random buffers, many splits: against the plain
-    product at fp32 summation-order tolerance."""
+@pytest.mark.parametrize("dt,variant", [(torch.bfloat16, "wgmma"),
+                                        (torch.bfloat16, "mma"),
+                                        (torch.float32, "fp32")])
+@pytest.mark.parametrize("m", [5000, 64, 1])
+def test_weight_gradient_kernel_alone(dev, dt, variant, m):
+    """dW = A^T dZ on random buffers, many splits (one at m <= 64): each
+    kernel against the plain product at fp32 summation-order tolerance,
+    the same bits twice, one launch counted under its own key."""
     torch.manual_seed(4)
     params = fr.mlp_params_from_module(
         NerfMLP(depth=8, width=256, out_dim=64).to(dev))
-    for dt in (torch.bfloat16, torch.float32):
-        kw = fr.prepare_kernel_weights(params, 15, 4, dt)
-        lay = fr.grad_layout(kw.dims)
-        m = 5000
-        st = torch.randn(m, lay.sc, device=dev).to(dt)
-        dz = torch.randn(m, lay.dc, device=dev).to(dt)
-        got = fr.bwd_wgrad(kw, st, dz)
-        want = fr.bwd_wgrad_plain(kw, st, dz)
-        torch.cuda.synchronize()
-        assert float((got - want).abs().max()) <= 1e-4 * float(
-            want.abs().max())
+    kw = fr.prepare_kernel_weights(params, 15, 4, dt)
+    lay = fr.grad_layout(kw.dims)
+    st = torch.randn(m, lay.sc, device=dev).to(dt)
+    dz = torch.randn(m, lay.dc, device=dev).to(dt)
+    key = fr._wgrad_key(variant)
+    before = fr.LAUNCH_COUNTS[key]
+    got = fr.bwd_wgrad(kw, st, dz, variant=variant)
+    again = fr.bwd_wgrad(kw, st, dz, variant=variant)
+    want = fr.bwd_wgrad_plain(kw, st, dz)
+    torch.cuda.synchronize()
+    assert fr.LAUNCH_COUNTS[key] == before + 2
+    assert torch.equal(got, again)
+    assert float((got - want).abs().max()) <= 1e-4 * float(
+        want.abs().max())
 
 
 def test_train_function_on_card_matches_cpu(dev):
@@ -513,7 +521,11 @@ def test_recompute_backward_matches_plain(dev, variant, dt, rays_in, depth,
                                           exact, xyz, slab_rays=10,
                                           variant=variant)
     torch.cuda.synchronize()
-    assert fr.LAUNCH_COUNTS == dict(before, **{key: before[key] + 2})
+    # and K2's weight gradient once a slab (the kernel wgrad_variant names)
+    key_w = fr._wgrad_key(fr.wgrad_variant(kw.dims))
+    assert fr.LAUNCH_COUNTS == dict(
+        before, **{key: before[key] + 2,
+                   key_w: before[key_w] + 2 * -(-z.shape[0] // 10)})
     want = fr.render_bwd_recompute_plain(
         params, o, d, z, noise, g_ray, g_w, compute_dtype=dt,
         exact_encode=exact, xyz=xyz, slab_rays=10)
@@ -1086,7 +1098,8 @@ def test_pipe_render_gives_k1_bits(dev, p, depth, width, c, n, s):
     """S2 against K1 on the same inputs: the same bits, for every rays a
     CTA (p = 3 leaves a ragged last CTA), S with a partial
     last chunk, padded widths; and against the plain version within K1's
-    bf16 tolerance. K1 is its mma.sync variant, whose code S2 shares."""
+    bf16 tolerance. K1 is the variant of S2's own kernel (pipe_variant:
+    the wgmma ones at the served widths), whose code S2 shares."""
     from crnerf_tpu_torch.ops import pipe_render as pr
 
     torch.manual_seed(3)
@@ -1094,12 +1107,14 @@ def test_pipe_render_gives_k1_bits(dev, p, depth, width, c, n, s):
         NerfMLP(depth=depth, width=width, out_dim=c).to(dev))
     o, d, z, noise = _inputs(dev, n, s)
     kw = fr.prepare_kernel_weights(params, 15, 4, torch.bfloat16)
-    before = pr.LAUNCH_COUNTS["pipe_render_fwd"]
+    variant = pr.pipe_variant(kw.dims)
+    key = "pipe_render_fwd" + ("" if variant == "wgmma" else "_mma")
+    before = pr.LAUNCH_COUNTS[key]
     blk, w = pr.pipe_render_apply(kw, o, d, z, noise, False, p)
     blk1, w1, _ = fr.render_fwd(kw, o, d, z, noise, False, stash=False,
-                                variant="mma")
+                                variant=variant)
     torch.cuda.synchronize()
-    assert pr.LAUNCH_COUNTS["pipe_render_fwd"] == before + 1
+    assert pr.LAUNCH_COUNTS[key] == before + 1
     assert torch.equal(blk, blk1) and torch.equal(w, w1)
     blk_p, w_p = pr.pipe_render_plain(params, o, d, z, noise, 15, 4,
                                       torch.bfloat16, False)

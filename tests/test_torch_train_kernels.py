@@ -265,6 +265,8 @@ def test_cpu_wrappers_launch_no_kernel(case):
                            "fused_render_fwd_stash",
                            "fused_render_fwd_stash_mma", "fused_render_bwd",
                            "fused_render_bwd_mma", "fused_render_bwd_wgrad",
+                           "fused_render_bwd_wgrad_mma",
+                           "fused_render_bwd_wgrad_fp32",
                            "fused_render_bwd_recompute",
                            "fused_render_bwd_recompute_xyz",
                            "fused_render_bwd_recompute_mma",
