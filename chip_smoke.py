@@ -141,6 +141,27 @@ Phases, each fatal on failure:
      against CPU (both on mma.sync), its NeRF gradients against the stash
      route's; and one
      timed reading of the module route, pallas_train=False
+  9. train, resume and evaluate from the CLI, on a phototourism cache the
+     port's save_scene_cache writes (6 train images of 512x384, 2 test
+     images of 384x512, appearance 224x160: 72 steps an epoch): the train
+     app in this process for 2 epochs at the flagship config, the launch
+     counters zeroed just before and read just after (every stash
+     forward, chain and weight gradient launch on the wgmma kernels, K1's
+     in the validations, none on mma.sync), metrics rows, a finite final
+     validation, the full checkpoint and weights.npz, steps/s, rays/s and
+     peak memory; then in subprocesses, as a user runs them:
+     ``python -m crnerf_tpu_torch train`` sent SIGTERM once its
+     metrics.jsonl shows step 20 (exit 0, "preempted: checkpointed at
+     step N") and relaunched with --auto_resume to the end; the resumed
+     run's last checkpoint (parameters, buffers, Adam's state, the cache
+     and its validity) and final validation the straight run's bits (a
+     step gives the same bits from run to run); beside the resume,
+     ``eval --split
+     val``, an empty split (exit 0), and prepare, train and eval with no
+     card to be seen, with the default and with --device cuda (non-zero
+     exit); last, ``eval --split test_test`` alone, its PNGs the bits of
+     an in-process Renderer on the same weights.npz, its median and p95 s
+     a frame, and the in-process frames' warm time
 Prints a {"kernels": [...]} line, the card line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
 phase fails or no CUDA device is present.
@@ -3189,6 +3210,376 @@ def tf32_check(state, batch):
                          "its convolutions are not pinned")
 
 
+# Phase 9: the CLI's train, resume and eval on a phototourism cache. Six
+# train images of 512x384 and two test images of 384x512 (a second
+# resolution for eval), appearance 224x160: 1.18 M rays, 72 steps an epoch
+# at 16 grids of 1024 rays.
+CLI_TRAIN_WH, CLI_TEST_WH = (512, 384), (384, 512)
+CLI_EPOCHS = 2
+CLI_BATCH = 1024            # rays a grid (Config.batch_size)
+CLI_PREEMPT_AFTER = 20      # SIGTERM once metrics.jsonl shows this step
+# A training step gives the same bits from run to run on the card (the
+# reflect pad's and the bilinear resize's backwards fold in a fixed order,
+# ``models/common.py``), so the resumed run must end on the straight run's
+# bits: every parameter, buffer, Adam moment, cache row and validity flag.
+
+
+@contextlib.contextmanager
+def user_flags():
+    """PyTorch's own defaults for the flags earlier phases set (TF32 in
+    cuDNN allowed, not in matmuls; cuDNN free to choose), as a user's
+    process and the CLI's subprocesses have them; restored after."""
+    import torch
+
+    b = torch.backends
+    saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32,
+             b.cudnn.deterministic, b.cudnn.benchmark)
+    b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32 = True, False
+    b.cudnn.deterministic, b.cudnn.benchmark = False, False
+    try:
+        yield
+    finally:
+        (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32, b.cudnn.deterministic,
+         b.cudnn.benchmark) = saved
+
+
+def cli_scene(root: str, empty_root: str):
+    """The phase's phototourism caches, written by the port's
+    save_scene_cache: the scene under ``root``, and under ``empty_root`` a
+    small one with no test image (an empty ``test_test`` split)."""
+    import dataclasses
+
+    from crnerf_tpu_torch.data.phototourism import save_scene_cache
+    from crnerf_tpu_torch.data.scene import Scene
+    from crnerf_tpu_torch.data.synthetic import make_synthetic_scene
+
+    app = (224, 160)
+    train = make_synthetic_scene(n_train=6, n_test=0, img_wh=CLI_TRAIN_WH,
+                                 appearance_wh=app, seed=SEED).images
+    test = [dataclasses.replace(im, id=len(train) + i,
+                                name=f"test_{i:03d}.png")
+            for i, im in enumerate(make_synthetic_scene(
+                n_train=0, n_test=2, img_wh=CLI_TEST_WH, appearance_wh=app,
+                seed=SEED + 1).images)]
+    scene = Scene("cli", train + test, appearance_wh=app)
+    save_scene_cache(scene, root_dir=root, img_downscale=2)
+    save_scene_cache(make_synthetic_scene(n_train=1, n_test=0,
+                                          appearance_wh=app, seed=SEED),
+                     root_dir=empty_root, img_downscale=2)
+    return scene
+
+
+def cli_args(root: str, save_dir: str, exp: str):
+    """The flagship config as a user passes it to ``train`` / ``eval``."""
+    return ["--dataset_name", "phototourism", "--root_dir", root,
+            "--scene_name", "cli", "--compute_dtype", "bfloat16",
+            "--grids_per_step", str(TRAIN_GRIDS), "--save_dir", save_dir,
+            "--exp_name", exp]
+
+
+def metric_rows(save_dir: str, exp: str):
+    path = os.path.join(save_dir, "logs", exp, "metrics.jsonl")
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.endswith("\n")]
+
+
+def ckpt_tensors(save_dir: str, exp: str, step: int):
+    """A full checkpoint's parameters, buffers, Adam moments and steps,
+    cache and validity mask, by name, on the host."""
+    import torch
+
+    path = os.path.join(save_dir, "ckpts", exp, f"{step}.pt")
+    if not os.path.exists(path):
+        raise PhaseError(f"no full checkpoint {path}")
+    ck = torch.load(path, map_location="cpu", weights_only=False)
+    out = {f"system.{k}": v for k, v in ck["system"].items()}
+    for i, st in ck["optimizer"]["state"].items():
+        for k, v in st.items():
+            out[f"adam.{i}.{k}"] = torch.as_tensor(v)
+    out["embedding_cache"] = ck["embedding_cache"]
+    out["embedding_valid"] = ck["embedding_valid"]
+    return out, ck
+
+
+def ckpt_distance(a, b):
+    """The largest absolute difference over every tensor of two
+    checkpoints, and the tensor where it is."""
+    if a.keys() != b.keys():
+        raise PhaseError("the two checkpoints hold other tensors")
+    return max((float((a[k].double() - b[k].double()).abs().max())
+                if a[k].numel() else 0.0, k) for k in a)
+
+
+def cli_straight(args, save_dir: str, exp: str, steps: int, n_val: int):
+    """The train CLI in this process, launch counters zeroed just before
+    and read just after. -> (launches, stdout, metrics rows, peak GiB,
+    seconds)."""
+    import io
+
+    import torch
+
+    from crnerf_tpu_torch.apps import train as train_app
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        state = train_app.main(args + ["--num_epochs", str(CLI_EPOCHS),
+                                       "--log_every", "5"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    text = out.getvalue()
+    print("\n".join(f"[cli] {exp}: {line}" for line in text.splitlines()))
+    if state.step != steps:
+        raise PhaseError(f"{exp}: the run ended at step {state.step}, "
+                         f"expected {steps}")
+    # two passes a step on the stash route's wgmma kernels, and K1 in the
+    # validations (two in fit, one after it): two passes a tile
+    want = {k: 0 for k in launches}
+    for k in ROUTES["stash"][1]:
+        want[k] = 2 * steps
+    want["fused_render_fwd"] = n_val
+    if launches != want:
+        raise PhaseError(f"{exp}: launch counters {launches}, expected "
+                         f"{want}")
+    rows = metric_rows(save_dir, exp)
+    if not any("train/loss" in r for r in rows):
+        raise PhaseError(f"{exp}: metrics.jsonl has no train rows")
+    for name in (f"{steps}.pt", "weights.npz"):
+        if not os.path.exists(os.path.join(save_dir, "ckpts", exp, name)):
+            raise PhaseError(f"{exp}: no {name} after the run")
+    return launches, text, rows, peak, secs
+
+
+def final_val(text: str, who: str):
+    import re
+
+    m = re.search(r"final val: psnr=(\S+) ssim=(\S+)", text)
+    if not m:
+        raise PhaseError(f"{who}: no final val line:\n{text[-4000:]}")
+    val = float(m.group(1)), float(m.group(2))
+    if not all(map(lambda x: x == x and abs(x) != float("inf"), val)):
+        raise PhaseError(f"{who}: final val not finite: {val}")
+    return val
+
+
+def spawn(argv, log_path: str, env):
+    """``python -m crnerf_tpu_torch`` with ``argv``, output to
+    ``log_path``; ``finish`` waits for it."""
+    f = open(log_path, "w")
+    proc = subprocess.Popen([sys.executable, "-m", "crnerf_tpu_torch",
+                             *argv], cwd=REPO, stdout=f,
+                            stderr=subprocess.STDOUT, env=env)
+    return proc, f, log_path
+
+
+def finish(job, timeout: float = 600):
+    """-> (exit code, output) of a ``spawn``ed run."""
+    proc, f, log_path = job
+    try:
+        rc = proc.wait(timeout=timeout)
+    finally:
+        f.close()
+    with open(log_path) as g:
+        return rc, g.read()
+
+
+def phase_cli(device, workdir: str, card: str):
+    """Phase 9: train straight in this process; a preempted run and its
+    resume in subprocesses, to the straight run's bits; evaluate in a
+    subprocess; refuse without a card. -> the straight run's launch
+    counts."""
+    import re
+    import signal
+
+    import numpy as np
+    import torch
+
+    from crnerf_tpu_torch.apps import add_device_arg
+    from crnerf_tpu_torch.apps.serve import load_system
+    from crnerf_tpu_torch.config import build_parser, config_from_args
+    from crnerf_tpu_torch.render.inference import Renderer
+
+    root = os.path.join(workdir, "scene")
+    empty_root = os.path.join(workdir, "empty")
+    save = os.path.join(workdir, "runs")
+    t0 = time.perf_counter()
+    scene = cli_scene(root, empty_root)
+    n_rays = sum(w * h for w, h in (im.wh for im in scene.train_images))
+    ipe = n_rays // CLI_BATCH // TRAIN_GRIDS
+    steps = CLI_EPOCHS * ipe
+    vw, vh = scene.train_images[0].wh
+    n_val = 3 * 2 * -(-vw * vh // 2048)     # val_chunk tiles, two passes
+    print(f"[cli] cache: {len(scene.train_images)} train images "
+          f"{CLI_TRAIN_WH}, {len(scene.test_images)} test {CLI_TEST_WH}, "
+          f"{n_rays} rays, {ipe} steps an epoch "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    with user_flags():
+        launches, text, rows, peak, secs = cli_straight(
+            cli_args(root, save, "straight"), save, "straight", steps,
+            n_val)
+    val = final_val(text, "straight")
+    rps = [r["train/rays_per_sec"] for r in rows if "train/rays_per_sec" in r]
+    vals = [(round(r["val/psnr"], 3), round(r["val/ssim"], 4))
+            for r in rows if "val/psnr" in r]
+    print(f"[cli] straight: {steps} steps in {secs:.1f} s with the "
+          f"validations and checkpoints; epoch 1: "
+          f"{rps[-1] / (CLI_BATCH * TRAIN_GRIDS):.2f} steps/s, "
+          f"{rps[-1]:.0f} train rays/s (epoch 0, the first launches "
+          f"included: {rps[0]:.0f}); peak memory {peak:.2f} GiB; "
+          f"validation psnr/ssim {vals}, final {val} ({card})")
+    print(f"[cli] straight: launches {launches}: every stash forward, "
+          f"chain and weight gradient on wgmma, none on mma.sync")
+
+    # the subprocesses below need the card's memory: a training run of
+    # ~27 GiB beside the evals; give back what this process's allocator
+    # keeps
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    kept = torch.cuda.memory_reserved() / 2 ** 30
+    print(f"[cli] this process keeps {kept:.2f} GiB of the card for the "
+          f"subprocesses")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    nocard = dict(env, CUDA_VISIBLE_DEVICES="")
+
+    def train_argv(exp):
+        return ["train", *cli_args(root, save, exp), "--num_epochs",
+                str(CLI_EPOCHS), "--log_every", "5"]
+
+    ckpt_dir = os.path.join(save, "ckpts", "straight")
+    eval_argv = ["eval", *cli_args(root, save, "straight"), "--ckpt_path",
+                 ckpt_dir]
+
+    def log(tag):
+        return os.path.join(workdir, tag.replace(" ", "_") + ".log")
+
+    jobs, out = {}, {}
+    try:
+        pre = spawn(train_argv("resumed"), log("preempt"), env)
+        jobs["preempt"] = pre
+        deadline = time.time() + 300
+        while not any(r["step"] >= CLI_PREEMPT_AFTER
+                      for r in metric_rows(save, "resumed")):
+            if pre[0].poll() is not None or time.time() > deadline:
+                raise PhaseError(
+                    f"the run to preempt ended or stalled before step "
+                    f"{CLI_PREEMPT_AFTER}:\n{finish(pre, 60)[1][-4000:]}")
+            time.sleep(0.2)
+        pre[0].send_signal(signal.SIGTERM)
+        out["preempt"] = finish(jobs.pop("preempt"), 300)
+        jobs["resume"] = spawn(train_argv("resumed") + ["--auto_resume"],
+                               log("resume"), env)
+        # meanwhile: the val split, an empty split, and the apps with no
+        # card to be seen (each with the default device and --device cuda)
+        jobs["eval val"] = spawn(eval_argv + ["--split", "val"],
+                                 log("eval val"), env)
+        jobs["eval empty"] = spawn(eval_argv + ["--split", "test_test",
+                                                "--root_dir", empty_root],
+                                   log("eval empty"), env)
+        for cmd in ("prepare", "train", "eval"):
+            for dev in ([], ["--device", "cuda"]):
+                tag = f"{cmd} {' '.join(dev) or '(default device)'}"
+                jobs[tag] = spawn([cmd, "--root_dir", root, *dev], log(tag),
+                                  nocard)
+        for tag in list(jobs):
+            out[tag] = finish(jobs.pop(tag))
+    finally:
+        for proc, f, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            f.close()
+
+    rc, text = out["preempt"]
+    m = re.search(r"preempted: checkpointed at step (\d+)", text)
+    if rc != 0 or not m:
+        raise PhaseError(f"SIGTERM: exit {rc}, output:\n{text[-4000:]}")
+    at = int(m.group(1))
+    if not CLI_PREEMPT_AFTER <= at < ipe:
+        raise PhaseError(f"preempted at step {at}, not in epoch 0 after "
+                         f"{CLI_PREEMPT_AFTER}")
+    print(f"[cli] SIGTERM once step {CLI_PREEMPT_AFTER} was logged: exit 0, "
+          f"'preempted: checkpointed at step {at}'")
+    if out["resume"][0] != 0:
+        raise PhaseError(f"resume: exit {out['resume'][0]}:\n"
+                         f"{out['resume'][1][-4000:]}")
+    rval = final_val(out["resume"][1], "resumed")
+    straight = ckpt_tensors(save, "straight", steps)[0]
+    resumed, ck = ckpt_tensors(save, "resumed", steps)
+    dist, where = ckpt_distance(resumed, straight)
+    same = all(torch.equal(resumed[k], straight[k]) for k in straight)
+    print(f"[cli] the resumed run's last checkpoint against the straight "
+          f"run's, {len(straight)} tensors: "
+          f"{'the same bits' if same else 'OTHER BITS'} (largest "
+          f"difference {dist:.3e}, {where}); final val {rval} against "
+          f"{val}")
+    if not (same and ck["step"] == steps and rval == val):
+        raise PhaseError("the resumed run does not end on the straight "
+                         "run's bits")
+
+    for tag, want in (("eval val", "rendered 1 images"),
+                      ("eval empty", "rendered 0 images")):
+        if out[tag][0] != 0 or want not in out[tag][1]:
+            raise PhaseError(f"{tag}: exit {out[tag][0]}:\n{out[tag][1]}")
+    print("[cli] eval val: 1 PNG; an empty test_test split: 0 frames, "
+          "exit 0")
+    refusals = [t for t in out if "device" in t]
+    for tag in refusals:
+        if out[tag][0] == 0 or "no CUDA device" not in out[tag][1]:
+            raise PhaseError(f"{tag} without a card: exit {out[tag][0]}\n"
+                             f"{out[tag][1]}")
+    print(f"[cli] without a card: {', '.join(refusals)}: exit codes "
+          f"{sorted({out[t][0] for t in refusals})}, 'no CUDA device'")
+
+    # evaluate the straight run alone on the card; its PNGs against an
+    # in-process render of the same weights.npz
+    rc, text = finish(spawn(eval_argv + ["--split", "test_test"],
+                            log("eval"), env))
+    m = re.search(r"median (\S+) / p95 (\S+) s/frame", text)
+    if rc != 0 or not m:
+        raise PhaseError(f"eval: exit {rc}:\n{text[-4000:]}")
+    parser = build_parser()
+    add_device_arg(parser)
+    cfg = config_from_args(parser.parse_args(eval_argv[1:]))
+    out_dir = os.path.join(save, "results", "phototourism", "cli")
+    with user_flags():
+        renderer = Renderer(cfg, load_system(cfg, ckpt_dir, device))
+
+        def frame(im):
+            w, h = im.wh
+            return renderer.fetch(renderer.render_frame_cam_async(
+                im.c2w, im.K, im.near, im.far, (h, w),
+                im.appearance[None].astype(np.float32),
+                outputs="rgb_u8"))["rgb_u8"]
+
+        for i, im in enumerate(scene.test_images):
+            with open(os.path.join(out_dir, f"{i:03d}.png"), "rb") as f:
+                got = decode_png_rgb8(f.read())
+            want = frame(im)
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise PhaseError(f"eval PNG {i} ({im.wh}) differs from the "
+                                 "in-process render")
+        t1 = time.perf_counter()
+        for im in scene.test_images:
+            frame(im)
+        warm = (time.perf_counter() - t1) / len(scene.test_images)
+    print(f"[cli] eval test_test: {len(scene.test_images)} PNGs of "
+          f"{CLI_TEST_WH}, the in-process render's bits; the app's median "
+          f"{m.group(1)} / p95 {m.group(2)} s a frame (2 frames, the first "
+          f"with the process's first launches); warm in process "
+          f"{warm:.3f} s a frame, fetch included ({card})")
+    return launches
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile_dir", type=str, default="",
@@ -3266,6 +3657,8 @@ def main(argv=None) -> int:
               f"with remat): median {m_ms:.2f} ms per step against "
               f"{step_ms:.2f} on the stash route, peak memory {m_peak:.2f} "
               f"GiB ({card})")
+        with tempfile.TemporaryDirectory(dir=BUILD) as workdir:
+            phase_cli(device, workdir, card)
     except Exception as e:  # any phase failing fails the run
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
               file=sys.stderr)

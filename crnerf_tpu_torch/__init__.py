@@ -3,7 +3,8 @@
 The JAX package ``crnerf_tpu`` is the reference; this package mirrors its
 module paths so each counterpart is easy to find. It imports ``torch`` and
 never ``jax``, ``flax``, ``optax`` or ``crnerf_tpu``. Two paths run end to
-end.
+end, and the command line drives both (``python -m crnerf_tpu_torch
+{prepare,train,eval,serve}``).
 
 Serving:
 
@@ -26,6 +27,14 @@ Training:
            recomputing the forward slab by slab), train/optim.py
            optimizer and schedule, train/state.py TrainState (embedding
            cache, BatchNorm statistics).
+
+From the command line: apps/train.py -> train/loop.py Trainer (epochs of
+TrainPipeline.epoch_batches through make_train_step, validation through
+the Renderer with PSNR and SSIM, checkpoints of the whole state in
+utils/checkpoint.py, weights.npz beside them, a graceful stop on SIGTERM
+and an exact resume); apps/eval.py renders a split to PNGs from a
+weights.npz; apps/prepare.py turns a phototourism scene into the npz cache
+(data/phototourism.py) that training reads.
 
 Both take another route through the same entry points when the Config says
 so: ``pallas_render=False`` evaluates the MLP per sample point in the fused

@@ -1,7 +1,9 @@
 """CLI dispatcher: ``python -m crnerf_tpu_torch <cmd> [flags]``.
 
-Only ``serve`` is ported so far (the JAX package's ``prepare``, ``train``,
-``eval``, ``metrics`` and ``video`` stay in ``python -m crnerf_tpu``).
+``prepare`` (scene cache), ``train``, ``eval`` (the ``test_test``,
+``test_train`` and ``val`` splits) and ``serve``. Still only in
+``python -m crnerf_tpu``: ``metrics`` and ``video``, eval's camera-path
+``test`` split, and the ``blender`` dataset.
 """
 
 from __future__ import annotations
@@ -9,7 +11,12 @@ from __future__ import annotations
 import importlib
 import sys
 
-COMMANDS = {"serve": "crnerf_tpu_torch.apps.serve"}
+COMMANDS = {
+    "prepare": "crnerf_tpu_torch.apps.prepare",
+    "train": "crnerf_tpu_torch.apps.train",
+    "eval": "crnerf_tpu_torch.apps.eval",
+    "serve": "crnerf_tpu_torch.apps.serve",
+}
 
 
 def main():

@@ -1,1 +1,47 @@
-"""Command-line apps of the port (``serve``)."""
+"""Command-line apps of the port: ``prepare``, ``train``, ``eval`` and
+``serve`` (``python -m crnerf_tpu_torch <cmd>``), and the dataset registry
+they share."""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+
+def load_scene_from_config(cfg):
+    """The Config's dataset as a Scene (``crnerf_tpu/apps/__init__.py``
+    ``load_scene_from_config``): ``phototourism`` (the cache when there is
+    one, else the raw scene) or ``synthetic``."""
+    if cfg.dataset_name == "phototourism":
+        from crnerf_tpu_torch.data.phototourism import load_phototourism
+
+        return load_phototourism(cfg.root_dir,
+                                 img_downscale=cfg.img_downscale,
+                                 appearance_wh=tuple(cfg.appearance_wh),
+                                 use_cache=cfg.use_cache)
+    if cfg.dataset_name == "synthetic":
+        from crnerf_tpu_torch.data.synthetic import make_synthetic_scene
+
+        return make_synthetic_scene(appearance_wh=tuple(cfg.appearance_wh))
+    if cfg.dataset_name == "blender":
+        raise NotImplementedError(
+            "dataset 'blender' is not ported yet (python -m crnerf_tpu "
+            "trains it)")
+    raise ValueError(f"unknown dataset {cfg.dataset_name!r}")
+
+
+def add_device_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device; 'cpu' runs the kernels' plain "
+                        "versions and must be asked for")
+
+
+def resolve_device(p: argparse.ArgumentParser, name: str) -> torch.device:
+    """``--device`` as a torch device; stops the app (``p.error``) when it
+    names a card and none is present."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        p.error(f"--device {name}: no CUDA device is available (pass "
+                "--device cpu to run on the CPU)")
+    return device

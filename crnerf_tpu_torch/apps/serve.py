@@ -15,9 +15,9 @@ Protocol: one JSON object per line, one JSON reply per line.
 
 Every reply carries {"ok": true/false}; render replies add the wall-clock
 "ms" of the render (camera in, uint8 frame on the host). Renders serialize
-on one lock (one card). PNGs are written by a stdlib encoder (zlib +
-struct); only ``encode_style`` / ``style_image`` need PIL, imported when
-used. ``render_path`` (GIF output) is not ported.
+on one lock (one card). PNGs are written by the stdlib encoder of
+``utils/png.py``; only ``encode_style`` / ``style_image`` need PIL,
+imported when used. ``render_path`` (GIF output) is not ported.
 
 Trust model as in the JAX server: requests carry filesystem paths; the
 default bind is loopback, and a non-loopback bind requires ``--root DIR``,
@@ -34,45 +34,23 @@ import json
 import os
 import socket
 import socketserver
-import struct
 import threading
 import time
-import zlib
 from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
 from crnerf_tpu_torch import Config
+from crnerf_tpu_torch.apps import add_device_arg, resolve_device
 from crnerf_tpu_torch.render.camera_path import fov_intrinsics
 from crnerf_tpu_torch.render.inference import Renderer
 from crnerf_tpu_torch.render.system import CrNerfSystem
+from crnerf_tpu_torch.utils.png import png_bytes
 
 
 class ServeError(ValueError):
     """Client error: reported in the JSON reply, never kills the server."""
-
-
-def png_bytes(rgb: np.ndarray) -> bytes:
-    """(H, W, 3) image -> PNG bytes (8-bit RGB, no filtering). uint8
-    passes through; float is [0, 1] and quantized like the renderer."""
-    if rgb.dtype != np.uint8:
-        rgb = (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
-    h, w, c = rgb.shape
-    if c != 3:
-        raise ValueError(f"expected 3 channels, got {c}")
-    rows = np.concatenate([np.zeros((h, 1), np.uint8),
-                           np.ascontiguousarray(rgb).reshape(h, w * 3)], 1)
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        crc = zlib.crc32(tag + data) & 0xFFFFFFFF
-        return struct.pack(">I", len(data)) + tag + data + struct.pack(
-            ">I", crc)
-
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-            + chunk(b"IEND", b""))
 
 
 def load_style(path: str, appearance_wh) -> np.ndarray:
@@ -313,9 +291,7 @@ def main(argv: Optional[Sequence[str]] = None):
                         "directory holding one")
     p.add_argument("--host", type=str, default="127.0.0.1")
     p.add_argument("--port", type=int, default=7060)
-    p.add_argument("--device", type=str, default="cuda",
-                   help="torch device; 'cpu' serves through the kernels' "
-                        "plain versions and must be asked for")
+    add_device_arg(p)
     p.add_argument("--N_samples", type=int, default=256)
     p.add_argument("--N_importance", type=int, default=256)
     p.add_argument("--chunk", type=int, default=8192)
@@ -341,10 +317,7 @@ def main(argv: Optional[Sequence[str]] = None):
     if not args.root and args.host not in ("127.0.0.1", "localhost", "::1"):
         p.error("non-loopback --host requires --root (requests carry "
                 "filesystem paths)")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        p.error(f"--device {args.device}: no CUDA device is available "
-                "(pass --device cpu to serve from the CPU)")
+    device = resolve_device(p, args.device)
     cfg = Config(
         N_samples=args.N_samples, N_importance=args.N_importance,
         chunk=args.chunk, appearance_wh=tuple(args.appearance_wh),

@@ -1,6 +1,9 @@
 """The port's configuration: the fields of ``crnerf_tpu/config.py``
-``Config`` that the serving path and the training step read, with the same
-names and defaults (``tests/test_torch_imports.py`` holds them equal). The
+``Config`` that the serving path, the training step, the data, the trainer
+and the apps read, with the same names and defaults
+(``tests/test_torch_imports.py`` holds them equal), and the CLI that parses
+them (``build_parser`` / ``get_config``: paired ``--flag`` / ``--no-flag``
+switches for every boolean, ``--testit`` forcing one epoch). The
 port keeps its own copy so that it runs where only ``crnerf_tpu_torch/`` is
 present. The TPU-only knobs (tile sizes, slab feeding, conv schedules, the
 interpreter switch) have no counterpart here. The routing fields keep their
@@ -15,13 +18,27 @@ MLP kernels followed by compositing in plain PyTorch.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
 
 @dataclass
 class Config:
+    # ---- dataset ----
+    root_dir: str = ""
+    dataset_name: str = "phototourism"  # 'phototourism' | 'synthetic'
+    # ('blender' is not ported)
+    scene_name: str = "test"
+    split: str = "val"  # eval app: val | test_train | test_test
+    img_downscale: int = 2
+    img_wh: Tuple[int, int] = (800, 800)  # camera-path renders (not ported)
+    use_cache: bool = True  # phototourism: read cache_tpu/scene_ds{N}.npz
+    # when it exists
+    testit: bool = False  # smoke mode: 1 epoch, 1 iteration per epoch
+
     # ---- NeRF core ----
     N_emb_xyz: int = 15
     N_emb_dir: int = 4
@@ -56,11 +73,23 @@ class Config:
     weightMS: float = 1e-6
     weightcontent: float = 1e-4
 
+    # ---- sampling schedule ----
+    scale_anneal: float = -1.0
+    min_scale: float = 0.5
+
     # ---- runtime ----
     batch_size: int = 1024  # rays per grid; must be a perfect square
     grids_per_step: int = 1  # independent image grids per step
     chunk: int = 8 * 1024  # rays per render tile at inference
     num_epochs: int = 20
+    save_dir: str = "./results"
+    ckpt_path: Optional[str] = None  # train: a checkpoint directory to
+    # resume from; eval: weights.npz or a directory holding one
+    auto_resume: bool = False  # train: resume from the exp dir's latest
+    # checkpoint if one exists
+    prefixes_to_ignore: Tuple[str, ...] = ("loss",)
+    exp_name: str = "debug"
+    proj_name: str = "crnerf_tpu"
 
     # ---- optimization ----
     optimizer: str = "adam"  # sgd | adam (radam and ranger are not ported)
@@ -97,7 +126,18 @@ class Config:
     fast_sincos: bool = True  # double-angle recurrence for the posenc
     # sweep; only consulted when compute_dtype == 'bfloat16'
     appearance_wh: Tuple[int, int] = (224, 160)  # (W, H) of the style image
+    val_chunk: int = 2048  # rays per render tile in validation
+    cam_rays: bool = True  # eval app: rays made on the device from the
+    # camera; False: host rays
+    eval_pipeline: int = 2  # eval app: frames in flight (dispatch frame
+    # i+1 before fetching frame i)
+    log_every: int = 50
+    use_wandb: bool = False  # attach wandb to the MetricLogger when it
+    # imports; metrics.jsonl is written either way
+    ckpt_every_epochs: int = 1
     seed: int = 42
+    val_every_epochs: int = 1  # validate every N epochs (0: never); the
+    # last epoch always validates when enabled
 
     def __post_init__(self):
         if self.encode_c:
@@ -135,3 +175,61 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, default=str)
+
+    @staticmethod
+    def from_json(s: str) -> "Config":
+        d = json.loads(s)
+        names = {x.name for x in dataclasses.fields(Config)}
+        return Config(**{k: tuple(v) if isinstance(v, list) else v
+                         for k, v in d.items() if k in names})
+
+
+# every field whose default is a bool gets a --flag / --no-flag pair
+_BOOL_FIELDS = {f.name for f in dataclasses.fields(Config)
+                if isinstance(getattr(Config(), f.name), bool)}
+
+
+def build_parser(defaults: Optional[Config] = None
+                 ) -> argparse.ArgumentParser:
+    """Argparse mirror of the dataclass (``crnerf_tpu/config.py``
+    ``build_parser``). Booleans get paired ``--flag`` / ``--no-flag``
+    switches; tuples take ``nargs="*"``."""
+    cfg = defaults or Config()
+    p = argparse.ArgumentParser(description="CR-NeRF on the GPU (torch)")
+    for f in dataclasses.fields(Config):
+        name, default = f.name, getattr(cfg, f.name)
+        arg = "--" + name
+        if name in _BOOL_FIELDS:
+            group = p.add_mutually_exclusive_group()
+            group.add_argument(arg, dest=name, action="store_true",
+                               default=default)
+            group.add_argument("--no-" + name, dest=name,
+                               action="store_false")
+        elif isinstance(default, tuple):
+            elt = type(default[0]) if default else str
+            p.add_argument(arg, nargs="*", type=elt, default=list(default))
+        elif default is None:
+            p.add_argument(arg, type=str, default=None)
+        else:
+            p.add_argument(arg, type=type(default), default=default)
+    return p
+
+
+def config_from_args(args: argparse.Namespace) -> Config:
+    """The Config of parsed arguments; arguments that are not fields (an
+    app's own, such as ``--device``) are left out."""
+    names = {f.name for f in dataclasses.fields(Config)}
+    d = {k: tuple(v) if isinstance(v, list) else v
+         for k, v in vars(args).items() if k in names}
+    cfg = Config(**d)
+    if cfg.testit:
+        cfg = cfg.replace(num_epochs=1)
+    return cfg
+
+
+def get_config(argv: Optional[Sequence[str]] = None) -> Config:
+    """Parse CLI args into a Config."""
+    return config_from_args(build_parser().parse_args(argv))

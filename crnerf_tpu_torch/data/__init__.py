@@ -1,2 +1,3 @@
-"""Host-side data: the synthetic scene, the flat ray buffers, the grid
-sampler and the batch pipeline (numpy)."""
+"""Host-side data: the synthetic scene, the phototourism loader and its npz
+cache, the COLMAP and PFM readers, the flat ray buffers, the grid sampler
+and the batch pipeline (numpy)."""

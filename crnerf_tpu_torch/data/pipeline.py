@@ -1,14 +1,20 @@
 """Host-side batch pipeline: Scene + GridSampler -> fixed-shape batches
-(``crnerf_tpu/data/pipeline.py`` ``TrainPipeline``: ``make_batch`` and
-``make_global_batch``; numpy).
+(``crnerf_tpu/data/pipeline.py``: ``TrainPipeline`` with ``make_batch``,
+``make_global_batch`` and ``epoch_batches``, and ``full_image_batch``;
+numpy).
 
 Every batch is a pure function of (epoch, idx), all arrays have fixed
 shapes, and a "global batch" stacks n independent grids on a leading axis.
+``epoch_batches`` assembles an epoch's batches on a thread, a few ahead of
+the consumer; ``start_step`` starts it mid-epoch, which is what makes a
+resume after a stop replay the exact remaining sequence.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import queue
+import threading
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -73,3 +79,56 @@ class TrainPipeline:
         return {
             k: np.stack([p[k] for p in parts], 0) for k in parts[0]
         }
+
+    def epoch_batches(self, epoch: int, n_grids: int = 1,
+                      n_steps: Optional[int] = None, start_step: int = 0,
+                      prefetch: int = 2) -> Iterator[Dict[str, np.ndarray]]:
+        """Steps ``start_step`` to ``n_steps`` of ``epoch``, each a batch of
+        ``n_grids`` grids ((G, B, ...) arrays; flat (B, ...) when G is 1),
+        made on a thread up to ``prefetch`` ahead. A consumer that stops
+        early leaves no thread behind: the queue is drained so that the
+        producer sees the stop."""
+        g = max(1, n_grids)
+        if n_steps is None:
+            n_steps = max(1, self.iterations // g)
+        q: "queue.Queue" = queue.Queue(maxsize=prefetch)
+        stop = threading.Event()
+
+        def producer():
+            for i in range(start_step, n_steps):
+                if stop.is_set():
+                    return
+                q.put(self.make_global_batch(epoch, i, g) if g > 1
+                      else self.make_batch(epoch, i))
+            q.put(None)
+
+        threading.Thread(target=producer, daemon=True).start()
+        try:
+            while True:
+                b = q.get()
+                if b is None:
+                    return
+                yield b
+        finally:
+            stop.set()
+            try:
+                while True:
+                    q.get_nowait()
+            except queue.Empty:
+                pass
+
+
+def full_image_batch(scene: Scene, image, appearance_img=None
+                     ) -> Dict[str, np.ndarray]:
+    """Whole-image batch of one SceneImage: rays for every pixel and the
+    image's own appearance input (or ``appearance_img`` in its place)."""
+    rays = scene.image_rays(image)
+    app = appearance_img if appearance_img is not None else image.appearance
+    return {
+        "rays": rays.astype(np.float32),
+        "ts": np.full((rays.shape[0],), image.id, np.int32),
+        "rgbs": (image.rgbs.astype(np.float32) if image.rgbs is not None
+                 else np.zeros((rays.shape[0], 3), np.float32)),
+        "whole_img": app[None].astype(np.float32),
+        "img_wh": np.asarray(image.wh, np.int64),
+    }

@@ -7,6 +7,7 @@ NCHW between their layers, call the same torch operators directly.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Tuple
 
 import torch
@@ -43,9 +44,45 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=slope)
 
 
+def _fold_reflect(g: torch.Tensor, p: int, dim: int) -> torch.Tensor:
+    """The adjoint of reflecting ``p`` entries onto each end of ``dim``:
+    the interior of ``g``, each border entry added onto the entry it
+    copies, left border then right, in index order."""
+    n = g.shape[dim] - 2 * p
+    out = g.narrow(dim, p, n).clone()
+    for j in range(p):   # padded j copies p - j; padded p + n + j, n - 2 - j
+        out.narrow(dim, p - j, 1).add_(g.narrow(dim, j, 1))
+    for j in range(p):
+        out.narrow(dim, n - 2 - j, 1).add_(g.narrow(dim, p + n + j, 1))
+    return out
+
+
+class _ReflectPad2d(torch.autograd.Function):
+    """``F.pad(mode="reflect")`` of NCHW H and W with a backward that folds
+    the border back in a fixed order. The CUDA backward of
+    ``reflection_pad2d`` adds with atomics: a corner entry takes four
+    terms, so its gradient changes bits from run to run."""
+
+    @staticmethod
+    def forward(ctx, x, p):
+        ctx.p = p
+        return F.pad(x, (p, p, p, p), mode="reflect")
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return _fold_reflect(_fold_reflect(g, ctx.p, 3), ctx.p, 2), None
+
+
+def reflect_pad_nchw(x: torch.Tensor, pad: int = 1) -> torch.Tensor:
+    """NCHW reflection padding of H and W (``nn.ReflectionPad2d``), the same
+    bits forward and backward from run to run."""
+    return _ReflectPad2d.apply(x, pad)
+
+
 def reflect_pad(x: torch.Tensor, pad: int = 1) -> torch.Tensor:
     """NHWC reflection padding of H and W (``nn.ReflectionPad2d``)."""
-    return nhwc(F.pad(nchw(x), (pad, pad, pad, pad), mode="reflect"))
+    return nhwc(reflect_pad_nchw(nchw(x), pad))
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
@@ -90,8 +127,45 @@ def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     ``jax.image.resize(method='bilinear')`` when upsampling (the only use on
     the serving path: CGNet's logits back to the input size); JAX
     antialiases when downsampling and this does not."""
-    return nhwc(F.interpolate(nchw(x), size=tuple(out_hw), mode="bilinear",
-                              align_corners=False, antialias=False))
+    return nhwc(_ResizeBilinear.apply(nchw(x), tuple(out_hw)))
+
+
+@functools.lru_cache(maxsize=None)
+def _bilinear_matrix(out: int, size: int,
+                     device: torch.device) -> torch.Tensor:
+    """(out, size) float64: row i holds the two weights with which
+    ``F.interpolate(mode="bilinear", align_corners=False)`` reads output
+    entry i from the input, made on ``device`` (no copy from the host) once
+    a shape: a step's backward would otherwise launch its ~12 kernels."""
+    src = ((torch.arange(out, dtype=torch.float64, device=device) + 0.5)
+           * (size / out) - 0.5).clamp_min(0.0)
+    i0 = src.floor().clamp_max(size - 1)
+    i1 = (i0 + 1).clamp_max(size - 1)
+    l1 = (src - i0)[:, None]
+    cols = torch.arange(size, dtype=torch.float64, device=device)[None]
+    return ((cols == i0[:, None]) * (1.0 - l1)
+            + (cols == i1[:, None]) * l1)
+
+
+class _ResizeBilinear(torch.autograd.Function):
+    """``F.interpolate(mode="bilinear")`` of NCHW with a backward that is the
+    same bits from run to run: the adjoint as two float64 products with
+    the interpolation matrices. The CUDA backward of
+    ``upsample_bilinear2d`` adds with atomics."""
+
+    @staticmethod
+    def forward(ctx, x, out_hw):
+        ctx.in_hw = x.shape[2:]
+        return F.interpolate(x, size=out_hw, mode="bilinear",
+                             align_corners=False, antialias=False)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        (h, w), (ho, wo) = ctx.in_hw, g.shape[2:]
+        my = _bilinear_matrix(ho, h, g.device)
+        mx = _bilinear_matrix(wo, w, g.device)
+        return (my.t() @ (g.double() @ mx)).to(g.dtype), None
 
 
 def sample_bilinear_uv(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
@@ -135,18 +209,36 @@ def ieee_fp32_conv():
         flag.fp32_precision = saved
 
 
-class _IEEEConv2d(torch.autograd.Function):
-    """F.conv2d whose forward and backward both run under
-    ``ieee_fp32_conv``: autograd runs a backward after the forward's block
-    has closed, so pinning the forward alone would leave the gradients in
-    TF32."""
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN held to its deterministic algorithms inside the block; the flag
+    is restored on leaving, exception or not. Left free, cuDNN picks for
+    some fp32 weight gradients an algorithm that adds with atomics
+    (``wgrad_alg0_engine`` on an H100), and a training step's gradients
+    change bits from run to run."""
+    flags = torch.backends.cudnn
+    saved = flags.deterministic
+    flags.deterministic = True
+    try:
+        yield
+    finally:
+        flags.deterministic = saved
+
+
+class _Conv2d(torch.autograd.Function):
+    """F.conv2d with its backward under ``deterministic_cudnn``, so the
+    gradients keep their bits from run to run; with ``ieee`` both the
+    forward and the backward also run under ``ieee_fp32_conv`` (autograd
+    runs a backward after the forward's block has closed, so pinning the
+    forward alone would leave the gradients in TF32)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, stride, padding, dilation, groups):
+    def forward(ctx, x, weight, bias, stride, padding, dilation, groups,
+                ieee):
         ctx.save_for_backward(x, weight)
         ctx.conf = (None if bias is None else list(bias.shape), stride,
-                    padding, dilation, groups)
-        with ieee_fp32_conv():
+                    padding, dilation, groups, ieee)
+        with ieee_fp32_conv() if ieee else contextlib.nullcontext():
             return F.conv2d(x, weight, bias, stride, padding, dilation,
                             groups)
 
@@ -154,24 +246,35 @@ class _IEEEConv2d(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, gy):
         x, weight = ctx.saved_tensors
-        bias_sizes, stride, padding, dilation, groups = ctx.conf
+        bias_sizes, stride, padding, dilation, groups, ieee = ctx.conf
         mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
                 bias_sizes is not None and ctx.needs_input_grad[2]]
-        with ieee_fp32_conv():
+        with (ieee_fp32_conv() if ieee else contextlib.nullcontext()), \
+                deterministic_cudnn():
             gx, gw, gb = torch.ops.aten.convolution_backward(
                 gy, x, weight, bias_sizes, list(stride), list(padding),
                 list(dilation), False, [0] * len(stride), groups, mask)
-        return gx, gw, gb, None, None, None, None
+        return gx, gw, gb, None, None, None, None, None
 
 
 def conv2d_ieee(x: torch.Tensor, weight: torch.Tensor,
                 bias, stride, padding, dilation,
                 groups: int = 1) -> torch.Tensor:
     """``F.conv2d`` (numeric stride, padding and dilation tuples) in IEEE
-    fp32 on the card, forward and backward; the same operators as
-    ``F.conv2d`` and its autograd backward on the CPU."""
-    return _IEEEConv2d.apply(x, weight, bias, tuple(stride), tuple(padding),
-                             tuple(dilation), groups)
+    fp32 on the card, forward and backward, with a backward of the same
+    bits from run to run; the same operators as ``F.conv2d`` and its
+    autograd backward on the CPU."""
+    return _Conv2d.apply(x, weight, bias, tuple(stride), tuple(padding),
+                         tuple(dilation), groups, True)
+
+
+def conv2d_deterministic(x: torch.Tensor, weight: torch.Tensor,
+                         bias, stride, padding, dilation,
+                         groups: int = 1) -> torch.Tensor:
+    """``F.conv2d`` at the process's precision flags, with a backward of
+    the same bits from run to run."""
+    return _Conv2d.apply(x, weight, bias, tuple(stride), tuple(padding),
+                         tuple(dilation), groups, False)
 
 
 class IEEEConv2d(nn.Conv2d):
@@ -187,10 +290,11 @@ def conv(layer: nn.Conv2d, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     """flax ``nn.Conv(dtype=dt)`` on NCHW: input and kernel cast to dt, the
     product rounded to dt, then the bias added at dt (two roundings, as in
     flax; a fused bias would round once). At fp32 the product is IEEE fp32
-    (``conv2d_ieee``), as the JAX package computes it on the CPU."""
-    args = (x.to(dt), layer.weight.to(dt), None, layer.stride, layer.padding,
-            layer.dilation, layer.groups)
-    y = conv2d_ieee(*args) if dt == torch.float32 else F.conv2d(*args)
+    (``conv2d_ieee``), as the JAX package computes it on the CPU; at any
+    dtype the backward keeps its bits from run to run."""
+    fn = conv2d_ieee if dt == torch.float32 else conv2d_deterministic
+    y = fn(x.to(dt), layer.weight.to(dt), None, layer.stride, layer.padding,
+           layer.dilation, layer.groups)
     return y if layer.bias is None else y + layer.bias.to(dt)[:, None, None]
 
 
@@ -213,6 +317,5 @@ class ConvRefl(nn.Module):
     def forward(self, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
         """NCHW in, NCHW out."""
         if self.pad:
-            p = self.pad
-            x = F.pad(x, (p, p, p, p), mode="reflect")
+            x = reflect_pad_nchw(x, self.pad)
         return conv(self.Conv_0, x, dt)

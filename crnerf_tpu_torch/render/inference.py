@@ -59,7 +59,7 @@ class Renderer:
     def _dispatch(self, rays, uv, whole_img, hw, outputs) -> Dict:
         res = self.system.forward_eval(
             rays, uv, self._as_tensor(whole_img), hw, self.kernel_weights(),
-            want_mask=outputs == "full",
+            want_mask=outputs == "full", tile=self.cfg.chunk,
         )
         return {"dev": select(res, outputs), "hw": tuple(hw)}
 

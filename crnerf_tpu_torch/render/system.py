@@ -219,12 +219,15 @@ class CrNerfSystem(nn.Module):
     def forward_eval(self, rays: torch.Tensor, uv: torch.Tensor,
                      whole_img: torch.Tensor, hw: Tuple[int, int],
                      kernel_weights: Dict[str, Optional[Weights]],
-                     want_mask: bool = True) -> Dict[str, torch.Tensor]:
+                     want_mask: bool = True,
+                     tile: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """rays (h*w, 8), pixel-centre uv (h*w, 2), whole_img (1, Ha, Wa, 3)
         in [-1, 1], ``kernel_weights()`` -> rgb_fine, rgb_coarse (h*w, 3),
         depth_fine, depth_coarse (h*w,), out_mask (h*w, 1). A caller that
         needs only rgb skips CGNet with ``want_mask=False`` (the JAX
-        package's jitted u8 program drops it the same way)."""
+        package's jitted u8 program drops it the same way). ``tile``: rays
+        a render launch (default ``Config.chunk``); each ray's result is
+        the same whatever the tile."""
         cfg = self.cfg
         h, w = hw
         res: Dict[str, torch.Tensor] = {}
@@ -235,7 +238,7 @@ class CrNerfSystem(nn.Module):
             res["out_mask"] = sample_bilinear_uv(mask_small[0], uv)
         kw = kernel_weights
         rr = render_rays_tiled(kw["coarse"], kw["fine"], rays,
-                               tile=cfg.chunk, **self.render_kw())
+                               tile=tile or cfg.chunk, **self.render_kw())
         res["depth_coarse"] = rr["depth_coarse"]
         fc_map = rr["feature_coarse"].reshape(1, h, w, -1)
         has_fine = "feature_fine" in rr

@@ -66,12 +66,10 @@ def pin_removed():
 def cgnet_eval(cgnet, whole01: torch.Tensor, seed: int = 5):
     """-> (mask, gradients of CGNet's parameters in order) of one
     training-mode forward on ``whole01`` (G, H, W, 3) and a seeded
-    cotangent on its logits, the classifier's output. Every convolution
-    lies before the logits; the bilinear resize after them adds with
-    atomics in its CUDA backward, so gradients through it change bits from
-    run to run. cuDNN is held to its deterministic algorithms for the same
-    reason; the TF32 flags are left as the caller set them. The pending
-    BatchNorm sums are left as they were."""
+    cotangent on its logits, the classifier's output: every convolution
+    lies before the logits. cuDNN is held to its deterministic algorithms
+    in the forward too; the TF32 flags are left as the caller set them.
+    The pending BatchNorm sums are left as they were."""
     pending = [m.pending for m in cgnet.norms()]
     was_training = cgnet.training
     cgnet.train()

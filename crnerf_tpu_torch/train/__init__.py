@@ -1,2 +1,2 @@
-"""The training step: losses, metrics, optimizer and schedule, train state,
-``make_train_step``."""
+"""The training step (losses, metrics, optimizer and schedule, train
+state, ``make_train_step``) and the ``Trainer`` that drives it."""

@@ -1,1 +1,2 @@
-"""Weight bridge and small helpers."""
+"""The weight bridge, checkpoints, metric logging, the PNG writer and the
+reference-checkpoint converter."""

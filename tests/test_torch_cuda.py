@@ -1195,3 +1195,32 @@ def test_cgnet_is_ieee_fp32_at_a_users_tf32_flags(dev):
         ref_mask, ref_grads = cgnet_eval(net, x)
     assert torch.equal(mask, ref_mask)
     assert all(torch.equal(a, b) for a, b in zip(grads, ref_grads))
+
+
+def test_mask_and_encoder_backwards_keep_their_bits(dev):
+    """CGNet (through its bilinear resize) and the appearance encoder
+    (reflect pads, bf16 convolutions): their input and parameter gradients,
+    twice, at PyTorch's default cuDNN flags, the same bits."""
+    from crnerf_tpu_torch.models.appearance import AppearanceEncoder
+    from crnerf_tpu_torch.models.cgnet import ContextGuidedNetwork
+
+    torch.manual_seed(0)
+    nets = [ContextGuidedNetwork().to(dev).train(),
+            AppearanceEncoder(16, dtype=torch.bfloat16).to(dev)]
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand(4, 64, 96, 3, generator=g).to(dev)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = False
+    try:
+        for net in nets:
+            params = [x] + list(net.parameters())
+            runs = []
+            for _ in range(2):
+                xi = x.clone().requires_grad_()
+                y = net(xi)
+                cot = torch.randn(y.shape, generator=g.manual_seed(2))
+                runs.append(torch.autograd.grad(
+                    y, [xi] + params[1:], cot.to(dev, y.dtype)))
+            assert all(torch.equal(a, b) for a, b in zip(*runs))
+    finally:
+        torch.backends.cudnn.deterministic = saved

@@ -1,10 +1,10 @@
 """The port imports torch and never jax, flax, optax or the JAX package:
-every module of crnerf_tpu_torch (the train/ and data/ packages, the conv,
-sincos, pipelined-render and sublane-stores ops and the spike tools
-included), and chip_smoke.py, import
-with all four blocked. Its Config keeps the JAX Config's names and
-defaults. Its serve entry point and its spike tools run on the card unless
-the caller asks for the CPU."""
+every module of crnerf_tpu_torch (the train/ and data/ packages, the
+trainer, the checkpoints and the apps, the conv, sincos, pipelined-render
+and sublane-stores ops and the spike tools included), and chip_smoke.py,
+import with all four blocked. Its Config keeps the JAX Config's names and
+defaults. Its entry points (prepare, train, eval, serve, the spike tools)
+run on the card unless the caller asks for the CPU."""
 
 import dataclasses
 import os
@@ -32,7 +32,11 @@ for needed in ("train.step", "train.losses", "train.optim", "train.state",
                "tools.spike_packed_conv", "tools.spike_kernel_sincos",
                "ops.pipe_render", "ops.sublane_stores",
                "tools.spike_interleave", "tools.spike_sublane_stores",
-               "tools.tf32_ab", "tools.draw_spread"):
+               "tools.tf32_ab", "tools.draw_spread", "train.loop",
+               "data.phototourism", "data.colmap", "data.pfm",
+               "apps.prepare", "apps.train", "apps.eval",
+               "utils.checkpoint", "utils.logging", "utils.png",
+               "utils.torch_port"):
     assert "crnerf_tpu_torch." + needed in names, needed
 import chip_smoke
 chip_smoke.serve_config()
@@ -72,6 +76,15 @@ def test_config_fields_match_the_jax_config():
         "optimizer", "lr", "momentum", "weight_decay", "lr_scheduler",
         "warmup_multiplier", "warmup_epochs", "decay_step", "decay_gamma",
         "poly_exp", "grad_accum_chunks", "seed"}
+    # the fields the data, the trainer and the apps read
+    assert names >= {
+        "root_dir", "dataset_name", "scene_name", "split", "img_downscale",
+        "img_wh", "use_cache", "testit", "scale_anneal", "min_scale",
+        "save_dir", "ckpt_path", "auto_resume", "prefixes_to_ignore",
+        "exp_name", "proj_name", "log_every", "use_wandb",
+        "ckpt_every_epochs", "val_every_epochs", "val_chunk", "cam_rays",
+        "eval_pipeline"}
+    assert "device" not in names
     # the fields that select a route, each between routes that exist here
     # too: the no-stash training routes, kernels or the module, the fused
     # render or the fused MLP + composite
@@ -111,10 +124,13 @@ def test_serve_cli_defaults_to_the_card_and_fails_without_one(tmp_path):
     then fails on the missing checkpoint)."""
     import inspect
 
+    import crnerf_tpu_torch.apps as apps
     from crnerf_tpu_torch.apps import serve
 
     src = inspect.getsource(serve.main)
-    assert '"--device", type=str, default="cuda"' in src
+    assert "add_device_arg(p)" in src and "resolve_device(p" in src
+    assert '"--device", type=str, default="cuda"' in inspect.getsource(
+        apps.add_device_arg)
     assert "is_available() else" not in inspect.getsource(serve)
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
     base = [sys.executable, "-m", "crnerf_tpu_torch", "serve", "--ckpt_path",
@@ -129,6 +145,58 @@ def test_serve_cli_defaults_to_the_card_and_fails_without_one(tmp_path):
     assert out.returncode != 0
     assert "no weights.npz" in out.stderr
     assert "no CUDA device" not in out.stderr
+
+
+def test_config_cli_matches_the_jax_cli():
+    """build_parser / get_config: paired boolean switches, tuples,
+    --testit forcing one epoch, the JSON round trip."""
+    from crnerf_tpu.config import get_config as jax_get_config
+    from crnerf_tpu_torch.config import Config, get_config
+
+    argv = ["--batch_size", "256", "--no-use_mask", "--lr", "1e-3",
+            "--decay_step", "5", "10", "--auto_resume", "--ckpt_path", "d",
+            "--appearance_wh", "32", "24", "--testit", "--exp_name", "x"]
+    cfg, jcfg = get_config(argv), jax_get_config(argv)
+    for f in dataclasses.fields(Config):
+        assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+    assert cfg.num_epochs == 1 and cfg.decay_step == (5, 10)
+    assert Config.from_json(cfg.to_json()) == cfg
+    assert Config.from_json(jcfg.to_json()) == cfg
+
+
+@pytest.mark.parametrize("cmd,extra,later", [
+    ("prepare", ["--root_dir", "missing"], "tsv"),
+    ("train", ["--root_dir", "missing"], "tsv"),
+    ("eval", ["--root_dir", "missing", "--ckpt_path", "missing.npz"],
+     "no weights.npz"),
+])
+def test_cli_apps_default_to_the_card_and_fail_without_one(cmd, extra,
+                                                           later):
+    """``--device`` defaults to "cuda" (or is "cuda"); with no CUDA device
+    the app stops at start with a message that names the way to the CPU,
+    before it reads anything. ``--device cpu`` gets past that point (and
+    then fails on the missing input)."""
+    import inspect
+
+    import crnerf_tpu_torch.apps as apps
+    from importlib import import_module
+
+    assert '"--device", type=str, default="cuda"' in inspect.getsource(
+        apps.add_device_arg)
+    src = inspect.getsource(import_module(f"crnerf_tpu_torch.apps.{cmd}"))
+    assert "add_device_arg(" in src and "resolve_device(" in src
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    base = [sys.executable, "-m", "crnerf_tpu_torch", cmd, *extra]
+    for dev in ([], ["--device", "cuda"]):
+        out = subprocess.run(base + dev, cwd=REPO, env=env,
+                             capture_output=True, text=True, timeout=300)
+        assert out.returncode != 0
+        assert "no CUDA device" in out.stderr and "--device cpu" in out.stderr
+        assert out.stdout == ""
+    out = subprocess.run(base + ["--device", "cpu"], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert later in out.stderr and "no CUDA device" not in out.stderr
 
 
 def test_no_entry_point_picks_the_cpu_by_itself():

@@ -103,3 +103,66 @@ def test_conv_at_fp32_is_pinned_and_at_bf16_is_not(monkeypatch):
     assert seen == ["ieee"]
     ref = F.conv2d(x, layer.weight) + layer.bias[:, None, None]
     assert torch.equal(y, ref.detach())
+
+
+def test_deterministic_cudnn_restores_the_flag_it_found():
+    flags = torch.backends.cudnn
+    saved = flags.deterministic
+    try:
+        for found in (False, True):
+            flags.deterministic = found
+            with common.deterministic_cudnn():
+                assert flags.deterministic
+            assert flags.deterministic == found
+            with pytest.raises(RuntimeError, match="inside"):
+                with common.deterministic_cudnn():
+                    raise RuntimeError("inside")
+            assert flags.deterministic == found
+    finally:
+        flags.deterministic = saved
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_conv_backward_runs_with_deterministic_cudnn(monkeypatch, dt):
+    """Every convolution's backward, pinned or not, runs with cuDNN held to
+    its deterministic algorithms (a training step keeps its bits from run
+    to run on the card); the forward is left free."""
+    seen = []
+    real = common.deterministic_cudnn
+
+    @contextlib.contextmanager
+    def spy():
+        with real():
+            seen.append(torch.backends.cudnn.deterministic)
+            yield
+
+    monkeypatch.setattr(common, "deterministic_cudnn", spy)
+    layer = torch.nn.Conv2d(3, 4, 3)
+    x = torch.randn(1, 3, 8, 8, requires_grad=True)
+    y = common.conv(layer, x, dt)
+    assert seen == []
+    y.float().sum().backward()
+    assert seen == [True]
+    assert x.grad is not None and layer.weight.grad is not None
+
+
+def test_step_bits_takes_the_fixes_out_and_puts_them_back():
+    """``tools/step_bits.fixes_removed`` (the A/B of the run-to-run fixes
+    on the card): inside it the reflect pad and the resize have autograd's
+    own backwards (F.pad's and F.interpolate's values and gradients) and
+    the convolutions' backward leaves cuDNN free; after it, the fixes."""
+    from crnerf_tpu_torch.tools import step_bits
+
+    def nodes():
+        x = torch.randn(1, 5, 6, 2, requires_grad=True)
+        pad = common.reflect_pad(x, 1).grad_fn.next_functions[0][0]
+        rs = common.resize_bilinear(x, (9, 11)).grad_fn.next_functions[0][0]
+        return pad.name(), rs.name(), common.deterministic_cudnn
+
+    fixed = nodes()
+    assert fixed[:2] == ("_ReflectPad2dBackward", "_ResizeBilinearBackward")
+    with step_bits.fixes_removed():
+        assert nodes() == ("ReflectionPad2DBackward0",
+                           "UpsampleBilinear2DBackward0",
+                           contextlib.nullcontext)
+    assert nodes() == fixed
