@@ -162,6 +162,26 @@ Phases, each fatal on failure:
      exit); last, ``eval --split test_test`` alone, its PNGs the bits of
      an in-process Renderer on the same weights.npz, its median and p95 s
      a frame, and the in-process frames' warm time
+ 10. the apps that need an image codec, on phase 9's checkpoint and scene
+     at the flagship config, each counted run's launch counters zeroed
+     just before and read just after (every K1, stash forward, chain and
+     weight gradient launch on wgmma, none on mma.sync): (a) ``eval
+     --split test``, the camera path at 320x240 and 256+256, 24 frames:
+     24 PNGs, a frame the in-process Renderer's bits, the GIF's blocks (24
+     image descriptors of 320x240, looping), its per-frame p50 and p95;
+     (b) the ``video`` app on 2 seeded style PNGs, 24 frames each, the
+     same checks; (c) ``metrics`` on phase 9's test_test renders, equal to
+     train/metrics.py on the same arrays, and in a subprocess with a
+     render deleted (non-zero exit, "expected"); (d) serve's
+     ``render_path`` through RenderService.handle, 8 frames, the style a
+     PNG registered by encode_style; (e) a Blender scene of 4 train and 2
+     test RGBA PNGs of 800x800 written with zlib, rows filtered with every
+     filter type (decoded to the bits written, the decode time printed),
+     trained at 400x400 with ``--data_perturb color occ`` for one epoch
+     (39 steps at the flagship config) with panels every 10 steps and a
+     profiler window over steps 10-15 (the panels and the trace checked;
+     steps/s, rays/s, peak memory), then ``eval --split test_test`` and
+     ``metrics`` in subprocesses
 Prints a {"kernels": [...]} line, the card line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
 phase fails or no CUDA device is present.
@@ -3393,8 +3413,8 @@ def finish(job, timeout: float = 600):
 def phase_cli(device, workdir: str, card: str):
     """Phase 9: train straight in this process; a preempted run and its
     resume in subprocesses, to the straight run's bits; evaluate in a
-    subprocess; refuse without a card. -> the straight run's launch
-    counts."""
+    subprocess; refuse without a card. -> (the straight run's launch
+    counts, the scene)."""
     import re
     import signal
 
@@ -3577,7 +3597,444 @@ def phase_cli(device, workdir: str, card: str):
           f"{m.group(1)} / p95 {m.group(2)} s a frame (2 frames, the first "
           f"with the process's first launches); warm in process "
           f"{warm:.3f} s a frame, fetch included ({card})")
-    return launches
+    return launches, scene
+
+
+# Phase 10: the apps that need an image codec, on phase 9's checkpoint and
+# scene at the flagship config. Camera paths at the demo's 320x240 and 256 +
+# 256 samples, bf16; 24 frames a path (the presets have 240); a Blender
+# scene of 4 train and 2 test RGBA frames of 800x800, trained at 400x400
+# for one epoch (640,000 rays, 39 steps of 16 grids of 1024 rays).
+APP_WH = (320, 240)
+APP_DTYPE = "bfloat16"
+APP_FRAMES = 24
+APP_SERVE_FRAMES = 8
+APP_PATH_SCENE = "cli_brandenburg_gate"
+BLENDER_SRC_WH, BLENDER_WH = (800, 800), (400, 400)
+BLENDER_TRAIN, BLENDER_TEST = 4, 2
+BLENDER_PANEL_EVERY = 10
+BLENDER_PROFILE = (10, 15)
+
+
+def gif_blocks(data: bytes):
+    """The GIF89a's loop count and the (w, h) of each image descriptor,
+    read block by block (stdlib only)."""
+    if data[:6] != b"GIF89a":
+        raise PhaseError("not a GIF89a")
+    pos, loop, sizes = 13, None, []
+    if data[10] & 0x80:                       # a global colour table
+        pos += 3 << ((data[10] & 7) + 1)
+
+    def skip_subblocks(p):
+        while data[p]:
+            p += 1 + data[p]
+        return p + 1
+
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:                 # an extension
+            if data[pos + 1] == 0xFF and data[pos + 3:pos + 14] == \
+                    b"NETSCAPE2.0":
+                loop = int.from_bytes(data[pos + 16:pos + 18], "little")
+            pos = skip_subblocks(pos + 2)
+        elif data[pos] == 0x2C:               # an image descriptor
+            w, h = (int.from_bytes(data[pos + i:pos + i + 2], "little")
+                    for i in (5, 7))
+            sizes.append((w, h))
+            flags, pos = data[pos + 9], pos + 10
+            if flags & 0x80:                  # a local colour table
+                pos += 3 << ((flags & 7) + 1)
+            pos = skip_subblocks(pos + 1)     # after the LZW code size
+        else:
+            raise PhaseError(f"GIF: unknown block {data[pos]:#x} at {pos}")
+    return loop, sizes
+
+
+def check_video(out_dir: str, base: str, n: int, wh, tag: str):
+    """n PNGs NNN.png of wh and ``base``.gif of n frames of wh, looping;
+    -> the PNG frames."""
+    from crnerf_tpu_torch.utils.png import read_png
+
+    frames = [read_png(os.path.join(out_dir, f"{i:03d}.png"))
+              for i in range(n)]
+    if any(f.shape != (wh[1], wh[0], 3) for f in frames):
+        raise PhaseError(f"{tag}: PNG shapes {[f.shape for f in frames]}")
+    if os.path.exists(os.path.join(out_dir, f"{n:03d}.png")):
+        raise PhaseError(f"{tag}: more than {n} PNGs")
+    with open(os.path.join(out_dir, base + ".gif"), "rb") as f:
+        loop, sizes = gif_blocks(f.read())
+    if loop != 0 or sizes != [tuple(wh)] * n:
+        raise PhaseError(f"{tag}: GIF loop {loop}, image descriptors "
+                         f"{sizes[:3]}... ({len(sizes)})")
+    return frames
+
+
+def expect_launches(tag: str, launches, want):
+    """Every kernel's count as ``want`` says, 0 where it says nothing."""
+    want = {k: want.get(k, 0) for k in launches}
+    if launches != want:
+        raise PhaseError(f"{tag}: launch counters "
+                         f"{ {k: v for k, v in launches.items() if v} }, "
+                         f"expected { {k: v for k, v in want.items() if v} }")
+
+
+def app_launches(tag: str, launches, want_k1: int):
+    """The frames of a path: a coarse and a fine launch of the wgmma K1 a
+    tile, nothing else."""
+    expect_launches(tag, launches, {"fused_render_fwd": want_k1})
+
+
+def run_app(main, argv, tag: str):
+    """An app's ``main`` in this process, as ``python -m crnerf_tpu_torch``
+    calls it, the launch counters zeroed just before and read just after.
+    -> (its return value, its output, launches, seconds)."""
+    import io
+
+    import torch
+
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        ret = main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counts()
+    text = out.getvalue()
+    print("\n".join(f"[apps] {tag}: {line}" for line in text.splitlines()))
+    return ret, text, launches, secs
+
+
+def segments(text: str, tag: str):
+    import re
+
+    m = re.search(r"median (\S+) / p95 (\S+) s/frame", text)
+    if not m:
+        raise PhaseError(f"{tag}: no median / p95 line:\n{text[-2000:]}")
+    return float(m.group(1)), float(m.group(2))
+
+
+def blender_scene(root: str, card: str):
+    """4 train and 2 test RGBA frames of 800x800, PNGs whose rows are
+    filtered with None, Sub, Up, Average and Paeth in turn, written with
+    zlib; each decoded back (the bits written), its decode time printed."""
+    import numpy as np
+
+    from crnerf_tpu_torch.tools.codec_times import (
+        filtered_png_bytes,
+        frame_rgba,
+    )
+    from crnerf_tpu_torch.utils.png import read_png
+
+    w, h = BLENDER_SRC_WH
+    times = []
+    for split, n in (("train", BLENDER_TRAIN), ("test", BLENDER_TEST)):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        frames = []
+        for t in range(n):
+            name = f"{split}/r_{t}"
+            img = frame_rgba(h, w, 100 * (split == "test") + t)
+            path = os.path.join(root, name + ".png")
+            with open(path, "wb") as f:
+                f.write(filtered_png_bytes(img, np.arange(h) % 5))
+            t0 = time.perf_counter()
+            got = read_png(path, "RGBA")
+            times.append(time.perf_counter() - t0)
+            if not np.array_equal(got, img):
+                raise PhaseError(f"read_png({name}) is not the frame written")
+            pose = np.eye(4)
+            pose[:3, 3] = (0.4 * t - 0.6, 0.1 * t, 4.0)
+            frames.append({"file_path": name,
+                           "transform_matrix": pose.tolist()})
+        with open(os.path.join(root, f"transforms_{split}.json"), "w") as f:
+            json.dump({"camera_angle_x": 0.6911, "frames": frames}, f)
+    print(f"[apps] blender: {BLENDER_TRAIN} train and {BLENDER_TEST} test "
+          f"RGBA PNGs of {w}x{h}, rows filtered 0-4, decoded to the bits "
+          f"written: read_png {np.median(times):.4f} s a file (median; max "
+          f"{max(times):.4f}) on this host ({os.cpu_count()} CPUs; {card})")
+
+
+def phase_apps(device, workdir: str, card: str, scene):
+    """Phase 10: eval's camera path, the video app, metrics, serve's
+    render_path and a Blender scene trained, evaluated and scored, on phase
+    9's checkpoint and scene. -> the wgmma kernels' launches over its
+    counted runs (each zeroed just before and read just after)."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from crnerf_tpu_torch.apps import eval as eval_app
+    from crnerf_tpu_torch.apps import eval_metric, video
+    from crnerf_tpu_torch.apps import train as train_app
+    from crnerf_tpu_torch.apps.serve import (
+        RenderService,
+        load_style,
+        load_system,
+    )
+    from crnerf_tpu_torch.config import Config, build_parser, config_from_args
+    from crnerf_tpu_torch.render import camera_path
+    from crnerf_tpu_torch.render.inference import Renderer
+    from crnerf_tpu_torch.tools.codec_times import (
+        filtered_png_bytes,
+        frame_rgba,
+    )
+    from crnerf_tpu_torch.train.metrics import mse, psnr, ssim
+    from crnerf_tpu_torch.utils.png import read_png
+
+    root = os.path.join(workdir, "scene")
+    save = os.path.join(workdir, "runs")
+    ckpt = os.path.join(save, "ckpts", "straight")
+    t_phase = time.perf_counter()
+    total = {}
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    w, h = APP_WH
+    tiles = -(-w * h // Config.chunk)    # 8192-ray tiles of a frame
+
+    def check_frame(cfg, got, c2w, near, far, style, tag):
+        renderer = Renderer(cfg, load_system(cfg, ckpt, device))
+        want = renderer.fetch(renderer.render_frame_cam_async(
+            c2w, camera_path.fov_intrinsics(APP_WH), near, far, (h, w),
+            style, outputs="rgb_u8"))["rgb_u8"]
+        if not np.array_equal(got, want):
+            raise PhaseError(f"{tag}: the frame is not the in-process "
+                             "Renderer's")
+
+    # (a) eval's camera path
+    path_argv = [*cli_args(root, save, "straight"), "--split", "test",
+                 "--scene_name", APP_PATH_SCENE, "--img_wh", str(w), str(h),
+                 "--N_samples", "256", "--N_importance", "256",
+                 "--num_frames", str(APP_FRAMES), "--ckpt_path", ckpt]
+    with user_flags():
+        out_dir, text, launches, secs = run_app(eval_app.main, path_argv,
+                                                "eval test")
+    p50, p95 = segments(text, "eval test")
+    app_launches("eval test", launches, 2 * tiles * APP_FRAMES)
+    add(launches)
+    frames = check_video(out_dir, APP_PATH_SCENE, APP_FRAMES, APP_WH,
+                         "eval test")
+    cfg = config_from_args(build_parser().parse_args(path_argv))
+    spec = dataclasses.replace(camera_path.PATH_PRESETS["brandenburg_gate"],
+                               n_frames=APP_FRAMES)
+    style, anchor = eval_app.path_anchors(scene, spec)
+    k = APP_FRAMES // 2
+    with user_flags():
+        check_frame(cfg, frames[k], spec.poses(anchor.c2w)[k], anchor.near,
+                    anchor.far, style.appearance[None].astype(np.float32),
+                    "eval test")
+    print(f"[apps] eval test: {APP_FRAMES} PNGs and a GIF of {APP_FRAMES} "
+          f"frames of {w}x{h} (256+256, {APP_DTYPE}) in {secs:.1f} s; frame "
+          f"{k} the in-process Renderer's bits; per frame p50 {p50:.3f} / p95 "
+          f"{p95:.3f} s (segments between PNG completions, the first "
+          f"frame's launches included; {card}); {launches['fused_render_fwd']}"
+          f" wgmma K1 launches, none on mma.sync")
+
+    # (b) the video app, two seeded style PNGs
+    style_dir = os.path.join(workdir, "styles")
+    os.makedirs(style_dir)
+    for i in range(2):
+        img = frame_rgba(300 + 37 * i, 400 + 21 * i, 50 + i)[..., :3].copy()
+        with open(os.path.join(style_dir, f"style{i}.png"), "wb") as f:
+            f.write(filtered_png_bytes(img, np.arange(img.shape[0]) % 5))
+    vargv = ["--ckpt_path", ckpt, "--scene_name", APP_PATH_SCENE,
+             "--style_dir", style_dir, "--save_dir", save, "--img_wh",
+             str(w), str(h), "--n_frames", str(APP_FRAMES),
+             "--compute_dtype", APP_DTYPE]
+    with user_flags():
+        outs, text, launches, secs = run_app(video.main, vargv, "video")
+    app_launches("video", launches, 2 * 2 * tiles * APP_FRAMES)
+    add(launches)
+    vcfg = Config(N_samples=256, N_importance=256, compute_dtype=APP_DTYPE,
+                  use_mask=False, encode_random=False)
+    anchor_c2w = camera_path.DEMO_ANCHORS["brandenburg_gate"]
+    for i, o in enumerate(outs):
+        frames = check_video(o, f"style{i}", APP_FRAMES, APP_WH, "video")
+        with user_flags():
+            check_frame(vcfg, frames[k], spec.poses(anchor_c2w)[k], 0.0, 5.0,
+                        load_style(os.path.join(style_dir, f"style{i}.png"),
+                                   vcfg.appearance_wh), "video")
+    vp50 = [segments(line, "video") for line in text.splitlines()
+            if "frames ->" in line]
+    print(f"[apps] video: 2 styles x {APP_FRAMES} PNGs and a GIF each in "
+          f"{secs:.1f} s; frame {k} of each the in-process Renderer's bits; "
+          f"per frame p50 / p95 {vp50} s ({card}); "
+          f"{launches['fused_render_fwd']} wgmma K1 launches")
+
+    # (c) metrics on phase 9's test_test renders, against train/metrics.py
+    margv = ["--root_dir", root, "--dataset_name", "phototourism",
+             "--scene_name", "cli", "--save_dir", save, "--img_downscale",
+             "2"]
+    mean, text, _, _ = run_app(eval_metric.main, margv, "metrics")
+    rows = []
+    render_dir = os.path.join(save, "results", "phototourism", "cli")
+    for i, im in enumerate(scene.test_images):
+        iw, ih = im.wh
+        pred, gt = (torch.as_tensor(np.ascontiguousarray(a[:, iw // 2:]),
+                                    device=device) for a in (
+            read_png(os.path.join(render_dir, f"{i:03d}.png")).astype(
+                np.float32) / 255.0, im.rgbs.reshape(ih, iw, 3)))
+        rows.append({"psnr": float(psnr(pred, gt)),
+                     "ssim": float(ssim(pred, gt)),
+                     "mse": float(mse(pred, gt))})
+    want = {key: float(np.mean([r[key] for r in rows])) for key in rows[0]}
+    if mean != want:
+        raise PhaseError(f"metrics {mean} is not train/metrics.py's {want}")
+    missing = os.path.join(workdir, "missing")
+    shutil.copytree(render_dir, os.path.join(missing, "results",
+                                             "phototourism", "cli"))
+    os.remove(os.path.join(missing, "results", "phototourism", "cli",
+                           "001.png"))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    job = spawn(["metrics", *margv[:-4], "--save_dir", missing,
+                 "--img_downscale", "2"],
+                os.path.join(workdir, "metrics_missing.log"), env)
+    print(f"[apps] metrics: {mean}, train/metrics.py's on the same arrays "
+          f"(right halves of {len(rows)} renders)")
+
+    # (d) serve's render_path, a PNG style registered by encode_style
+    scfg = serve_config(APP_DTYPE, use_mask=False)
+    with user_flags():
+        svc = RenderService(scfg, load_system(scfg, ckpt, device))
+        r = svc.handle({"op": "encode_style", "id": "s",
+                        "image_path": os.path.join(style_dir,
+                                                   "style0.png")})
+        if not r["ok"]:
+            raise PhaseError(f"encode_style: {r}")
+        sdir = os.path.join(workdir, "served_path")
+        torch.cuda.synchronize()
+        zero_counts()
+        r = svc.handle({"op": "render_path", "scene": APP_PATH_SCENE,
+                        "n_frames": APP_SERVE_FRAMES, "wh": [w, h],
+                        "style_id": "s", "out_dir": sdir})
+        launches = read_counts()
+    if not (r["ok"] and r["frames"] == APP_SERVE_FRAMES
+            and r["gif"] == os.path.join(sdir, "brandenburg_gate.gif")):
+        raise PhaseError(f"render_path: {r}")
+    app_launches("render_path", launches, 2 * tiles * APP_SERVE_FRAMES)
+    add(launches)
+    check_video(sdir, "brandenburg_gate", APP_SERVE_FRAMES, APP_WH,
+                "render_path")
+    ms = sorted(svc.render_ms)
+    print(f"[apps] render_path: {APP_SERVE_FRAMES} frames in "
+          f"{r['ms_total']} ms, render p50 {ms[len(ms) // 2]:.1f} ms "
+          f"({card}); {launches['fused_render_fwd']} wgmma K1 launches")
+    del svc
+    rc, text = finish(job)
+    if rc == 0 or "expected" not in text:
+        raise PhaseError(f"metrics with a render missing: exit {rc}:\n"
+                         f"{text[-2000:]}")
+    print(f"[apps] metrics with a render missing: exit {rc}, 'expected "
+          f"{len(scene.test_images)} renders'")
+
+    # (e) a Blender scene: train with the perturbations, panels and a
+    # profiler window, then evaluate and score
+    broot = os.path.join(workdir, "lego")
+    blender_scene(broot, card)
+    bsave = os.path.join(workdir, "blender_runs")
+    bw, bh = BLENDER_WH
+    bargs = ["--dataset_name", "blender", "--root_dir", broot, "--img_wh",
+             str(bw), str(bh), "--compute_dtype", APP_DTYPE,
+             "--batch_size", str(CLI_BATCH), "--grids_per_step",
+             str(TRAIN_GRIDS), "--save_dir", bsave,
+             "--exp_name", "blender", "--scene_name", "lego"]
+    steps = BLENDER_TRAIN * bw * bh // CLI_BATCH // TRAIN_GRIDS
+    panels = steps // BLENDER_PANEL_EVERY
+    once = bargs + ["--data_perturb", "color", "occ", "--num_epochs", "1",
+                    "--log_every", "5"]
+    targv = once + ["--img_panel_every", str(BLENDER_PANEL_EVERY),
+                    "--profile", "--profile_steps", *map(str, BLENDER_PROFILE)]
+    with user_flags():
+        torch.cuda.reset_peak_memory_stats()
+        state, text, launches, secs = run_app(train_app.main, targv,
+                                              "blender train")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if state.step != steps:
+        raise PhaseError(f"blender: ended at step {state.step}, expected "
+                         f"{steps}")
+    val = final_val(text, "blender")
+    # the stash pair twice a step (and the panels' no-grad forwards); K1 in
+    # the two validations (fit's last epoch, the app's final one)
+    want = {key: 2 * steps for key in ROUTES["stash"][1]}
+    want["fused_render_fwd_stash"] += 2 * panels
+    want["fused_render_fwd"] = 2 * 2 * -(-bw * bh // Config.val_chunk)
+    expect_launches("blender train", launches, want)
+    add(launches)
+    rows = metric_rows(bsave, "blender")
+    rps = [row["train/rays_per_sec"] for row in rows
+           if "train/rays_per_sec" in row]
+    images = os.listdir(os.path.join(bsave, "logs", "blender", "images"))
+    for s in range(BLENDER_PANEL_EVERY, steps + 1, BLENDER_PANEL_EVERY):
+        for name in ("gt", "pred", "pred_random", "mask"):
+            if f"train_{name}_{s:08d}.png" not in images:
+                raise PhaseError(f"blender: no {name} panel at step {s}")
+    trace = os.path.join(bsave, "traces", "blender",
+                         "steps_{}_{}.trace.json".format(*BLENDER_PROFILE))
+    if not os.path.getsize(trace):
+        raise PhaseError("blender: the profiler's trace is empty")
+    print(f"[apps] blender train: {steps} steps of {TRAIN_GRIDS} x "
+          f"{CLI_BATCH} rays at {bw}x{bh}, color + occ, in {secs:.1f} s with "
+          f"the scene's load, 2 validations and the checkpoint; epoch 0: "
+          f"{rps[0] / (CLI_BATCH * TRAIN_GRIDS):.2f} steps/s, {rps[0]:.0f} "
+          f"train rays/s; peak memory {peak:.2f} GiB; final val {val}; "
+          f"{panels} panel sets; trace {os.path.getsize(trace) / 2 ** 20:.1f}"
+          f" MiB ({card})")
+    print(f"[apps] blender train: launches "
+          f"{ {key: v for key, v in launches.items() if v} }: the stash "
+          f"pair on wgmma, 2 a step (+2 a panel set for the stash forward), "
+          f"none on mma.sync")
+    # the same run without panels and profiler: the same bits (a step's
+    # bits do not change from run to run on the card, phase 9), and its
+    # epoch's rate beside the first's
+    with user_flags():
+        _, text, launches, secs = run_app(
+            train_app.main, once + ["--exp_name", "plain",
+                                    "--img_panel_every", "0"],
+            "blender plain")
+    expect_launches("blender plain", launches,
+                    dict(want, fused_render_fwd_stash=2 * steps))
+    add(launches)
+    a, ck = ckpt_tensors(bsave, "blender", steps)
+    b = ckpt_tensors(bsave, "plain", steps)[0]
+    dist, where = ckpt_distance(a, b)
+    if not all(torch.equal(a[key], b[key]) for key in a):
+        raise PhaseError(f"blender: the run with panels and the profiler "
+                         f"ends {dist:.3e} from the plain run ({where})")
+    prps = [row["train/rays_per_sec"] for row in metric_rows(bsave, "plain")
+            if "train/rays_per_sec" in row]
+    print(f"[apps] blender plain: the same run without panels and the "
+          f"profiler, {secs:.1f} s: the same bits over {len(a)} tensors of "
+          f"the last checkpoint; epoch 0: "
+          f"{prps[0] / (CLI_BATCH * TRAIN_GRIDS):.2f} steps/s, "
+          f"{prps[0]:.0f} train rays/s against "
+          f"{rps[0] / (CLI_BATCH * TRAIN_GRIDS):.2f} with them ({card})")
+    bckpt = os.path.join(bsave, "ckpts", "blender")
+    rc, text = finish(spawn(["eval", *bargs, "--split", "test_test",
+                             "--ckpt_path", bckpt],
+                            os.path.join(workdir, "blender_eval.log"), env))
+    if rc != 0 or f"rendered {BLENDER_TEST} images" not in text:
+        raise PhaseError(f"blender eval: exit {rc}:\n{text[-4000:]}")
+    rc, text = finish(spawn(["metrics", "--root_dir", broot,
+                             "--dataset_name", "blender", "--scene_name",
+                             "lego", "--save_dir", bsave, "--img_wh",
+                             str(bw), str(bh)],
+                            os.path.join(workdir, "blender_metrics.log"),
+                            env))
+    import re
+
+    m = re.search(r"lego n=2 psnr=(\S+) ssim=(\S+) mse=(\S+)", text)
+    if rc != 0 or not m or not all(np.isfinite(float(x))
+                                   for x in m.groups()):
+        raise PhaseError(f"blender metrics: exit {rc}:\n{text[-4000:]}")
+    print(f"[apps] blender eval test_test and metrics in subprocesses: "
+          f"{m.group(0)}")
+    print(f"[apps] phase 10 in {time.perf_counter() - t_phase:.1f} s "
+          f"({card})")
+    return total
 
 
 def main(argv=None) -> int:
@@ -3658,14 +4115,18 @@ def main(argv=None) -> int:
               f"{step_ms:.2f} on the stash route, peak memory {m_peak:.2f} "
               f"GiB ({card})")
         with tempfile.TemporaryDirectory(dir=BUILD) as workdir:
-            phase_cli(device, workdir, card)
+            _, cli_scene_ = phase_cli(device, workdir, card)
+            apps = phase_apps(device, workdir, card, cli_scene_)
     except Exception as e:  # any phase failing fails the run
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
               file=sys.stderr)
         return 1
     # every kernel's entry at the shape its main path gives it: the serve
     # tile's fine pass (8192 rays x S=512) and the train step's fine pass
-    # (16,384 rays x S=128), bf16, recurrence encode
+    # (16,384 rays x S=128), bf16, recurrence encode; K1's, K1-stash's and
+    # K2's launches those of their main paths' runs: the serve phase's
+    # frames (K1) and the flagship step's (K1-stash, K2), each with phase
+    # 10's counted runs added
     main_kernel = next(r for r in records if r["variant"] == "wgmma"
                        and r["N"] == SERVE_TILE and r["S"] == 512)
     tk = next(r for r in train_records
@@ -3751,7 +4212,8 @@ def main(argv=None) -> int:
         # the wgmma forward, launched by the serve path (and by route A's
         # step); the mma.sync one by route A's small fp32 step, its numbers
         # at route A's fine pass
-        entry("fused_render_fwd", wgmma_cu, k1, launches,
+        entry("fused_render_fwd", wgmma_cu, k1,
+              launches + apps["fused_render_fwd"],
               fwd_err(False, "wgmma"), main_kernel),
         entry("fused_render_fwd (mma.sync)", fwd_cu, k1,
               small_a["fused_render_fwd_mma"], fwd_err(False),
@@ -3759,13 +4221,14 @@ def main(argv=None) -> int:
         # the stash route's pair, wgmma, launched by the bf16 step; its
         # mma.sync counterparts by the small fp32 step of the same route
         entry("fused_render_fwd_stash", wgmma_cu, k1,
-              train_launches["fused_render_fwd_stash"],
+              train_launches["fused_render_fwd_stash"]
+              + apps["fused_render_fwd_stash"],
               train_err("fwd", "wgmma"), train_kernel("fwd_stash")),
         entry("fused_render_fwd_stash (mma.sync)", fwd_cu, k1,
               fp32_launches["fused_render_fwd_stash_mma"],
               train_err("fwd", "mma"), train_kernel("fwd_stash", "mma")),
         entry("fused_render_bwd", bwd_wgmma_cu, k2,
-              train_launches["fused_render_bwd"],
+              train_launches["fused_render_bwd"] + apps["fused_render_bwd"],
               train_err("chain", "wgmma"), train_kernel("chain")),
         entry("fused_render_bwd (mma.sync)", bwd_cu, k2,
               fp32_launches["fused_render_bwd_mma"],
@@ -3776,7 +4239,8 @@ def main(argv=None) -> int:
         # at 1024 x 128
         entry("fused_render_bwd_wgrad",
               "crnerf_tpu_torch/csrc/wgrad_wgmma.cuh", k2,
-              train_launches["fused_render_bwd_wgrad"],
+              train_launches["fused_render_bwd_wgrad"]
+              + apps["fused_render_bwd_wgrad"],
               max(r["abs_wgrad"] for r in train_records
                   if r["wgrad_variant"] == "wgmma"),
               train_kernel("wgrad")),

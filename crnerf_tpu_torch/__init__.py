@@ -4,7 +4,7 @@ The JAX package ``crnerf_tpu`` is the reference; this package mirrors its
 module paths so each counterpart is easy to find. It imports ``torch`` and
 never ``jax``, ``flax``, ``optax`` or ``crnerf_tpu``. Two paths run end to
 end, and the command line drives both (``python -m crnerf_tpu_torch
-{prepare,train,eval,serve}``).
+{prepare,train,eval,metrics,video,serve}``, the JAX package's commands).
 
 Serving:
 
@@ -32,9 +32,16 @@ From the command line: apps/train.py -> train/loop.py Trainer (epochs of
 TrainPipeline.epoch_batches through make_train_step, validation through
 the Renderer with PSNR and SSIM, checkpoints of the whole state in
 utils/checkpoint.py, weights.npz beside them, a graceful stop on SIGTERM
-and an exact resume); apps/eval.py renders a split to PNGs from a
-weights.npz; apps/prepare.py turns a phototourism scene into the npz cache
-(data/phototourism.py) that training reads.
+and an exact resume, training-grid panels and a profiler window);
+apps/eval.py renders a split, or a scene preset's camera path
+(render/camera_path.py) and its GIF, to PNGs from a weights.npz;
+apps/video.py renders the camera path in the appearance of each image of a
+folder; apps/eval_metric.py scores saved renders; apps/prepare.py turns a
+phototourism scene into the npz cache (data/phototourism.py) that training
+reads; data/blender.py loads a Blender scene. Images go in and out through
+the standard-library codecs of utils/png.py (PNG), utils/lanczos.py (PIL's
+Lanczos resize) and utils/visualization.py (GIF), so the card needs no
+image library.
 
 Both take another route through the same entry points when the Config says
 so: ``pallas_render=False`` evaluates the MLP per sample point in the fused

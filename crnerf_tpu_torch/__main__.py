@@ -1,9 +1,9 @@
 """CLI dispatcher: ``python -m crnerf_tpu_torch <cmd> [flags]``.
 
-``prepare`` (scene cache), ``train``, ``eval`` (the ``test_test``,
-``test_train`` and ``val`` splits) and ``serve``. Still only in
-``python -m crnerf_tpu``: ``metrics`` and ``video``, eval's camera-path
-``test`` split, and the ``blender`` dataset.
+The JAX package's commands: ``prepare`` (scene cache), ``train``, ``eval``
+(the ``test_test``, ``test_train``, ``val`` and camera-path ``test``
+splits), ``metrics`` (scores of saved renders), ``video`` (the
+appearance-hallucination video) and ``serve``.
 """
 
 from __future__ import annotations
@@ -15,6 +15,8 @@ COMMANDS = {
     "prepare": "crnerf_tpu_torch.apps.prepare",
     "train": "crnerf_tpu_torch.apps.train",
     "eval": "crnerf_tpu_torch.apps.eval",
+    "metrics": "crnerf_tpu_torch.apps.eval_metric",
+    "video": "crnerf_tpu_torch.apps.video",
     "serve": "crnerf_tpu_torch.apps.serve",
 }
 

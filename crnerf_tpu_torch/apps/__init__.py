@@ -1,6 +1,6 @@
-"""Command-line apps of the port: ``prepare``, ``train``, ``eval`` and
-``serve`` (``python -m crnerf_tpu_torch <cmd>``), and the dataset registry
-they share."""
+"""Command-line apps of the port: ``prepare``, ``train``, ``eval``,
+``metrics``, ``video`` and ``serve`` (``python -m crnerf_tpu_torch <cmd>``),
+and the dataset registry they share."""
 
 from __future__ import annotations
 
@@ -9,10 +9,11 @@ import argparse
 import torch
 
 
-def load_scene_from_config(cfg):
+def load_scene_from_config(cfg, split: str = "train"):
     """The Config's dataset as a Scene (``crnerf_tpu/apps/__init__.py``
     ``load_scene_from_config``): ``phototourism`` (the cache when there is
-    one, else the raw scene) or ``synthetic``."""
+    one, else the raw scene), ``blender`` (its ``split``'s transforms, the
+    train split perturbed by ``data_perturb``) or ``synthetic``."""
     if cfg.dataset_name == "phototourism":
         from crnerf_tpu_torch.data.phototourism import load_phototourism
 
@@ -25,9 +26,12 @@ def load_scene_from_config(cfg):
 
         return make_synthetic_scene(appearance_wh=tuple(cfg.appearance_wh))
     if cfg.dataset_name == "blender":
-        raise NotImplementedError(
-            "dataset 'blender' is not ported yet (python -m crnerf_tpu "
-            "trains it)")
+        from crnerf_tpu_torch.data.blender import load_blender
+
+        return load_blender(cfg.root_dir, split=split,
+                            img_wh=tuple(cfg.img_wh),
+                            perturbation=tuple(cfg.data_perturb),
+                            appearance_wh=tuple(cfg.appearance_wh))
     raise ValueError(f"unknown dataset {cfg.dataset_name!r}")
 
 

@@ -10,14 +10,22 @@ Protocol: one JSON object per line, one JSON reply per line.
    "near": 0.0, "far": 5.0,     # optional
    "style_id": "starry",        # or "style_image": "a.png"
    "out_path": "f.png"}         # or "inline": true -> base64 PNG
+  {"op": "render_path", "scene": "brandenburg_gate", "n_frames": 24,
+   "wh": [W, H], "style_id": "starry", "out_dir": "frames/"}
+                                # optional: "c2w" (the path's anchor,
+                                # default the scene's DEMO_ANCHORS pose),
+                                # "fov", "near", "far"
   {"op": "stats"}
   {"op": "shutdown"}
 
 Every reply carries {"ok": true/false}; render replies add the wall-clock
-"ms" of the render (camera in, uint8 frame on the host). Renders serialize
-on one lock (one card). PNGs are written by the stdlib encoder of
-``utils/png.py``; only ``encode_style`` / ``style_image`` need PIL,
-imported when used. ``render_path`` (GIF output) is not ported.
+"ms" of the render (camera in, uint8 frame on the host); ``render_path``
+replies ``frames``, ``out_dir``, ``gif`` and ``ms_total``, having written
+``NNN.png`` and ``<scene>.gif`` into ``out_dir``. Renders serialize on one
+lock (one card), ``render_path`` a frame at a time. PNGs and the GIF are
+written by the standard-library encoders of ``utils/png.py`` and
+``utils/visualization.py``; a PNG style image is decoded and resized
+without an image library, another format needs PIL.
 
 Trust model as in the JAX server: requests carry filesystem paths; the
 default bind is loopback, and a non-loopback bind requires ``--root DIR``,
@@ -30,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import dataclasses
 import json
 import os
 import socket
@@ -43,10 +52,17 @@ import torch
 
 from crnerf_tpu_torch import Config
 from crnerf_tpu_torch.apps import add_device_arg, resolve_device
-from crnerf_tpu_torch.render.camera_path import fov_intrinsics
+from crnerf_tpu_torch.render.camera_path import (
+    DEMO_ANCHORS,
+    PATH_PRESETS,
+    fov_intrinsics,
+    resolve_scene,
+)
 from crnerf_tpu_torch.render.inference import Renderer
 from crnerf_tpu_torch.render.system import CrNerfSystem
-from crnerf_tpu_torch.utils.png import png_bytes
+from crnerf_tpu_torch.utils.lanczos import resize_lanczos
+from crnerf_tpu_torch.utils.png import png_bytes, read_png
+from crnerf_tpu_torch.utils.visualization import write_video
 
 
 class ServeError(ValueError):
@@ -54,12 +70,23 @@ class ServeError(ValueError):
 
 
 def load_style(path: str, appearance_wh) -> np.ndarray:
-    """Style image -> (1, Ha, Wa, 3) in [-1, 1] (Lanczos resize, as the
-    JAX package's video app)."""
-    from PIL import Image
-
-    img = Image.open(path).convert("RGB").resize(tuple(appearance_wh),
-                                                 Image.LANCZOS)
+    """Style image -> (1, Ha, Wa, 3) in [-1, 1], RGB Lanczos-resized as the
+    JAX package's video app does with PIL. A PNG is decoded and resized
+    without an image library (``read_png``, ``resize_lanczos``: PIL's
+    bytes); another format needs PIL."""
+    with open(path, "rb") as f:
+        is_png = f.read(8) == b"\x89PNG\r\n\x1a\n"
+    if is_png:
+        img = resize_lanczos(read_png(path, "RGB"), tuple(appearance_wh))
+    else:
+        try:
+            from PIL import Image
+        except ImportError:
+            raise RuntimeError(
+                f"decoding {path} needs PIL, which is not installed: give "
+                "the style image as a PNG") from None
+        img = np.asarray(Image.open(path).convert("RGB").resize(
+            tuple(appearance_wh), Image.LANCZOS))
     return (np.asarray(img, np.float32) / 255.0 * 2.0 - 1.0)[None]
 
 
@@ -171,6 +198,35 @@ class RenderService:
             resp["out_path"] = out_path
         return resp
 
+    def op_render_path(self, req):
+        if "out_dir" not in req:
+            raise ServeError("render_path needs out_dir")
+        style = self._style_from(req)
+        w, h = (int(x) for x in req.get("wh", (320, 240)))
+        key = resolve_scene(str(req.get("scene", "")))
+        spec = PATH_PRESETS[key]
+        if "n_frames" in req:
+            spec = dataclasses.replace(spec, n_frames=int(req["n_frames"]))
+        anchor = (np.asarray(req["c2w"], np.float32) if "c2w" in req
+                  else DEMO_ANCHORS.get(key))
+        if anchor is None:
+            raise ServeError(f"no demo anchor for {key}; pass c2w")
+        out_dir = self._check_path(req["out_dir"])
+        os.makedirs(out_dir, exist_ok=True)
+        frames, t0 = [], time.perf_counter()
+        K = fov_intrinsics((w, h), float(req.get("fov", 60.0)))
+        near = float(req.get("near", 0.0))
+        far = float(req.get("far", 5.0))
+        for i, c2w in enumerate(spec.poses(anchor)):
+            with self.lock:   # a frame at a time: renders interleave
+                r = self._render((c2w, K, near, far), style, (h, w))
+            with open(os.path.join(out_dir, f"{i:03d}.png"), "wb") as f:
+                f.write(png_bytes(r["rgb"]))
+            frames.append(r["rgb"])
+        gif = write_video(os.path.join(out_dir, key), frames)
+        return {"frames": len(frames), "out_dir": out_dir, "gif": gif,
+                "ms_total": round((time.perf_counter() - t0) * 1e3, 1)}
+
     def op_stats(self, req):
         ms = sorted(self.render_ms)
         pct = (
@@ -189,8 +245,8 @@ class RenderService:
         op = req.get("op")
         fn = {
             "ping": self.op_ping, "encode_style": self.op_encode_style,
-            "render": self.op_render, "stats": self.op_stats,
-            "shutdown": self.op_shutdown,
+            "render": self.op_render, "render_path": self.op_render_path,
+            "stats": self.op_stats, "shutdown": self.op_shutdown,
         }.get(op)
         if fn is None:
             return {"ok": False, "error": f"unknown op {op!r}"}
@@ -333,7 +389,7 @@ def main(argv: Optional[Sequence[str]] = None):
     server = Server(svc, args.host, args.port)
     host, port = server.server_address
     print(f"serving on {host}:{port} (ops: ping, encode_style, render, "
-          "stats, shutdown)", flush=True)
+          "render_path, stats, shutdown)", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -34,7 +34,7 @@ def main(argv: Optional[Sequence[str]] = None):
     args = p.parse_args(argv)
     device = resolve_device(p, args.device)
     cfg = config_from_args(args)
-    scene = load_scene_from_config(cfg)
+    scene = load_scene_from_config(cfg, "train")
     save_code(cfg.save_dir, cfg.exp_name, cfg.to_json())
     logger = MetricLogger(os.path.join(cfg.save_dir, "logs"), cfg.exp_name,
                           use_wandb=cfg.use_wandb, project=cfg.proj_name)

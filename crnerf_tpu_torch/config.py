@@ -29,12 +29,14 @@ from typing import Optional, Sequence, Tuple
 class Config:
     # ---- dataset ----
     root_dir: str = ""
-    dataset_name: str = "phototourism"  # 'phototourism' | 'synthetic'
-    # ('blender' is not ported)
+    dataset_name: str = "phototourism"  # 'phototourism' | 'blender' |
+    # 'synthetic'
     scene_name: str = "test"
-    split: str = "val"  # eval app: val | test_train | test_test
+    split: str = "val"  # eval app: val | test | test_train | test_test
     img_downscale: int = 2
-    img_wh: Tuple[int, int] = (800, 800)  # camera-path renders (not ported)
+    img_wh: Tuple[int, int] = (800, 800)  # blender / camera-path renders
+    data_perturb: Tuple[str, ...] = ()  # blender train split: a subset of
+    # {"color", "occ"}
     use_cache: bool = True  # phototourism: read cache_tpu/scene_ds{N}.npz
     # when it exists
     testit: bool = False  # smoke mode: 1 epoch, 1 iteration per epoch
@@ -134,10 +136,18 @@ class Config:
     log_every: int = 50
     use_wandb: bool = False  # attach wandb to the MetricLogger when it
     # imports; metrics.jsonl is written either way
+    img_panel_every: int = 5000  # train-time gt / pred / random / mask
+    # panels of the step's first grid every N steps; 0 disables
     ckpt_every_epochs: int = 1
     seed: int = 42
     val_every_epochs: int = 1  # validate every N epochs (0: never); the
     # last epoch always validates when enabled
+    video_format: str = "gif"  # gif | mp4 (mp4 writes the GIF with a
+    # warning: no mp4 encoder without a codec package)
+    num_frames: int = 0  # camera-path frames for --split test; 0 = the
+    # scene preset's count (240)
+    profile: bool = False  # a torch.profiler trace of training steps
+    profile_steps: Tuple[int, int] = (10, 15)  # [start, stop) global steps
 
     def __post_init__(self):
         if self.encode_c:

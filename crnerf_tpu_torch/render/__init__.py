@@ -1,1 +1,1 @@
-"""Renderer, system and inference front end of the serving path."""
+"""Renderer, system, inference front end and camera paths."""

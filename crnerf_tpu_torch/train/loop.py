@@ -14,10 +14,17 @@ exact resume.
 - Validation renders through the port's ``Renderer``, a new one each time
   (it puts the system in eval mode and keeps a layout of the weights as
   they are), and scores the float rgb with PSNR and SSIM.
+- Every ``img_panel_every`` steps the step's first grid is rendered again
+  by a no-grad training-mode forward and logged as gt / pred /
+  pred_random / mask panels; the state is left as the step left it (the
+  generator's state and CGNet's pending batch statistics are put back).
+- ``Config.profile``: a ``torch.profiler`` trace of the global steps
+  ``[profile_steps[0], profile_steps[1])``, in Chrome format under
+  ``save_dir/traces/exp_name``.
 
 Left in the JAX package: its duplicate per-resolution renderer, slab
-dispatch (for a TPU behind a high-latency link), the train image panels,
-the profiler hook and the multi-process preemption sync point.
+dispatch (for a TPU behind a high-latency link) and the multi-process
+preemption sync point.
 """
 
 from __future__ import annotations
@@ -37,14 +44,17 @@ from crnerf_tpu_torch.render.system import CrNerfSystem
 from crnerf_tpu_torch.train.metrics import psnr as psnr_fn, ssim as ssim_fn
 from crnerf_tpu_torch.train.optim import make_optimizer
 from crnerf_tpu_torch.train.state import TrainState
-from crnerf_tpu_torch.train.step import make_train_step
+from crnerf_tpu_torch.train.step import (
+    make_train_step,
+    select_random_embeddings,
+)
 from crnerf_tpu_torch.utils.checkpoint import (
     CheckpointManager,
     restore_state,
     state_payload,
 )
 from crnerf_tpu_torch.utils.logging import MetricLogger
-from crnerf_tpu_torch.utils.png import visualize_depth
+from crnerf_tpu_torch.utils.visualization import visualize_depth
 from crnerf_tpu_torch.utils.weights import flax_from_state_dict, save_npz
 
 
@@ -88,6 +98,7 @@ class Trainer:
         # steps since the last save, a plain int a signal handler can read
         self._progress_steps = 0
         self._completed = False
+        self._profiler = None   # the torch.profiler of Config.profile
 
         if cfg.ckpt_path:
             self.restore(cfg.ckpt_path)
@@ -156,6 +167,12 @@ class Trainer:
 
     # -------------------------------------------------------------- train
     def fit(self, num_epochs: Optional[int] = None) -> TrainState:
+        try:
+            return self._fit(num_epochs)
+        finally:   # a profiler window the run did not reach the end of
+            self._stop_profile()
+
+    def _fit(self, num_epochs: Optional[int]) -> TrainState:
         cfg = self.cfg
         epochs = num_epochs if num_epochs is not None else cfg.num_epochs
         global_step = self.state.step
@@ -196,16 +213,93 @@ class Trainer:
                 start_step=global_step - epoch * self.iters_per_epoch):
             batch = {k: torch.from_numpy(v).to(self.device)
                      for k, v in batch.items() if k != "image_idx"}
+            if cfg.profile and global_step == cfg.profile_steps[0]:
+                self._start_profile()
             self.state, metrics = self.step_fn(self.state, batch)
             global_step += 1
             self._progress_steps += 1
             n_rays += cfg.batch_size * self.grids
+            if (self.logger and cfg.img_panel_every > 0
+                    and global_step % cfg.img_panel_every == 0):
+                self._log_train_panels(batch, global_step)
+            if global_step == cfg.profile_steps[1]:
+                self._stop_profile()
             if self.logger and global_step % cfg.log_every == 0:
                 self.logger.log({k if "/" in k else f"train/{k}": float(v)
                                  for k, v in metrics.items()}, global_step)
             if self._stop_requested:
                 break
         return global_step, n_rays
+
+    # ------------------------------------------------- panels, profiler
+    @torch.no_grad()
+    def _log_train_panels(self, batch: Dict[str, torch.Tensor],
+                          global_step: int):
+        """gt / pred / pred_random / mask panels of the batch's first grid:
+        a no-grad forward of the system in training mode, as the step runs
+        it, with a random embedding drawn from the state's generator. The
+        forward's draws and CGNet's batch statistics are not the step's:
+        the generator's state and the pending statistics are restored, so
+        the run goes on with the bits it would have had without panels."""
+        cfg, system, state = self.cfg, self.system, self.state
+        one = batch["rays"].dim() == 2     # a single grid, no G axis
+        b = {k: v[None] if one else v[:1] for k, v in batch.items()}
+        gen = state.generator
+        gen_state = gen.get_state() if gen is not None else None
+        norms = (system.implicit_mask.norms()
+                 if system.implicit_mask is not None else [])
+        pending = [m.pending for m in norms]
+        try:
+            use_rand = cfg.encode_random and cfg.encode_a
+            system.train()
+            res = system.forward_train(
+                b,
+                a_embedded_random=(select_random_embeddings(state, 1)
+                                   if use_rand else None),
+                random_has_any=state.has_any, generator=gen)
+        finally:
+            if gen is not None:
+                gen.set_state(gen_state)
+            for m, p in zip(norms, pending):
+                m.pending = p
+        hw = cfg.grid_hw
+
+        def img(x):
+            return x[0].float().reshape(hw, hw, -1).cpu().numpy()
+
+        typ = "rgb_fine" if "rgb_fine" in res else "rgb_coarse"
+        self.logger.log_image("train/gt", img(b["rgbs"]), global_step)
+        self.logger.log_image("train/pred", img(res[typ]), global_step)
+        if "rgb_fine_random" in res:
+            self.logger.log_image("train/pred_random",
+                                  img(res["rgb_fine_random"]), global_step)
+        if "out_mask" in res:
+            self.logger.log_image("train/mask",
+                                  np.repeat(img(res["out_mask"]), 3, -1),
+                                  global_step)
+
+    def _start_profile(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        acts = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        self._profiler = profile(activities=acts)
+        self._profiler.start()
+
+    def _stop_profile(self):
+        """End the profiler window (if one is open) and write its Chrome
+        trace."""
+        if self._profiler is None:
+            return
+        self._sync()
+        self._profiler.stop()
+        d = os.path.join(self.cfg.save_dir, "traces", self.cfg.exp_name)
+        os.makedirs(d, exist_ok=True)
+        a, b = self.cfg.profile_steps
+        self._profiler.export_chrome_trace(
+            os.path.join(d, f"steps_{a}_{b}.trace.json"))
+        self._profiler = None
 
     # ---------------------------------------------------------- rendering
     @torch.no_grad()

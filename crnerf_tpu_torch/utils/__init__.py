@@ -1,2 +1,2 @@
-"""The weight bridge, checkpoints, metric logging, the PNG writer and the
-reference-checkpoint converter."""
+"""The weight bridge, checkpoints, metric logging, the PNG, Lanczos and GIF
+codecs and the reference-checkpoint converter."""

@@ -1,7 +1,7 @@
 """The port's CLI as a user runs it, on the CPU: ``python -m
 crnerf_tpu_torch train`` on a phototourism cache, then ``eval`` of its
 checkpoint directory (PNGs of the test images, the in-process render's
-bits), an empty split (exit 0), the command table; the reference
+bits), an empty split (exit 0), the refused splits, the command table; the reference
 checkpoint converter against crnerf_tpu's on a synthetic state dict, and
 the converted weights through the bridge into the port's system; the PNG
 writer, the depth panel and the metric logger."""
@@ -132,12 +132,14 @@ def test_eval_of_an_empty_split_exits_0(cli_run, tmp_path):
     assert "rendered 0 images" in r.stdout
 
 
-@pytest.mark.parametrize("split,error", [("test", "not ported"),
+@pytest.mark.parametrize("split,error", [("test", "no camera-path preset"),
                                          ("nope", "unsupported split")])
 def test_eval_refuses_other_splits(cli_run, split, error):
+    """An unknown split; the camera-path split on a scene with no preset
+    (``cli``)."""
     from crnerf_tpu_torch.apps import eval as eval_app
 
-    with pytest.raises((NotImplementedError, ValueError), match=error):
+    with pytest.raises((KeyError, ValueError), match=error):
         eval_app.main([*cli_run["common"], "--split", split, "--ckpt_path",
                        os.path.join(cli_run["save"], "ckpts", "e")])
 
@@ -147,7 +149,8 @@ def test_command_table():
 
     from crnerf_tpu_torch.__main__ import COMMANDS
 
-    assert set(COMMANDS) == {"prepare", "train", "eval", "serve"}
+    assert set(COMMANDS) == {"prepare", "train", "eval", "metrics", "video",
+                             "serve"}
     for mod in COMMANDS.values():
         assert hasattr(importlib.import_module(mod), "main")
 
@@ -277,11 +280,8 @@ def test_a_reference_checkpoint_loads_into_the_port(tmp_path):
 
 def test_png_writer_and_depth_panel(tmp_path):
     from crnerf_tpu.utils.visualization import visualize_depth as jviz
-    from crnerf_tpu_torch.utils.png import (
-        png_bytes,
-        visualize_depth,
-        write_png,
-    )
+    from crnerf_tpu_torch.utils.png import png_bytes, write_png
+    from crnerf_tpu_torch.utils.visualization import visualize_depth
 
     rgb = np.random.default_rng(0).uniform(0, 1, (5, 7, 3)).astype(
         np.float32)

@@ -313,7 +313,11 @@ def test_load_scene_from_config():
     sc = load_scene_from_config(Config(dataset_name="synthetic",
                                        appearance_wh=(64, 48)))
     assert len(sc.train_images) == 6 and sc.appearance_wh == (64, 48)
-    with pytest.raises(NotImplementedError, match="blender"):
-        load_scene_from_config(Config(dataset_name="blender"))
+    # blender reads the transforms of the split it is given
+    for split, name in (("train", "transforms_train.json"),
+                        ("test_test", "transforms_test.json")):
+        with pytest.raises(FileNotFoundError, match=name):
+            load_scene_from_config(Config(dataset_name="blender",
+                                          root_dir="missing"), split)
     with pytest.raises(ValueError, match="unknown dataset"):
         load_scene_from_config(Config(dataset_name="nope"))

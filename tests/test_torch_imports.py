@@ -3,8 +3,8 @@ every module of crnerf_tpu_torch (the train/ and data/ packages, the
 trainer, the checkpoints and the apps, the conv, sincos, pipelined-render
 and sublane-stores ops and the spike tools included), and chip_smoke.py,
 import with all four blocked. Its Config keeps the JAX Config's names and
-defaults. Its entry points (prepare, train, eval, serve, the spike tools)
-run on the card unless the caller asks for the CPU."""
+defaults. Its entry points (prepare, train, eval, metrics, video, serve,
+the spike tools) run on the card unless the caller asks for the CPU."""
 
 import dataclasses
 import os
@@ -36,7 +36,9 @@ for needed in ("train.step", "train.losses", "train.optim", "train.state",
                "data.phototourism", "data.colmap", "data.pfm",
                "apps.prepare", "apps.train", "apps.eval",
                "utils.checkpoint", "utils.logging", "utils.png",
-               "utils.torch_port"):
+               "utils.torch_port", "utils.lanczos", "utils.visualization",
+               "render.camera_path", "data.blender", "apps.eval_metric",
+               "apps.video", "tools.codec_times"):
     assert "crnerf_tpu_torch." + needed in names, needed
 import chip_smoke
 chip_smoke.serve_config()
@@ -169,6 +171,10 @@ def test_config_cli_matches_the_jax_cli():
     ("train", ["--root_dir", "missing"], "tsv"),
     ("eval", ["--root_dir", "missing", "--ckpt_path", "missing.npz"],
      "no weights.npz"),
+    ("metrics", ["--root_dir", "missing"], "tsv"),
+    ("video", ["--ckpt_path", "missing.npz", "--scene_name",
+               "x_brandenburg_gate", "--style_dir", "missing"],
+     "no weights.npz"),
 ])
 def test_cli_apps_default_to_the_card_and_fail_without_one(cmd, extra,
                                                            later):
@@ -183,7 +189,9 @@ def test_cli_apps_default_to_the_card_and_fail_without_one(cmd, extra,
 
     assert '"--device", type=str, default="cuda"' in inspect.getsource(
         apps.add_device_arg)
-    src = inspect.getsource(import_module(f"crnerf_tpu_torch.apps.{cmd}"))
+    from crnerf_tpu_torch.__main__ import COMMANDS
+
+    src = inspect.getsource(import_module(COMMANDS[cmd]))
     assert "add_device_arg(" in src and "resolve_device(" in src
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
     base = [sys.executable, "-m", "crnerf_tpu_torch", cmd, *extra]
