@@ -182,6 +182,22 @@ Phases, each fatal on failure:
      profiler window over steps 10-15 (the panels and the trace checked;
      steps/s, rays/s, peak memory), then ``eval --split test_test`` and
      ``metrics`` in subprocesses
+ 11. data parallelism, on phase 9's cache at the flagship config: (a) one
+     rank over NCCL (a TCP store on localhost), the Trainer for 12 steps,
+     the same bits as without a group; (b) two ranks of 8 grids on the one
+     card over gloo (NCCL refuses two ranks on one device), CUDA tensors,
+     each started as torchrun starts one: one step against one process of
+     16 grids on the same batch and draws (parameters within
+     tests/test_torch_train_step.py's one-step bound, the ranks' states
+     the same bits), the train app's per-rank ``run`` for 2 epochs (steps/s,
+     global rays/s, each rank's peak memory, the launch counters zeroed
+     just before and read just after: every stash forward, chain and
+     weight gradient on wgmma, K1 in the sharded validations), a CLI run
+     sent SIGTERM at rank 1 alone once step 20 is logged (both exit 0, one
+     checkpoint), ``--auto_resume`` to the timed run's bits, and ``eval
+     --split test_test`` on two ranks to the in-process render's bits;
+     (c) where two cards are visible, ``train --num_devices 2`` over NCCL
+     to the gloo run's bits, else a line saying it did not run
 Prints a {"kernels": [...]} line, the card line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
 phase fails or no CUDA device is present.
@@ -3289,12 +3305,14 @@ def cli_scene(root: str, empty_root: str):
     return scene
 
 
-def cli_args(root: str, save_dir: str, exp: str):
-    """The flagship config as a user passes it to ``train`` / ``eval``."""
+def cli_args(root: str, save_dir: str, exp: str, num_devices: int = 1):
+    """The flagship config as a user passes it to ``train`` / ``eval``, on
+    ``num_devices`` ranks (phases 9 and 10 ask for one, also where more
+    cards are visible; 0 under a launcher means its ranks)."""
     return ["--dataset_name", "phototourism", "--root_dir", root,
             "--scene_name", "cli", "--compute_dtype", "bfloat16",
             "--grids_per_step", str(TRAIN_GRIDS), "--save_dir", save_dir,
-            "--exp_name", exp]
+            "--exp_name", exp, "--num_devices", str(num_devices)]
 
 
 def metric_rows(save_dir: str, exp: str):
@@ -3389,13 +3407,13 @@ def final_val(text: str, who: str):
     return val
 
 
-def spawn(argv, log_path: str, env):
-    """``python -m crnerf_tpu_torch`` with ``argv``, output to
-    ``log_path``; ``finish`` waits for it."""
+def spawn(argv, log_path: str, env, prog=("-m", "crnerf_tpu_torch")):
+    """``python -m crnerf_tpu_torch`` (or ``python`` with ``prog``) with
+    ``argv``, output to ``log_path``; ``finish`` or ``finish_ranks`` waits
+    for it."""
     f = open(log_path, "w")
-    proc = subprocess.Popen([sys.executable, "-m", "crnerf_tpu_torch",
-                             *argv], cwd=REPO, stdout=f,
-                            stderr=subprocess.STDOUT, env=env)
+    proc = subprocess.Popen([sys.executable, *prog, *argv], cwd=REPO,
+                            stdout=f, stderr=subprocess.STDOUT, env=env)
     return proc, f, log_path
 
 
@@ -3408,6 +3426,28 @@ def finish(job, timeout: float = 600):
         f.close()
     with open(log_path) as g:
         return rc, g.read()
+
+
+def finish_ranks(jobs, timeout: float = 600, when=None):
+    """``finish`` for the ``spawn``ed ranks of one group -> [(exit code,
+    output)]. Once a rank exits non-zero, or after ``timeout`` s, the others
+    are killed, so that none waits in a collective. ``when``: (a test, an
+    action), the action taken once, the first time the test holds."""
+    deadline = time.time() + timeout
+    try:
+        while time.time() < deadline:
+            rcs = [proc.poll() for proc, _, _ in jobs]
+            if all(rc == 0 for rc in rcs) or any(rc for rc in rcs):
+                break
+            if when is not None and when[0]():
+                when[1]()
+                when = None
+            time.sleep(0.1)
+    finally:
+        for proc, _, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+    return [finish(job, 60) for job in jobs]
 
 
 def phase_cli(device, workdir: str, card: str):
@@ -3844,7 +3884,7 @@ def phase_apps(device, workdir: str, card: str, scene):
     vargv = ["--ckpt_path", ckpt, "--scene_name", APP_PATH_SCENE,
              "--style_dir", style_dir, "--save_dir", save, "--img_wh",
              str(w), str(h), "--n_frames", str(APP_FRAMES),
-             "--compute_dtype", APP_DTYPE]
+             "--compute_dtype", APP_DTYPE, "--num_devices", "1"]
     with user_flags():
         outs, text, launches, secs = run_app(video.main, vargv, "video")
     app_launches("video", launches, 2 * 2 * tiles * APP_FRAMES)
@@ -3941,7 +3981,8 @@ def phase_apps(device, workdir: str, card: str, scene):
              str(bw), str(bh), "--compute_dtype", APP_DTYPE,
              "--batch_size", str(CLI_BATCH), "--grids_per_step",
              str(TRAIN_GRIDS), "--save_dir", bsave,
-             "--exp_name", "blender", "--scene_name", "lego"]
+             "--exp_name", "blender", "--scene_name", "lego",
+             "--num_devices", "1"]
     steps = BLENDER_TRAIN * bw * bh // CLI_BATCH // TRAIN_GRIDS
     panels = steps // BLENDER_PANEL_EVERY
     once = bargs + ["--data_perturb", "color", "occ", "--num_epochs", "1",
@@ -4037,6 +4078,516 @@ def phase_apps(device, workdir: str, card: str, scene):
     return total
 
 
+# Phase 11: data parallelism on the card, on phase 9's phototourism cache at
+# the flagship config (8x256, 64 + 64, bf16, the stash route). (a) one rank
+# over NCCL against no group, 12 steps (``--testit``: a step an epoch); (b)
+# two ranks of 8 grids on the one card over gloo (NCCL refuses two ranks on
+# one device), with CUDA tensors: one step against one process of 16 grids
+# on the same global batch and draws, the train app for CLI_EPOCHS epochs
+# timed, SIGTERM to rank 1 alone and the resume, and eval on two ranks; (c)
+# where two cards are visible, the same over NCCL, and ``--num_devices 2``.
+DP_RANKS = 2
+DP_GRIDS = TRAIN_GRIDS // DP_RANKS
+DP_A_STEPS = 12
+# Adam's first moment after one step is 0.1 g: per leaf, the largest
+# difference between a rank's and the 16-grid process's as a share of the
+# single process's largest entry. Read at 6.6e-3 on an H100 (CGNet's
+# leaves, whose convolutions cuDNN runs at 8 and at 16 grids; PERF.md),
+# so the bound leaves 4.5x. A sum over the ranks instead of the mean, or
+# one rank's gradient alone, reads ~0.5-1.
+DP_MU_SHARE = 3e-2
+
+
+def dp_release():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def dp_env(**kw):
+    """Environment variables set for the block, restored after."""
+    saved = {k: os.environ.get(k) for k in kw}
+    os.environ.update({k: str(v) for k, v in kw.items()})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def dp_state_tensors(state):
+    """Every number a step reads, on the host, by name: parameters,
+    buffers, Adam's state, the cache, its validity, the generator."""
+    import torch
+
+    out = {f"system.{k}": v.detach().cpu().clone()
+           for k, v in state.system.state_dict().items()}
+    for i, st in state.optimizer.state_dict()["state"].items():
+        for k, v in st.items():
+            out[f"adam.{i}.{k}"] = torch.as_tensor(v).cpu().clone()
+    out["embedding_cache"] = state.embedding_cache.cpu().clone()
+    out["embedding_valid"] = state.embedding_valid.cpu().clone()
+    if state.generator is not None:
+        out["generator"] = state.generator.get_state().clone()
+    return out
+
+
+def dp_same(a, b, what: str):
+    import torch
+
+    if a.keys() != b.keys():
+        raise PhaseError(f"{what}: other tensors")
+    diff = [k for k in a if not torch.equal(a[k], b[k])]
+    if diff:
+        dist_, where = ckpt_distance({k: a[k] for k in diff},
+                                     {k: b[k] for k in diff})
+        raise PhaseError(f"{what}: {len(diff)} of {len(a)} tensors differ "
+                         f"(largest {dist_:.3e}, {where})")
+
+
+def dp_cli_argv(root: str, save: str, exp: str, steps_log: int = 5):
+    return [*cli_args(root, save, exp, 0), "--grids_per_step", str(DP_GRIDS),
+            "--num_epochs", str(CLI_EPOCHS), "--log_every", str(steps_log)]
+
+
+def dp_step_inputs(trainer, seed: int):
+    """Step 0's global batch of TRAIN_GRIDS grids and seeded draws for it
+    (the renderer's uniforms, noise and resampling exponentials; the cache
+    is empty, so the rows chosen do not matter)."""
+    import torch
+
+    cfg = trainer.cfg
+    batch = trainer.pipeline.make_global_batch(0, 0, TRAIN_GRIDS)
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()
+             if k != "image_idx"}
+    g = torch.Generator().manual_seed(seed)
+    n, s, i = cfg.batch_size, cfg.N_samples, cfg.N_importance
+    draws = {
+        "z_u": torch.rand((TRAIN_GRIDS, n, s), generator=g),
+        "noise_coarse": cfg.noise_std * torch.randn((TRAIN_GRIDS, n, s),
+                                                    generator=g),
+        "noise_fine": cfg.noise_std * torch.randn((TRAIN_GRIDS, n, s + i),
+                                                  generator=g),
+        "pdf_e": torch.empty((TRAIN_GRIDS, n, i + 1)).exponential_(
+            generator=g),
+        "sel_idx": torch.zeros((TRAIN_GRIDS,), dtype=torch.int64),
+    }
+    return batch, draws
+
+
+def dp_one_step(trainer, batch, draws, device):
+    """One step of ``trainer`` on ``batch`` and ``draws`` -> the state's
+    tensors and Adam's first moment (0.1 g) by parameter."""
+    import torch
+
+    dev = {k: v.to(device) for k, v in batch.items()}
+    dd = {k: v.to(device) for k, v in draws.items()}
+    state, _ = trainer.step_fn(trainer.state, dev, dd)
+    torch.cuda.synchronize(device)
+    out = dp_state_tensors(state)
+    mu = [state.optimizer.state[p]["exp_avg"].cpu().clone()
+          for p in state.system.parameters()]
+    return out, mu
+
+
+def dp_rank_worker(job_path: str):
+    """One rank of phase 11 (b) or (c), started as ``torchrun`` starts one
+    (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT), over the
+    job's backend. In turn: its share of the one-step comparison; the train
+    app's per-rank ``run`` for CLI_EPOCHS epochs, timed, the launch
+    counters zeroed just before and read just after; the run that the
+    parent stops by SIGTERM to rank 1, and its ``--auto_resume``; the eval
+    app's ``run``. Writes what it measured beside ``job_path``."""
+    import torch
+
+    from crnerf_tpu_torch.apps import eval as eval_app
+    from crnerf_tpu_torch.apps import load_scene_from_config
+    from crnerf_tpu_torch.apps import train as train_app
+    from crnerf_tpu_torch.config import build_parser, config_from_args
+    from crnerf_tpu_torch.parallel import mesh
+    from crnerf_tpu_torch.train.loop import Trainer
+
+    with open(job_path) as f:
+        job = json.load(f)
+    device, group = mesh.init_distributed("cuda", job["backend"])
+    r = mesh.rank(group)
+    cfg = {k: config_from_args(build_parser().parse_args(job[k]))
+           for k in ("timed", "stop", "resume", "eval")}
+    out, secs = {}, {}
+    with user_flags():
+        t0 = time.perf_counter()
+        inputs = torch.load(job["step_inputs"], weights_only=False)
+        tr = Trainer(cfg["timed"], load_scene_from_config(cfg["timed"]),
+                     device=device, group=group)
+        g = cfg["timed"].grids_per_step
+        sl = slice(r * g, (r + 1) * g)
+        tensors, mu = dp_one_step(
+            tr, {k: v[sl] for k, v in inputs["batch"].items()},
+            {k: v[sl] for k, v in inputs["draws"].items()}, device)
+        torch.save({"tensors": tensors, "mu": mu}, job_path + f".step{r}")
+        del tr, tensors, mu
+        dp_release()
+        secs["one step"] = time.perf_counter() - t0
+
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        mesh.barrier(group)
+        zero_counts()
+        t0 = time.perf_counter()
+        out["step"] = train_app.run(cfg["timed"], device, group).step
+        torch.cuda.synchronize(device)
+        secs["timed"] = time.perf_counter() - t0
+        out["launches"] = read_counts()
+        out["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        dp_release()
+
+        t0 = time.perf_counter()
+        out["stopped_at"] = train_app.run(cfg["stop"], device, group).step
+        ck_dir = os.path.join(cfg["stop"].save_dir, "ckpts",
+                              cfg["stop"].exp_name)
+        out["ckpts_at_stop"] = sorted(x for x in os.listdir(ck_dir)
+                                      if x.endswith(".pt"))
+        dp_release()
+        out["resumed_to"] = train_app.run(cfg["resume"], device, group).step
+        dp_release()
+        secs["stop and resume"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eval_app.run(cfg["eval"], device, group)
+        secs["eval"] = time.perf_counter() - t0
+    out["secs"] = secs
+    with open(job_path + f".rank{r}", "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def dp_deltas_bound(single_mu, rank_tensors, single_tensors, lr: float,
+                    names):
+    """tests/test_torch_train_step.py's bound on one step's parameters:
+    every element's update within 2 lr of the other's, and where the
+    gradient exceeds 1e-5 within 2% of lr. -> (worst over all elements in
+    lr, worst over the large-gradient elements in lr)."""
+    worst_all = worst_big = 0.0
+    for name, mu in zip(names, single_mu):
+        a = rank_tensors[f"system.{name}"].double()
+        b = single_tensors[f"system.{name}"].double()
+        d = (a - b).abs() / lr
+        worst_all = max(worst_all, float(d.max()))
+        big = (mu.double() / 0.1).abs() > 1e-5
+        if big.any():
+            worst_big = max(worst_big, float(d[big].max()))
+    return worst_all, worst_big
+
+
+def dp_mu_shares(rank_mu, single_mu, names):
+    """Per leaf, max |a - b| over max |b| of Adam's first moments (``b``
+    the single process's) -> [(share, leaf)], largest first."""
+    out = []
+    for name, a, b in zip(names, rank_mu, single_mu):
+        a, b = a.double(), b.double()
+        top = float(b.abs().max())
+        d = float((a - b).abs().max())
+        out.append((d / top if top else (0.0 if d == 0 else float("inf")),
+                    name))
+    return sorted(out, reverse=True)
+
+
+def phase_dp(device, workdir: str, card: str):
+    """Phase 11 on phase 9's cache (``workdir``/scene) and checkpoint. ->
+    the launch counts of (b)'s timed two-rank run, both ranks' together."""
+    import torch
+
+    from crnerf_tpu_torch.config import build_parser, config_from_args
+    from crnerf_tpu_torch.data.phototourism import load_phototourism
+    from crnerf_tpu_torch.parallel import mesh
+    from crnerf_tpu_torch.train.loop import Trainer
+
+    t_phase = time.perf_counter()
+    root = os.path.join(workdir, "scene")
+    save = os.path.join(workdir, "runs")
+    dp_dir = os.path.join(workdir, "dp")
+    os.makedirs(dp_dir, exist_ok=True)
+    scene = load_phototourism(root, img_downscale=2,
+                              appearance_wh=(224, 160))
+    parse = build_parser()
+    parse.add_argument("--device")
+
+    def cfg_of(argv):
+        return config_from_args(parse.parse_args(argv))
+
+    # (a) one rank over NCCL, 12 steps
+    a_cfg = cfg_of(cli_args(root, dp_dir, "a")).replace(
+        testit=True, num_epochs=DP_A_STEPS, val_every_epochs=0,
+        ckpt_every_epochs=DP_A_STEPS)
+    with user_flags():
+        tr = Trainer(a_cfg.replace(exp_name="a_alone"), scene, device=device)
+        tr.fit()
+        alone = dp_state_tensors(tr.state)
+        del tr
+        dp_release()
+        with dp_env(RANK=0, WORLD_SIZE=1, LOCAL_RANK=device.index,
+                    MASTER_ADDR="localhost", MASTER_PORT=mesh._free_port()):
+            dev1, group = mesh.init_distributed(device, "nccl")
+            try:
+                tr = Trainer(a_cfg.replace(exp_name="a_group"), scene,
+                             device=dev1, group=group)
+                tr.fit()
+                grouped = dp_state_tensors(tr.state)
+                a_steps = tr.state.step
+                del tr
+            finally:
+                torch.distributed.destroy_process_group()
+        dp_release()
+    if a_steps != DP_A_STEPS:
+        raise PhaseError(f"(a): {a_steps} steps, expected {DP_A_STEPS}")
+    dp_same(grouped, alone, "(a) one rank over nccl")
+    print(f"[dp] (a) one rank over nccl (TCP store on localhost), the "
+          f"Trainer for {DP_A_STEPS} steps: the same bits as without a "
+          f"group over {len(alone)} tensors (parameters, buffers, Adam, the "
+          f"cache, its validity, the generator); both runs in "
+          f"{time.perf_counter() - t_phase:.1f} s")
+
+    # the one-step comparison's single process: 16 grids on cuda:0
+    t0 = time.perf_counter()
+    with user_flags():
+        tr = Trainer(cfg_of(dp_cli_argv(root, save, "dp2")).replace(
+            grids_per_step=TRAIN_GRIDS), scene, device=device)
+        batch, draws = dp_step_inputs(tr, SEED + 11)
+        single = dp_one_step(tr, batch, draws, device)
+        names = [n for n, _ in tr.system.named_parameters()]
+        lr = tr.state.optimizer.param_groups[0]["lr"]   # step 0's
+        del tr
+        dp_release()
+    step_inputs = os.path.join(dp_dir, "step_inputs.pt")
+    torch.save({"batch": batch, "draws": draws}, step_inputs)
+    print(f"[dp] one step of one process of {TRAIN_GRIDS} grids in "
+          f"{time.perf_counter() - t0:.1f} s")
+    ctx = dict(device=device, card=card, root=root, save=save, dp_dir=dp_dir, scene=scene,
+               cfg_of=cfg_of, single=single, names=names, lr=lr,
+               step_inputs=step_inputs)
+
+    # (b) two ranks on one card over gloo
+    launches, b_ck = dp_two_ranks(ctx, "b", "gloo", devices=False)
+
+    # (c) two ranks over NCCL, where two cards are visible
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"[dp] (c) did not run: {n_cards} CUDA device(s) visible; "
+              f"two ranks over NCCL need two cards (NCCL refuses two ranks "
+              f"on one device)")
+    else:
+        _, c_ck = dp_two_ranks(ctx, "c", "nccl", devices=True)
+        dp_same(c_ck, b_ck, "(c) nccl's two ranks on two cards against "
+                "gloo's on one")
+        n_steps = ckpt_steps(save, "dp2_b")
+        c_argv = ["train", *dp_cli_argv(root, save, "dp2_spawn"),
+                  "--num_devices", "2", "--device", "cuda"]
+        t0 = time.perf_counter()
+        rc, text = finish(spawn(c_argv, os.path.join(dp_dir, "c_spawn.log"),
+                                dict(os.environ, PYTHONPATH=REPO)), 900)
+        if rc != 0:
+            raise PhaseError(f"(c) --num_devices 2: exit {rc}:\n"
+                             f"{text[-4000:]}")
+        dp_same(ckpt_tensors(save, "dp2_spawn", n_steps)[0], c_ck,
+                "(c) --num_devices 2 against the torchrun-style ranks")
+        print(f"[dp] (c) train --num_devices 2 (the app's own launch, nccl) "
+              f"in {time.perf_counter() - t0:.1f} s: final val "
+              f"{final_val(text, '(c) --num_devices 2')}, the last "
+              f"checkpoint the bits of the torchrun-style ranks' and of "
+              f"gloo's on one card ({card})")
+    print(f"[dp] phase 11 in {time.perf_counter() - t_phase:.1f} s ({card})")
+    return launches
+
+
+def ckpt_steps(save: str, exp: str) -> int:
+    """The newest checkpoint's step of an experiment."""
+    d = os.path.join(save, "ckpts", exp)
+    return max(int(x[:-3]) for x in os.listdir(d) if x.endswith(".pt"))
+
+
+def dp_two_ranks(ctx, tag: str, backend: str, devices: bool):
+    """Phase 11 (b) or (c): two ranks over ``backend``, both on cuda:0 or
+    (``devices``) on cuda:0 and cuda:1, each started as torchrun starts one
+    to run ``dp_rank_worker``: the one-step comparison, the timed train app,
+    a second run that SIGTERM to rank 1 alone stops once step
+    CLI_PREEMPT_AFTER is logged and its ``--auto_resume``, and ``eval`` of
+    phase 9's checkpoint. -> (both ranks' launch counts of the timed run,
+    its last checkpoint's tensors)."""
+    import re
+    import signal
+
+    import numpy as np
+    import torch
+
+    from crnerf_tpu_torch.apps.serve import load_system
+    from crnerf_tpu_torch.parallel import mesh
+    from crnerf_tpu_torch.render.inference import Renderer
+
+    device, card, root, save, dp_dir, scene, cfg_of = (
+        ctx[k] for k in ("device", "card", "root", "save", "dp_dir", "scene",
+                         "cfg_of"))
+    t_ranks = time.perf_counter()
+    where = "two cards" if devices else "one card"
+    exp, stopped = f"dp2_{tag}", f"dp2_{tag}_resumed"
+    stop_argv = dp_cli_argv(root, save, stopped)
+    ckpt = os.path.join(save, "ckpts", "straight")
+    ev_save = os.path.join(dp_dir, f"eval_{tag}")
+    ev_argv = [*cli_args(root, ev_save, "straight", 0), "--split",
+               "test_test", "--ckpt_path", ckpt]
+    job_path = os.path.join(dp_dir, f"job_{tag}.json")
+    with open(job_path, "w") as f:
+        json.dump({"backend": backend, "step_inputs": ctx["step_inputs"],
+                   "timed": dp_cli_argv(root, save, exp), "stop": stop_argv,
+                   "resume": stop_argv + ["--auto_resume"],
+                   "eval": ev_argv}, f)
+    port = mesh._free_port()
+    jobs = [spawn([job_path], os.path.join(dp_dir, f"ranks_{tag}{r}.log"),
+                  dict(os.environ, PYTHONPATH=REPO, RANK=str(r),
+                       WORLD_SIZE=str(DP_RANKS),
+                       LOCAL_WORLD_SIZE=str(DP_RANKS),
+                       LOCAL_RANK=str(r if devices else 0),
+                       MASTER_ADDR="localhost", MASTER_PORT=str(port)),
+                  prog=("-c", "import sys, chip_smoke; "
+                              "chip_smoke.dp_rank_worker(sys.argv[1])"))
+            for r in range(DP_RANKS)]
+
+    def stop_logged():   # the agreed stop: SIGTERM to rank 1 alone
+        return any(x["step"] >= CLI_PREEMPT_AFTER and "train/loss" in x
+                   for x in metric_rows(save, stopped))
+
+    outs = finish_ranks(jobs, 900, (stop_logged, lambda: jobs[1][0]
+                                    .send_signal(signal.SIGTERM)))
+    bad = [r for r, (rc, _) in enumerate(outs) if rc != 0]
+    if bad:
+        raise PhaseError(f"({tag}) exit codes {[rc for rc, _ in outs]}:\n"
+                         + "\n".join(f"rank {r}:\n{outs[r][1][-3000:]}"
+                                     for r in bad))
+    t_ranks = time.perf_counter() - t_ranks
+    res = []
+    for r in range(DP_RANKS):
+        with open(job_path + f".rank{r}") as f:
+            res.append(json.load(f))
+    log0 = outs[0][1]
+
+    steps = [torch.load(job_path + f".step{r}", weights_only=False)
+             for r in range(DP_RANKS)]
+    dp_same(steps[1]["tensors"], steps[0]["tensors"],
+            f"({tag}) one step: rank 1 against rank 0")
+    single, single_mu = ctx["single"]
+    worst_all, worst_big = dp_deltas_bound(
+        single_mu, steps[0]["tensors"], single, ctx["lr"], ctx["names"])
+    shares = dp_mu_shares(steps[0]["mu"], single_mu, ctx["names"])
+    print(f"[dp] ({tag}) one step of {DP_RANKS} ranks x {DP_GRIDS} grids over "
+          f"{backend} on {where} against one process of {TRAIN_GRIDS} on the "
+          f"same batch and draws: the ranks' states the same bits over "
+          f"{len(single)} tensors; Adam's first moment (0.1 g) within "
+          f"{shares[0][0]:.3e} of the leaf's largest (bound {DP_MU_SHARE}; "
+          f"next {', '.join(f'{s:.3e} {n}' for s, n in shares[:4])}); "
+          f"parameter updates within {worst_all:.4f} lr of the single "
+          f"process's (bound 2), {worst_big:.4f} lr where the gradient "
+          f"exceeds 1e-5 (bound 0.02)")
+    if not (shares[0][0] <= DP_MU_SHARE and worst_all <= 2.0
+            and worst_big <= 0.02):
+        raise PhaseError(f"({tag}) one step: the two ranks' gradient or "
+                         "parameters are not within the one-step bound of "
+                         "the single process's")
+
+    n_steps = CLI_EPOCHS * (sum(w * h for w, h in (
+        im.wh for im in scene.train_images)) // CLI_BATCH // TRAIN_GRIDS)
+    vw, vh = scene.train_images[0].wh
+    per_rank = -(-vw * vh // DP_RANKS)   # a validation's rays a rank
+    n_val = 3 * 2 * -(-per_rank // 2048)  # val_chunk tiles, two passes
+    for r, x in enumerate(res):
+        if x["step"] != n_steps:
+            raise PhaseError(f"({tag}) rank {r} ended at step {x['step']}, "
+                             f"expected {n_steps}")
+        want = {k: 0 for k in x["launches"]}
+        for k in ROUTES["stash"][1]:
+            want[k] = 2 * n_steps
+        want["fused_render_fwd"] = n_val
+        if x["launches"] != want:
+            raise PhaseError(f"({tag}) rank {r}: launch counters "
+                             f"{x['launches']}, expected {want}")
+    rows = metric_rows(save, exp)
+    rps = [x["train/rays_per_sec"] for x in rows
+           if "train/rays_per_sec" in x]
+    val = final_val(log0, f"({tag}) two ranks")
+    print(f"[dp] ({tag}) the train app on {DP_RANKS} ranks x {DP_GRIDS} grids "
+          f"over {backend} on {where}, {n_steps} steps in "
+          f"{res[0]['secs']['timed']:.1f} s with the validations and "
+          f"checkpoints; epoch 1: {rps[-1] / (CLI_BATCH * TRAIN_GRIDS):.2f} "
+          f"steps/s, {rps[-1]:.0f} global train rays/s (epoch 0: "
+          f"{rps[0]:.0f}); peak memory per rank "
+          f"{[round(x['peak_gib'], 2) for x in res]} GiB; final val {val} "
+          f"({card})")
+    print(f"[dp] ({tag}) launches per rank {res[0]['launches']}: every stash "
+          f"forward, chain and weight gradient on wgmma, none on mma.sync; "
+          f"K1 in the sharded validations")
+
+    m = re.search(r"preempted: checkpointed at step (\d+)", log0)
+    if not m:
+        raise PhaseError(f"({tag}) SIGTERM to rank 1: no preempted line:\n"
+                         f"{log0[-4000:]}")
+    at = int(m.group(1))
+    ats = [x["stopped_at"] for x in res]
+    if (ats != [at] * DP_RANKS or res[0]["ckpts_at_stop"] != [f"{at}.pt"]
+            or not CLI_PREEMPT_AFTER <= at < n_steps):
+        raise PhaseError(f"({tag}) stopped at {ats} (rank 0 printed {at}) "
+                         f"with checkpoints {res[0]['ckpts_at_stop']}")
+    print(f"[dp] ({tag}) SIGTERM to rank 1 alone once step "
+          f"{CLI_PREEMPT_AFTER} was logged: both ranks stop at step {at}, "
+          f"'preempted: checkpointed at step {at}', one checkpoint")
+
+    vals = re.findall(r"final val: psnr=(\S+) ssim=(\S+)", log0)
+    rval = tuple(map(float, vals[-1])) if len(vals) == 2 else None
+    a_ck = ckpt_tensors(save, stopped, n_steps)[0]
+    b_ck = ckpt_tensors(save, exp, n_steps)[0]
+    dp_same(a_ck, b_ck, f"({tag}) the resumed run's last checkpoint against "
+            "the unstopped two-rank run's")
+    if [x["resumed_to"] for x in res] != [n_steps] * DP_RANKS or rval != val:
+        raise PhaseError(f"({tag}) resumed to "
+                         f"{[x['resumed_to'] for x in res]}, final val "
+                         f"{rval} against {val}")
+    print(f"[dp] ({tag}) --auto_resume on both ranks to step {n_steps}: the "
+          f"last checkpoint the unstopped two-rank run's bits over "
+          f"{len(a_ck)} tensors, final val {rval}")
+
+    m = re.search(r"rendered (\d+) images .* median (\S+) / p95 (\S+)", log0)
+    if not m or int(m.group(1)) != len(scene.test_images):
+        raise PhaseError(f"({tag}) eval on two ranks:\n{log0[-4000:]}")
+    cfg = cfg_of(ev_argv)
+    out_dir = os.path.join(ev_save, "results", "phototourism", "cli")
+    with user_flags():
+        renderer = Renderer(cfg, load_system(cfg, ckpt, device), device)
+        for i, im in enumerate(scene.test_images):
+            w, h = im.wh
+            want = renderer.fetch(renderer.render_frame_cam_async(
+                im.c2w, im.K, im.near, im.far, (h, w),
+                im.appearance[None].astype(np.float32),
+                outputs="rgb_u8"))["rgb_u8"]
+            with open(os.path.join(out_dir, f"{i:03d}.png"), "rb") as f:
+                got = decode_png_rgb8(f.read())
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise PhaseError(f"({tag}) eval on two ranks: PNG {i} is "
+                                 "not the single-process render's bits")
+    print(f"[dp] ({tag}) eval --split test_test on two ranks: "
+          f"{len(scene.test_images)} PNGs, the single-process render's bits "
+          f"(phase 9's eval); median {m.group(2)} / p95 {m.group(3)} s a "
+          f"frame, the ranks' first launches included ({card})")
+    print(f"[dp] ({tag}) the two rank processes in {t_ranks:.1f} s, rank 0's "
+          f"parts {({k: round(v, 1) for k, v in res[0]['secs'].items()})} "
+          f"(the rest: start-up)")
+    launches = {k: sum(x["launches"][k] for x in res)
+                for k in res[0]["launches"]}
+    return launches, b_ck
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile_dir", type=str, default="",
@@ -4117,6 +4668,7 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(dir=BUILD) as workdir:
             _, cli_scene_ = phase_cli(device, workdir, card)
             apps = phase_apps(device, workdir, card, cli_scene_)
+            dp_launches = phase_dp(device, workdir, card)
     except Exception as e:  # any phase failing fails the run
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
               file=sys.stderr)
@@ -4126,7 +4678,8 @@ def main(argv=None) -> int:
     # (16,384 rays x S=128), bf16, recurrence encode; K1's, K1-stash's and
     # K2's launches those of their main paths' runs: the serve phase's
     # frames (K1) and the flagship step's (K1-stash, K2), each with phase
-    # 10's counted runs added
+    # 10's counted runs and phase 11's timed two-rank run (both ranks)
+    # added
     main_kernel = next(r for r in records if r["variant"] == "wgmma"
                        and r["N"] == SERVE_TILE and r["S"] == 512)
     tk = next(r for r in train_records
@@ -4213,7 +4766,8 @@ def main(argv=None) -> int:
         # step); the mma.sync one by route A's small fp32 step, its numbers
         # at route A's fine pass
         entry("fused_render_fwd", wgmma_cu, k1,
-              launches + apps["fused_render_fwd"],
+              launches + apps["fused_render_fwd"]
+              + dp_launches["fused_render_fwd"],
               fwd_err(False, "wgmma"), main_kernel),
         entry("fused_render_fwd (mma.sync)", fwd_cu, k1,
               small_a["fused_render_fwd_mma"], fwd_err(False),
@@ -4222,13 +4776,15 @@ def main(argv=None) -> int:
         # mma.sync counterparts by the small fp32 step of the same route
         entry("fused_render_fwd_stash", wgmma_cu, k1,
               train_launches["fused_render_fwd_stash"]
-              + apps["fused_render_fwd_stash"],
+              + apps["fused_render_fwd_stash"]
+              + dp_launches["fused_render_fwd_stash"],
               train_err("fwd", "wgmma"), train_kernel("fwd_stash")),
         entry("fused_render_fwd_stash (mma.sync)", fwd_cu, k1,
               fp32_launches["fused_render_fwd_stash_mma"],
               train_err("fwd", "mma"), train_kernel("fwd_stash", "mma")),
         entry("fused_render_bwd", bwd_wgmma_cu, k2,
-              train_launches["fused_render_bwd"] + apps["fused_render_bwd"],
+              train_launches["fused_render_bwd"] + apps["fused_render_bwd"]
+              + dp_launches["fused_render_bwd"],
               train_err("chain", "wgmma"), train_kernel("chain")),
         entry("fused_render_bwd (mma.sync)", bwd_cu, k2,
               fp32_launches["fused_render_bwd_mma"],
@@ -4240,7 +4796,8 @@ def main(argv=None) -> int:
         entry("fused_render_bwd_wgrad",
               "crnerf_tpu_torch/csrc/wgrad_wgmma.cuh", k2,
               train_launches["fused_render_bwd_wgrad"]
-              + apps["fused_render_bwd_wgrad"],
+              + apps["fused_render_bwd_wgrad"]
+              + dp_launches["fused_render_bwd_wgrad"],
               max(r["abs_wgrad"] for r in train_records
                   if r["wgrad_variant"] == "wgmma"),
               train_kernel("wgrad")),

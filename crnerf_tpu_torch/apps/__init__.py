@@ -5,8 +5,11 @@ and the dataset registry they share."""
 from __future__ import annotations
 
 import argparse
+from typing import Callable
 
 import torch
+
+from crnerf_tpu_torch.parallel import mesh
 
 
 def load_scene_from_config(cfg, split: str = "train"):
@@ -49,3 +52,28 @@ def resolve_device(p: argparse.ArgumentParser, name: str) -> torch.device:
         p.error(f"--device {name}: no CUDA device is available (pass "
                 "--device cpu to run on the CPU)")
     return device
+
+
+def run_ranks(fn: Callable, num_devices: int, device: torch.device, *args):
+    """Run ``fn(*args, device, group)``: under a launcher (``torchrun``) as
+    this process's rank of its group; with ``num_devices`` (0: every
+    visible GPU) above 1 on that many ranks spawned here, one device each
+    (returns None); else in this process with no group. ``fn`` is a
+    module-level function (the spawned ranks import it)."""
+    n = mesh.resolve_world(num_devices, device)
+    if mesh.launched():
+        return _rank_main(fn, device, args)
+    if n > 1:
+        mesh.spawn(_rank_main, n, (fn, device, args))
+        return None
+    return fn(*args, device, None)
+
+
+def _rank_main(fn: Callable, device, args):
+    import torch.distributed as dist
+
+    device, group = mesh.init_distributed(device)
+    try:
+        return fn(*args, device, group)
+    finally:
+        dist.destroy_process_group()

@@ -17,6 +17,9 @@ in flight (``Renderer.render_frame_cam_async``, or with ``--no-cam_rays``
 the device, written by the standard-library PNG writer. The log line gives
 the median and p95 of the segments between successive PNG completions
 (they sum to the wall time, the first holding the kernels' first launches).
+With ``--num_devices N`` (or under ``torchrun``) every frame's rays are
+split over N ranks (``Renderer(group=)``) and rank 0 writes the PNGs, the
+GIF and the log line.
 
 Run:  python -m crnerf_tpu_torch eval --split test_test --ckpt_path DIR \\
           --dataset_name phototourism --root_dir SCENE [--device cpu]
@@ -36,10 +39,12 @@ from crnerf_tpu_torch.apps import (
     add_device_arg,
     load_scene_from_config,
     resolve_device,
+    run_ranks,
 )
 from crnerf_tpu_torch.apps.serve import load_system
 from crnerf_tpu_torch.config import Config, build_parser, config_from_args
 from crnerf_tpu_torch.data.pipeline import full_image_batch
+from crnerf_tpu_torch.parallel import mesh
 from crnerf_tpu_torch.render import camera_path
 from crnerf_tpu_torch.render.inference import Renderer
 from crnerf_tpu_torch.utils.png import write_png
@@ -49,11 +54,13 @@ SPLITS = ("test_test", "test_train", "val", "test")
 
 
 def render_frames(renderer: Renderer, dispatches, out_dir: str,
-                  depth: int) -> Tuple[Dict[int, np.ndarray], List[float]]:
+                  depth: int, write: bool = True
+                  ) -> Tuple[Dict[int, np.ndarray], List[float]]:
     """Frames ``depth`` deep in flight: ``dispatches`` yields (index,
-    handle); each fetched u8 frame is written as ``NNN.png``. -> (frames
-    by index, the segments in s between successive PNG completions, which
-    sum to the wall time)."""
+    handle); each fetched u8 frame is written as ``NNN.png`` (unless
+    ``write`` is False: a rank other than 0). -> (frames by index, the
+    segments in s between successive PNG completions, which sum to the
+    wall time)."""
     pending: list = []   # (index, handle) in dispatch order
     frames, done_t = {}, []
     t_all = time.perf_counter()
@@ -61,7 +68,8 @@ def render_frames(renderer: Renderer, dispatches, out_dir: str,
     def _drain_one():
         i, hnd = pending.pop(0)
         frames[i] = renderer.fetch(hnd)["rgb_u8"]
-        write_png(os.path.join(out_dir, f"{i:03d}.png"), frames[i])
+        if write:
+            write_png(os.path.join(out_dir, f"{i:03d}.png"), frames[i])
         done_t.append(time.perf_counter())
 
     for item in dispatches:
@@ -118,18 +126,23 @@ def path_dispatches(renderer: Renderer, cfg: Config, spec, anchor_c2w,
                                                  outputs="rgb_u8")
 
 
-def run(cfg: Config, device: torch.device) -> str:
+def run(cfg: Config, device: torch.device, group=None) -> str:
+    """Render the split on ``device``, as one rank of ``group`` when there
+    is one (rank 0 writes and prints)."""
     if cfg.split not in SPLITS:
         raise ValueError(f"unsupported split {cfg.split!r} (one of "
                          f"{SPLITS})")
     if not cfg.ckpt_path:
         raise ValueError("--ckpt_path is required: weights.npz or a "
                          "training checkpoint directory holding one")
-    renderer = Renderer(cfg, load_system(cfg, cfg.ckpt_path, device), device)
+    renderer = Renderer(cfg, load_system(cfg, cfg.ckpt_path, device), device,
+                        group=group)
     scene = load_scene_from_config(cfg, cfg.split)
     out_dir = os.path.join(cfg.save_dir, "results", cfg.dataset_name,
                            cfg.scene_name)
-    os.makedirs(out_dir, exist_ok=True)
+    lead = mesh.rank(group) == 0
+    if lead:
+        os.makedirs(out_dir, exist_ok=True)
     depth = max(1, cfg.eval_pipeline)
 
     if cfg.split == "test":
@@ -142,12 +155,13 @@ def run(cfg: Config, device: torch.device) -> str:
             renderer, path_dispatches(
                 renderer, cfg, spec, anchor.c2w, anchor.near, anchor.far,
                 style.appearance[None].astype(np.float32)),
-            out_dir, depth)
-        video = write_video(os.path.join(out_dir, cfg.scene_name),
-                            [frames[i] for i in sorted(frames)],
-                            fmt=cfg.video_format)
-        print(f"rendered {len(frames)}-frame path -> {out_dir}, {video} | "
-              f"{segment_line(seg, depth)}", flush=True)
+            out_dir, depth, write=lead)
+        if lead:
+            video = write_video(os.path.join(out_dir, cfg.scene_name),
+                                [frames[i] for i in sorted(frames)],
+                                fmt=cfg.video_format)
+            print(f"rendered {len(frames)}-frame path -> {out_dir}, {video} "
+                  f"| {segment_line(seg, depth)}", flush=True)
         return out_dir
 
     images = (scene.test_images if cfg.split == "test_test"
@@ -168,7 +182,10 @@ def run(cfg: Config, device: torch.device) -> str:
                 yield i, renderer.render_frame_async(
                     b["rays"], style, (h, w), outputs="rgb_u8")
 
-    _, seg = render_frames(renderer, dispatches(), out_dir, depth)
+    _, seg = render_frames(renderer, dispatches(), out_dir, depth,
+                           write=lead)
+    if not lead:
+        return out_dir
     if not seg:
         print(f"rendered 0 images -> {out_dir} (split {cfg.split!r} is "
               "empty)", flush=True)
@@ -183,7 +200,8 @@ def main(argv: Optional[Sequence[str]] = None):
     add_device_arg(p)
     args = p.parse_args(argv)
     device = resolve_device(p, args.device)
-    return run(config_from_args(args), device)
+    cfg = config_from_args(args)
+    return run_ranks(run, cfg.num_devices, device, cfg)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,8 @@ style only (no mask, no random embedding). Frames are kept
 ``eval_pipeline`` deep in flight, camera in, with the style staged once on
 the device (``apps/eval.py`` ``path_dispatches``). Style images: a PNG is
 decoded and Lanczos-resized without an image library; another format
-needs PIL.
+needs PIL. With ``--num_devices N`` (or under ``torchrun``) every frame's
+rays are split over N ranks and rank 0 writes the PNGs and the GIFs.
 
 Run:  python -m crnerf_tpu_torch video --ckpt_path weights.npz \\
           --scene_name brandenburg_gate --style_dir STYLES [--device cpu]
@@ -23,7 +24,11 @@ import glob
 import os
 from typing import Optional, Sequence
 
-from crnerf_tpu_torch.apps import add_device_arg, resolve_device
+from crnerf_tpu_torch.apps import (
+    add_device_arg,
+    resolve_device,
+    run_ranks,
+)
 from crnerf_tpu_torch.apps.eval import (
     path_dispatches,
     render_frames,
@@ -31,6 +36,7 @@ from crnerf_tpu_torch.apps.eval import (
 )
 from crnerf_tpu_torch.apps.serve import load_style, load_system
 from crnerf_tpu_torch.config import Config
+from crnerf_tpu_torch.parallel import mesh
 from crnerf_tpu_torch.render.camera_path import (
     DEMO_ANCHORS,
     PATH_PRESETS,
@@ -61,9 +67,18 @@ def main(argv: Optional[Sequence[str]] = None):
     p.add_argument("--compute_dtype", type=str, default="float32",
                    choices=("bfloat16", "float32"))
     p.add_argument("--video_format", choices=["gif", "mp4"], default="gif")
+    p.add_argument("--num_devices", type=int, default=0,
+                   help="ranks of one GPU each (0 = every visible GPU with "
+                        "--device cuda, 1 on the cpu)")
     add_device_arg(p)
     args = p.parse_args(argv)
     device = resolve_device(p, args.device)
+    return run_ranks(run, args.num_devices, device, args)
+
+
+def run(args: argparse.Namespace, device, group=None):
+    """The videos of ``main``'s arguments on ``device``, as one rank of
+    ``group`` when there is one (rank 0 writes and prints)."""
 
     cfg = Config(
         scene_name=args.scene_name, N_samples=args.N_samples,
@@ -80,23 +95,26 @@ def main(argv: Optional[Sequence[str]] = None):
     spec = dataclasses.replace(PATH_PRESETS[scene_key],
                                n_frames=args.n_frames)
     renderer = Renderer(cfg, load_system(cfg, args.ckpt_path, device),
-                        device)
+                        device, group=group)
+    lead = mesh.rank(group) == 0
     depth = max(1, cfg.eval_pipeline)
     outs = []
     for style_path in sorted(glob.glob(os.path.join(args.style_dir, "*"))):
         name = os.path.splitext(os.path.basename(style_path))[0]
         out_dir = os.path.join(args.save_dir, "video", args.scene_name, name)
-        os.makedirs(out_dir, exist_ok=True)
+        if lead:
+            os.makedirs(out_dir, exist_ok=True)
         style = load_style(style_path, args.appearance_wh)
         frames, seg = render_frames(
             renderer, path_dispatches(renderer, cfg, spec, anchor, 0.0, 5.0,
                                       style),
-            out_dir, depth)
-        video = write_video(os.path.join(out_dir, name),
-                            [frames[i] for i in sorted(frames)],
-                            fmt=args.video_format)
-        print(f"{name}: {len(frames)} frames -> {out_dir}, {video} | "
-              f"{segment_line(seg, depth)}", flush=True)
+            out_dir, depth, write=lead)
+        if lead:
+            video = write_video(os.path.join(out_dir, name),
+                                [frames[i] for i in sorted(frames)],
+                                fmt=args.video_format)
+            print(f"{name}: {len(frames)} frames -> {out_dir}, {video} | "
+                  f"{segment_line(seg, depth)}", flush=True)
         outs.append(out_dir)
     return outs
 

@@ -84,6 +84,9 @@ class Config:
     grids_per_step: int = 1  # independent image grids per step
     chunk: int = 8 * 1024  # rays per render tile at inference
     num_epochs: int = 20
+    num_devices: int = 0  # train / eval / video: ranks of one GPU each; 0
+    # = every visible GPU with --device cuda, 1 on the CPU (under torchrun:
+    # 0 or WORLD_SIZE)
     save_dir: str = "./results"
     ckpt_path: Optional[str] = None  # train: a checkpoint directory to
     # resume from; eval: weights.npz or a directory holding one

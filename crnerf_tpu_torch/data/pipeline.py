@@ -5,6 +5,9 @@ numpy).
 
 Every batch is a pure function of (epoch, idx), all arrays have fixed
 shapes, and a "global batch" stacks n independent grids on a leading axis.
+With D ranks of G grids, rank r of step i takes grids ``i D G + r G`` to
+``i D G + r G + G - 1`` of the stream: the JAX package's global batch of D G
+grids reshaped to (D, G, ...), each rank building only its own row.
 ``epoch_batches`` assembles an epoch's batches on a thread, a few ahead of
 the consumer; ``start_step`` starts it mid-epoch, which is what makes a
 resume after a stop replay the exact remaining sequence.
@@ -67,30 +70,32 @@ class TrainPipeline:
         }
 
     def make_global_batch(
-        self, epoch: int, idx: int, n_grids: int
+        self, epoch: int, idx: int, n_grids: int, rank: int = 0,
+        world: int = 1,
     ) -> Dict[str, np.ndarray]:
-        """Stack n_grids independent grids on a leading axis. Grid d of
-        step idx consumes draw ``idx * n_grids + d``, so the stream equals
-        the single-grid stream split round-robin."""
-        parts = [
-            self.make_batch(epoch, idx * n_grids + d)
-            for d in range(n_grids)
-        ]
+        """Stack n_grids independent grids on a leading axis. Grid g of
+        rank r at step idx consumes draw ``(idx * world + r) * n_grids +
+        g``, so the stream equals the single-grid stream split
+        round-robin."""
+        first = (idx * world + rank) * n_grids
+        parts = [self.make_batch(epoch, first + g) for g in range(n_grids)]
         return {
             k: np.stack([p[k] for p in parts], 0) for k in parts[0]
         }
 
     def epoch_batches(self, epoch: int, n_grids: int = 1,
                       n_steps: Optional[int] = None, start_step: int = 0,
-                      prefetch: int = 2) -> Iterator[Dict[str, np.ndarray]]:
-        """Steps ``start_step`` to ``n_steps`` of ``epoch``, each a batch of
-        ``n_grids`` grids ((G, B, ...) arrays; flat (B, ...) when G is 1),
-        made on a thread up to ``prefetch`` ahead. A consumer that stops
-        early leaves no thread behind: the queue is drained so that the
-        producer sees the stop."""
+                      prefetch: int = 2, rank: int = 0, world: int = 1
+                      ) -> Iterator[Dict[str, np.ndarray]]:
+        """Steps ``start_step`` to ``n_steps`` of ``epoch``, each rank
+        ``rank``'s batch of ``n_grids`` grids of a step of ``world`` ranks
+        ((G, B, ...) arrays; flat (B, ...) when G is 1), made on a thread
+        up to ``prefetch`` ahead. A consumer that stops early leaves no
+        thread behind: the queue is drained so that the producer sees the
+        stop."""
         g = max(1, n_grids)
         if n_steps is None:
-            n_steps = max(1, self.iterations // g)
+            n_steps = max(1, self.iterations // (g * world))
         q: "queue.Queue" = queue.Queue(maxsize=prefetch)
         stop = threading.Event()
 
@@ -98,8 +103,8 @@ class TrainPipeline:
             for i in range(start_step, n_steps):
                 if stop.is_set():
                     return
-                q.put(self.make_global_batch(epoch, i, g) if g > 1
-                      else self.make_batch(epoch, i))
+                q.put(self.make_global_batch(epoch, i, g, rank, world)
+                      if g > 1 else self.make_batch(epoch, i * world + rank))
             q.put(None)
 
         threading.Thread(target=producer, daemon=True).start()

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
-from typing import Tuple
+from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,29 +44,51 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope=slope)
 
 
+def reflect_index(n: int, p: int) -> List[int]:
+    """The source entry of each of the ``n + 2p`` entries of an axis of
+    size ``n`` reflected by ``p`` at both ends: numpy's ``reflect`` mode
+    (``np.pad(np.arange(n), p, mode="reflect")``), which repeats a size-1
+    axis and, where ``p > n - 1``, reflects again with period
+    ``2 (n - 1)``."""
+    if n == 1:
+        return [0] * (n + 2 * p)
+    per = 2 * (n - 1)
+    return [j if j < n else per - j
+            for j in ((i % per) for i in range(-p, n + p))]
+
+
+@functools.lru_cache(maxsize=None)
+def _reflect_gather(n: int, p: int, device: torch.device) -> torch.Tensor:
+    return torch.tensor(reflect_index(n, p), dtype=torch.int64,
+                        device=device)
+
+
 def _fold_reflect(g: torch.Tensor, p: int, dim: int) -> torch.Tensor:
     """The adjoint of reflecting ``p`` entries onto each end of ``dim``:
     the interior of ``g``, each border entry added onto the entry it
     copies, left border then right, in index order."""
     n = g.shape[dim] - 2 * p
     out = g.narrow(dim, p, n).clone()
-    for j in range(p):   # padded j copies p - j; padded p + n + j, n - 2 - j
-        out.narrow(dim, p - j, 1).add_(g.narrow(dim, j, 1))
-    for j in range(p):
-        out.narrow(dim, n - 2 - j, 1).add_(g.narrow(dim, p + n + j, 1))
+    src = reflect_index(n, p)
+    for k in [*range(p), *range(p + n, n + 2 * p)]:
+        out.narrow(dim, src[k], 1).add_(g.narrow(dim, k, 1))
     return out
 
 
 class _ReflectPad2d(torch.autograd.Function):
-    """``F.pad(mode="reflect")`` of NCHW H and W with a backward that folds
-    the border back in a fixed order. The CUDA backward of
+    """Reflection padding of NCHW H and W by ``reflect_index`` (numpy's
+    rule for every size and pad; ``F.pad(mode="reflect")`` refuses a pad
+    not below the size), gathered along each axis, with a backward that
+    folds the border back in a fixed order. The CUDA backward of
     ``reflection_pad2d`` adds with atomics: a corner entry takes four
     terms, so its gradient changes bits from run to run."""
 
     @staticmethod
     def forward(ctx, x, p):
         ctx.p = p
-        return F.pad(x, (p, p, p, p), mode="reflect")
+        _, _, h, w = x.shape
+        x = x.index_select(2, _reflect_gather(h, p, x.device))
+        return x.index_select(3, _reflect_gather(w, p, x.device))
 
     @staticmethod
     @once_differentiable
@@ -75,13 +97,14 @@ class _ReflectPad2d(torch.autograd.Function):
 
 
 def reflect_pad_nchw(x: torch.Tensor, pad: int = 1) -> torch.Tensor:
-    """NCHW reflection padding of H and W (``nn.ReflectionPad2d``), the same
-    bits forward and backward from run to run."""
+    """NCHW reflection padding of H and W (``jnp.pad(mode="reflect")``; for
+    ``pad`` below the size ``nn.ReflectionPad2d``), the same bits forward
+    and backward from run to run."""
     return _ReflectPad2d.apply(x, pad)
 
 
 def reflect_pad(x: torch.Tensor, pad: int = 1) -> torch.Tensor:
-    """NHWC reflection padding of H and W (``nn.ReflectionPad2d``)."""
+    """NHWC reflection padding of H and W (``jnp.pad(mode="reflect")``)."""
     return nhwc(reflect_pad_nchw(nchw(x), pad))
 
 

@@ -7,6 +7,10 @@ the JAX package's quarter-octave ray buckets buy nothing here until they
 are measured on the card. The style statistics then run over all real
 pixels, which is what the bucketed masked statistics compute, and the mask
 is gathered at pixel centres as the bucketed route does.
+
+With a process group (``Renderer(group=)``) every rank renders its slice
+of a frame's rays and gets the whole frame (``forward_eval_sharded``): the
+bits of the single-process render. Every rank makes the same calls.
 """
 
 from __future__ import annotations
@@ -39,10 +43,11 @@ def select(results: Dict[str, torch.Tensor],
 
 class Renderer:
     def __init__(self, cfg, system: CrNerfSystem,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, group=None):
         self.cfg = cfg
         self.system = system.eval()
         self.device = device or next(system.parameters()).device
+        self.group = group
         self._kernel_weights = None
 
     def kernel_weights(self):
@@ -57,10 +62,13 @@ class Renderer:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
     def _dispatch(self, rays, uv, whole_img, hw, outputs) -> Dict:
-        res = self.system.forward_eval(
-            rays, uv, self._as_tensor(whole_img), hw, self.kernel_weights(),
-            want_mask=outputs == "full", tile=self.cfg.chunk,
-        )
+        args = (rays, uv, self._as_tensor(whole_img), hw,
+                self.kernel_weights())
+        kw = dict(want_mask=outputs == "full", tile=self.cfg.chunk)
+        if self.group is not None:
+            res = self.system.forward_eval_sharded(*args, self.group, **kw)
+        else:
+            res = self.system.forward_eval(*args, **kw)
         return {"dev": select(res, outputs), "hw": tuple(hw)}
 
     @torch.no_grad()

@@ -5,7 +5,8 @@ Submodules carry the checkpoint prefixes: ``nerf_coarse``, ``nerf_fine``,
 ``train=False`` half of the JAX ``forward``) runs the appearance encoder
 and the CGNet mask on the style image, the coarse and fine passes
 (``render.renderer``), and one batched StyleNet decode of the coarse and
-fine feature maps. ``forward_train`` (the ``train=True`` half) does the
+fine feature maps; ``forward_eval_sharded`` splits its rays over the ranks
+of a process group. ``forward_train`` (the ``train=True`` half) does the
 same for the G grids of a training step at once, with the stochastic
 renderer, the random-appearance branch and its re-encode; where the JAX
 step maps ``forward`` over the grids, every tensor here carries a leading
@@ -31,6 +32,7 @@ from crnerf_tpu_torch.ops.fused_render import (
     mlp_params_from_module,
     prepare_kernel_weights,
 )
+from crnerf_tpu_torch.parallel import mesh
 from crnerf_tpu_torch.render.renderer import (
     Weights,
     render_rays_tiled,
@@ -228,6 +230,50 @@ class CrNerfSystem(nn.Module):
         package's jitted u8 program drops it the same way). ``tile``: rays
         a render launch (default ``Config.chunk``); each ray's result is
         the same whatever the tile."""
+        rr = self._render_eval(rays, kernel_weights, tile)
+        return self._decode_eval(rr, uv, whole_img, hw, want_mask)
+
+    @torch.no_grad()
+    def forward_eval_sharded(self, rays: torch.Tensor, uv: torch.Tensor,
+                             whole_img: torch.Tensor, hw: Tuple[int, int],
+                             kernel_weights: Dict[str, Optional[Weights]],
+                             group, want_mask: bool = True,
+                             tile: Optional[int] = None
+                             ) -> Dict[str, torch.Tensor]:
+        """``forward_eval`` with the rays split over the ranks of ``group``
+        (``crnerf_tpu/render/system.py`` ``forward_eval_sharded``): each
+        rank renders its ``mesh.shard_rows`` slice, the per-ray features
+        and depths are gathered in rank order and cut back to h*w, and the
+        style decode (its MulLayer takes Gram statistics over the whole
+        map) and CGNet run on every rank. Every rank gets the whole result,
+        the bits of ``forward_eval`` (a ray's result does not depend on the
+        tile it is rendered in). Every rank passes the same arguments."""
+        d, r = mesh.world_size(group), mesh.rank(group)
+        local = self._render_eval(mesh.local_rows(rays, d, r),
+                                  kernel_weights, tile)
+        n = rays.shape[0]
+        rr = {k: mesh.all_gather_rows(v, group)[:n]
+              for k, v in sorted(local.items())}
+        return self._decode_eval(rr, uv, whole_img, hw, want_mask)
+
+    def _render_eval(self, rays: torch.Tensor,
+                     kernel_weights: Dict[str, Optional[Weights]],
+                     tile: Optional[int]) -> Dict[str, torch.Tensor]:
+        """The coarse and fine passes of ``rays`` -> per-ray features and
+        depths."""
+        rr = render_rays_tiled(kernel_weights["coarse"],
+                               kernel_weights["fine"], rays,
+                               tile=tile or self.cfg.chunk,
+                               **self.render_kw())
+        return {k: v for k, v in rr.items()
+                if k.startswith(("feature_", "depth_"))}
+
+    def _decode_eval(self, rr: Dict[str, torch.Tensor], uv: torch.Tensor,
+                     whole_img: torch.Tensor, hw: Tuple[int, int],
+                     want_mask: bool) -> Dict[str, torch.Tensor]:
+        """The image-level half of the eval forward: the appearance
+        embedding and the CGNet mask of the style image, and the decode of
+        the per-ray features ``rr`` of all h*w pixels."""
         cfg = self.cfg
         h, w = hw
         res: Dict[str, torch.Tensor] = {}
@@ -236,9 +282,6 @@ class CrNerfSystem(nn.Module):
         if cfg.use_mask and want_mask:
             mask_small = self.predict_mask(whole01)
             res["out_mask"] = sample_bilinear_uv(mask_small[0], uv)
-        kw = kernel_weights
-        rr = render_rays_tiled(kw["coarse"], kw["fine"], rays,
-                               tile=tile or cfg.chunk, **self.render_kw())
         res["depth_coarse"] = rr["depth_coarse"]
         fc_map = rr["feature_coarse"].reshape(1, h, w, -1)
         has_fine = "feature_fine" in rr

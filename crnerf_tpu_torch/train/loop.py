@@ -1,7 +1,7 @@
-"""The training loop on one device (``crnerf_tpu/train/loop.py``
-``Trainer``): epochs of grid batches through ``make_train_step``,
-validation renders, checkpoints, metric logging, a graceful stop and an
-exact resume.
+"""The training loop (``crnerf_tpu/train/loop.py`` ``Trainer``): epochs of
+grid batches through ``make_train_step``, validation renders, checkpoints,
+metric logging, a graceful stop and an exact resume, on one device or on
+each rank of a process group (``parallel/mesh.py``).
 
 - The state is the port's ``TrainState`` (system, Adam, embedding cache,
   generator, step), updated in place by the step; ``fit`` runs the epochs
@@ -22,9 +22,23 @@ exact resume.
   ``[profile_steps[0], profile_steps[1])``, in Chrome format under
   ``save_dir/traces/exp_name``.
 
-Left in the JAX package: its duplicate per-resolution renderer, slab
-dispatch (for a TPU behind a high-latency link) and the multi-process
-preemption sync point.
+With a group of D ranks (the JAX Trainer over a mesh):
+- a step takes D G grids, each rank its own G (``TrainPipeline``), so an
+  epoch is ``iterations // (D G)`` steps and a step trains
+  ``batch_size D G`` rays;
+- rank 0 alone logs (the logged metrics are the ranks' mean), renders the
+  panels, opens the profiler window and writes the checkpoint and
+  ``weights.npz``, between two barriers; every rank restores onto its own
+  device;
+- a stop is agreed: each rank's flag (``request_stop``, from its signal
+  handler) goes into a MAX all-reduce launched after each step and read
+  after the next step's dispatch, so every rank stops after the same step
+  and checkpoints it, with no wait added to a step (``_should_stop``'s
+  sync point in the JAX package);
+- validation renders are sharded over the ranks (``Renderer(group=)``).
+
+Left in the JAX package: its duplicate per-resolution renderer and slab
+dispatch (for a TPU behind a high-latency link).
 """
 
 from __future__ import annotations
@@ -39,6 +53,7 @@ import torch
 from crnerf_tpu_torch.config import Config
 from crnerf_tpu_torch.data.pipeline import TrainPipeline, full_image_batch
 from crnerf_tpu_torch.data.scene import Scene
+from crnerf_tpu_torch.parallel import mesh
 from crnerf_tpu_torch.render.inference import Renderer
 from crnerf_tpu_torch.render.system import CrNerfSystem
 from crnerf_tpu_torch.train.metrics import psnr as psnr_fn, ssim as ssim_fn
@@ -46,6 +61,7 @@ from crnerf_tpu_torch.train.optim import make_optimizer
 from crnerf_tpu_torch.train.state import TrainState
 from crnerf_tpu_torch.train.step import (
     make_train_step,
+    reduce_metrics,
     select_random_embeddings,
 )
 from crnerf_tpu_torch.utils.checkpoint import (
@@ -61,15 +77,21 @@ from crnerf_tpu_torch.utils.weights import flax_from_state_dict, save_npz
 class Trainer:
     def __init__(self, cfg: Config, scene: Scene,
                  logger: Optional[MetricLogger] = None,
-                 device="cuda"):
+                 device="cuda", group=None):
+        """``group``: the process group of a data-parallel run, this
+        process one of its ranks on ``device`` (``mesh.init_distributed``);
+        ``logger`` is used on rank 0 only."""
         self.cfg = cfg
         self.scene = scene
         self.device = torch.device(device)
+        self.group = group
+        self.n_ranks, self.rank = mesh.world_size(group), mesh.rank(group)
         self.pipeline = TrainPipeline(scene, batch_size=cfg.batch_size,
                                       scale_anneal=cfg.scale_anneal,
                                       min_scale=cfg.min_scale)
         self.grids = max(1, cfg.grids_per_step)
-        self.iters_per_epoch = max(1, self.pipeline.iterations // self.grids)
+        self.iters_per_epoch = max(
+            1, self.pipeline.iterations // (self.n_ranks * self.grids))
         if cfg.testit:   # smoke mode: one step an epoch
             self.iters_per_epoch = 1
 
@@ -85,12 +107,15 @@ class Trainer:
                                        cfg.nerf_out_dim, generator=gen)
         self.step_fn = make_train_step(
             system, optimizer, sched, grids_per_step=self.grids,
-            grad_accum_chunks=cfg.resolved_chunks())
+            grad_accum_chunks=cfg.resolved_chunks(), group=group)
 
-        self.logger = logger
+        self.logger = logger if self.rank == 0 else None
         self.ckpt = CheckpointManager(
             os.path.join(cfg.save_dir, "ckpts", cfg.exp_name))
-        self._stop_requested = False
+        self._stop_requested = False   # this process's flag
+        self._stopping = False         # the flag the ranks agreed on
+        self._flag = (mesh.AgreedFlag(group, self.device)
+                      if group is not None else None)
         # the step of the checkpoint this process last wrote or restored:
         # a save at the same step is skipped (the state on disk is this
         # one)
@@ -111,8 +136,11 @@ class Trainer:
 
     @property
     def stopped(self) -> bool:
-        """True once a stop was requested (sticky; see ``clear_stop``)."""
-        return self._stop_requested
+        """True once a stop was requested (sticky; see ``clear_stop``);
+        with a group, once the ranks agreed on one, which every rank reads
+        the same."""
+        return self._stopping if self._flag is not None else (
+            self._stop_requested)
 
     @property
     def completed(self) -> bool:
@@ -142,21 +170,45 @@ class Trainer:
     # ----------------------------------------------------- graceful stop
     def request_stop(self):
         """Ask ``fit`` to checkpoint after the step in flight and return
-        (``apps/train`` wires SIGTERM and SIGINT here)."""
+        (``apps/train`` wires SIGTERM and SIGINT here). With a group, every
+        rank stops after the step at which the ranks agree on it."""
         self._stop_requested = True
 
     def clear_stop(self):
         """Re-arm a Trainer whose ``fit`` was stopped."""
-        self._stop_requested = False
+        self._stop_requested = self._stopping = False
+
+    def _agree_stop(self) -> bool:
+        """Whether any rank asked to stop, waiting for the answer (between
+        epochs)."""
+        if self._flag is not None:
+            self._stopping |= self._flag.agree(self._stop_requested)
+        else:
+            self._stopping |= self._stop_requested
+        return self._stopping
+
+    def _step_stop(self) -> bool:
+        """After a step's dispatch: whether the ranks agreed to stop by the
+        step before (the reduce launched then), then this step's reduce
+        launched; on one process the local flag."""
+        if self._flag is None:
+            self._stopping |= self._stop_requested
+            return self._stopping
+        self._stopping |= self._flag.read()
+        self._flag.launch(self._stop_requested)
+        return self._stopping
 
     def _save_checkpoint(self, global_step: int):
         if self._last_saved_step == global_step:
             return
-        self.ckpt.save(global_step, state_payload(self.state))
+        mesh.barrier(self.group)
+        if self.rank == 0:
+            self.ckpt.save(global_step, state_payload(self.state))
+            # the inference bundle: parameters and BatchNorm statistics
+            save_npz(flax_from_state_dict(self.system),
+                     os.path.join(self.ckpt.directory, "weights.npz"))
+        mesh.barrier(self.group)
         self._last_saved_step = global_step
-        # the inference bundle: parameters and BatchNorm statistics
-        save_npz(flax_from_state_dict(self.system),
-                 os.path.join(self.ckpt.directory, "weights.npz"))
         # only once every file is on disk: the signal handler exits at
         # once while nothing is unsaved
         self._progress_steps = 0
@@ -177,12 +229,12 @@ class Trainer:
         epochs = num_epochs if num_epochs is not None else cfg.num_epochs
         global_step = self.state.step
         for epoch in range(global_step // self.iters_per_epoch, epochs):
-            if self._stop_requested:
+            if self._agree_stop():
                 self._save_checkpoint(global_step)
                 return self.state
             t_ep = time.time()
             global_step, n_rays = self._epoch_per_step(epoch, global_step)
-            if self._stop_requested:
+            if self._stopping:
                 self._save_checkpoint(global_step)
                 return self.state
             self._sync()
@@ -210,25 +262,32 @@ class Trainer:
         n_rays = 0
         for batch in self.pipeline.epoch_batches(
                 epoch, self.grids, n_steps=self.iters_per_epoch,
-                start_step=global_step - epoch * self.iters_per_epoch):
+                start_step=global_step - epoch * self.iters_per_epoch,
+                rank=self.rank, world=self.n_ranks):
             batch = {k: torch.from_numpy(v).to(self.device)
                      for k, v in batch.items() if k != "image_idx"}
-            if cfg.profile and global_step == cfg.profile_steps[0]:
+            if (cfg.profile and self.rank == 0
+                    and global_step == cfg.profile_steps[0]):
                 self._start_profile()
             self.state, metrics = self.step_fn(self.state, batch)
             global_step += 1
             self._progress_steps += 1
-            n_rays += cfg.batch_size * self.grids
+            n_rays += cfg.batch_size * self.n_ranks * self.grids
             if (self.logger and cfg.img_panel_every > 0
                     and global_step % cfg.img_panel_every == 0):
                 self._log_train_panels(batch, global_step)
             if global_step == cfg.profile_steps[1]:
                 self._stop_profile()
-            if self.logger and global_step % cfg.log_every == 0:
-                self.logger.log({k if "/" in k else f"train/{k}": float(v)
-                                 for k, v in metrics.items()}, global_step)
-            if self._stop_requested:
+            if global_step % cfg.log_every == 0 and (
+                    self.logger or self.group is not None):
+                vals = reduce_metrics(metrics, self.group)
+                if self.logger:
+                    self.logger.log({k if "/" in k else f"train/{k}": v
+                                     for k, v in vals.items()}, global_step)
+            if self._step_stop():
                 break
+        if self._flag is not None and self._flag.pending:
+            self._stopping |= self._flag.read()   # the epoch's last reduce
         return global_step, n_rays
 
     # ------------------------------------------------- panels, profiler
@@ -311,7 +370,7 @@ class Trainer:
         b = full_image_batch(self.scene, image, appearance_img)
         w, h = image.wh
         renderer = Renderer(self.cfg.replace(chunk=self.cfg.val_chunk),
-                            self.system, self.device)
+                            self.system, self.device, group=self.group)
         try:
             return renderer.fetch(renderer.render_frame_async(
                 b["rays"], b["whole_img"], (h, w), outputs="full"))

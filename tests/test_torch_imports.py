@@ -1,10 +1,11 @@
 """The port imports torch and never jax, flax, optax or the JAX package:
 every module of crnerf_tpu_torch (the train/ and data/ packages, the
 trainer, the checkpoints and the apps, the conv, sincos, pipelined-render
-and sublane-stores ops and the spike tools included), and chip_smoke.py,
-import with all four blocked. Its Config keeps the JAX Config's names and
-defaults. Its entry points (prepare, train, eval, metrics, video, serve,
-the spike tools) run on the card unless the caller asks for the CPU."""
+and sublane-stores ops, the spike tools and parallel/mesh.py included),
+and chip_smoke.py, import with all four blocked. Its Config keeps the JAX
+Config's names and defaults. Its entry points (prepare, train, eval,
+metrics, video, serve, the spike tools) run on the card unless the caller
+asks for the CPU."""
 
 import dataclasses
 import os
@@ -38,7 +39,7 @@ for needed in ("train.step", "train.losses", "train.optim", "train.state",
                "utils.checkpoint", "utils.logging", "utils.png",
                "utils.torch_port", "utils.lanczos", "utils.visualization",
                "render.camera_path", "data.blender", "apps.eval_metric",
-               "apps.video", "tools.codec_times"):
+               "apps.video", "tools.codec_times", "parallel.mesh"):
     assert "crnerf_tpu_torch." + needed in names, needed
 import chip_smoke
 chip_smoke.serve_config()
