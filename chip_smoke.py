@@ -198,6 +198,21 @@ Phases, each fatal on failure:
      --split test_test`` on two ranks to the in-process render's bits;
      (c) where two cards are visible, ``train --num_devices 2`` over NCCL
      to the gloo run's bits, else a line saying it did not run
+ 12. the reference's own training command, on phase 9's cache at the
+     flagship config: (a) ``train --encode_a --encode_c --encode_random
+     --use_mask`` (Adam 5e-4, cosine) for one epoch in this process, the
+     launch counters zeroed just before and read just after (every stash
+     forward, chain and weight gradient on wgmma, K1 in the validations),
+     a finite loss/content_constraint in every metrics row and a finite
+     final validation, steps/s and peak memory beside phase 9's; (b) the
+     same with ``--optimizer ranger`` straight, and stopped by SIGTERM
+     once step 20 is logged (past the Lookahead syncs at 6, 12 and 18),
+     then ``--auto_resume`` to the straight run's last checkpoint bit for
+     bit (parameters, buffers, moments, slow weights, counts, cache); (c)
+     the small fp32 step at encode_c on the stash route against
+     pallas_train=False on the same batch and draws, the NeRF MLPs' and
+     enc_cont's gradients under ``routes_agree``'s bound, and three radam
+     steps at the flagship config, finite
 Prints a {"kernels": [...]} line, the card line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
 phase fails or no CUDA device is present.
@@ -1071,15 +1086,16 @@ def slab_launches(route: str, n: int, device) -> int:
     return total
 
 
-def small_step_check(device, seed: int, route: str = "stash"):
-    """-> the card's gradients of that step, by parameter name."""
+def small_step_inputs(seed: int, **kw):
+    """The small fp32 step's config (2 grids of 64 rays, 8 + 8 samples,
+    6 x 64, SGD) with ``kw``, and its seeded draws -> (config, draws)."""
     import torch
 
     cfg = train_config(
         compute_dtype="float32", grids_per_step=2, batch_size=64,
         N_samples=8, N_importance=8, netdepth=6, netwidth=64,
         nerf_out_dim=16, N_emb_xyz=10, N_vocab=8, appearance_wh=(64, 48),
-        optimizer="sgd", momentum=0.0, lr=0.05, **ROUTES[route][0])
+        optimizer="sgd", momentum=0.0, lr=0.05, **kw)
     g, b, s, i = 2, 64, 8, 8
     gen = torch.Generator().manual_seed(seed + 3)
     draws = {"z_u": torch.rand(g, b, s, generator=gen),
@@ -1089,22 +1105,45 @@ def small_step_check(device, seed: int, route: str = "stash"):
              # read by the pertube_cord route only
              "pertube_coarse": torch.rand(g, b, s, 3, generator=gen),
              "pertube_fine": torch.rand(g, b, s + i, 3, generator=gen)}
+    return cfg, draws
+
+
+def small_step(device, seed: int, cfg, draws):
+    """The small fp32 step of ``small_step_inputs``' ``cfg`` and ``draws``
+    on ``device``, from its seeded weights and batch -> (metrics,
+    parameter deltas on the CPU, each parameter's largest |value| before,
+    gradients by parameter name, the step's launch counts)."""
+    import torch
+
+    state, step, staged = make_trainer(cfg, device, seed, (24, 18), 1)
+    before = {k: v.detach().clone()
+              for k, v in state.system.named_parameters()}
+    zero_counts()
+    with full_fp32():
+        state, m = step(state, staged[0],
+                        {k: v.to(device) for k, v in draws.items()})
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = read_counts()
+    params = dict(state.system.named_parameters())
+    return ({k: float(v) for k, v in m.items()},
+            {k: (v.detach() - before[k]).cpu() for k, v in params.items()},
+            {k: float(v.abs().max()) for k, v in before.items()},
+            {k: v.grad.detach().clone() for k, v in params.items()},
+            launches)
+
+
+def small_step_check(device, seed: int, route: str = "stash"):
+    """-> the card's gradients of that step, by parameter name."""
+    import torch
+
+    cfg, draws = small_step_inputs(seed, **ROUTES[route][0])
     out = {}
     for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
-        state, step, staged = make_trainer(cfg, dev, seed, (24, 18), 1)
-        before = {k: v.detach().clone()
-                  for k, v in state.system.named_parameters()}
-        with full_fp32():
-            state, m = step(state, staged[0],
-                            {k: v.to(dev) for k, v in draws.items()})
-        out[where] = (
-            {k: float(v) for k, v in m.items()},
-            {k: (v.detach() - before[k]).cpu()
-             for k, v in state.system.named_parameters()},
-            {k: float(v.abs().max()) for k, v in before.items()})
+        m, deltas, scales, g, launches = small_step(dev, seed, cfg, draws)
+        out[where] = (m, deltas, scales)
         if where == "card":
-            grads = {k: v.grad.detach().clone()
-                     for k, v in state.system.named_parameters()}
+            grads, card_launches = g, launches
     worst = dict(loss=0.0, delta=0.0)
     for k, v in out["cpu"][0].items():
         rel = abs(out["card"][0][k] - v) / max(abs(v), 1e-12)
@@ -1124,7 +1163,7 @@ def small_step_check(device, seed: int, route: str = "stash"):
     if bad:
         raise PhaseError(f"{route}: card step disagrees with the CPU step "
                          f"in {bad}")
-    return grads
+    return grads, card_launches
 
 
 def stashes_alive_after_forward(state, batch):
@@ -1225,9 +1264,7 @@ def phase_train(device, seed: int, profile_dir=None, route: str = "stash"):
     if route == "stash":
         tf32_check(state, staged[0])
     del state, step, staged
-    zero_counts()
-    grads = small_step_check(device, seed, route)
-    small = read_counts()
+    grads, small = small_step_check(device, seed, route)
     # fp32 stays on the mma.sync kernels: the small step's two passes
     want = {k: (2 if k in ROUTES[route][2] else 0) for k in small}
     print(f"[train] {route}: the small fp32 step's launches "
@@ -3350,10 +3387,11 @@ def ckpt_distance(a, b):
                 if a[k].numel() else 0.0, k) for k in a)
 
 
-def cli_straight(args, save_dir: str, exp: str, steps: int, n_val: int):
-    """The train CLI in this process, launch counters zeroed just before
-    and read just after. -> (launches, stdout, metrics rows, peak GiB,
-    seconds)."""
+def cli_straight(args, save_dir: str, exp: str, steps: int, n_val: int,
+                 epochs: int = CLI_EPOCHS):
+    """The train CLI in this process for ``epochs`` epochs, launch counters
+    zeroed just before and read just after. -> (launches, stdout, metrics
+    rows, peak GiB, seconds)."""
     import io
 
     import torch
@@ -3366,7 +3404,7 @@ def cli_straight(args, save_dir: str, exp: str, steps: int, n_val: int):
     zero_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
-        state = train_app.main(args + ["--num_epochs", str(CLI_EPOCHS),
+        state = train_app.main(args + ["--num_epochs", str(epochs),
                                        "--log_every", "5"])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -3378,7 +3416,7 @@ def cli_straight(args, save_dir: str, exp: str, steps: int, n_val: int):
         raise PhaseError(f"{exp}: the run ended at step {state.step}, "
                          f"expected {steps}")
     # two passes a step on the stash route's wgmma kernels, and K1 in the
-    # validations (two in fit, one after it): two passes a tile
+    # validations (one an epoch in fit, one after it): two passes a tile
     want = {k: 0 for k in launches}
     for k in ROUTES["stash"][1]:
         want[k] = 2 * steps
@@ -3450,13 +3488,90 @@ def finish_ranks(jobs, timeout: float = 600, when=None):
     return [finish(job, 60) for job in jobs]
 
 
+def preempt_and_resume(tag: str, train_argv, exp: str, save: str,
+                       after: int, ipe: int, env, log, with_stop=None,
+                       with_resume=None):
+    """Spawn ``train_argv(exp)``, SIGTERM it once its metrics.jsonl shows
+    step ``after``, then spawn it again with ``--auto_resume``. The jobs
+    of ``with_stop`` ({tag: (argv, env)}) start beside the run to stop,
+    those of ``with_resume`` beside the resume. Fails unless the stop
+    checkpointed in epoch 0 at ``after`` or later and the resume exits 0.
+    -> {tag: (exit code, output)} of every job, "preempt" and "resume"
+    included."""
+    import re
+    import signal
+
+    jobs, out = {}, {}
+    try:
+        for t, (argv, e) in (with_stop or {}).items():
+            jobs[t] = spawn(argv, log(t), e)
+        pre = jobs["preempt"] = spawn(train_argv(exp), log("preempt"), env)
+        deadline = time.time() + 300
+        while not any(r["step"] >= after for r in metric_rows(save, exp)):
+            if pre[0].poll() is not None or time.time() > deadline:
+                raise PhaseError(
+                    f"{tag} the run to preempt ended or stalled before step "
+                    f"{after}:\n{finish(pre, 60)[1][-4000:]}")
+            time.sleep(0.2)
+        pre[0].send_signal(signal.SIGTERM)
+        out["preempt"] = finish(jobs.pop("preempt"), 300)
+        jobs["resume"] = spawn(train_argv(exp) + ["--auto_resume"],
+                               log("resume"), env)
+        for t, (argv, e) in (with_resume or {}).items():
+            jobs[t] = spawn(argv, log(t), e)
+        for t in list(jobs):
+            out[t] = finish(jobs.pop(t))
+    finally:
+        for proc, f, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            f.close()
+    rc, text = out["preempt"]
+    m = re.search(r"preempted: checkpointed at step (\d+)", text)
+    if rc != 0 or not m:
+        raise PhaseError(f"{tag} SIGTERM: exit {rc}, output:\n"
+                         f"{text[-4000:]}")
+    at = int(m.group(1))
+    if not after <= at < ipe:
+        raise PhaseError(f"{tag} preempted at step {at}, not in epoch 0 "
+                         f"after {after}")
+    print(f"{tag} SIGTERM once step {after} was logged: exit 0, "
+          f"'preempted: checkpointed at step {at}'")
+    if out["resume"][0] != 0:
+        raise PhaseError(f"{tag} resume: exit {out['resume'][0]}:\n"
+                         f"{out['resume'][1][-4000:]}")
+    return out
+
+
+def resumed_bits(tag: str, save: str, straight_exp: str, resumed_exp: str,
+                 steps: int, val, rval):
+    """The resumed run's last checkpoint against the straight run's: every
+    tensor the same bits, the same step, the same final validation ->
+    the straight run's tensors by name."""
+    import torch
+
+    straight = ckpt_tensors(save, straight_exp, steps)[0]
+    resumed, ck = ckpt_tensors(save, resumed_exp, steps)
+    dist, where = ckpt_distance(resumed, straight)
+    same = all(torch.equal(resumed[k], straight[k]) for k in straight)
+    print(f"{tag} the resumed run's last checkpoint against the straight "
+          f"run's, {len(straight)} tensors: "
+          f"{'the same bits' if same else 'OTHER BITS'} (largest "
+          f"difference {dist:.3e}, {where}); final val {rval} against "
+          f"{val}")
+    if not (same and ck["step"] == steps and rval == val):
+        raise PhaseError(f"{tag} the resumed run does not end on the "
+                         f"straight run's bits")
+    return straight
+
+
 def phase_cli(device, workdir: str, card: str):
     """Phase 9: train straight in this process; a preempted run and its
     resume in subprocesses, to the straight run's bits; evaluate in a
     subprocess; refuse without a card. -> (the straight run's launch
-    counts, the scene)."""
+    counts, the scene, its epochs' steps/s and its peak GiB)."""
     import re
-    import signal
 
     import numpy as np
     import torch
@@ -3497,6 +3612,9 @@ def phase_cli(device, workdir: str, card: str):
           f"validation psnr/ssim {vals}, final {val} ({card})")
     print(f"[cli] straight: launches {launches}: every stash forward, "
           f"chain and weight gradient on wgmma, none on mma.sync")
+    stats = dict(steps_per_s=rps[-1] / (CLI_BATCH * TRAIN_GRIDS),
+                 steps_per_s_epoch0=rps[0] / (CLI_BATCH * TRAIN_GRIDS),
+                 peak=peak)
 
     # the subprocesses below need the card's memory: a training run of
     # ~27 GiB beside the evals; give back what this process's allocator
@@ -3522,69 +3640,20 @@ def phase_cli(device, workdir: str, card: str):
     def log(tag):
         return os.path.join(workdir, tag.replace(" ", "_") + ".log")
 
-    jobs, out = {}, {}
-    try:
-        pre = spawn(train_argv("resumed"), log("preempt"), env)
-        jobs["preempt"] = pre
-        deadline = time.time() + 300
-        while not any(r["step"] >= CLI_PREEMPT_AFTER
-                      for r in metric_rows(save, "resumed")):
-            if pre[0].poll() is not None or time.time() > deadline:
-                raise PhaseError(
-                    f"the run to preempt ended or stalled before step "
-                    f"{CLI_PREEMPT_AFTER}:\n{finish(pre, 60)[1][-4000:]}")
-            time.sleep(0.2)
-        pre[0].send_signal(signal.SIGTERM)
-        out["preempt"] = finish(jobs.pop("preempt"), 300)
-        jobs["resume"] = spawn(train_argv("resumed") + ["--auto_resume"],
-                               log("resume"), env)
-        # meanwhile: the val split, an empty split, and the apps with no
-        # card to be seen (each with the default device and --device cuda)
-        jobs["eval val"] = spawn(eval_argv + ["--split", "val"],
-                                 log("eval val"), env)
-        jobs["eval empty"] = spawn(eval_argv + ["--split", "test_test",
-                                                "--root_dir", empty_root],
-                                   log("eval empty"), env)
-        for cmd in ("prepare", "train", "eval"):
-            for dev in ([], ["--device", "cuda"]):
-                tag = f"{cmd} {' '.join(dev) or '(default device)'}"
-                jobs[tag] = spawn([cmd, "--root_dir", root, *dev], log(tag),
-                                  nocard)
-        for tag in list(jobs):
-            out[tag] = finish(jobs.pop(tag))
-    finally:
-        for proc, f, _ in jobs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            f.close()
-
-    rc, text = out["preempt"]
-    m = re.search(r"preempted: checkpointed at step (\d+)", text)
-    if rc != 0 or not m:
-        raise PhaseError(f"SIGTERM: exit {rc}, output:\n{text[-4000:]}")
-    at = int(m.group(1))
-    if not CLI_PREEMPT_AFTER <= at < ipe:
-        raise PhaseError(f"preempted at step {at}, not in epoch 0 after "
-                         f"{CLI_PREEMPT_AFTER}")
-    print(f"[cli] SIGTERM once step {CLI_PREEMPT_AFTER} was logged: exit 0, "
-          f"'preempted: checkpointed at step {at}'")
-    if out["resume"][0] != 0:
-        raise PhaseError(f"resume: exit {out['resume'][0]}:\n"
-                         f"{out['resume'][1][-4000:]}")
+    # meanwhile: the val split, an empty split, and the apps with no card
+    # to be seen (each with the default device and --device cuda)
+    beside = {"eval val": (eval_argv + ["--split", "val"], env),
+              "eval empty": (eval_argv + ["--split", "test_test",
+                                          "--root_dir", empty_root], env)}
+    for cmd in ("prepare", "train", "eval"):
+        for dev in ([], ["--device", "cuda"]):
+            beside[f"{cmd} {' '.join(dev) or '(default device)'}"] = (
+                [cmd, "--root_dir", root, *dev], nocard)
+    out = preempt_and_resume("[cli]", train_argv, "resumed", save,
+                             CLI_PREEMPT_AFTER, ipe, env, log,
+                             with_resume=beside)
     rval = final_val(out["resume"][1], "resumed")
-    straight = ckpt_tensors(save, "straight", steps)[0]
-    resumed, ck = ckpt_tensors(save, "resumed", steps)
-    dist, where = ckpt_distance(resumed, straight)
-    same = all(torch.equal(resumed[k], straight[k]) for k in straight)
-    print(f"[cli] the resumed run's last checkpoint against the straight "
-          f"run's, {len(straight)} tensors: "
-          f"{'the same bits' if same else 'OTHER BITS'} (largest "
-          f"difference {dist:.3e}, {where}); final val {rval} against "
-          f"{val}")
-    if not (same and ck["step"] == steps and rval == val):
-        raise PhaseError("the resumed run does not end on the straight "
-                         "run's bits")
+    resumed_bits("[cli]", save, "straight", "resumed", steps, val, rval)
 
     for tag, want in (("eval val", "rendered 1 images"),
                       ("eval empty", "rendered 0 images")):
@@ -3637,7 +3706,7 @@ def phase_cli(device, workdir: str, card: str):
           f"{m.group(1)} / p95 {m.group(2)} s a frame (2 frames, the first "
           f"with the process's first launches); warm in process "
           f"{warm:.3f} s a frame, fetch included ({card})")
-    return launches, scene
+    return launches, scene, stats
 
 
 # Phase 10: the apps that need an image codec, on phase 9's checkpoint and
@@ -4588,6 +4657,214 @@ def dp_two_ranks(ctx, tag: str, backend: str, devices: bool):
     return launches, b_ck
 
 
+# Phase 12: the reference's own training command (``SURVEY.md``,
+# ``commands/train.sh``: --encode_a --encode_c --encode_random --use_mask)
+# on phase 9's cache at the flagship config, one epoch (72 steps) a run.
+ENC_C_FLAGS = ["--encode_a", "--encode_c", "--encode_random", "--use_mask"]
+ENC_C_EPOCHS = 1
+RANGER_PREEMPT_AFTER = 20   # past the Lookahead syncs at steps 6, 12, 18
+
+
+def phase_encode_c(device, workdir: str, card: str, cli_stats):
+    """Phase 12: the reference's training command in this process, Ranger
+    straight, stopped and resumed in subprocesses, the content heads'
+    gradients on two routes, and radam. Works on the scene cache that
+    phase 9 left in ``workdir`` (and writes one there if it is absent).
+    -> the in-process run's launch counts."""
+    import gc
+    import math
+
+    import torch
+
+    t0 = time.perf_counter()
+    root = os.path.join(workdir, "scene")
+    save = os.path.join(workdir, "runs_c")
+    scene = (cli_scene(root, os.path.join(workdir, "empty"))
+             if not os.path.isdir(root) else None)
+    from crnerf_tpu_torch.data.phototourism import load_phototourism
+
+    scene = scene or load_phototourism(root, img_downscale=2,
+                                       appearance_wh=(224, 160))
+    n_rays = sum(w * h for w, h in (im.wh for im in scene.train_images))
+    ipe = n_rays // CLI_BATCH // TRAIN_GRIDS
+    steps = ENC_C_EPOCHS * ipe
+    vw, vh = scene.train_images[0].wh
+    n_val = (ENC_C_EPOCHS + 1) * 2 * -(-vw * vh // 2048)
+
+    def args(exp, *extra):
+        return cli_args(root, save, exp) + ENC_C_FLAGS + list(extra)
+
+    # (a) the reference's command, Adam on a cosine schedule
+    with user_flags():
+        launches, text, rows, peak, secs = cli_straight(
+            args("encode_c"), save, "encode_c", steps, n_val,
+            epochs=ENC_C_EPOCHS)
+    val = final_val(text, "encode_c")
+    train_rows = [r for r in rows if "train/loss" in r]
+    bad = [r["step"] for r in train_rows
+           if not math.isfinite(r.get("loss/content_constraint", math.nan))]
+    if not train_rows or bad:
+        raise PhaseError(f"encode_c: metrics rows without a finite "
+                         f"loss/content_constraint at steps {bad}")
+    terms = [r["loss/content_constraint"] for r in train_rows]
+    rps = [r["train/rays_per_sec"] for r in rows if "train/rays_per_sec" in r]
+    sps = rps[-1] / (CLI_BATCH * TRAIN_GRIDS)
+    print(f"[encode_c] {steps} steps of the reference's command "
+          f"({' '.join(ENC_C_FLAGS)}) in {secs:.1f} s with the validations "
+          f"and checkpoints; epoch 0: {sps:.2f} steps/s against phase 9's "
+          f"{cli_stats['steps_per_s_epoch0']:.2f} (its epoch 0) and "
+          f"{cli_stats['steps_per_s']:.2f} (its epoch 1); peak memory "
+          f"{peak:.2f} GiB against {cli_stats['peak']:.2f}; "
+          f"loss/content_constraint {terms[0]:.4e} -> {terms[-1]:.4e} over "
+          f"{len(terms)} rows; final val {val} ({card})")
+    print(f"[encode_c] launches {launches}: every stash forward, chain and "
+          f"weight gradient on wgmma, none on mma.sync, K1 in the "
+          f"validations")
+
+    # (b) Ranger straight and stopped at once, then the resume
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = dict(os.environ, PYTHONPATH=REPO)
+
+    def train_argv(exp):
+        return ["train", *args(exp, "--optimizer", "ranger"), "--num_epochs",
+                str(ENC_C_EPOCHS), "--log_every", "5"]
+
+    def log(tag):
+        return os.path.join(workdir, f"encode_c_{tag}.log")
+
+    out = preempt_and_resume(
+        "[encode_c] Ranger:", train_argv, "ranger_resumed", save,
+        RANGER_PREEMPT_AFTER, ipe, env, log,
+        with_stop={"straight": (train_argv("ranger"), env)})
+    if out["straight"][0] != 0:
+        raise PhaseError(f"Ranger straight: exit {out['straight'][0]}:\n"
+                         f"{out['straight'][1][-4000:]}")
+    sval = final_val(out["straight"][1], "Ranger straight")
+    rval = final_val(out["resume"][1], "Ranger resumed")
+    straight = resumed_bits("[encode_c] Ranger:", save, "ranger",
+                            "ranger_resumed", steps, sval, rval)
+    slow = sum(k.endswith(".slow_buffer") for k in straight)
+    print(f"[encode_c] Ranger: {slow} slow weights among them")
+    if not slow:
+        raise PhaseError("the Ranger checkpoints hold no slow weights")
+
+    # (c) the content heads' gradients on two routes; radam
+    grads, launch = {}, {}
+    for route, kw in (("stash", {}),
+                      ("pallas_train=False", dict(pallas_train=False))):
+        metrics, _, _, grads[route], launch[route] = small_step(
+            device, SEED, *small_step_inputs(SEED, encode_c=True, **kw))
+        if not math.isfinite(metrics["loss/content_constraint"]):
+            raise PhaseError(f"{route}: loss/content_constraint "
+                             f"{metrics['loss/content_constraint']}")
+    want = {k: (2 if k in ROUTES["stash"][2] else 0)
+            for k in launch["stash"]}
+    if (launch["stash"] != want
+            or any(launch["pallas_train=False"].values())):
+        raise PhaseError(f"encode_c small steps' launches {launch}")
+    if not all(float(g.abs().max()) > 0 for k, g in grads["stash"].items()
+               if k.startswith("enc_cont.") and k.endswith("weight")):
+        raise PhaseError("enc_cont has a zero weight gradient")
+    # the module route composites under autograd and sums per point, as
+    # route C does: its bound (fp32 rounding apart)
+    routes_agree("stash", grads["stash"], "pallas_train=False",
+                 grads["pallas_train=False"], tol=1e-3)
+    # enc_cont's leaves to the same bound, each over enc_cont's largest
+    # gradient: its last bias's gradient is a cancellation (the content
+    # term moves both embeddings alike), ~1e-5 of the others
+    enc = [k for k in grads["stash"] if k.startswith("enc_cont.")]
+    scale = max(float(grads["stash"][k].abs().max()) for k in enc)
+    err, where = max((float((grads["pallas_train=False"][k]
+                             - grads["stash"][k]).abs().max()) / scale, k)
+                     for k in enc)
+    print(f"[encode_c] pallas_train=False against stash, small fp32 step: "
+          f"enc_cont's {len(enc)} gradients differ by at most {err:.3e} of "
+          f"its largest ({where}; bound 1e-03)")
+    if not err <= 1e-3:
+        raise PhaseError(f"enc_cont's gradients disagree between the "
+                         f"routes in {where}")
+    cfg = train_config(optimizer="radam", encode_c=True)
+    state, step, staged = make_trainer(cfg, device, SEED, (112, 84),
+                                       cfg.resolved_chunks())
+    losses = []
+    for i in range(3):
+        state, mt = step(state, staged[i % len(staged)])
+        losses.append(float(mt["loss"]))
+    finite = all(map(math.isfinite, losses)) and all(
+        bool(torch.isfinite(p).all()) for p in state.system.parameters())
+    print(f"[encode_c] radam, 3 flagship steps at encode_c: losses "
+          f"{' '.join(f'{x:.5f}' for x in losses)}, parameters "
+          f"{'finite' if finite else 'NOT FINITE'}")
+    if not finite:
+        raise PhaseError("radam: a loss or a parameter is not finite")
+    optimizer_times(state.system, card)
+    del state, step, staged
+    print(f"[encode_c] phase 12: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def centralize_per_tensor(grads):
+    """Gradient centralisation a tensor at a time, a mean and a subtraction
+    each: the alternative to the port's ``centralize``, timed beside it."""
+    return [g - g.mean(dim=tuple(range(1, g.dim())), keepdim=True)
+            if g.dim() > 1 else g for g in grads]
+
+
+def optimizer_times(system, card: str, n: int = 12, warm: int = 7):
+    """One optimizer update over every parameter of ``system`` (its last
+    step's gradients), timed with CUDA events over ``n`` updates after
+    ``warm`` (Ranger's Lookahead syncs every 6th: two in the timed ones),
+    Adam, RAdam, Ranger and Ranger with ``centralize_per_tensor`` in turns
+    (a, r, g, p, p, g, r, a); then the two centralisations alone, in turns
+    -> ms an update by name."""
+    import torch
+
+    from crnerf_tpu_torch.train import optim
+
+    params = [p for p in system.parameters() if p.grad is not None]
+    make = {"adam": lambda: torch.optim.Adam(params, lr=1e-8, eps=1e-8),
+            "radam": lambda: optim.RAdam(params, lr=1e-8),
+            "ranger": lambda: optim.Ranger(params, lr=1e-8),
+            "ranger, GC per tensor": lambda: optim.Ranger(params, lr=1e-8)}
+    times = {k: [] for k in make}
+    port_gc = optim.centralize
+    for name in ("adam", "radam", "ranger", "ranger, GC per tensor") * 2:
+        opt = make[name]()
+        if name.endswith("per tensor"):
+            optim.centralize = centralize_per_tensor
+        try:
+            for _ in range(warm):
+                opt.step()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in "ab")
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(n):
+                opt.step()
+            end.record()
+            torch.cuda.synchronize()
+        finally:
+            optim.centralize = port_gc
+        times[name].append(start.elapsed_time(end) / n)
+    grads = [p.grad for p in params]
+    a, b = port_gc(grads), centralize_per_tensor(grads)
+    err = max(float((x - y).abs().max()) for x, y in zip(a, b))
+    for name, fn in (("GC alone", port_gc),
+                     ("GC per tensor alone", centralize_per_tensor)) * 2:
+        times.setdefault(name, []).append(
+            time_ms(lambda: fn(grads), reps=n))
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    each = ", ".join(
+        f"{k} {v:.3f} ms ({' / '.join(f'{x:.3f}' for x in times[k])})"
+        for k, v in ms.items())
+    print(f"[encode_c] an optimizer update over {len(params)} parameters "
+          f"({sum(p.numel() for p in params)} values), CUDA events over "
+          f"{n} updates, in turns: {each}; the two centralisations differ "
+          f"by at most {err:.3e} ({card})")
+    return ms
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile_dir", type=str, default="",
@@ -4614,6 +4891,7 @@ def main(argv=None) -> int:
     card = card_line()
     print(f"[card] {card}")
     device = torch.device("cuda", 0)
+    t_run = time.perf_counter()
     try:
         phase_build()
         records = phase_kernel(device, SEED)
@@ -4666,20 +4944,23 @@ def main(argv=None) -> int:
               f"{step_ms:.2f} on the stash route, peak memory {m_peak:.2f} "
               f"GiB ({card})")
         with tempfile.TemporaryDirectory(dir=BUILD) as workdir:
-            _, cli_scene_ = phase_cli(device, workdir, card)
+            _, cli_scene_, cli_stats = phase_cli(device, workdir, card)
             apps = phase_apps(device, workdir, card, cli_scene_)
             dp_launches = phase_dp(device, workdir, card)
+            enc_c_launches = phase_encode_c(device, workdir, card, cli_stats)
     except Exception as e:  # any phase failing fails the run
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
               file=sys.stderr)
         return 1
+    print(f"[run] phases 2-12 in {time.perf_counter() - t_run:.1f} s "
+          f"({card})")
     # every kernel's entry at the shape its main path gives it: the serve
     # tile's fine pass (8192 rays x S=512) and the train step's fine pass
     # (16,384 rays x S=128), bf16, recurrence encode; K1's, K1-stash's and
     # K2's launches those of their main paths' runs: the serve phase's
     # frames (K1) and the flagship step's (K1-stash, K2), each with phase
-    # 10's counted runs and phase 11's timed two-rank run (both ranks)
-    # added
+    # 10's counted runs, phase 11's timed two-rank run (both ranks) and
+    # phase 12's in-process run added
     main_kernel = next(r for r in records if r["variant"] == "wgmma"
                        and r["N"] == SERVE_TILE and r["S"] == 512)
     tk = next(r for r in train_records
@@ -4767,7 +5048,8 @@ def main(argv=None) -> int:
         # at route A's fine pass
         entry("fused_render_fwd", wgmma_cu, k1,
               launches + apps["fused_render_fwd"]
-              + dp_launches["fused_render_fwd"],
+              + dp_launches["fused_render_fwd"]
+              + enc_c_launches["fused_render_fwd"],
               fwd_err(False, "wgmma"), main_kernel),
         entry("fused_render_fwd (mma.sync)", fwd_cu, k1,
               small_a["fused_render_fwd_mma"], fwd_err(False),
@@ -4777,14 +5059,16 @@ def main(argv=None) -> int:
         entry("fused_render_fwd_stash", wgmma_cu, k1,
               train_launches["fused_render_fwd_stash"]
               + apps["fused_render_fwd_stash"]
-              + dp_launches["fused_render_fwd_stash"],
+              + dp_launches["fused_render_fwd_stash"]
+              + enc_c_launches["fused_render_fwd_stash"],
               train_err("fwd", "wgmma"), train_kernel("fwd_stash")),
         entry("fused_render_fwd_stash (mma.sync)", fwd_cu, k1,
               fp32_launches["fused_render_fwd_stash_mma"],
               train_err("fwd", "mma"), train_kernel("fwd_stash", "mma")),
         entry("fused_render_bwd", bwd_wgmma_cu, k2,
               train_launches["fused_render_bwd"] + apps["fused_render_bwd"]
-              + dp_launches["fused_render_bwd"],
+              + dp_launches["fused_render_bwd"]
+              + enc_c_launches["fused_render_bwd"],
               train_err("chain", "wgmma"), train_kernel("chain")),
         entry("fused_render_bwd (mma.sync)", bwd_cu, k2,
               fp32_launches["fused_render_bwd_mma"],
@@ -4797,7 +5081,8 @@ def main(argv=None) -> int:
               "crnerf_tpu_torch/csrc/wgrad_wgmma.cuh", k2,
               train_launches["fused_render_bwd_wgrad"]
               + apps["fused_render_bwd_wgrad"]
-              + dp_launches["fused_render_bwd_wgrad"],
+              + dp_launches["fused_render_bwd_wgrad"]
+              + enc_c_launches["fused_render_bwd_wgrad"],
               max(r["abs_wgrad"] for r in train_records
                   if r["wgrad_variant"] == "wgmma"),
               train_kernel("wgrad")),

@@ -21,12 +21,14 @@ Training:
       -> train/step.py make_train_step(state, batch)
            render/system.py CrNerfSystem.forward_train (stochastic renderer
            through the fused render forward with its activation stash, the
-           random-appearance branch), train/losses.py crnerf_loss, backward
+           random-appearance branch, with Config.encode_c the content
+           heads), train/losses.py crnerf_loss, backward
            through the fused render backward kernels (from the stash, or
            with Config.pallas_stash=False or Config.pertube_cord=True by
            recomputing the forward slab by slab), train/optim.py
-           optimizer and schedule, train/state.py TrainState (embedding
-           cache, BatchNorm statistics).
+           optimizer (Adam, SGD, RAdam, Ranger) and schedule,
+           train/state.py TrainState (embedding cache, BatchNorm
+           statistics).
 
 From the command line: apps/train.py -> train/loop.py Trainer (epochs of
 TrainPipeline.epoch_batches through make_train_step, validation through
@@ -36,7 +38,8 @@ and an exact resume, training-grid panels and a profiler window);
 apps/eval.py renders a split, or a scene preset's camera path
 (render/camera_path.py) and its GIF, to PNGs from a weights.npz;
 apps/video.py renders the camera path in the appearance of each image of a
-folder; apps/eval_metric.py scores saved renders; apps/prepare.py turns a
+folder; apps/eval_metric.py scores saved renders (LPIPS through
+eval/lpips.py where its weights file is); apps/prepare.py turns a
 phototourism scene into the npz cache (data/phototourism.py) that training
 reads; data/blender.py loads a Blender scene. Images go in and out through
 the standard-library codecs of utils/png.py (PNG), utils/lanczos.py (PIL's

@@ -1,13 +1,14 @@
 """Score saved renders against the ground truth
 (``crnerf_tpu/apps/eval_metric.py``).
 
-The protocol: PSNR, SSIM (window 3) and MSE on the RIGHT HALF of each
-image (``[:, w // 2:]``; the left half was seen through the appearance
-encoder in training), averaged over the split and appended as one line to
-``result.txt`` in the render directory. The renders are the eval app's
-``NNN.png``, read without an image library; a missing one fails the run.
-LPIPS is not ported (its weights cannot be had offline), so the scores are
-the three the JAX package reports where LPIPS is unavailable.
+The protocol: PSNR, SSIM (window 3), MSE and LPIPS-alex on the RIGHT HALF
+of each image (``[:, w // 2:]``; the left half was seen through the
+appearance encoder in training), averaged over the split and appended as
+one line to ``result.txt`` in the render directory. The renders are the
+eval app's ``NNN.png``, read without an image library; a missing one fails
+the run. LPIPS needs its weights file (``eval/lpips.py``); where it is
+absent the app says so and reports the other three, as the JAX package
+does.
 
 Run:  python -m crnerf_tpu_torch metrics --root_dir SCENE \\
           --dataset_name phototourism --scene_name NAME --save_dir DIR \\
@@ -29,21 +30,25 @@ from crnerf_tpu_torch.apps import (
     resolve_device,
 )
 from crnerf_tpu_torch.config import Config
+from crnerf_tpu_torch.eval.lpips import LpipsAlex
 from crnerf_tpu_torch.train.metrics import mse, psnr, ssim
 from crnerf_tpu_torch.utils.png import read_png
 
 
 def score_pair(pred01: np.ndarray, gt01: np.ndarray,
-               device: torch.device = torch.device("cpu")):
-    """pred / gt (h, w, 3) float [0, 1] -> psnr, ssim, mse of the right
-    half."""
+               device: torch.device = torch.device("cpu"), lpips_fn=None):
+    """pred / gt (h, w, 3) float [0, 1] -> psnr, ssim, mse (and with
+    ``lpips_fn`` lpips) of the right half."""
     w = pred01.shape[1]
     pred = torch.as_tensor(np.ascontiguousarray(pred01[:, w // 2:]),
                            dtype=torch.float32, device=device)
     gt = torch.as_tensor(np.ascontiguousarray(gt01[:, w // 2:]),
                          dtype=torch.float32, device=device)
-    return {"psnr": float(psnr(pred, gt)), "ssim": float(ssim(pred, gt)),
-            "mse": float(mse(pred, gt))}
+    out = {"psnr": float(psnr(pred, gt)), "ssim": float(ssim(pred, gt)),
+           "mse": float(mse(pred, gt))}
+    if lpips_fn is not None:
+        out["lpips"] = lpips_fn(pred, gt)
+    return out
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -70,8 +75,12 @@ def main(argv: Optional[Sequence[str]] = None):
               else scene.train_images)
     render_dir = os.path.join(args.save_dir, "results", args.dataset_name,
                               args.scene_name)
-    print("lpips unavailable (not ported); reporting psnr/ssim/mse only",
-          flush=True)
+    lpips_fn = None
+    try:
+        lpips_fn = LpipsAlex(device=device)
+    except FileNotFoundError as e:   # no weights file
+        print(f"lpips unavailable ({e}); reporting psnr/ssim/mse only",
+              flush=True)
 
     rows, missing = [], []
     for i, im in enumerate(images):
@@ -81,7 +90,8 @@ def main(argv: Optional[Sequence[str]] = None):
             continue
         pred = read_png(path, "RGB").astype(np.float32) / 255.0
         w, h = im.wh
-        rows.append(score_pair(pred, im.rgbs.reshape(h, w, 3), device))
+        rows.append(score_pair(pred, im.rgbs.reshape(h, w, 3), device,
+                               lpips_fn))
     if missing:
         # a half-finished render directory must not score as a healthy
         # mean

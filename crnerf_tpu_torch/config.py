@@ -57,7 +57,8 @@ class Config:
 
     # ---- CR-NeRF head ----
     encode_a: bool = True
-    encode_c: bool = False  # the content-constraint heads are not ported
+    encode_c: bool = False  # training: the content-constraint heads
+    # (enc_cont and the un-styled decode) and their loss term
     encode_random: bool = True
     use_mask: bool = True
     mse_on_appearance: bool = False
@@ -97,7 +98,7 @@ class Config:
     proj_name: str = "crnerf_tpu"
 
     # ---- optimization ----
-    optimizer: str = "adam"  # sgd | adam (radam and ranger are not ported)
+    optimizer: str = "adam"  # sgd | adam | radam | ranger
     lr: float = 5e-4
     momentum: float = 0.9
     weight_decay: float = 0.0
@@ -151,14 +152,6 @@ class Config:
     # scene preset's count (240)
     profile: bool = False  # a torch.profiler trace of training steps
     profile_steps: Tuple[int, int] = (10, 15)  # [start, stop) global steps
-
-    def __post_init__(self):
-        if self.encode_c:
-            raise ValueError("encode_c=True: the content-constraint heads "
-                             "are not ported")
-        if self.optimizer not in ("adam", "sgd"):
-            raise ValueError(f"optimizer {self.optimizer!r} is not ported "
-                             "(adam, sgd)")
 
     def resolved_chunks(self) -> int:
         """Gradient-accumulation chunks of a step. AUTO is 1: at the

@@ -1,2 +1,4 @@
-"""Network modules of the serving path (torch counterparts of
-``crnerf_tpu.models``). Public functions take and return NHWC images."""
+"""Network modules (torch counterparts of ``crnerf_tpu.models``): those of
+the serving and training paths, and the reference zoo's unused ones
+(``esrgan``, ``networks``, ``NerfWMLP``, ``NerfTanhMLP``, the decoder's
+upsampling blocks). Public functions take and return NHWC images."""

@@ -12,6 +12,8 @@ False).
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -76,22 +78,36 @@ class StyleTransform(nn.Module):
 
 
 class StyleNet(nn.Module):
-    """Fusion + decode (``style_net``); the decoder is n_blocks=0."""
+    """Fusion + decode (``style_net``). ``style=None, kind="content"``
+    decodes the raw feature map, unstyled, for the content-constraint
+    loss. ``n_upsample_blocks``: the decoder's blocks (0 in the shipped
+    config)."""
 
-    def __init__(self, nerf_out_dim: int = 64,
+    def __init__(self, nerf_out_dim: int = 64, n_upsample_blocks: int = 0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.multi_net = StyleTransform(in_channel=nerf_out_dim, dtype=dtype)
         self.decoder = NeuralRenderer(feat_nc=nerf_out_dim, out_dim=3,
+                                      n_blocks=n_upsample_blocks,
                                       dtype=dtype)
 
     def forward(self, content: torch.Tensor,
-                style: torch.Tensor) -> torch.Tensor:
+                style: Optional[torch.Tensor] = None,
+                kind: Optional[str] = None) -> torch.Tensor:
+        if style is None and kind == "content":
+            return self.decoder(content)
         fused, _ = self.multi_net(content, style)
         return self.decoder(fused)
 
-    def decode_batch(self, contents: torch.Tensor,
-                     styles: torch.Tensor) -> torch.Tensor:
-        """``contents`` (K, H, W, C) styled by ``styles`` (K, 32, 32, C) in
-        one pass -> (K, H, W, 3)."""
-        return self(contents, styles)
+    def decode_batch(self, contents: torch.Tensor, styles: torch.Tensor,
+                     raw_extra: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+        """``contents`` (K, H, W, C) styled by ``styles`` (K, 32, 32, C),
+        with ``raw_extra`` (M, H, W, C) appended unstyled (the content
+        path), in one StyleTransform and one decoder pass -> (K + M, H', W',
+        3). The style statistics and the convolutions are per sample, so
+        this is K + M separate decodes."""
+        fused, _ = self.multi_net(contents, styles)
+        if raw_extra is not None:
+            fused = torch.cat([fused, raw_extra], 0)
+        return self.decoder(fused)

@@ -1,16 +1,18 @@
 """The CR-NeRF system (``crnerf_tpu/render/system.py`` ``CrNerfSystem``).
 
 Submodules carry the checkpoint prefixes: ``nerf_coarse``, ``nerf_fine``,
-``enc_a``, ``decoder``, ``implicit_mask``. ``forward_eval`` (the
+``enc_a``, ``enc_cont``, ``decoder``, ``implicit_mask``. ``forward_eval`` (the
 ``train=False`` half of the JAX ``forward``) runs the appearance encoder
 and the CGNet mask on the style image, the coarse and fine passes
 (``render.renderer``), and one batched StyleNet decode of the coarse and
 fine feature maps; ``forward_eval_sharded`` splits its rays over the ranks
 of a process group. ``forward_train`` (the ``train=True`` half) does the
 same for the G grids of a training step at once, with the stochastic
-renderer, the random-appearance branch and its re-encode; where the JAX
-step maps ``forward`` over the grids, every tensor here carries a leading
-G axis.
+renderer, the random-appearance branch and its re-encode, and with
+``encode_c`` the content heads; where the JAX step maps ``forward`` over
+the grids, every tensor here carries a leading G axis. The content heads
+feed the training loss only: the eval forwards never run them (the JAX
+package's inference passes ``want_content=False``).
 """
 
 from __future__ import annotations
@@ -70,6 +72,8 @@ class CrNerfSystem(nn.Module):
         self.nerf_fine = mk() if cfg.N_importance > 0 else None
         self.enc_a = (AppearanceEncoder(cfg.nerf_out_dim, dtype=dt)
                       if cfg.encode_a else None)
+        self.enc_cont = (AppearanceEncoder(cfg.nerf_out_dim, dtype=dt)
+                         if cfg.encode_c else None)
         self.decoder = (StyleNet(cfg.nerf_out_dim, dtype=dt) if cfg.encode_a
                         else get_renderer(cfg.nerf_out_dim, cfg.model_mode,
                                           dtype=dt))
@@ -121,9 +125,10 @@ class CrNerfSystem(nn.Module):
         """CGNet over the style image -> (1, Ha, Wa, 1)."""
         return self.implicit_mask(whole01)
 
-    def decode(self, fmap: torch.Tensor, style) -> torch.Tensor:
+    def decode(self, fmap: torch.Tensor, style,
+               kind: Optional[str] = None) -> torch.Tensor:
         if self.cfg.encode_a:
-            return self.decoder(fmap, style)
+            return self.decoder(fmap, style, kind=kind)
         return self.decoder(fmap)
 
     def forward_train(
@@ -147,8 +152,10 @@ class CrNerfSystem(nn.Module):
 
         Returns the results with a leading G axis: rgb_coarse, rgb_fine,
         rgb_fine_random (G, B, 3), out_mask (G, B, 1), a_embedded,
-        a_embedded_random, a_embedded_random_rec (G, 32, 32, C), and the
-        renderer's per-ray outputs (G, B, ...). The module must be in
+        a_embedded_random, a_embedded_random_rec (G, 32, 32, C), with
+        ``encode_c`` content_with_a_embed and content_wo_a_embed (G, 32, 32,
+        C): ``enc_cont`` of the styled and of the unstyled fine decode, and
+        the renderer's per-ray outputs (G, B, ...). The module must be in
         training mode for CGNet to use batch statistics (``self.train()``).
         """
         cfg = self.cfg
@@ -189,32 +196,46 @@ class CrNerfSystem(nn.Module):
         ff_map = rr["feature_fine"].reshape(g, h, w, -1) if has_fine else None
         do_random = (cfg.encode_a and cfg.encode_random and has_fine
                      and a_embedded_random is not None)
+        want_c = cfg.encode_c and has_fine
         if do_random:
             a_rand = (a_embedded_random.to(a_emb.dtype) if random_has_any
                       else a_emb)
         if cfg.encode_a and has_fine:
             # one batched StyleTransform + decoder pass over every styled
-            # map: the style statistics are per sample, so the order of
-            # the batch does not matter
+            # map, the raw fine maps of the content path appended: the
+            # style statistics are per sample, so the order of the batch
+            # does not matter
             maps, styles = [fc_map, ff_map], [a_emb, a_emb]
             if do_random:
                 maps.append(ff_map)
                 styles.append(a_rand)
             imgs = self.decoder.decode_batch(torch.cat(maps, 0),
-                                             torch.cat(styles, 0))
+                                             torch.cat(styles, 0),
+                                             ff_map if want_c else None)
             res["rgb_coarse"] = imgs[:g].reshape(g, b, 3)
-            res["rgb_fine"] = imgs[g:2 * g].reshape(g, b, 3)
-            rgb_rand_img = imgs[2 * g:] if do_random else None
+            rgb_fine_img = imgs[g:2 * g]
+            rgb_rand_img = imgs[2 * g:3 * g] if do_random else None
+            rgb_content_img = imgs[-g:] if want_c else None
         else:
             res["rgb_coarse"] = self.decode(fc_map, a_emb).reshape(g, b, 3)
             if has_fine:
-                res["rgb_fine"] = self.decode(ff_map, a_emb).reshape(g, b, 3)
+                rgb_fine_img = self.decode(ff_map, a_emb)
+            if want_c:
+                rgb_content_img = self.decode(ff_map, None, kind="content")
+        if has_fine:
+            res["rgb_fine"] = rgb_fine_img.reshape(g, b, 3)
         if do_random:
             res["a_embedded_random"] = a_rand
             # re-encode the random-styled render; the loss holds it to the
             # chosen embedding
             res["a_embedded_random_rec"] = self.enc_a(rgb_rand_img)
             res["rgb_fine_random"] = rgb_rand_img.reshape(g, b, 3)
+        if want_c:
+            # both content embeddings in one encoder pass over 2G images
+            both = self.enc_cont(torch.cat([rgb_fine_img, rgb_content_img],
+                                           0))
+            res["content_with_a_embed"] = both[:g]
+            res["content_wo_a_embed"] = both[g:]
         return res
 
     @torch.no_grad()

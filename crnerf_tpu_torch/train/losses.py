@@ -6,6 +6,8 @@ A dict of terms summed by the caller:
 - ``rec_a_random``: L1 (or MSE with mse_on_appearance) between the chosen
   random embedding (detached) and the embedding re-encoded from the
   random-styled render, x weightRecA
+- ``content_constraint``: MSE between the content encoder's embeddings of
+  the styled and of the unstyled fine decode, x weightcontent
 - ``c_l`` / ``f_l``: half-MSE of coarse/fine RGB against the targets,
   down-weighted per pixel by (1 - mask); the coarse term detaches the
   mask, the fine term does not
@@ -59,6 +61,7 @@ def crnerf_loss(
     *,
     weightKL: float = 1e-5,
     weightRecA: float = 1e-3,
+    weightcontent: float = 1e-4,
     maskrs_max: float = 5e-2,
     maskrs_min: float = 6e-3,
     maskrs_k: float = 1e-3,
@@ -81,6 +84,10 @@ def crnerf_loss(
     sq_c = (results["rgb_coarse"] - targets) ** 2
     ret["c_l"] = 0.5 * _grid_mean(
         sq_c if mask is None else (1 - mask.detach()) * sq_c)
+    if "content_wo_a_embed" in results and "content_with_a_embed" in results:
+        ret["content_constraint"] = _grid_mean(
+            (results["content_wo_a_embed"]
+             - results["content_with_a_embed"]) ** 2) * weightcontent
     aw = annealing(global_step)
     if "rgb_fine" in results:
         sq_f = (results["rgb_fine"] - targets) ** 2

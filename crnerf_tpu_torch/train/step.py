@@ -156,7 +156,8 @@ def make_train_step(system: CrNerfSystem, optimizer: torch.optim.Optimizer,
         loss_d, aw = crnerf_loss(
             results, batch["rgbs"], state.step,
             weightKL=cfg.weightKL, weightRecA=cfg.weightRecA,
-            maskrs_max=cfg.maskrs_max, maskrs_min=cfg.maskrs_min,
+            weightcontent=cfg.weightcontent, maskrs_max=cfg.maskrs_max,
+            maskrs_min=cfg.maskrs_min,
             maskrs_k=cfg.maskrs_k, maskrd=cfg.maskrd,
             mse_on_appearance=cfg.mse_on_appearance,
         )

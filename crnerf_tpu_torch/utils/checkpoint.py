@@ -4,8 +4,9 @@ The full training state, one ``torch.save`` file a step under
 ``<directory>/<step>.pt``:
 - ``system``: ``state_dict()`` of the system, CGNet's BatchNorm running
   statistics included;
-- ``optimizer``: ``state_dict()`` of the optimizer (Adam's moments and its
-  ``step`` tensors);
+- ``optimizer``: ``state_dict()`` of the optimizer (its moments, Ranger's
+  slow weights, and its step counts: Adam's ``step`` tensors, RAdam's and
+  Ranger's host ints);
 - ``embedding_cache``, ``embedding_valid``, ``has_any``: the appearance
   cache;
 - ``step`` and ``generator``: the step counter and the random generator's

@@ -1,8 +1,9 @@
 """The port imports torch and never jax, flax, optax or the JAX package:
 every module of crnerf_tpu_torch (the train/ and data/ packages, the
 trainer, the checkpoints and the apps, the conv, sincos, pipelined-render
-and sublane-stores ops, the spike tools and parallel/mesh.py included),
-and chip_smoke.py, import with all four blocked. Its Config keeps the JAX
+and sublane-stores ops, the spike tools, parallel/mesh.py, LPIPS and the
+model zoo's tail included), and chip_smoke.py, import with all four
+blocked. Its Config keeps the JAX
 Config's names and defaults. Its entry points (prepare, train, eval,
 metrics, video, serve, the spike tools) run on the card unless the caller
 asks for the CPU."""
@@ -39,7 +40,8 @@ for needed in ("train.step", "train.losses", "train.optim", "train.state",
                "utils.checkpoint", "utils.logging", "utils.png",
                "utils.torch_port", "utils.lanczos", "utils.visualization",
                "render.camera_path", "data.blender", "apps.eval_metric",
-               "apps.video", "tools.codec_times", "parallel.mesh"):
+               "apps.video", "tools.codec_times", "parallel.mesh",
+               "eval.lpips", "models.esrgan", "models.networks"):
     assert "crnerf_tpu_torch." + needed in names, needed
 import chip_smoke
 chip_smoke.serve_config()
@@ -280,3 +282,19 @@ def test_spike_tool_runs_on_the_cpu_when_asked(monkeypatch, capsys, tool,
                                 "0.00e+00 (same bits)",
             "spike_sublane_stores": "cuBLAS: none on the CPU"}[tool]
     assert want in out
+
+
+def test_train_with_the_reference_flags_refuses_without_a_card(tmp_path):
+    """The reference's own training flags (the content heads, Ranger) take
+    the same way as every entry point: no CUDA device, no run, and a
+    message that names the way to the CPU."""
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run(
+        [sys.executable, "-m", "crnerf_tpu_torch", "train", "--encode_a",
+         "--encode_c", "--encode_random", "--use_mask", "--optimizer",
+         "ranger", "--dataset_name", "synthetic", "--save_dir",
+         str(tmp_path)], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr and "--device cpu" in out.stderr
+    assert not (tmp_path / "ckpts").exists()
