@@ -213,6 +213,20 @@ Phases, each fatal on failure:
      pallas_train=False on the same batch and draws, the NeRF MLPs' and
      enc_cont's gradients under ``routes_agree``'s bound, and three radam
      steps at the flagship config, finite
+ 13. the 2-D (data, model) mode (``parallel/tp.py``) on the module route
+     (pallas_train=False: no hand kernel) at the flagship widths, two
+     model ranks on the one card over gloo, each started as torchrun
+     starts one: (a) the small fp32 step against the one-process step on
+     the same card and draws (parameters within rtol 1e-3 + 2e-5, the loss
+     2e-5, the replicated tensors the same bits on both ranks); (b) 2
+     grids of 1024 rays, step 1 against one process on the same draws
+     (loss and psnr 1e-3, each split leaf's Adam first moment within 1e-2
+     of its largest plus half the leaf's own bf16 error, the one process's
+     bf16 moment against its fp32 one; the replicas' bits), then 3 timed
+     steps: steps/s,
+     peak memory a rank beside the one process's, the collectives' bytes
+     a step; (c) where two cards are visible, (b) over NCCL, a rank a
+     card, else a line saying it did not run
 Prints a {"kernels": [...]} line, the card line, and as the last line
 {"ok": true, "device": {...}}. Exits non-zero, with no result line, when a
 phase fails or no CUDA device is present.
@@ -901,9 +915,10 @@ def train_config(**kw):
     return Config(**base)
 
 
-def make_trainer(cfg, device, seed: int, scene_wh, chunks: int):
-    """Seeded system, optimizer, state, step function and staged batches on
-    ``device``, through the entry points a user would call."""
+def seeded_state(cfg, device, seed: int, scene_wh):
+    """Seeded system, optimizer, schedule and state on ``device``, and
+    staged batches of the synthetic scene, through the entry points a user
+    would call -> (state, schedule, staged)."""
     import torch
 
     from crnerf_tpu_torch.data.pipeline import TrainPipeline
@@ -911,7 +926,6 @@ def make_trainer(cfg, device, seed: int, scene_wh, chunks: int):
     from crnerf_tpu_torch.render.system import CrNerfSystem
     from crnerf_tpu_torch.train.optim import make_optimizer
     from crnerf_tpu_torch.train.state import TrainState
-    from crnerf_tpu_torch.train.step import make_train_step
 
     scene = make_synthetic_scene(n_train=4, n_test=1, img_wh=scene_wh,
                                  appearance_wh=cfg.appearance_wh)
@@ -922,13 +936,22 @@ def make_trainer(cfg, device, seed: int, scene_wh, chunks: int):
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     state = TrainState.create(system, opt, cfg.N_vocab, 32, cfg.nerf_out_dim,
                               generator=gen)
-    step = make_train_step(system, opt, sched,
-                           grids_per_step=cfg.grids_per_step,
-                           grad_accum_chunks=chunks)
     staged = [{k: torch.from_numpy(v).to(device)
                for k, v in pipe.make_global_batch(
                    0, i, cfg.grids_per_step).items()}
               for i in range(TRAIN_STAGED)]
+    return state, sched, staged
+
+
+def make_trainer(cfg, device, seed: int, scene_wh, chunks: int):
+    """``seeded_state``'s state and staged batches with the step function
+    -> (state, step, staged)."""
+    from crnerf_tpu_torch.train.step import make_train_step
+
+    state, sched, staged = seeded_state(cfg, device, seed, scene_wh)
+    step = make_train_step(state.system, state.optimizer, sched,
+                           grids_per_step=cfg.grids_per_step,
+                           grad_accum_chunks=chunks)
     return state, step, staged
 
 
@@ -4161,9 +4184,15 @@ DP_A_STEPS = 12
 # Adam's first moment after one step is 0.1 g: per leaf, the largest
 # difference between a rank's and the 16-grid process's as a share of the
 # single process's largest entry. Read at 6.6e-3 on an H100 (CGNet's
-# leaves, whose convolutions cuDNN runs at 8 and at 16 grids; PERF.md),
-# so the bound leaves 4.5x. A sum over the ranks instead of the mean, or
-# one rank's gradient alone, reads ~0.5-1.
+# leaves; PERF.md), so the bound leaves 4.5x. A sum over the ranks instead
+# of the mean, or one rank's gradient alone, reads ~0.5-1. The cause is
+# CGNet's own fp32 arithmetic, not the bf16 upstream: on the 16-grid
+# step's own input and mask cotangent, in one process, 16 images at once
+# against 8 + 8 gives the same 6.612e-3 (level3_0.F_loc; cuDNN's
+# convolution backward by batch size; 5e-6 on the CPU), and the one pass is
+# itself 5.0e-3 off float64: CGNet's per-image norms make each weight
+# gradient a sum of terms that cancel (``cgnet_split_gap``, printed below;
+# PERF.md and ROADMAP §3).
 DP_MU_SHARE = 3e-2
 
 
@@ -4226,29 +4255,66 @@ def dp_cli_argv(root: str, save: str, exp: str, steps_log: int = 5):
             "--num_epochs", str(CLI_EPOCHS), "--log_every", str(steps_log)]
 
 
-def dp_step_inputs(trainer, seed: int):
-    """Step 0's global batch of TRAIN_GRIDS grids and seeded draws for it
-    (the renderer's uniforms, noise and resampling exponentials; the cache
-    is empty, so the rows chosen do not matter)."""
+def seeded_draws(cfg, grids: int, seed: int):
+    """Seeded draws for ``grids`` grids of ``cfg``: the renderer's
+    uniforms, noise and resampling exponentials (the cache is empty, so the
+    rows chosen do not matter)."""
     import torch
 
-    cfg = trainer.cfg
+    g = torch.Generator().manual_seed(seed)
+    n, s, i = cfg.batch_size, cfg.N_samples, cfg.N_importance
+    return {
+        "z_u": torch.rand((grids, n, s), generator=g),
+        "noise_coarse": cfg.noise_std * torch.randn((grids, n, s),
+                                                    generator=g),
+        "noise_fine": cfg.noise_std * torch.randn((grids, n, s + i),
+                                                  generator=g),
+        "pdf_e": torch.empty((grids, n, i + 1)).exponential_(generator=g),
+        "sel_idx": torch.zeros((grids,), dtype=torch.int64),
+    }
+
+
+def dp_step_inputs(trainer, seed: int):
+    """Step 0's global batch of TRAIN_GRIDS grids and seeded draws for
+    it."""
+    import torch
+
     batch = trainer.pipeline.make_global_batch(0, 0, TRAIN_GRIDS)
     batch = {k: torch.from_numpy(v) for k, v in batch.items()
              if k != "image_idx"}
-    g = torch.Generator().manual_seed(seed)
-    n, s, i = cfg.batch_size, cfg.N_samples, cfg.N_importance
-    draws = {
-        "z_u": torch.rand((TRAIN_GRIDS, n, s), generator=g),
-        "noise_coarse": cfg.noise_std * torch.randn((TRAIN_GRIDS, n, s),
-                                                    generator=g),
-        "noise_fine": cfg.noise_std * torch.randn((TRAIN_GRIDS, n, s + i),
-                                                  generator=g),
-        "pdf_e": torch.empty((TRAIN_GRIDS, n, i + 1)).exponential_(
-            generator=g),
-        "sel_idx": torch.zeros((TRAIN_GRIDS,), dtype=torch.int64),
-    }
-    return batch, draws
+    return batch, seeded_draws(trainer.cfg, TRAIN_GRIDS, seed)
+
+
+def spawn_ranks(job_path: str, n: int, worker: str, devices: bool,
+                log_prefix: str, tag: str, timeout: float = 600,
+                when=None):
+    """``n`` ranks of ``chip_smoke.<worker>(job_path)``, each started as
+    ``torchrun`` starts one (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+    MASTER_PORT), all on cuda:0 or (``devices``) rank r on cuda:r, output
+    to ``log_prefix``<r>.log; waits for them as ``finish_ranks`` does
+    (``when``'s action is given the jobs) and fails unless every rank
+    exits 0. -> [output]."""
+    from crnerf_tpu_torch.parallel import mesh
+
+    port = mesh._free_port()
+    jobs = [spawn([job_path], f"{log_prefix}{r}.log",
+                  dict(os.environ, PYTHONPATH=REPO, RANK=str(r),
+                       WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n),
+                       LOCAL_RANK=str(r if devices else 0),
+                       MASTER_ADDR="localhost", MASTER_PORT=str(port)),
+                  prog=("-c", f"import sys, chip_smoke; "
+                              f"chip_smoke.{worker}(sys.argv[1])"))
+            for r in range(n)]
+    if when is not None:
+        test, act = when
+        when = (test, lambda: act(jobs))
+    outs = finish_ranks(jobs, timeout, when)
+    bad = [r for r, (rc, _) in enumerate(outs) if rc != 0]
+    if bad:
+        raise PhaseError(f"({tag}) exit codes {[rc for rc, _ in outs]}:\n"
+                         + "\n".join(f"rank {r}:\n{outs[r][1][-3000:]}"
+                                     for r in bad))
+    return [text for _, text in outs]
 
 
 def dp_one_step(trainer, batch, draws, device):
@@ -4334,6 +4400,54 @@ def dp_rank_worker(job_path: str):
     with open(job_path + f".rank{r}", "w") as f:
         json.dump(out, f)
     torch.distributed.destroy_process_group()
+
+
+def cgnet_capture(system):
+    """A copy of the system's CGNet as it is now, and a hook on CGNet that
+    keeps its inputs and their masks' cotangents in the next step, chunk by
+    chunk -> (copy, kept, hook)."""
+    import copy
+
+    net = copy.deepcopy(system.implicit_mask)
+    kept = {"x": [], "cot": []}
+
+    def capture(_, inputs, out):
+        kept["x"].append(inputs[0].detach().clone())
+        out.register_hook(lambda g: kept["cot"].append(g.detach().clone()))
+
+    return net, kept, system.implicit_mask.register_forward_hook(capture)
+
+
+def cgnet_split_gap(net, kept, parts: int):
+    """CGNet's parameter gradients (``net``, training mode: statistics per
+    image) on the ``kept`` inputs and cotangents: all images in one pass
+    against the sum of ``parts`` passes over slices of them, and the one
+    pass at fp32 against float64 -> {"split": (largest difference over the
+    leaf's largest, leaf), "f64": (the same, leaf)}."""
+    import torch
+
+    x, cot = torch.cat(kept["x"], 0), torch.cat(kept["cot"], 0)
+
+    def grads(m, x, cot):
+        m.train()
+        m.zero_grad(set_to_none=True)
+        (m(x) * cot).sum().backward()
+        for norm in m.norms():
+            norm.pending = None
+        return {k: p.grad.detach().double().clone()
+                for k, p in m.named_parameters()}
+
+    def worst(a, b):
+        return max((float((a[k] - b[k]).abs().max())
+                    / max(float(b[k].abs().max()), 1e-30), k) for k in b)
+
+    whole = grads(net, x, cot)
+    n = x.shape[0] // parts
+    sliced = [grads(net, x[i * n:(i + 1) * n], cot[i * n:(i + 1) * n])
+              for i in range(parts)]
+    summed = {k: sum(s[k] for s in sliced) for k in whole}
+    f64 = grads(net.double(), x.double(), cot.double())
+    return {"split": worst(summed, whole), "f64": worst(whole, f64)}
 
 
 def dp_deltas_bound(single_mu, rank_tensors, single_tensors, lr: float,
@@ -4428,11 +4542,23 @@ def phase_dp(device, workdir: str, card: str):
         tr = Trainer(cfg_of(dp_cli_argv(root, save, "dp2")).replace(
             grids_per_step=TRAIN_GRIDS), scene, device=device)
         batch, draws = dp_step_inputs(tr, SEED + 11)
+        net, kept, hook = cgnet_capture(tr.system)
         single = dp_one_step(tr, batch, draws, device)
+        hook.remove()
         names = [n for n, _ in tr.system.named_parameters()]
         lr = tr.state.optimizer.param_groups[0]["lr"]   # step 0's
         del tr
+        gap = cgnet_split_gap(net, kept, DP_RANKS)
+        del net, kept
         dp_release()
+    print(f"[dp] CGNet's gradient on the {TRAIN_GRIDS}-grid step's own "
+          f"input and mask cotangent, in one process: all images at once "
+          f"against the sum of {DP_RANKS} slices of {DP_GRIDS}, "
+          f"{gap['split'][0]:.3e} of the leaf's largest ({gap['split'][1]}); "
+          f"the one-pass fp32 gradient against float64 on the same "
+          f"cotangent {gap['f64'][0]:.3e} ({gap['f64'][1]}). DP_MU_SHARE "
+          f"reads the two ranks' first moments against the 16-grid "
+          f"process's, each rank's cotangent from its own forward ({card})")
     step_inputs = os.path.join(dp_dir, "step_inputs.pt")
     torch.save({"batch": batch, "draws": draws}, step_inputs)
     print(f"[dp] one step of one process of {TRAIN_GRIDS} grids in "
@@ -4495,7 +4621,6 @@ def dp_two_ranks(ctx, tag: str, backend: str, devices: bool):
     import torch
 
     from crnerf_tpu_torch.apps.serve import load_system
-    from crnerf_tpu_torch.parallel import mesh
     from crnerf_tpu_torch.render.inference import Renderer
 
     device, card, root, save, dp_dir, scene, cfg_of = (
@@ -4515,34 +4640,20 @@ def dp_two_ranks(ctx, tag: str, backend: str, devices: bool):
                    "timed": dp_cli_argv(root, save, exp), "stop": stop_argv,
                    "resume": stop_argv + ["--auto_resume"],
                    "eval": ev_argv}, f)
-    port = mesh._free_port()
-    jobs = [spawn([job_path], os.path.join(dp_dir, f"ranks_{tag}{r}.log"),
-                  dict(os.environ, PYTHONPATH=REPO, RANK=str(r),
-                       WORLD_SIZE=str(DP_RANKS),
-                       LOCAL_WORLD_SIZE=str(DP_RANKS),
-                       LOCAL_RANK=str(r if devices else 0),
-                       MASTER_ADDR="localhost", MASTER_PORT=str(port)),
-                  prog=("-c", "import sys, chip_smoke; "
-                              "chip_smoke.dp_rank_worker(sys.argv[1])"))
-            for r in range(DP_RANKS)]
 
     def stop_logged():   # the agreed stop: SIGTERM to rank 1 alone
         return any(x["step"] >= CLI_PREEMPT_AFTER and "train/loss" in x
                    for x in metric_rows(save, stopped))
 
-    outs = finish_ranks(jobs, 900, (stop_logged, lambda: jobs[1][0]
-                                    .send_signal(signal.SIGTERM)))
-    bad = [r for r, (rc, _) in enumerate(outs) if rc != 0]
-    if bad:
-        raise PhaseError(f"({tag}) exit codes {[rc for rc, _ in outs]}:\n"
-                         + "\n".join(f"rank {r}:\n{outs[r][1][-3000:]}"
-                                     for r in bad))
+    log0 = spawn_ranks(job_path, DP_RANKS, "dp_rank_worker", devices,
+                       os.path.join(dp_dir, f"ranks_{tag}"), tag, 900,
+                       (stop_logged, lambda jobs: jobs[1][0].send_signal(
+                           signal.SIGTERM)))[0]
     t_ranks = time.perf_counter() - t_ranks
     res = []
     for r in range(DP_RANKS):
         with open(job_path + f".rank{r}") as f:
             res.append(json.load(f))
-    log0 = outs[0][1]
 
     steps = [torch.load(job_path + f".step{r}", weights_only=False)
              for r in range(DP_RANKS)]
@@ -4865,6 +4976,343 @@ def optimizer_times(system, card: str, n: int = 12, warm: int = 7):
     return ms
 
 
+# Phase 13: the 2-D (data, model) mode (``parallel/tp.py``) on the card, on
+# the module route (``pallas_train=False``: the mode launches no hand
+# kernel) at the flagship widths (8x256 coarse and fine, 64 + 64 samples,
+# C = 64, bf16, 224x160 appearance, encode_a, use_mask), seeded weights and
+# draws. Two ranks (data 1 x model 2) on the one card over gloo (NCCL
+# refuses two ranks on one device), each started as torchrun starts one:
+# (a) the small fp32 step against the one-process step on the same card;
+# (b) TP_GRIDS grids of 1024 rays: step 1 against one process, then timed
+# steps; (c) where two cards are visible, (b) over NCCL, a rank a card.
+TP_MODEL = 2
+TP_GRIDS = 2         # the flagship's 16 grids cut to 2: on one card every
+#                      split layer's output columns cross the host
+TP_TIMED = 3
+# (a): tests/test_tp.py's bounds on the small fp32 step's parameters and
+# statistics and on its loss. Not the one process's bits: a split layer's
+# product runs at another shape, for which cuDNN and cuBLAS may sum in
+# another order (26 of 195 tensors differ on an H100, all within rtol
+# 1e-3 + 0; the loss the same bits; PERF.md §6)
+TP_SMALL_TOL = dict(rtol=1e-3, atol=2e-5, loss=2e-5)
+TP_REL = 1e-3        # (b): step 1's loss and psnr against one process
+# (b): a split leaf's Adam first moment (0.1 g) after step 1, as a share of
+# the leaf's largest. The model ranks' loss is the one process's bits;
+# their backward rounds each rank's part of an input's gradient to bf16
+# before the sum, and the bf16 gradient of a leaf whose terms cancel
+# is itself rounding: StyleNet's snet.conv1 at bf16 is 2.954 of its largest
+# off the fp32 step's in one process, the ranks' 0.3125 off one process's,
+# the ranks' error against fp32 at most 1.078x one process's on every split
+# leaf (an H100, PERF.md §6). So every split leaf's error against the
+# fp32 step is held within TP_FP32_RATIO times one process's + TP_MU_SHARE,
+# and a leaf whose own bf16 error is under TP_MU_SHARE within TP_MU_SHARE
+# of one process's (PERF.md §2's bf16 gradient bound). A wrong reduction
+# (a sum over the model ranks' copies, one rank's part alone) reads ~0.5-1.
+TP_MU_SHARE = 1e-2
+TP_FP32_RATIO = 1.5
+
+
+def tp_configs():
+    """(a)'s small fp32 config and draws, (b)'s flagship config."""
+    small, small_draws = small_step_inputs(SEED, pallas_train=False)
+    full = train_config(pallas_train=False, grids_per_step=TP_GRIDS)
+    return small, small_draws, full
+
+
+def tp_replicas(state, split):
+    """``dp_state_tensors`` without the ``split`` leaves and their
+    optimizer state: what every model rank of a data index holds bit for
+    bit."""
+    order = [p for g in state.optimizer.param_groups for p in g["params"]]
+    names = {id(p): k for k, p in state.system.named_parameters()}
+    drop = {f"system.{k}" for k in split} | {
+        f"adam.{i}.{s}" for i, p in enumerate(order) if names[id(p)] in split
+        for s in state.optimizer.state[p]}
+    return {k: v for k, v in dp_state_tensors(state).items()
+            if k not in drop}
+
+
+def tp_rank_worker(job_path: str):
+    """One rank of phase 13, started as ``torchrun`` starts one (RANK,
+    WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT) over the job's
+    backend: (a) the small fp32 step, where the job asks for it; (b) step 1
+    at the flagship widths on the job's draws, then TP_TIMED steps timed,
+    the collectives' bytes and the peak memory read around them. Writes
+    what it measured beside ``job_path``."""
+    import torch
+
+    from crnerf_tpu_torch.parallel import tp
+
+    with open(job_path) as f:
+        job = json.load(f)
+    m2 = tp.make_mesh_2d(1, TP_MODEL, "cuda", job["backend"])
+    device, r = m2.device, torch.distributed.get_rank()
+    small, small_draws, full = tp_configs()
+    out = {"device": str(device)}
+    if job["small"]:
+        state, sched, staged = seeded_state(small, device, SEED, (24, 18))
+        state = tp.shard_state_tp(state, m2)
+        step = tp.shard_train_step_tp(state, sched, m2,
+                                      small.grids_per_step)
+        with full_fp32():
+            state, m = step(state, staged[0],
+                            {k: v.to(device) for k, v in small_draws.items()})
+        one = tp.gather_state_tp(state)
+        torch.save({k: v.detach().cpu() for k, v in
+                    one.system.state_dict().items()},
+                   job_path + f".small{r}")
+        split = {k for k, p in state.system.named_parameters()
+                 if tp.split_of(p) is not None}
+        torch.save(tp_replicas(state, split), job_path + f".smallrep{r}")
+        out["small"] = {"loss": float(m["loss"])}
+        del state, one, step
+        dp_release()
+
+    draws = torch.load(job["draws"], weights_only=False)
+    with user_flags():
+        state, sched, staged = seeded_state(full, device, SEED + 13,
+                                            (112, 84))
+        state = tp.shard_state_tp(state, m2)
+        split = {k for k, p in state.system.named_parameters()
+                 if tp.split_of(p) is not None}
+        step = tp.shard_train_step_tp(state, sched, m2, TP_GRIDS)
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        state, m = step(state, staged[0],
+                        {k: v.to(device) for k, v in draws.items()})
+        one = tp.gather_state_tp(state)
+        mu = {k: one.optimizer.state[p]["exp_avg"].cpu()
+              for k, p in one.system.named_parameters() if k in split}
+        torch.save(mu, job_path + f".mu{r}")
+        metrics = {"loss": float(m["loss"]), "psnr": float(m["psnr"])}
+        del one, mu
+        for k in tp.COLLECTIVE_BYTES:
+            tp.COLLECTIVE_BYTES[k] = 0
+        times, losses, _ = timed_steps(state, step, staged, TP_TIMED, 1)
+        out["full"] = {
+            "step1": metrics, "ms": times, "losses": losses,
+            "bytes": {k: v / TP_TIMED
+                      for k, v in tp.COLLECTIVE_BYTES.items()},
+            "peak_gib": torch.cuda.max_memory_allocated(device) / 2 ** 30,
+            "split": sorted(split),
+            "local_rows": {k: list(p.shape) for k, p in
+                           state.system.named_parameters() if k in split}}
+    torch.save(tp_replicas(state, split), job_path + f".rep{r}")
+    with open(job_path + f".rank{r}", "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+def tp_ranks(workdir: str, tag: str, backend: str, devices: bool,
+             small: bool, draws_path: str):
+    """Two ranks of ``tp_rank_worker`` over ``backend``, both on cuda:0
+    or (``devices``) on cuda:0 and cuda:1 -> (the job's path, their
+    results)."""
+    job_path = os.path.join(workdir, f"tp_{tag}.json")
+    with open(job_path, "w") as f:
+        json.dump({"backend": backend, "small": small,
+                   "draws": draws_path}, f)
+    spawn_ranks(job_path, TP_MODEL, "tp_rank_worker", devices,
+                os.path.join(workdir, f"tp_{tag}"), tag)
+    res = []
+    for r in range(TP_MODEL):
+        with open(job_path + f".rank{r}") as f:
+            res.append(json.load(f))
+    return job_path, res
+
+
+def tp_same_replicas(job_path: str, part: str, what: str) -> int:
+    """The model ranks' ``tp_replicas`` (``part``: "rep" or "smallrep")
+    the same bits -> how many tensors."""
+    import torch
+
+    reps = [torch.load(job_path + f".{part}{r}", weights_only=False)
+            for r in range(TP_MODEL)]
+    for r in range(1, TP_MODEL):
+        dp_same(reps[r], reps[0], f"{what}: rank {r}'s replicated tensors "
+                "against rank 0's")
+    return len(reps[0])
+
+
+def tp_check_full(tag: str, job_path: str, res, ref, where: str,
+                  backend: str, card: str):
+    """(b)'s checks and lines for the ranks' results ``res`` against the
+    one process's ``ref``."""
+    import statistics
+
+    import torch
+
+    a, b = (x["full"] for x in res)
+    n_rep = tp_same_replicas(job_path, "rep", f"({tag})")
+    if a["split"] != b["split"] or not a["split"]:
+        raise PhaseError(f"({tag}) the ranks split {len(a['split'])} and "
+                         f"{len(b['split'])} leaves")
+    rows = [k for k in a["split"] if a["local_rows"][k][0] * TP_MODEL
+            != ref["shapes"][k][0]]
+    if rows:
+        raise PhaseError(f"({tag}) split leaves without out / {TP_MODEL} "
+                         f"rows: {rows[:4]}")
+    errs = {k: abs(a["step1"][k] - ref["step1"][k]) / abs(ref["step1"][k])
+            for k in ("loss", "psnr")}
+    mus = [torch.load(job_path + f".mu{r}", weights_only=False)
+           for r in range(TP_MODEL)]
+    if any(not torch.equal(mus[0][k], mus[1][k]) for k in mus[0]):
+        raise PhaseError(f"({tag}) the gathered first moments differ "
+                         "between the ranks")
+
+    def share(x, y):
+        return float((x - y).abs().max()) / float(y.abs().max())
+
+    # per split leaf: (against one process, one process's bf16 against
+    # fp32, the ranks' against fp32, leaf)
+    rows = [(share(mus[0][k], ref["mu"][k]),
+             share(ref["mu"][k], ref["mu32"][k]),
+             share(mus[0][k], ref["mu32"][k]), k) for k in a["split"]]
+    worst = max(rows)
+    # the margins of the two bounds (<= 0 holds), largest first
+    over_fp32 = max((r[2] - TP_FP32_RATIO * r[1] - TP_MU_SHARE, r[3])
+                    for r in rows)
+    exact = [r for r in rows if r[1] < TP_MU_SHARE]
+    over_one = max(((r[0] - TP_MU_SHARE, r[3]) for r in exact),
+                   default=(-TP_MU_SHARE, None))
+    ms = statistics.median(a["ms"])
+    print(f"[tp] ({tag}) {TP_MODEL} model ranks over {backend} on {where}, "
+          f"{TP_GRIDS} grids of 1024 rays at the flagship widths, bf16, "
+          f"{len(a['split'])} leaves split: step 1's loss and psnr within "
+          f"{errs['loss']:.3e} / {errs['psnr']:.3e} of one process's (bound "
+          f"{TP_REL}); Adam's first moment of a split leaf at most "
+          f"{worst[0]:.3e} of its largest off one process's ({worst[3]}, "
+          f"whose own bf16 error against fp32 is {worst[1]:.3e}; the "
+          f"ranks' against fp32 {worst[2]:.3e}); the ranks' error against "
+          f"fp32 at most {max(r[2] / r[1] for r in rows):.3f}x one "
+          f"process's, every leaf within {TP_FP32_RATIO}x + {TP_MU_SHARE} "
+          f"by {-over_fp32[0]:.3e} at least ({over_fp32[1]}); the "
+          f"{len(exact)} leaves whose own bf16 error is under "
+          f"{TP_MU_SHARE} within {TP_MU_SHARE} of one process's by "
+          f"{-over_one[0]:.3e} at least ({over_one[1]}); the replicated "
+          f"tensors the same bits on both ranks over {n_rep} tensors")
+    gb = {k: v / 1e9 for k, v in a["bytes"].items()}
+    print(f"[tp] ({tag}) {TP_TIMED} timed steps: median {ms:.2f} ms a step, "
+          f"{1e3 / ms:.3f} steps/s (one process of {TP_GRIDS} grids: "
+          f"{ref['ms']:.2f} ms, {1e3 / ref['ms']:.3f} steps/s); peak memory "
+          f"a rank {[round(x['full']['peak_gib'], 2) for x in res]} GiB "
+          f"against one process's {ref['peak_gib']:.2f}; the collectives "
+          f"a step a rank: {gb['gather_from_model']:.3f} GB gathered, "
+          f"{gb['copy_to_model']:.3f} GB of input gradients summed "
+          f"({card})")
+    if not (max(errs.values()) <= TP_REL and over_fp32[0] <= 0.0
+            and over_one[0] <= 0.0):
+        raise PhaseError(f"({tag}) step 1 not within the bounds of one "
+                         "process's")
+    bad = [x for x in a["losses"] + b["losses"] if not x == x
+           or abs(x) == float("inf")]
+    if bad:
+        raise PhaseError(f"({tag}) non-finite timed losses {bad}")
+
+
+def phase_tp(device, workdir: str, card: str):
+    """Phase 13: (a) and (b) on two ranks of the one card over gloo, (c)
+    over NCCL where two cards are visible."""
+    import statistics
+
+    import torch
+
+    from crnerf_tpu_torch.train.step import make_train_step
+
+    t_phase = time.perf_counter()
+    tp_dir = os.path.join(workdir, "tp")
+    os.makedirs(tp_dir, exist_ok=True)
+    small, small_draws, full = tp_configs()
+
+    # the one-process references on this card: (a) the small fp32 step
+    state, step, staged = make_trainer(small, device, SEED, (24, 18), 1)
+    with full_fp32():
+        state, m = step(state, staged[0],
+                        {k: v.to(device) for k, v in small_draws.items()})
+    small_ref = ({k: v.detach().cpu() for k, v in
+                  state.system.state_dict().items()}, float(m["loss"]))
+    del state, step, staged
+    # (b) step 1 on the seeded draws, then timed steps
+    draws = seeded_draws(full, TP_GRIDS, SEED + 13)
+    draws_path = os.path.join(tp_dir, "draws.pt")
+    torch.save(draws, draws_path)
+    with user_flags():
+        state, sched, staged = seeded_state(full, device, SEED + 13,
+                                            (112, 84))
+        step = make_train_step(state.system, state.optimizer, sched,
+                               TP_GRIDS)
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        state, m = step(state, staged[0],
+                        {k: v.to(device) for k, v in draws.items()})
+        ref = {"step1": {"loss": float(m["loss"]), "psnr": float(m["psnr"])},
+               "mu": {k: state.optimizer.state[p]["exp_avg"].to(
+                   "cpu", copy=True)
+                      for k, p in state.system.named_parameters()},
+               "shapes": {k: list(p.shape) for k, p in
+                          state.system.named_parameters()}}
+        times, _, _ = timed_steps(state, step, staged, TP_TIMED, 1)
+        ref["ms"] = statistics.median(times)
+        ref["peak_gib"] = torch.cuda.max_memory_allocated(device) / 2 ** 30
+        del state, step, staged
+        dp_release()
+    # the same step at fp32: each leaf's own bf16 error
+    f32 = full.replace(compute_dtype="float32")
+    state, sched, staged = seeded_state(f32, device, SEED + 13, (112, 84))
+    step = make_train_step(state.system, state.optimizer, sched, TP_GRIDS)
+    with full_fp32():
+        state, _ = step(state, staged[0],
+                        {k: v.to(device) for k, v in draws.items()})
+    ref["mu32"] = {k: state.optimizer.state[p]["exp_avg"].to(
+                       "cpu", copy=True)
+                   for k, p in state.system.named_parameters()}
+    del state, step, staged
+    dp_release()
+
+    job_path, res = tp_ranks(tp_dir, "ab", "gloo", False, True, draws_path)
+    # (a)
+    n_rep = tp_same_replicas(job_path, "smallrep", "(a)")
+    got = [torch.load(job_path + f".small{r}", weights_only=False)
+           for r in range(TP_MODEL)]
+    want, want_loss = small_ref
+    worst, other, top = 0.0, [], (-1.0, "")
+    for k, v in want.items():
+        if not torch.equal(got[0][k], got[1][k]):
+            raise PhaseError(f"(a) the gathered {k} differs between ranks")
+        if not torch.equal(got[0][k], v):
+            other.append(k)
+        diff = (got[0][k].double() - v.double()).abs()
+        excess = diff - TP_SMALL_TOL["rtol"] * v.double().abs()
+        worst = max(worst, float(excess.max()))
+        top = max(top, (float(diff.max()), k))
+    loss_rel = abs(res[0]["small"]["loss"] - want_loss) / abs(want_loss)
+    print(f"[tp] (a) the small fp32 step on {TP_MODEL} model ranks over gloo "
+          f"on one card against one process on the same card: "
+          f"parameters and statistics within rtol {TP_SMALL_TOL['rtol']} + "
+          f"{max(worst, 0.0):.3e} (bound {TP_SMALL_TOL['atol']}), "
+          f"{len(want) - len(other)} of {len(want)} the same bits, the "
+          f"largest difference {top[0]:.3e} ({top[1]}); the loss within "
+          f"{loss_rel:.3e} (bound {TP_SMALL_TOL['loss']}); the replicated "
+          f"tensors the same bits on both ranks over {n_rep} tensors "
+          f"({card})")
+    if not (worst <= TP_SMALL_TOL["atol"]
+            and loss_rel <= TP_SMALL_TOL["loss"]):
+        raise PhaseError("(a) the two-rank step is not within the bounds "
+                         "of the one-process step")
+    # (b)
+    tp_check_full("b", job_path, res, ref, "one card", "gloo", card)
+    # (c)
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"[tp] (c) did not run: {n_cards} CUDA device(s) visible; "
+              f"NCCL needs a card a rank")
+    else:
+        job_c, res_c = tp_ranks(tp_dir, "c", "nccl", True, False,
+                                draws_path)
+        tp_check_full("c", job_c, res_c, ref, "two cards", "nccl", card)
+    print(f"[tp] phase 13 in {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--profile_dir", type=str, default="",
@@ -4948,11 +5396,12 @@ def main(argv=None) -> int:
             apps = phase_apps(device, workdir, card, cli_scene_)
             dp_launches = phase_dp(device, workdir, card)
             enc_c_launches = phase_encode_c(device, workdir, card, cli_stats)
+            phase_tp(device, workdir, card)
     except Exception as e:  # any phase failing fails the run
         print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
               file=sys.stderr)
         return 1
-    print(f"[run] phases 2-12 in {time.perf_counter() - t_run:.1f} s "
+    print(f"[run] phases 2-13 in {time.perf_counter() - t_run:.1f} s "
           f"({card})")
     # every kernel's entry at the shape its main path gives it: the serve
     # tile's fine pass (8192 rays x S=512) and the train step's fine pass

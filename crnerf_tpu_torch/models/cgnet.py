@@ -31,6 +31,7 @@ from torch import nn
 from crnerf_tpu_torch.models.common import (
     IEEEConv2d,
     PReLU,
+    linear,
     nchw,
     nhwc,
     resize_bilinear,
@@ -102,7 +103,8 @@ class FGlo(nn.Module):
 
     def forward(self, x):
         y = torch.mean(x, dim=(2, 3))
-        y = torch.sigmoid(self.Dense_1(torch.relu(self.Dense_0(y))))
+        y = torch.sigmoid(linear(self.Dense_1,
+                                 torch.relu(linear(self.Dense_0, y))))
         return x * y[:, :, None, None]
 
 

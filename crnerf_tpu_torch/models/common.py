@@ -15,6 +15,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.autograd.function import once_differentiable
 
+from crnerf_tpu_torch.parallel import tp
+
 
 def nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
@@ -305,8 +307,13 @@ class IEEEConv2d(nn.Conv2d):
     parameters and names, no TF32 at fp32."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_ieee(x, self.weight, self.bias, self.stride,
-                           self.padding, self.dilation, self.groups)
+        def product(w, x):
+            return conv2d_ieee(x, w, tp.local_rows(self.bias, w),
+                               self.stride, self.padding, self.dilation,
+                               tp.local_groups(w, self.groups))
+
+        return tp.columns(product, self.weight, x, dim=1,
+                          grouped=self.groups > 1)
 
 
 def conv(layer: nn.Conv2d, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
@@ -316,8 +323,11 @@ def conv(layer: nn.Conv2d, x: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
     (``conv2d_ieee``), as the JAX package computes it on the CPU; at any
     dtype the backward keeps its bits from run to run."""
     fn = conv2d_ieee if dt == torch.float32 else conv2d_deterministic
-    y = fn(x.to(dt), layer.weight.to(dt), None, layer.stride, layer.padding,
-           layer.dilation, layer.groups)
+    y = tp.columns(
+        lambda w, x: fn(x.to(dt), w.to(dt), None, layer.stride,
+                        layer.padding, layer.dilation,
+                        tp.local_groups(w, layer.groups)),
+        layer.weight, x, dim=1, grouped=layer.groups > 1)
     return y if layer.bias is None else y + layer.bias.to(dt)[:, None, None]
 
 
@@ -325,8 +335,16 @@ def conv1x1(layer: nn.Conv2d, x: torch.Tensor,
             dt: torch.dtype) -> torch.Tensor:
     """A 1x1 ``nn.Conv(dtype=dt)`` on NHWC, as the matrix product it is,
     with the bias added after the rounding as in ``conv``."""
-    y = F.linear(x.to(dt), layer.weight[:, :, 0, 0].to(dt))
+    y = tp.columns(lambda w, x: F.linear(x.to(dt), w[:, :, 0, 0].to(dt)),
+                   layer.weight, x)
     return y if layer.bias is None else y + layer.bias.to(dt)
+
+
+def linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer(x)``, the bias fused, through the model split."""
+    return tp.columns(
+        lambda w, x: F.linear(x, w, tp.local_rows(layer.bias, w)),
+        layer.weight, x)
 
 
 class ConvRefl(nn.Module):

@@ -20,6 +20,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from crnerf_tpu_torch.models.common import leaky_relu
+from crnerf_tpu_torch.parallel import tp
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -36,17 +37,31 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
 
 def dense(layer: nn.Linear, x: torch.Tensor, dt: torch.dtype):
     """flax ``nn.Dense(dtype=dt)``: input and kernel cast to dt, the product
-    rounded to dt, then the bias added at dt."""
-    return F.linear(x.to(dt), layer.weight.to(dt)) + layer.bias.to(dt)
+    rounded to dt, then the bias added at dt (the product through the
+    model split, ``parallel.tp.columns``)."""
+    y = tp.columns(lambda w, x: F.linear(x.to(dt), w.to(dt)), layer.weight,
+                   x)
+    return y + layer.bias.to(dt)
 
 
 def split_dense(layer: nn.Linear, a: torch.Tensor, b: torch.Tensor,
                 dt: torch.dtype):
     """Dense over cat([a, b]) without the concat: a @ K[:da] + b @ K[da:]."""
     da = a.shape[-1]
-    w = layer.weight.to(dt)
-    out = F.linear(a.to(dt), w[:, :da]) + F.linear(b.to(dt), w[:, da:])
-    return out + layer.bias.to(dt)
+
+    def product(w, a, b):
+        w = w.to(dt)
+        return F.linear(a.to(dt), w[:, :da]) + F.linear(b.to(dt), w[:, da:])
+
+    return tp.columns(product, layer.weight, a, b) + layer.bias.to(dt)
+
+
+def sigma_head(layer: nn.Linear, h: torch.Tensor) -> torch.Tensor:
+    """The fp32 Softplus sigma head on unrounded weights, its bias fused
+    (through the model split: the rule leaves a head of one output whole)."""
+    return softplus(tp.columns(
+        lambda w, h: F.linear(h.float(), w, tp.local_rows(layer.bias, w)),
+        layer.weight, h))
 
 
 class NerfMLP(nn.Module):
@@ -85,8 +100,7 @@ class NerfMLP(nn.Module):
             else:
                 h = dense(self.trunk(i), h, dt)
             h = torch.relu(h)
-        sigma = softplus(F.linear(h.float(), self.sigma.weight,
-                                  self.sigma.bias))
+        sigma = sigma_head(self.sigma, h)
         h_final = dense(self.xyz_encoding_final, h, dt)
         d = torch.relu(split_dense(self.dir_encoding, h_final, dir_emb, dt))
         feat = sigmoid(dense(self.feature, d, dt))
@@ -174,8 +188,7 @@ class NerfTanhMLP(nn.Module):
                 h = torch.cat([x, h], -1)
             h = leaky_relu(dense(getattr(self, f"xyz_encoding_{i + 1}"), h,
                                  dt))
-        sigma = softplus(F.linear(h.float(), self.sigma.weight,
-                                  self.sigma.bias))
+        sigma = sigma_head(self.sigma, h)
         if sigma_only:
             return sigma
         h_final = dense(self.xyz_encoding_final, h, dt)

@@ -15,10 +15,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
-from crnerf_tpu_torch.models.common import conv1x1, leaky_relu
+from crnerf_tpu_torch.models.common import conv1x1, leaky_relu, linear
 from crnerf_tpu_torch.models.decoder import NeuralRenderer
 
 
@@ -44,7 +43,7 @@ class GramCNN(nn.Module):
         x = conv1x1(self.conv3, x, dt).float()
         flat = x.reshape(n, h * w, self.m)
         gram = torch.bmm(flat.transpose(1, 2), flat) / (h * w)
-        return F.linear(gram.reshape(n, -1), self.fc.weight, self.fc.bias)
+        return linear(self.fc, gram.reshape(n, -1))
 
 
 class StyleTransform(nn.Module):

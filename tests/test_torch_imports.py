@@ -1,9 +1,11 @@
 """The port imports torch and never jax, flax, optax or the JAX package:
 every module of crnerf_tpu_torch (the train/ and data/ packages, the
 trainer, the checkpoints and the apps, the conv, sincos, pipelined-render
-and sublane-stores ops, the spike tools, parallel/mesh.py, LPIPS and the
-model zoo's tail included), and chip_smoke.py, import with all four
-blocked. Its Config keeps the JAX
+and sublane-stores ops, the spike tools, parallel/mesh.py and
+parallel/tp.py, LPIPS and the model zoo's tail included), and
+chip_smoke.py, import with all four blocked; parallel/tp.py and the
+models that consult it also import, and a split layer's reader runs on the
+CPU, with triton blocked and no nvcc to be found. Its Config keeps the JAX
 Config's names and defaults. Its entry points (prepare, train, eval,
 metrics, video, serve, the spike tools) run on the card unless the caller
 asks for the CPU."""
@@ -41,7 +43,8 @@ for needed in ("train.step", "train.losses", "train.optim", "train.state",
                "utils.torch_port", "utils.lanczos", "utils.visualization",
                "render.camera_path", "data.blender", "apps.eval_metric",
                "apps.video", "tools.codec_times", "parallel.mesh",
-               "eval.lpips", "models.esrgan", "models.networks"):
+               "parallel.tp", "eval.lpips", "models.esrgan",
+               "models.networks"):
     assert "crnerf_tpu_torch." + needed in names, needed
 import chip_smoke
 chip_smoke.serve_config()
@@ -59,6 +62,38 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip().splitlines()[-1]) >= 30
+
+
+_TP_CODE = """
+import os, shutil, sys
+sys.modules["triton"] = None
+assert shutil.which("nvcc") is None
+import torch
+from crnerf_tpu_torch.models import nerf_mlp
+from crnerf_tpu_torch.parallel import tp
+mesh2d = tp.make_mesh_2d(1, 1, "cpu")
+assert (mesh2d.n_data, mesh2d.n_model) == (1, 1)
+y = nerf_mlp.dense(torch.nn.Linear(4, 6), torch.ones(2, 4), torch.float32)
+assert y.shape == (2, 6)
+loaded = [k for k, v in sys.modules.items() if v is not None]
+assert not any(k.split(".")[0] in ("triton", "jax", "crnerf_tpu")
+               for k in loaded), loaded
+assert "crnerf_tpu_torch.ops._build" not in loaded
+print("ok")
+"""
+
+
+def test_tp_imports_and_runs_on_the_cpu_without_triton_or_nvcc(tmp_path):
+    """parallel/tp.py builds nothing and imports no Triton: with triton
+    blocked, no nvcc on the PATH and CUDA_HOME empty, it and the models
+    import and a layer's reader runs on the CPU."""
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_HOME=str(tmp_path),
+               PATH=os.path.dirname(sys.executable))
+    out = subprocess.run([sys.executable, "-c", _TP_CODE], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_config_fields_match_the_jax_config():
