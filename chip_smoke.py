@@ -189,7 +189,10 @@ Phases, each fatal on failure:
      each started as torchrun starts one: one step against one process of
      16 grids on the same batch and draws (parameters within
      tests/test_torch_train_step.py's one-step bound, the ranks' states
-     the same bits), the train app's per-rank ``run`` for 2 epochs (steps/s,
+     the same bits; CGNet's gradient on the 16-grid step's input and
+     cotangent, 16 images at once against 8 + 8 and against float64,
+     each within twice the JAX package's own fp32 distance from float64,
+     ``CGNET_SHARE_BOUND``), the train app's per-rank ``run`` for 2 epochs (steps/s,
      global rays/s, each rank's peak memory, the launch counters zeroed
      just before and read just after: every stash forward, chain and
      weight gradient on wgmma, K1 in the sharded validations), a CLI run
@@ -212,7 +215,10 @@ Phases, each fatal on failure:
      the small fp32 step at encode_c on the stash route against
      pallas_train=False on the same batch and draws, the NeRF MLPs' and
      enc_cont's gradients under ``routes_agree``'s bound, and three radam
-     steps at the flagship config, finite
+     steps at the flagship config, finite; (d) the zoo's legacy pair
+     ``Encoder3`` -> ``Decoder3`` at 1 x 160 x 224 x 3 on seeded weights
+     against the CPU (1e-5 of the largest), its backward twice for the
+     same bits, and ``get_ndc_rays`` on 4096 rays against the CPU
  13. the 2-D (data, model) mode (``parallel/tp.py``) on the module route
      (pallas_train=False: no hand kernel) at the flagship widths, two
      model ranks on the one card over gloo, each started as torchrun
@@ -4190,10 +4196,20 @@ DP_A_STEPS = 12
 # step's own input and mask cotangent, in one process, 16 images at once
 # against 8 + 8 gives the same 6.612e-3 (level3_0.F_loc; cuDNN's
 # convolution backward by batch size; 5e-6 on the CPU), and the one pass is
-# itself 5.0e-3 off float64: CGNet's per-image norms make each weight
-# gradient a sum of terms that cancel (``cgnet_split_gap``, printed below;
-# PERF.md and ROADMAP §3).
+# itself 5.0e-3 off float64. That is no fault of the port: CGNet's fp32
+# gradient jumps where a PReLU input crosses zero, and the JAX package's
+# own fp32 gradient is off float64 by as much (``cgnet_split_gap`` below,
+# gated by CGNET_SHARE_BOUND; ROADMAP §3, settled).
 DP_MU_SHARE = 3e-2
+# The JAX package's fp32 CGNet gradient against float64 at 224x160, the
+# median over four draws of the worst leaf's largest difference over the
+# leaf's largest (tests/test_torch_cgnet_f64.py, JAX_FP32_F64_SHARE: draws
+# from 6.0e-3 to 3.8e-2; the port's median there 4.1e-3). Phase 11 holds
+# the card's split gap and its one pass against float64 to twice it
+# (CGNET_SHARE_SLACK there), which stays below the 3.7e-2 of the JAX
+# step's own fp32 gradient at 64x48 (tests/test_torch_train_step.py).
+JAX_FP32_F64_SHARE = 1.628e-2
+CGNET_SHARE_BOUND = 2.0 * JAX_FP32_F64_SHARE
 
 
 def dp_release():
@@ -4556,9 +4572,18 @@ def phase_dp(device, workdir: str, card: str):
           f"against the sum of {DP_RANKS} slices of {DP_GRIDS}, "
           f"{gap['split'][0]:.3e} of the leaf's largest ({gap['split'][1]}); "
           f"the one-pass fp32 gradient against float64 on the same "
-          f"cotangent {gap['f64'][0]:.3e} ({gap['f64'][1]}). DP_MU_SHARE "
+          f"cotangent {gap['f64'][0]:.3e} ({gap['f64'][1]}); bound "
+          f"{CGNET_SHARE_BOUND:.3e} (twice the JAX package's own fp32 "
+          f"distance from float64, {JAX_FP32_F64_SHARE:.3e}). DP_MU_SHARE "
           f"reads the two ranks' first moments against the 16-grid "
           f"process's, each rank's cotangent from its own forward ({card})")
+    for what, (share, leaf) in (("the split sum", gap["split"]),
+                                ("the one pass against float64",
+                                 gap["f64"])):
+        if not share <= CGNET_SHARE_BOUND:
+            raise PhaseError(f"CGNet's fp32 gradient: {what} is "
+                             f"{share:.3e} off in {leaf}, above "
+                             f"{CGNET_SHARE_BOUND:.3e}")
     step_inputs = os.path.join(dp_dir, "step_inputs.pt")
     torch.save({"batch": batch, "draws": draws}, step_inputs)
     print(f"[dp] one step of one process of {TRAIN_GRIDS} grids in "
@@ -4774,6 +4799,9 @@ def dp_two_ranks(ctx, tag: str, backend: str, devices: bool):
 ENC_C_FLAGS = ["--encode_a", "--encode_c", "--encode_random", "--use_mask"]
 ENC_C_EPOCHS = 1
 RANGER_PREEMPT_AFTER = 20   # past the Lookahead syncs at steps 6, 12, 18
+LEGACY_TOL = 1e-5           # Encoder3 / Decoder3, card against the CPU
+NDC_RAYS = 4096
+NDC_RTOL = 1e-6
 
 
 def phase_encode_c(device, workdir: str, card: str, cli_stats):
@@ -4911,8 +4939,72 @@ def phase_encode_c(device, workdir: str, card: str, cli_stats):
         raise PhaseError("radam: a loss or a parameter is not finite")
     optimizer_times(state.system, card)
     del state, step, staged
+    legacy_zoo(device, card)
     print(f"[encode_c] phase 12: {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+def legacy_zoo(device, card: str):
+    """The zoo's last pieces on the card: ``Encoder3`` -> ``Decoder3`` on
+    seeded weights at the appearance size against the same modules on the
+    CPU (``LEGACY_TOL`` of the largest value), their backward twice for the
+    same bits, and ``get_ndc_rays`` on NDC_RAYS rays against the CPU
+    (``NDC_RTOL``)."""
+    import copy
+
+    import torch
+
+    from crnerf_tpu_torch.core.rays import get_ndc_rays
+    from crnerf_tpu_torch.models.appearance import Decoder3, Encoder3
+    from crnerf_tpu_torch.models.common import ieee_fp32_conv
+
+    t0 = time.perf_counter()
+    torch.manual_seed(SEED + 12)
+    enc, dec = Encoder3(), Decoder3()
+    gen = torch.Generator().manual_seed(SEED + 12)
+    x = torch.rand((1, 160, 224, 3), generator=gen)
+    with torch.no_grad():
+        want_f = enc(x)
+        want = dec(want_f)
+    enc_d, dec_d = (copy.deepcopy(m).to(device) for m in (enc, dec))
+    xd = x.to(device)
+    with ieee_fp32_conv():
+        with torch.no_grad():
+            got_f = enc_d(xd)
+            got = dec_d(got_f)
+        cot = torch.randn(got.shape, generator=gen).to(device)
+        bits = []
+        for _ in range(2):
+            for m in (enc_d, dec_d):
+                m.zero_grad(set_to_none=True)
+            (dec_d(enc_d(xd)) * cot).sum().backward()
+            bits.append([p.grad.clone() for m in (enc_d, dec_d)
+                         for p in m.parameters()])
+    torch.cuda.synchronize()
+    errs = {name: float((g.cpu() - w).abs().max() / w.abs().max())
+            for name, g, w in (("features", got_f, want_f),
+                               ("output", got, want))}
+    same = all(torch.equal(a, b) for a, b in zip(*bits))
+    o = torch.rand((NDC_RAYS, 3), generator=gen) * 2 - 1
+    d = torch.randn((NDC_RAYS, 3), generator=gen)
+    d[:, 2] = -d[:, 2].abs().clamp_min(0.2)
+    ndc_want = get_ndc_rays(378, 504, 407.5, 1.0, o, d)
+    ndc_got = get_ndc_rays(378, 504, 407.5, 1.0, o.to(device), d.to(device))
+    ndc_err = max(float((g.cpu() - w).abs().max() / w.abs().max())
+                  for g, w in zip(ndc_got, ndc_want))
+    print(f"[encode_c] Encoder3 -> Decoder3 at 1 x 160 x 224 x 3 on the card "
+          f"(IEEE fp32) against the CPU: features {errs['features']:.3e}, "
+          f"output {errs['output']:.3e} of the largest (bound "
+          f"{LEGACY_TOL:.0e}); the backward twice: "
+          f"{'the same bits' if same else 'OTHER BITS'} over "
+          f"{len(bits[0])} gradients; get_ndc_rays on {NDC_RAYS} rays "
+          f"against the CPU: {ndc_err:.3e} of the largest (bound "
+          f"{NDC_RTOL:.0e}); "
+          f"{time.perf_counter() - t0:.1f} s ({card})")
+    if not (max(errs.values()) <= LEGACY_TOL and same
+            and ndc_err <= NDC_RTOL):
+        raise PhaseError(f"the legacy pair or get_ndc_rays on the card: "
+                         f"{errs}, same bits {same}, ndc {ndc_err:.3e}")
 
 
 def centralize_per_tensor(grads):

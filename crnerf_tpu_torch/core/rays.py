@@ -5,7 +5,8 @@ d = ((i-cx)/fx, -(j-cy)/fy, -1), world directions normalized to unit length.
 ``cam_rays_uv`` is the on-device ray maker of the serving path
 (``crnerf_tpu/render/inference.py`` ``_cam_rays_uv``). The ``*_np``
 functions are the host-side numpy forms the data layer builds its ray
-buffers with.
+buffers with. ``get_ndc_rays`` is the reference's NDC transform, on no
+path of the system (as in the JAX package).
 """
 
 from __future__ import annotations
@@ -36,6 +37,35 @@ def get_rays(directions: torch.Tensor, c2w: torch.Tensor):
     rays_d = rays_d / torch.linalg.vector_norm(rays_d, dim=-1, keepdim=True)
     rays_o = c2w[:, 3].expand(rays_d.shape)
     return rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+
+
+def _ndc_rays(H, W, focal, near, rays_o, rays_d, stack):
+    """The NDC transform in the JAX package's order of operations, for
+    torch tensors or numpy arrays (``stack`` the library's stack)."""
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+
+    ox_oz = rays_o[..., 0] / rays_o[..., 2]
+    oy_oz = rays_o[..., 1] / rays_o[..., 2]
+
+    o0 = -1.0 / (W / (2.0 * focal)) * ox_oz
+    o1 = -1.0 / (H / (2.0 * focal)) * oy_oz
+    o2 = 1.0 + 2.0 * near / rays_o[..., 2]
+
+    d0 = -1.0 / (W / (2.0 * focal)) * (rays_d[..., 0] / rays_d[..., 2] - ox_oz)
+    d1 = -1.0 / (H / (2.0 * focal)) * (rays_d[..., 1] / rays_d[..., 2] - oy_oz)
+    d2 = 1.0 - o2
+
+    return stack([o0, o1, o2], -1), stack([d0, d1, d2], -1)
+
+
+def get_ndc_rays(H: int, W: int, focal: float, near, rays_o: torch.Tensor,
+                 rays_d: torch.Tensor):
+    """World rays (..., 3) -> their origins and directions in normalized
+    device coordinates: each ray moved to the near plane z = -near, then
+    x, y scaled by 2 focal / (W, H) over -z and z mapped to 1 + 2 near / z
+    (``crnerf_tpu/core/rays.py`` ``get_ndc_rays``)."""
+    return _ndc_rays(H, W, focal, near, rays_o, rays_d, torch.stack)
 
 
 def cam_rays_uv(c2w: torch.Tensor, intr: torch.Tensor, near: float,
@@ -86,6 +116,12 @@ def get_rays_np(directions: np.ndarray, c2w: np.ndarray):
     rays_d = rays_d / np.linalg.norm(rays_d, axis=-1, keepdims=True)
     rays_o = np.broadcast_to(c2w[:, 3], rays_d.shape)
     return rays_o.reshape(-1, 3), rays_d.reshape(-1, 3)
+
+
+def get_ndc_rays_np(H: int, W: int, focal: float, near,
+                    rays_o: np.ndarray, rays_d: np.ndarray):
+    """``get_ndc_rays`` in numpy."""
+    return _ndc_rays(H, W, focal, near, rays_o, rays_d, np.stack)
 
 
 def make_ray_buffer(directions: np.ndarray, c2w: np.ndarray, near: float,

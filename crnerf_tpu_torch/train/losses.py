@@ -27,6 +27,22 @@ from typing import Dict, Tuple
 import torch
 
 
+class CosineAnnealingWeight:
+    """min + (max - min) (1 + cos(pi t / t_max)) / 2: max at t = 0, min at
+    t = t_max, back up past it. ``t`` is a Python number or a one-element
+    tensor, read to the host (the JAX class computes in jnp; the port's
+    schedules are host floats, as ``ExponentialAnnealingWeight``'s)."""
+
+    def __init__(self, max_w: float, min_w: float, t_max: float):
+        self.max = max_w
+        self.min = min_w
+        self.t_max = t_max
+
+    def __call__(self, t) -> float:
+        return self.min + (self.max - self.min) * (
+            1 + math.cos(math.pi * float(t) / self.t_max)) / 2
+
+
 class ExponentialAnnealingWeight:
     """max(min, max * exp(-t * k))."""
 

@@ -44,7 +44,7 @@ for needed in ("train.step", "train.losses", "train.optim", "train.state",
                "render.camera_path", "data.blender", "apps.eval_metric",
                "apps.video", "tools.codec_times", "parallel.mesh",
                "parallel.tp", "eval.lpips", "models.esrgan",
-               "models.networks"):
+               "models.networks", "models.appearance", "core.rays"):
     assert "crnerf_tpu_torch." + needed in names, needed
 import chip_smoke
 chip_smoke.serve_config()
