@@ -218,7 +218,15 @@ Phases, each fatal on failure:
      steps at the flagship config, finite; (d) the zoo's legacy pair
      ``Encoder3`` -> ``Decoder3`` at 1 x 160 x 224 x 3 on seeded weights
      against the CPU (1e-5 of the largest), its backward twice for the
-     same bits, and ``get_ndc_rays`` on 4096 rays against the CPU
+     same bits, and ``get_ndc_rays`` on 4096 rays against the CPU; (e)
+     CGNet's ``norm="group"``: the small fp32 stash-route step card against
+     CPU, one flagship bf16 step with the launch counters zeroed just
+     before and read just after (every stash forward, chain and weight
+     gradient on wgmma, none on mma.sync), CGNet's backward on its style
+     images twice for the same bits, the step timed in turns with the
+     batch-norm step, and its weights.npz served through
+     RenderService.handle, one 320x240 frame at 256+256 (K1 on wgmma), the
+     bits of an in-process Renderer
  13. the 2-D (data, model) mode (``parallel/tp.py``) on the module route
      (pallas_train=False: no hand kernel) at the flagship widths, two
      model ranks on the one card over gloo, each started as torchrun
@@ -1162,11 +1170,14 @@ def small_step(device, seed: int, cfg, draws):
             launches)
 
 
-def small_step_check(device, seed: int, route: str = "stash"):
-    """-> the card's gradients of that step, by parameter name."""
+def small_step_check(device, seed: int, route: str = "stash", **kw):
+    """The small fp32 step of ``route`` (and the Config fields ``kw``) on
+    the card against the CPU -> the card's gradients of that step, by
+    parameter name, and its launch counts."""
     import torch
 
-    cfg, draws = small_step_inputs(seed, **ROUTES[route][0])
+    cfg, draws = small_step_inputs(seed, **ROUTES[route][0], **kw)
+    route += "".join(f", {k}={v}" for k, v in kw.items())
     out = {}
     for where, dev in (("card", device), ("cpu", torch.device("cpu"))):
         m, deltas, scales, g, launches = small_step(dev, seed, cfg, draws)
@@ -4807,9 +4818,11 @@ NDC_RTOL = 1e-6
 def phase_encode_c(device, workdir: str, card: str, cli_stats):
     """Phase 12: the reference's training command in this process, Ranger
     straight, stopped and resumed in subprocesses, the content heads'
-    gradients on two routes, and radam. Works on the scene cache that
-    phase 9 left in ``workdir`` (and writes one there if it is absent).
-    -> the in-process run's launch counts."""
+    gradients on two routes, radam, the legacy zoo, and CGNet's group norm
+    (``group_norm_check``). Works on the scene cache that phase 9 left in
+    ``workdir`` (and writes one there if it is absent). -> the launch
+    counts of the in-process run and of the group-norm check's counted
+    step and served frame."""
     import gc
     import math
 
@@ -4940,8 +4953,9 @@ def phase_encode_c(device, workdir: str, card: str, cli_stats):
     optimizer_times(state.system, card)
     del state, step, staged
     legacy_zoo(device, card)
+    gn = group_norm_check(device, workdir, card)
     print(f"[encode_c] phase 12: {time.perf_counter() - t0:.1f} s")
-    return launches
+    return {k: launches[k] + gn[k] for k in launches}
 
 
 def legacy_zoo(device, card: str):
@@ -5005,6 +5019,146 @@ def legacy_zoo(device, card: str):
             and ndc_err <= NDC_RTOL):
         raise PhaseError(f"the legacy pair or get_ndc_rays on the card: "
                          f"{errs}, same bits {same}, ndc {ndc_err:.3e}")
+
+
+GN_TURNS = 6     # step readings a side in the group-norm step's turns
+
+
+def group_norm_check(device, workdir: str, card: str):
+    """Phase 12 (e): CGNet's ``norm="group"``. The small fp32 stash-route
+    step card against CPU (``SMALL_STEP_TOL``, both passes on the mma.sync
+    pair); one flagship bf16 step, launch counters zeroed just before and
+    read just after (every stash forward, chain and weight gradient on
+    wgmma, none on mma.sync), finite; CGNet's backward on that step's style
+    images twice, the same bits; the step timed in turns with the
+    batch-norm step (batch, group, group, batch); and the system's
+    weights.npz served: one 320x240 frame at 256+256 through
+    RenderService.handle, launches counted (K1 on wgmma), the bits of an
+    in-process Renderer on the same weights. -> the launch counts of the
+    counted step and the served frame."""
+    import math
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from crnerf_tpu_torch.apps.serve import RenderService, load_system, warmup
+    from crnerf_tpu_torch.render.inference import Renderer
+    from crnerf_tpu_torch.utils import weights as bridge
+
+    t0 = time.perf_counter()
+    _, small = small_step_check(device, SEED, norm="group")
+    want = {k: (2 if k in ROUTES["stash"][2] else 0) for k in small}
+    if small != want:
+        raise PhaseError(f"the group-norm small step's launches {small}")
+
+    chunks = train_config().resolved_chunks()
+    runs = {norm: make_trainer(train_config(norm=norm), device, SEED,
+                               (112, 84), chunks)
+            for norm in ("group", "batch")}
+    state, step, staged = runs["group"]
+    torch.cuda.synchronize()
+    zero_counts()
+    state, m = step(state, staged[0])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    want = {k: (2 * chunks if k in ROUTES["stash"][1] else 0)
+            for k in launches}
+    if launches != want:
+        raise PhaseError(f"group-norm step: launch counters {launches}, "
+                         f"expected {want}")
+    bad = [k for k, v in m.items()
+           if not math.isfinite(float(torch.as_tensor(v)))]
+    if bad or not all(bool(torch.isfinite(p).all())
+                      for p in state.system.parameters()):
+        raise PhaseError(f"group-norm step: metrics {bad} or a parameter "
+                         "not finite")
+    cgnet = state.system.implicit_mask
+    if cgnet.norms():
+        raise PhaseError("the group-norm CGNet holds batch norms")
+    print(f"[group_norm] flagship bf16 step, norm=group: loss "
+          f"{float(m['loss']):.5f}, psnr {float(m['psnr']):.2f} dB, finite; "
+          f"launches { {k: v for k, v in launches.items() if v} }: every "
+          f"stash forward, chain and weight gradient on wgmma, none on "
+          f"mma.sync")
+
+    # CGNet's backward twice on the step's style images, a user's flags
+    whole01 = ((staged[0]["whole_img"][:, 0] + 1.0) / 2.0).contiguous()
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    cot = None
+    bits = []
+    with user_flags():
+        for _ in range(2):
+            x = whole01.clone().requires_grad_(True)
+            cgnet.zero_grad(set_to_none=True)
+            mask = cgnet(x)
+            if cot is None:
+                cot = torch.randn(mask.shape, generator=gen, device=device)
+            (mask * cot).sum().backward()
+            bits.append([mask.detach(), x.grad]
+                        + [p.grad.clone() for p in cgnet.parameters()])
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*bits))
+    print(f"[group_norm] CGNet (norm=group) on {tuple(whole01.shape)}: the "
+          f"mask, the input's and {len(bits[0]) - 2} parameters' gradients "
+          f"twice: {'the same bits' if same else 'OTHER BITS'}")
+    if not same:
+        raise PhaseError("the group-norm CGNet's backward changed its bits")
+    cgnet.zero_grad(set_to_none=True)
+
+    # the step in turns with the batch-norm step (its first step a warm-up;
+    # a step updates its state in place)
+    timed_steps(*runs["batch"], 1)
+    readings = {"batch": [], "group": []}
+    for norm in ("batch", "group", "group", "batch"):
+        readings[norm] += timed_steps(*runs[norm], GN_TURNS, first=1)[0]
+    med = {k: statistics.median(v) for k, v in readings.items()}
+    print(f"[group_norm] the flagship step in turns (batch, group, group, "
+          f"batch; {2 * GN_TURNS} steps a side): median {med['group']:.2f} "
+          f"ms with norm=group against {med['batch']:.2f} ms with "
+          f"norm=batch ({card})")
+
+    # the system's weights.npz, served and rendered in process
+    path = os.path.join(workdir, "group_norm_weights.npz")
+    bridge.save_npz(bridge.flax_from_state_dict(state.system), path)
+    del runs, state, step, staged
+    torch.cuda.empty_cache()
+    cfg = serve_config(norm="group")
+    svc = RenderService(cfg, load_system(cfg, path, device))
+    wa, ha = cfg.appearance_wh
+    style = np.random.default_rng(SEED + 19).uniform(
+        -1, 1, (1, ha, wa, 3)).astype(np.float32)
+    svc.styles["gn"] = style
+    w, h = FRAME_WH
+    req = {"op": "render", "wh": [w, h], "c2w": C2W, "fov": 60.0,
+           "near": NEAR, "far": FAR, "style_id": "gn", "inline": True}
+    warmup(svc, f"{w}x{h}")    # first launches: weight layout, allocator
+    zero_counts()
+    reply = svc.handle(req)
+    torch.cuda.synchronize()
+    served = read_counts()
+    if not reply.get("ok"):
+        raise PhaseError(f"group-norm serve: {reply}")
+    got = decode_png_rgb8(base64.b64decode(reply["png_b64"]))
+    tiles = -(-w * h // cfg.chunk)
+    want = {k: (2 * tiles if k == "fused_render_fwd" else 0) for k in served}
+    if served != want:
+        raise PhaseError(f"group-norm serve: launch counters {served}, "
+                         f"expected {want}")
+    r = Renderer(cfg, load_system(cfg, path, device))
+    ref = r.fetch(r.render_frame_cam_async(
+        np.asarray(C2W, np.float32), _fov_k(w, h), NEAR, FAR, (h, w), style,
+        outputs="rgb_u8"))["rgb_u8"]
+    print(f"[group_norm] the system's weights.npz served: one {w}x{h} frame "
+          f"at 256+256 in {reply['ms']:.1f} ms, launches "
+          f"{ {k: v for k, v in served.items() if v} } (K1 on wgmma), "
+          f"{'the bits' if np.array_equal(got, ref) else 'NOT the bits'} of "
+          f"an in-process Renderer; check (e) {time.perf_counter() - t0:.1f}"
+          f" s ({card})")
+    if not np.array_equal(got, ref):
+        raise PhaseError("the served group-norm frame is not the in-process "
+                         "Renderer's")
+    return {k: launches[k] + served[k] for k in launches}
 
 
 def centralize_per_tensor(grads):
@@ -5500,8 +5654,8 @@ def main(argv=None) -> int:
     # (16,384 rays x S=128), bf16, recurrence encode; K1's, K1-stash's and
     # K2's launches those of their main paths' runs: the serve phase's
     # frames (K1) and the flagship step's (K1-stash, K2), each with phase
-    # 10's counted runs, phase 11's timed two-rank run (both ranks) and
-    # phase 12's in-process run added
+    # 10's counted runs, phase 11's timed two-rank run (both ranks),
+    # phase 12's in-process run and its group-norm step and frame added
     main_kernel = next(r for r in records if r["variant"] == "wgmma"
                        and r["N"] == SERVE_TILE and r["S"] == 512)
     tk = next(r for r in train_records

@@ -1,6 +1,7 @@
 """CGNet transient-object mask network
 (``crnerf_tpu/models/cgnet.py`` ``ContextGuidedNetwork`` with classes=1,
-M=2, N=2, input_channel=3, norm='batch').
+M=2, N=2, input_channel=3, and either norm: 'batch', the reference's, or
+'group').
 
 BatchNorm has eps = 1e-3 (the flax module's; torch's default is 1e-5). In
 eval mode it uses its running statistics. In training mode it follows the
@@ -14,10 +15,19 @@ their mean over all grids, through ``update_running_stats`` (flax momentum 0.9 =
 momentum 0.1, and the running variance takes the biased batch variance,
 where ``nn.BatchNorm2d`` would store the unbiased one).
 
+GroupNorm (``norm='group'``) is flax's ``nn.GroupNorm`` as the JAX
+``_Norm`` builds it: the first of 8, 4, 2, 1 groups that divides C, eps
+1e-6, the statistics of each sample over its group's channels and H x W by
+flax's formula, E[x^2] - E[x]^2 clamped at 0, and the same computation in
+training and eval: no running statistics, nothing pending. Written out, not
+``F.group_norm`` (Welford's variance, another computation); its backward is
+broadcasts and reductions, no atomics, so it gives the same bits twice on
+the card.
+
 The depthwise 3x3 convs are ``groups=C`` convs with zero padding d and
 dilation d. Child names follow the flax module (``Conv_0``,
-``_Norm_0.BatchNorm_0``, ``PReLU_0``, ``FGlo_0``...) so the weight bridge
-is a rename.
+``_Norm_0.BatchNorm_0`` or ``_Norm_0.GroupNorm_0``, ``PReLU_0``,
+``FGlo_0``...) so the weight bridge is a rename.
 """
 
 from __future__ import annotations
@@ -39,11 +49,20 @@ from crnerf_tpu_torch.models.common import (
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.1   # torch convention: new = 0.9 * old + 0.1 * batch
+GN_EPS = 1e-6       # flax nn.GroupNorm's default
+NORMS = ("batch", "group")
 
 
 class _Norm(nn.Module):
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, kind: str = "batch"):
         super().__init__()
+        if kind not in NORMS:
+            raise ValueError(f"norm {kind!r} is not one of {NORMS}")
+        self.kind = kind
+        if kind == "group":
+            groups = next(g for g in (8, 4, 2, 1) if channels % g == 0)
+            self.GroupNorm_0 = nn.GroupNorm(groups, channels, eps=GN_EPS)
+            return
         self.BatchNorm_0 = nn.BatchNorm2d(channels, eps=BN_EPS,
                                           momentum=BN_MOMENTUM)
         # sums over the samples seen since update_running_stats of their
@@ -52,6 +71,8 @@ class _Norm(nn.Module):
         self.pending: Optional[Tuple[torch.Tensor, torch.Tensor, int]] = None
 
     def forward(self, x):
+        if self.kind == "group":
+            return self._group(x)
         bn = self.BatchNorm_0
         if not self.training:
             return bn(x)
@@ -65,13 +86,26 @@ class _Norm(nn.Module):
         mul = torch.rsqrt(var + bn.eps) * bn.weight[None, :, None, None]
         return (x - mean) * mul + bn.bias[None, :, None, None]
 
+    def _group(self, x):
+        gn = self.GroupNorm_0
+        n, c, h, w = x.shape
+        g = gn.num_groups
+        xg = x.reshape(n, g, c // g, h, w)
+        mean = xg.mean(dim=(2, 3, 4), keepdim=True)
+        var = torch.clamp_min((xg * xg).mean(dim=(2, 3, 4), keepdim=True)
+                              - mean * mean, 0.0)
+        mul = torch.rsqrt(var + gn.eps) * gn.weight.view(1, g, c // g, 1, 1)
+        y = (xg - mean) * mul + gn.bias.view(1, g, c // g, 1, 1)
+        return y.reshape(n, c, h, w)
+
 
 class ConvBNPReLU(nn.Module):
-    def __init__(self, n_in: int, n_out: int, k: int, stride: int = 1):
+    def __init__(self, n_in: int, n_out: int, k: int, stride: int = 1,
+                 norm: str = "batch"):
         super().__init__()
         self.Conv_0 = IEEEConv2d(n_in, n_out, k, stride, (k - 1) // 2,
                                 bias=False)
-        self._Norm_0 = _Norm(n_out)
+        self._Norm_0 = _Norm(n_out, norm)
         self.PReLU_0 = PReLU(n_out)
 
     def forward(self, x):
@@ -79,9 +113,9 @@ class ConvBNPReLU(nn.Module):
 
 
 class BNPReLU(nn.Module):
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, norm: str = "batch"):
         super().__init__()
-        self._Norm_0 = _Norm(channels)
+        self._Norm_0 = _Norm(channels, norm)
         self.PReLU_0 = PReLU(channels)
 
     def forward(self, x):
@@ -112,12 +146,12 @@ class ContextGuidedBlockDown(nn.Module):
     """(Cin, H, W) -> (n_out, H/2, W/2)."""
 
     def __init__(self, n_in: int, n_out: int, dilation: int = 2,
-                 reduction: int = 16):
+                 reduction: int = 16, norm: str = "batch"):
         super().__init__()
-        self.conv1x1 = ConvBNPReLU(n_in, n_out, 3, 2)
+        self.conv1x1 = ConvBNPReLU(n_in, n_out, 3, 2, norm)
         self.F_loc = _depthwise(n_out, 1)
         self.F_sur = _depthwise(n_out, dilation)
-        self._Norm_0 = _Norm(2 * n_out)
+        self._Norm_0 = _Norm(2 * n_out, norm)
         self.PReLU_0 = PReLU(2 * n_out)
         self.reduce = IEEEConv2d(2 * n_out, n_out, 1, bias=False)
         self.FGlo_0 = FGlo(n_out, reduction)
@@ -133,14 +167,14 @@ class ContextGuidedBlock(nn.Module):
     """Residual CG block."""
 
     def __init__(self, n_in: int, n_out: int, dilation: int = 2,
-                 reduction: int = 16, add: bool = True):
+                 reduction: int = 16, add: bool = True, norm: str = "batch"):
         super().__init__()
         n = n_out // 2
         self.add = add
-        self.conv1x1 = ConvBNPReLU(n_in, n, 1, 1)
+        self.conv1x1 = ConvBNPReLU(n_in, n, 1, 1, norm)
         self.F_loc = _depthwise(n, 1)
         self.F_sur = _depthwise(n, dilation)
-        self.bn_prelu = BNPReLU(n_out)
+        self.bn_prelu = BNPReLU(n_out, norm)
         self.FGlo_0 = FGlo(n_out, reduction)
 
     def forward(self, x):
@@ -152,23 +186,25 @@ class ContextGuidedBlock(nn.Module):
 
 class ContextGuidedNetwork(nn.Module):
     def __init__(self, classes: int = 1, M: int = 2, N: int = 2,
-                 input_channel: int = 3):
+                 input_channel: int = 3, norm: str = "batch"):
         super().__init__()
         c_in = input_channel
-        self.level1_0 = ConvBNPReLU(c_in, 32, 3, 2)
-        self.level1_1 = ConvBNPReLU(32, 32, 3, 1)
-        self.level1_2 = ConvBNPReLU(32, 32, 3, 1)
-        self.b1 = BNPReLU(32 + c_in)
-        self.level2_0 = ContextGuidedBlockDown(32 + c_in, 64, 2, 8)
+        self.level1_0 = ConvBNPReLU(c_in, 32, 3, 2, norm)
+        self.level1_1 = ConvBNPReLU(32, 32, 3, 1, norm)
+        self.level1_2 = ConvBNPReLU(32, 32, 3, 1, norm)
+        self.b1 = BNPReLU(32 + c_in, norm)
+        self.level2_0 = ContextGuidedBlockDown(32 + c_in, 64, 2, 8, norm)
         self.level2 = [f"level2_{i + 1}" for i in range(M - 1)]
         for name in self.level2:
-            self.add_module(name, ContextGuidedBlock(64, 64, 2, 8))
-        self.bn_prelu_2 = BNPReLU(128 + c_in)
-        self.level3_0 = ContextGuidedBlockDown(128 + c_in, 128, 4, 16)
+            self.add_module(name, ContextGuidedBlock(64, 64, 2, 8,
+                                                     norm=norm))
+        self.bn_prelu_2 = BNPReLU(128 + c_in, norm)
+        self.level3_0 = ContextGuidedBlockDown(128 + c_in, 128, 4, 16, norm)
         self.level3 = [f"level3_{i + 1}" for i in range(N - 1)]
         for name in self.level3:
-            self.add_module(name, ContextGuidedBlock(128, 128, 4, 16))
-        self.bn_prelu_3 = BNPReLU(256)
+            self.add_module(name, ContextGuidedBlock(128, 128, 4, 16,
+                                                     norm=norm))
+        self.bn_prelu_3 = BNPReLU(256, norm)
         self.classifier = IEEEConv2d(256, classes, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -193,7 +229,10 @@ class ContextGuidedNetwork(nn.Module):
         return torch.sigmoid(resize_bilinear(logits, tuple(in_hw)))
 
     def norms(self) -> List[_Norm]:
-        return [m for m in self.modules() if isinstance(m, _Norm)]
+        """The batch norms, the ones with running and pending statistics
+        (none with ``norm='group'``)."""
+        return [m for m in self.modules()
+                if isinstance(m, _Norm) and m.kind == "batch"]
 
     @torch.no_grad()
     def update_running_stats(self) -> None:

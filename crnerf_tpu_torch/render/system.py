@@ -24,7 +24,7 @@ from torch import nn
 
 from crnerf_tpu_torch import Config
 from crnerf_tpu_torch.models.appearance import AppearanceEncoder
-from crnerf_tpu_torch.models.cgnet import ContextGuidedNetwork
+from crnerf_tpu_torch.models.cgnet import NORMS, ContextGuidedNetwork
 from crnerf_tpu_torch.models.common import sample_bilinear_uv
 from crnerf_tpu_torch.models.decoder import get_renderer
 from crnerf_tpu_torch.models.nerf_mlp import NerfMLP
@@ -60,6 +60,8 @@ def pixel_uv(hw: Tuple[int, int], device=None) -> torch.Tensor:
 class CrNerfSystem(nn.Module):
     def __init__(self, cfg: Config):
         super().__init__()
+        if cfg.norm not in NORMS:
+            raise ValueError(f"norm {cfg.norm!r} is not one of {NORMS}")
         self.cfg = cfg
         dt = compute_dtype(cfg)
         mk = lambda: NerfMLP(  # noqa: E731
@@ -78,7 +80,8 @@ class CrNerfSystem(nn.Module):
                         else get_renderer(cfg.nerf_out_dim, cfg.model_mode,
                                           dtype=dt))
         self.implicit_mask = (
-            ContextGuidedNetwork(classes=1, M=2, N=2, input_channel=3)
+            ContextGuidedNetwork(classes=1, M=2, N=2, input_channel=3,
+                                 norm=cfg.norm)
             if cfg.use_mask else None
         )
 

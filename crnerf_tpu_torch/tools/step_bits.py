@@ -3,6 +3,8 @@
 from run to run on the card, and what keeping them costs.
 
     python -m crnerf_tpu_torch.tools.step_bits      # needs a GPU
+    python -m crnerf_tpu_torch.tools.step_bits --digest
+
 
 The step is built from its seeds twice and takes 4 steps each time; every
 tensor is compared: the first step's gradients, then the parameters,
@@ -12,12 +14,16 @@ had them before: autograd's own backwards of ``F.pad(mode="reflect")``
 and ``F.interpolate`` (both add with atomics on the card) and cuDNN free
 to choose in every convolution's backward. Then steps in blocks of 6,
 fixed, free, free, fixed, four times, within one process, and one
-profiled step of each with its device time.
+profiled step of each with its device time. With ``--digest``, one run
+from the seeds and a sha256 over its tensors' names and bytes: equal in two
+checkouts on the same card means the step kept its bits.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import hashlib
 import statistics
 import subprocess
 import time
@@ -73,6 +79,16 @@ def run(dev):
     return out
 
 
+def digest(tensors) -> str:
+    """sha256 over the tensors' names and bytes, in name order."""
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        t = tensors[k].detach().reshape(-1).cpu().contiguous()
+        h.update(k.encode())
+        h.update(t.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
 def compare(dev, name: str):
     a, b = run(dev), run(dev)
     differ = [k for k in a if not torch.equal(a[k], b[k])]
@@ -92,11 +108,19 @@ def device_ms(prof) -> float:
     return total / 1e3
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--digest", action="store_true",
+                   help="one run from the seeds and its tensors' sha256")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("step_bits: needs a CUDA device")
         return 1
     dev = torch.device("cuda", 0)
+    if args.digest:
+        out = run(dev)
+        print(f"step digest over {len(out)} tensors: {digest(out)}")
+        return 0
     print(f"torch {torch.__version__}; cudnn deterministic "
           f"{torch.backends.cudnn.deterministic}, benchmark "
           f"{torch.backends.cudnn.benchmark}")

@@ -3,7 +3,7 @@
 The full training state, one ``torch.save`` file a step under
 ``<directory>/<step>.pt``:
 - ``system``: ``state_dict()`` of the system, CGNet's BatchNorm running
-  statistics included;
+  statistics included (a GroupNorm CGNet, ``norm='group'``, has none);
 - ``optimizer``: ``state_dict()`` of the optimizer (its moments, Ranger's
   slow weights, and its step counts: Adam's ``step`` tensors, RAdam's and
   Ranger's host ints);

@@ -10,14 +10,16 @@ transposes layouts:
 
   Dense kernel (in, out)              -> Linear.weight (out, in)
   Conv kernel HWIO (incl. depthwise)  -> Conv2d.weight OIHW
-  BatchNorm scale / bias              -> weight / bias
+  BatchNorm, GroupNorm scale / bias   -> weight / bias
   batch_stats mean / var              -> running_mean / running_var
   PReLU alpha                         -> weight
 
 ``flax_from_state_dict`` also carries the training state back: the
 BatchNorm running statistics after a step (``batch_stats``) and, with
 ``grads=True``, every parameter's gradient in the flax tree layout, so a
-test can compare the two packages leaf by leaf.
+test can compare the two packages leaf by leaf. A CGNet with GroupNorm has
+no statistics; its ``batch_stats`` entry is an empty tree, as the JAX
+system's ``init`` makes it.
 
 This module needs numpy and torch only (no jax).
 """
@@ -31,6 +33,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from crnerf_tpu_torch.models.cgnet import ContextGuidedNetwork
 from crnerf_tpu_torch.models.common import PReLU
 
 _TO_TORCH = {"kernel": "weight", "scale": "weight", "alpha": "weight",
@@ -110,6 +113,7 @@ def flax_from_state_dict(module: nn.Module,
     in-place update of the module (a training step) does not reach them."""
     params: Dict[str, np.ndarray] = {}
     stats: Dict[str, np.ndarray] = {}
+    cgnets = []
 
     def val(t: torch.Tensor) -> torch.Tensor:
         if grads:
@@ -130,11 +134,21 @@ def flax_from_state_dict(module: nn.Module,
             params[p + "bias"] = val(m.bias).numpy()
             stats[p + "mean"] = m.running_mean.detach().cpu().clone().numpy()
             stats[p + "var"] = m.running_var.detach().cpu().clone().numpy()
+        elif isinstance(m, nn.GroupNorm):
+            params[p + "scale"] = val(m.weight).numpy()
+            params[p + "bias"] = val(m.bias).numpy()
         elif isinstance(m, PReLU):
             params[p + "alpha"] = val(m.weight).numpy()
+        if isinstance(m, ContextGuidedNetwork) and prefix:
+            cgnets.append(prefix.split("."))
+    batch_stats = unflatten(stats)
+    for path in cgnets:        # GroupNorm: no statistics, an empty tree
+        node = batch_stats
+        for part in path:
+            node = node.setdefault(part, {})
     return {"params": unflatten({k: np.ascontiguousarray(v)
                                  for k, v in params.items()}),
-            "batch_stats": unflatten(stats)}
+            "batch_stats": batch_stats}
 
 
 def load_into(module: nn.Module, variables) -> nn.Module:

@@ -147,6 +147,80 @@ def test_config_fields_match_the_jax_config():
     assert Config(**kw).in_channels_dir == JaxConfig(**kw).in_channels_dir
 
 
+# the reference's command-line flags that both Configs carry, so that its
+# command lines parse, and that neither package reads
+REFERENCE_ONLY = ("use_residual", "N_a", "decoder", "decoder_num_res_blocks",
+                  "sigma_dropout_rate", "refresh_every")
+
+
+def test_every_jax_config_field_has_a_port_field_or_a_reason():
+    """Every field of the JAX Config is a port field with the same default,
+    or it is in FIELD_NO_COUNTERPART with its reason; a new JAX field fails
+    here until it finds one or the other. The table names only JAX fields
+    that the port does not have."""
+    from crnerf_tpu.config import Config as JaxConfig
+    from crnerf_tpu_torch.config import FIELD_NO_COUNTERPART, Config
+
+    port = {f.name: f for f in dataclasses.fields(Config)}
+    jax_fields = dataclasses.fields(JaxConfig)
+    for f in jax_fields:
+        if f.name in FIELD_NO_COUNTERPART:
+            assert f.name not in port, f.name
+            assert FIELD_NO_COUNTERPART[f.name].strip(), f.name
+            continue
+        assert f.name in port, f"{f.name}: no port field and no reason"
+        assert port[f.name].default == f.default, f.name
+    assert set(FIELD_NO_COUNTERPART) <= {f.name for f in jax_fields}
+    assert len(FIELD_NO_COUNTERPART) == 14
+    assert set(REFERENCE_ONLY) <= set(port)
+    assert port["norm"].default == "batch"
+
+
+def _config_reads(package: str, names):
+    """(file, line, field) of every read of a Config field in ``names`` in
+    ``package``: an attribute of a config object (``cfg``, ``config``,
+    ``self.cfg``, ``args``, ``opt``...), or a ``getattr`` of one by a
+    literal name. The config modules, which define the fields, are left
+    out."""
+    import ast
+    import re
+
+    config_like = re.compile(r"(^|\.)(cfg|config|conf|args|opt|hparams)$")
+    root = os.path.join(REPO, package)
+    found = []
+    for d, _, files in os.walk(root):
+        for fn in files:
+            path = os.path.join(d, fn)
+            if not fn.endswith(".py") or path == os.path.join(root,
+                                                              "config.py"):
+                continue
+            with open(path) as f:
+                tree = ast.parse(f.read())
+            for node in ast.walk(tree):
+                if (isinstance(node, ast.Attribute) and node.attr in names
+                        and config_like.search(ast.unparse(node.value))):
+                    found.append((path, node.lineno, node.attr))
+                elif (isinstance(node, ast.Call)
+                      and ast.unparse(node.func) == "getattr"
+                      and len(node.args) >= 2
+                      and isinstance(node.args[1], ast.Constant)
+                      and node.args[1].value in names
+                      and config_like.search(ast.unparse(node.args[0]))):
+                    found.append((path, node.lineno, node.args[1].value))
+    return found
+
+
+@pytest.mark.parametrize("package", ["crnerf_tpu", "crnerf_tpu_torch"])
+def test_reference_only_fields_are_read_nowhere(package):
+    """The six reference flags are read by neither package (so carrying
+    them in the port's Config changes nothing); the same scan finds the
+    live ``norm`` read where each package builds CGNet."""
+    assert _config_reads(package, REFERENCE_ONLY) == []
+    reads = _config_reads(package, ("norm",))
+    assert any(p.endswith(os.path.join("render", "system.py"))
+               for p, _, _ in reads), reads
+
+
 def test_chip_smoke_refuses_without_a_card():
     """No CUDA device: exit non-zero and print no result line."""
     env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")

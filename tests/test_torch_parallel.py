@@ -10,7 +10,9 @@ virtual CPU mesh and against one port process with both ranks' grids.
   tests/test_torch_train_step.py holds one step to; the two replicas equal
   bit for bit.
 - The same step in one process at G = 4: the bounds of that file's
-  chunked-against-unchunked test (the same mean, summed in another order).
+  chunked-against-unchunked test (the same mean, summed in another order);
+  and with CGNet's GroupNorm (``norm="group"``: no statistics in the
+  all-reduce), two ranks against one process under the same bounds.
 - Each rank's batch stream against ``epoch_batches(epoch, 2,
   grids_per_device=2)``, array for array.
 - The sharded eval render against JAX's ``shard_render`` and, bit for bit,
@@ -135,13 +137,14 @@ def device_draws(rng, valid, d):
     return draws
 
 
-def port_state(sd):
-    """A port TrainState whose system holds the state dict ``sd``."""
-    system = CrNerfSystem(TCFG)
+def port_state(sd, cfg=TCFG):
+    """A port TrainState of ``cfg`` whose system holds the state dict
+    ``sd``."""
+    system = CrNerfSystem(cfg)
     system.load_state_dict(sd)
-    opt, sched = make_optimizer(TCFG, 10, system.parameters())
-    return TrainState.create(system, opt, TCFG.N_vocab, 32,
-                             TCFG.nerf_out_dim), sched
+    opt, sched = make_optimizer(cfg, 10, system.parameters())
+    return TrainState.create(system, opt, cfg.N_vocab, 32,
+                             cfg.nerf_out_dim), sched
 
 
 def state_out(state, metrics):
@@ -160,25 +163,43 @@ def state_out(state, metrics):
 
 
 def rank_job(path):
-    """One rank of the step and the sharded render (run by mesh.spawn)."""
+    """One rank of the step and, where the job has one, the sharded render
+    (run by mesh.spawn)."""
     _, group = mesh.init_distributed("cpu")
     r = mesh.rank(group)
     job = torch.load(path, weights_only=False)
-    state, sched = port_state(job["sd"])
+    state, sched = port_state(job["sd"], job.get("cfg", TCFG))
     step = make_train_step(state.system, state.optimizer, sched, G, 1,
                            group=group)
     with torch.backends.mkldnn.flags(enabled=False):
         state, m = step(state, job["batches"][r], job["draws"][r])
     out = state_out(state, reduce_metrics(m, group))
-    system = state.system.eval()
-    system.load_state_dict(job["eval_sd"])
-    for key, hw in (("render", EVAL_HW), ("render_small", SMALL_HW)):
-        ev = job["eval"][hw]
-        out[key] = system.forward_eval_sharded(
-            ev["rays"], ev["uv"], ev["whole"], hw, system.kernel_weights(),
-            group, tile=ev["tile"])
+    if "eval" in job:     # and the sharded render
+        system = state.system.eval()
+        system.load_state_dict(job["eval_sd"])
+        for key, hw in (("render", EVAL_HW), ("render_small", SMALL_HW)):
+            ev = job["eval"][hw]
+            out[key] = system.forward_eval_sharded(
+                ev["rays"], ev["uv"], ev["whole"], hw,
+                system.kernel_weights(), group, tile=ev["tile"])
     torch.save(out, path + f".rank{r}")
     torch.distributed.destroy_process_group()
+
+
+def _spawn_ranks(path):
+    """rank_job on D spawned ranks -> each rank's output."""
+    saved = {k: os.environ.get(k) for k in RANK_ENV}
+    os.environ.update(RANK_ENV)
+    try:
+        mesh.spawn(rank_job, D, (path,), timeout=300)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    return [torch.load(path + f".rank{r}", weights_only=False)
+            for r in range(D)]
 
 
 def eval_inputs(hw=EVAL_HW):
@@ -245,18 +266,7 @@ def run(tmp_path_factory):
     path = str(tmp_path_factory.mktemp("ranks") / "job.pt")
     torch.save(dict(sd=sd, batches=batches, draws=draws, eval=evs,
                     eval_sd=eval_sys.state_dict()), path)
-    saved = {k: os.environ.get(k) for k in RANK_ENV}
-    os.environ.update(RANK_ENV)
-    try:
-        mesh.spawn(rank_job, D, (path,), timeout=300)
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k)
-            else:
-                os.environ[k] = v
-    ranks = [torch.load(path + f".rank{r}", weights_only=False)
-             for r in range(D)]
+    ranks = _spawn_ranks(path)
 
     # one process, both ranks' grids: a step of G = 4 on the global batch
     state, psched = port_state(sd)
@@ -280,9 +290,9 @@ def run(tmp_path_factory):
         jax_renderer_small=jax_renderer_small)
 
 
-def _port_mu(out):
+def _port_mu(out, cfg=TCFG):
     """Adam's first moment by the flax leaf names (the bridge's)."""
-    system = CrNerfSystem(TCFG)
+    system = CrNerfSystem(cfg)
     with torch.no_grad():
         for p, name in zip(system.parameters(),
                            dict(system.named_parameters())):
@@ -371,6 +381,64 @@ def test_two_ranks_match_one_process_with_their_grids(run):
                                    err_msg=k)
     for k, v in one["stats"].items():
         np.testing.assert_allclose(out["stats"][k], v, atol=1e-6, err_msg=k)
+    np.testing.assert_allclose(out["cache"].numpy(), one["cache"].numpy(),
+                               atol=1e-6)
+    assert torch.equal(out["valid"], one["valid"])
+
+
+GN_CFG = dataclasses.replace(TCFG, norm="group")
+
+
+@pytest.fixture(scope="module")
+def group_norm_run(tmp_path_factory):
+    """One step with norm="group" on two ranks and in one process at
+    G = 4, from the port's seeded weights, on the port's batch and seeded
+    draws (each grid's random embedding row named: the cache is empty)."""
+    scene = make_synthetic_scene(n_train=4, n_test=1, img_wh=(24, 18),
+                                 appearance_wh=GN_CFG.appearance_wh)
+    glob = TrainPipeline(scene, batch_size=B).make_global_batch(0, 0, D * G)
+    tglob = {k: torch.from_numpy(v) for k, v in glob.items()
+             if k != "image_idx"}
+    torch.manual_seed(7)
+    sd = CrNerfSystem(GN_CFG).state_dict()
+    gen = torch.Generator().manual_seed(8)
+    s, i, n = GN_CFG.N_samples, GN_CFG.N_importance, D * G
+    both = {"z_u": torch.rand(n, B, s, generator=gen),
+            "noise_coarse": torch.randn(n, B, s, generator=gen),
+            "noise_fine": torch.randn(n, B, s + i, generator=gen),
+            "pdf_e": torch.empty(n, B, i + 1).exponential_(generator=gen),
+            "sel_idx": torch.zeros(n, dtype=torch.int64)}
+    cut = lambda d, r: {k: v[r * G:(r + 1) * G]   # noqa: E731
+                        for k, v in d.items()}
+    path = str(tmp_path_factory.mktemp("gn_ranks") / "job.pt")
+    torch.save(dict(sd=sd, cfg=GN_CFG,
+                    batches=[cut(tglob, r) for r in range(D)],
+                    draws=[cut(both, r) for r in range(D)]), path)
+    ranks = _spawn_ranks(path)
+    state, sched = port_state(sd, GN_CFG)
+    one_step = make_train_step(state.system, state.optimizer, sched, D * G)
+    with torch.backends.mkldnn.flags(enabled=False):
+        state, m = one_step(state, tglob, both)
+    return dict(ranks=ranks, single=state_out(state, reduce_metrics(m, None)))
+
+
+def test_two_ranks_match_one_process_with_group_norm(group_norm_run):
+    """test_two_ranks_match_one_process_with_their_grids's bounds; the
+    replicas the same bits; no statistics on either side."""
+    out, one = group_norm_run["ranks"][0], group_norm_run["single"]
+    for k in out["sd"]:
+        assert torch.equal(out["sd"][k], group_norm_run["ranks"][1]["sd"][k])
+    assert not any("running_" in k for k in one["sd"])
+    assert out["stats"] == one["stats"] == {}
+    a, b = _port_mu(out, GN_CFG), _port_mu(one, GN_CFG)
+    assert sum(".GroupNorm_0." in k for k in b) == 28
+    for k in b:
+        rel = 5e-4 if k.startswith("implicit_mask.") else 1e-4
+        np.testing.assert_allclose(a[k], b[k], err_msg=k,
+                                   atol=rel * np.abs(b[k]).max() + 1e-9)
+    for k, v in one["metrics"].items():
+        np.testing.assert_allclose(out["metrics"][k], v, rtol=1e-6,
+                                   err_msg=k)
     np.testing.assert_allclose(out["cache"].numpy(), one["cache"].numpy(),
                                atol=1e-6)
     assert torch.equal(out["valid"], one["valid"])

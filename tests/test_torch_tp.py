@@ -222,11 +222,17 @@ def run(tmp_path_factory):
 
 # ---------------------------------------------------------------- the rule
 
+# the systems of test_split_rule_matches_jax: "group" is CFG with
+# CGNet's GroupNorm, whose scale and bias (rank 1) stay replicated
+SPLIT_CFGS = {"tiny": CFG, "flagship": FLAGSHIP,
+              "group": CFG.replace(norm="group")}
+
+
 @functools.cache
 def _jax_state_shape(which):
-    """An eval_shape exemplar of the JAX train state of CFG ("tiny") or
-    FLAGSHIP, traced once for both n_model."""
-    cfg = CFG if which == "tiny" else FLAGSHIP
+    """An eval_shape exemplar of the JAX train state of SPLIT_CFGS[which],
+    traced once for both n_model."""
+    cfg = SPLIT_CFGS[which]
 
     def make():
         variables = JaxSystem(cfg).init(jax.random.PRNGKey(0))
@@ -252,9 +258,9 @@ def _jax_split(which, n_model):
 
 
 @pytest.mark.parametrize("n_model", (2, 4))
-@pytest.mark.parametrize("which", ("tiny", "flagship"))
+@pytest.mark.parametrize("which", ("tiny", "flagship", "group"))
 def test_split_rule_matches_jax(which, n_model):
-    cfg = CFG if which == "tiny" else FLAGSHIP
+    cfg = SPLIT_CFGS[which]
     jax_leaves = _jax_split(which, n_model)
     # the flax leaves under the port's names, through the bridge
     zeros = {}
@@ -285,6 +291,9 @@ def test_split_rule_matches_jax(which, n_model):
     if which == "flagship":
         assert (len(port_split), len(port) - len(port_split)) == (63, 98)
         assert sum(port[k].numel() for k in port_split) == 4039072
+    if which == "group":
+        gn = [k for k in port if ".GroupNorm_0." in k]
+        assert len(gn) == 28 and not set(gn) & set(port_split)
 
 
 # ------------------------------------------------------- the step vs JAX

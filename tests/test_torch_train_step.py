@@ -112,18 +112,19 @@ class _Float64Names:
         return jnp.float64 if name == "float32" else getattr(jnp, name)
 
 
-def cgnet_grads_f64(cgnet_vars, io):
+def cgnet_grads_f64(cgnet_vars, io, norm="batch"):
     """d sum(mask * cot) / d params of CGNet in training mode, one image at
     a time, evaluated at float64 in both packages -> (JAX, port), flat
     leaves. The JAX module names float32 in its conv blocks; for this call
-    those names read float64, the program is otherwise the package's."""
+    those names read float64, the program is otherwise the package's.
+    ``norm``: CGNet's normalisation, as ``Config.norm``."""
     x, cot = io["x"], io["cot"]
     with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
         mp.setattr(jax_cgnet, "jnp", _Float64Names())
         mp.setattr(jax_cgnet, "ConvBNPReLU", functools.partial(
             jax_cgnet.ConvBNPReLU, dtype=jnp.float64))
         net = jax_cgnet.ContextGuidedNetwork(classes=1, M=2, N=2,
-                                             input_channel=3)
+                                             input_channel=3, norm=norm)
         to64 = lambda t: jax.tree.map(                       # noqa: E731
             lambda a: jnp.asarray(a, jnp.float64), t)
         stats = to64(cgnet_vars["batch_stats"])
@@ -137,10 +138,11 @@ def cgnet_grads_f64(cgnet_vars, io):
 
             return jnp.sum(jax.vmap(one)(to64(x), to64(cot)))
 
-        want = jax.grad(loss)(to64(cgnet_vars["params"]))
+        want = jax.jit(jax.grad(loss))(to64(cgnet_vars["params"]))
         assert all(a.dtype == jnp.float64 for a in jax.tree.leaves(want))
         want = bridge.flatten(jax.tree.map(np.asarray, want))
-    port = bridge.load_into(ContextGuidedNetwork(), cgnet_vars).double()
+    port = bridge.load_into(ContextGuidedNetwork(norm=norm),
+                            cgnet_vars).double()
     port.train()
     (port(torch.from_numpy(x).double())
      * torch.from_numpy(cot).double()).sum().backward()
