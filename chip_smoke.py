@@ -142,9 +142,9 @@ Phases, each fatal on failure:
      route's; and one
      timed reading of the module route, pallas_train=False
   9. train, resume and evaluate from the CLI, on a phototourism cache the
-     port's save_scene_cache writes (6 train images of 512x384, 2 test
-     images of 384x512, appearance 224x160: 72 steps an epoch): the train
-     app in this process for 2 epochs at the flagship config, the launch
+     port's save_scene_cache writes (3 train images of 512x384, 2 test
+     images of 384x512, appearance 224x160: 36 steps an epoch): the train
+     app in this process for one epoch at the flagship config, the launch
      counters zeroed just before and read just after (every stash
      forward, chain and weight gradient launch on the wgmma kernels, K1's
      in the validations, none on mma.sync), metrics rows, a finite final
@@ -156,20 +156,20 @@ Phases, each fatal on failure:
      run's last checkpoint (parameters, buffers, Adam's state, the cache
      and its validity) and final validation the straight run's bits (a
      step gives the same bits from run to run); beside the resume,
-     ``eval --split
-     val``, an empty split (exit 0), and prepare, train and eval with no
-     card to be seen, with the default and with --device cuda (non-zero
-     exit); last, ``eval --split test_test`` alone, its PNGs the bits of
-     an in-process Renderer on the same weights.npz, its median and p95 s
-     a frame, and the in-process frames' warm time
+     ``eval --split val``, an empty split (exit 0), prepare, train and
+     eval with no card to be seen, with the default and with --device
+     cuda (non-zero exit), and ``eval --split test_test`` of the straight
+     run, its PNGs the bits of an in-process Renderer on the same
+     weights.npz, its median and p95 s a frame (read beside the resumed
+     run); last, the in-process frames' warm time
  10. the apps that need an image codec, on phase 9's checkpoint and scene
      at the flagship config, each counted run's launch counters zeroed
      just before and read just after (every K1, stash forward, chain and
      weight gradient launch on wgmma, none on mma.sync): (a) ``eval
-     --split test``, the camera path at 320x240 and 256+256, 24 frames:
-     24 PNGs, a frame the in-process Renderer's bits, the GIF's blocks (24
+     --split test``, the camera path at 320x240 and 256+256, 12 frames:
+     12 PNGs, a frame the in-process Renderer's bits, the GIF's blocks (12
      image descriptors of 320x240, looping), its per-frame p50 and p95;
-     (b) the ``video`` app on 2 seeded style PNGs, 24 frames each, the
+     (b) the ``video`` app on 2 seeded style PNGs, 12 frames each, the
      same checks; (c) ``metrics`` on phase 9's test_test renders, equal to
      train/metrics.py on the same arrays, and in a subprocess with a
      render deleted (non-zero exit, "expected"); (d) serve's
@@ -183,19 +183,20 @@ Phases, each fatal on failure:
      steps/s, rays/s, peak memory), then ``eval --split test_test`` and
      ``metrics`` in subprocesses
  11. data parallelism, on phase 9's cache at the flagship config: (a) one
-     rank over NCCL (a TCP store on localhost), the Trainer for 12 steps,
-     the same bits as without a group; (b) two ranks of 8 grids on the one
-     card over gloo (NCCL refuses two ranks on one device), CUDA tensors,
-     each started as torchrun starts one: one step against one process of
-     16 grids on the same batch and draws (parameters within
-     tests/test_torch_train_step.py's one-step bound, the ranks' states
-     the same bits; CGNet's gradient on the 16-grid step's input and
-     cotangent, 16 images at once against 8 + 8 and against float64,
-     each within twice the JAX package's own fp32 distance from float64,
-     ``CGNET_SHARE_BOUND``), the train app's per-rank ``run`` for 2 epochs (steps/s,
-     global rays/s, each rank's peak memory, the launch counters zeroed
-     just before and read just after: every stash forward, chain and
-     weight gradient on wgmma, K1 in the sharded validations), a CLI run
+     rank over NCCL (on a TCP store the script hosts), the Trainer for 12
+     steps, the same bits as without a group; (b) two ranks of 8 grids on
+     the one card over gloo (NCCL refuses two ranks on one device), CUDA
+     tensors, each started as torchrun starts one, on a store the script
+     hosts: one step against one process of 16 grids on the same batch and
+     draws (parameters within tests/test_torch_train_step.py's one-step
+     bound, the ranks' states the same bits; CGNet's gradient on the
+     16-grid step's input and cotangent, 16 images at once against 8 + 8
+     and against float64, each within twice the JAX package's own fp32
+     distance from float64, ``CGNET_SHARE_BOUND``), the train app's
+     per-rank ``run`` for one epoch (steps/s, global rays/s, each rank's
+     peak memory, the launch counters zeroed just before and read just
+     after: every stash forward, chain and weight gradient on wgmma, K1 in
+     the sharded validations), a CLI run
      sent SIGTERM at rank 1 alone once step 20 is logged (both exit 0, one
      checkpoint), ``--auto_resume`` to the timed run's bits, and ``eval
      --split test_test`` on two ranks to the in-process render's bits;
@@ -230,15 +231,16 @@ Phases, each fatal on failure:
  13. the 2-D (data, model) mode (``parallel/tp.py``) on the module route
      (pallas_train=False: no hand kernel) at the flagship widths, two
      model ranks on the one card over gloo, each started as torchrun
-     starts one: (a) the small fp32 step against the one-process step on
-     the same card and draws (parameters within rtol 1e-3 + 2e-5, the loss
-     2e-5, the replicated tensors the same bits on both ranks); (b) 2
+     starts one, on a store the script hosts: (a) the small fp32 step
+     against the one-process step on the same card and draws (parameters
+     within rtol 1e-3 + 2e-5, the loss 2e-5, the replicated tensors the
+     same bits on both ranks); (b) 2
      grids of 1024 rays, step 1 against one process on the same draws
      (loss and psnr 1e-3, each split leaf's Adam first moment within 1e-2
      of its largest plus half the leaf's own bf16 error, the one process's
-     bf16 moment against its fp32 one; the replicas' bits), then 3 timed
-     steps: steps/s,
-     peak memory a rank beside the one process's, the collectives' bytes
+     bf16 moment against its fp32 one; the replicas' bits), then one timed
+     step: steps/s, peak memory a rank beside the one process's, the
+     collectives' bytes
      a step; (c) where two cards are visible, (b) over NCCL, a rank a
      card, else a line saying it did not run
 Prints a {"kernels": [...]} line, the card line, and as the last line
@@ -251,6 +253,7 @@ from __future__ import annotations
 import argparse
 import base64
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -289,6 +292,19 @@ def card_line() -> str:
         return out.stdout.strip().splitlines()[0]
     except (OSError, subprocess.SubprocessError, IndexError) as e:
         return f"nvidia-smi unavailable ({e})"
+
+
+def timed_phase(fn):
+    """A phase function whose seconds are printed when it returns, as
+    ``[run] <name>: <s> s``."""
+    @functools.wraps(fn)
+    def run(*args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        print(f"[run] {fn.__name__}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        return out
+    return run
 
 
 @contextlib.contextmanager
@@ -379,6 +395,7 @@ WGMMA_KERNELS = ("render_fwd_wgmma_kernel", "render_bwd_chain_wgmma_kernel",
                  "wgrad_wgmma_kernel", "pipe_render_wgmma_kernel")
 
 
+@timed_phase
 def phase_build():
     """One nvcc per source, all started together."""
     import threading
@@ -578,6 +595,7 @@ def forward_case(device, params, gen, n: int, s: int, dt, exact: bool,
                 ok=passed)
 
 
+@timed_phase
 def phase_kernel(device, seed: int):
     """The forward kernel against its plain version. The mma.sync variant:
     1024 rays at S=256 and S=512 in both dtypes and encodes, then the
@@ -716,6 +734,7 @@ REF_TOL = (1e-4, 1e-5)
 ROUTE_FRAME_TOL = (4e-3, 1e-4, 5e-3)
 
 
+@timed_phase
 def phase_serve(device, seed: int, workdir: str, profile_dir=None,
                 full_frame=None, **route):
     """RenderService at full size through the kernels of the route that
@@ -1232,6 +1251,7 @@ def stashes_alive_after_forward(state, batch):
     return found
 
 
+@timed_phase
 def phase_train(device, seed: int, profile_dir=None, route: str = "stash"):
     """The flagship train step on the card through make_train_step, on
     one of ``ROUTES``. Returns (launch counts of the timed steps, median
@@ -1688,6 +1708,7 @@ def cublas_tiles(table, st, dz):
             for a, k, b, n, _, _ in table]
 
 
+@timed_phase
 def phase_train_kernels(device, seed: int):
     """K1-stash and K2 against their plain versions: 1024 rays at S=64 and
     S=128, bf16 with the recurrence and fp32 with the exact encode, then
@@ -2077,6 +2098,7 @@ def recompute_scratch_check(device, params, gen):
         raise PhaseError("the recompute backward's scratch grows with N")
 
 
+@timed_phase
 def phase_recompute(device, seed: int):
     """The recompute backward against its plain version, both input forms:
     1024 rays at S=64 and S=128, bf16 with the recurrence and fp32 with the
@@ -2628,6 +2650,7 @@ def slab_edge_draw(device, seed: int):
     return gen
 
 
+@timed_phase
 def phase_mlp_kernels(device, seed: int):
     """The fused-MLP pair against its plain versions. Returns (forward
     records, backward records)."""
@@ -2674,6 +2697,7 @@ def phase_mlp_kernels(device, seed: int):
     return fwd, bwd
 
 
+@timed_phase
 def module_route_reading(device, seed: int):
     """One timed reading of the module route (pallas_train=False: the
     NerfMLP module under autograd with remat) at the flagship step: no
@@ -2719,6 +2743,7 @@ def composite_f64(feats, sigmas, z):
             torch.sum(w * z, -1))
 
 
+@timed_phase
 def phase_composite(device, seed: int):
     """The compositing kernel against its plain version at the serve
     tile's fine pass (8192 x 512 x 64) and a ragged shape; on the fused
@@ -3045,6 +3070,7 @@ SPIKE_RUNS = (("spike_conv3x3", []),
               ("spike_packed_conv", []), ("spike_kernel_sincos", []))
 
 
+@timed_phase
 def phase_conv(device, seed: int):
     """Phase 4e. -> (3x3 records, packed records, sincos records, launches
     of the spike tools' run)."""
@@ -3247,6 +3273,7 @@ def sublane_case(device, mode: str, tiles: int):
     return rec
 
 
+@timed_phase
 def phase_spikes_4f(device, seed: int):
     """Phase 4f. -> (S2 records, S5 records, launches of the two tools'
     run)."""
@@ -3323,12 +3350,13 @@ def tf32_check(state, batch):
                          "its convolutions are not pinned")
 
 
-# Phase 9: the CLI's train, resume and eval on a phototourism cache. Six
-# train images of 512x384 and two test images of 384x512 (a second
-# resolution for eval), appearance 224x160: 1.18 M rays, 72 steps an epoch
-# at 16 grids of 1024 rays.
-CLI_TRAIN_WH, CLI_TEST_WH = (512, 384), (384, 512)
-CLI_EPOCHS = 2
+# Phase 9: the CLI's train, resume and eval on a phototourism cache. Three
+# train images of 512x384 (cut from 6) and two test images of 384x512 (a
+# second resolution for eval), appearance 224x160: 0.59 M rays, 36 steps
+# an epoch at 16 grids of 1024 rays, past CLI_PREEMPT_AFTER and
+# RANGER_PREEMPT_AFTER.
+CLI_TRAIN, CLI_TRAIN_WH, CLI_TEST_WH = 3, (512, 384), (384, 512)
+CLI_EPOCHS = 1             # phases 9 and 11 (cut from 2)
 CLI_BATCH = 1024            # rays a grid (Config.batch_size)
 CLI_PREEMPT_AFTER = 20      # SIGTERM once metrics.jsonl shows this step
 # A training step gives the same bits from run to run on the card (the
@@ -3367,7 +3395,8 @@ def cli_scene(root: str, empty_root: str):
     from crnerf_tpu_torch.data.synthetic import make_synthetic_scene
 
     app = (224, 160)
-    train = make_synthetic_scene(n_train=6, n_test=0, img_wh=CLI_TRAIN_WH,
+    train = make_synthetic_scene(n_train=CLI_TRAIN, n_test=0,
+                                 img_wh=CLI_TRAIN_WH,
                                  appearance_wh=app, seed=SEED).images
     test = [dataclasses.replace(im, id=len(train) + i,
                                 name=f"test_{i:03d}.png")
@@ -3471,6 +3500,16 @@ def cli_straight(args, save_dir: str, exp: str, steps: int, n_val: int,
         if not os.path.exists(os.path.join(save_dir, "ckpts", exp, name)):
             raise PhaseError(f"{exp}: no {name} after the run")
     return launches, text, rows, peak, secs
+
+
+def epoch_rates(rps) -> str:
+    """Each epoch's steps/s and train rays/s (a step trains TRAIN_GRIDS
+    grids of CLI_BATCH rays, over all ranks), epoch 0 with the first
+    launches."""
+    return "; ".join(
+        f"epoch {i}: {x / (CLI_BATCH * TRAIN_GRIDS):.2f} steps/s, {x:.0f} "
+        f"train rays/s" for i, x in enumerate(rps)) + (
+        " (epoch 0 with the process's first launches)")
 
 
 def final_val(text: str, who: str):
@@ -3606,6 +3645,7 @@ def resumed_bits(tag: str, save: str, straight_exp: str, resumed_exp: str,
     return straight
 
 
+@timed_phase
 def phase_cli(device, workdir: str, card: str):
     """Phase 9: train straight in this process; a preempted run and its
     resume in subprocesses, to the straight run's bits; evaluate in a
@@ -3630,7 +3670,8 @@ def phase_cli(device, workdir: str, card: str):
     ipe = n_rays // CLI_BATCH // TRAIN_GRIDS
     steps = CLI_EPOCHS * ipe
     vw, vh = scene.train_images[0].wh
-    n_val = 3 * 2 * -(-vw * vh // 2048)     # val_chunk tiles, two passes
+    # val_chunk tiles, two passes, in a validation an epoch and the final
+    n_val = (CLI_EPOCHS + 1) * 2 * -(-vw * vh // 2048)
     print(f"[cli] cache: {len(scene.train_images)} train images "
           f"{CLI_TRAIN_WH}, {len(scene.test_images)} test {CLI_TEST_WH}, "
           f"{n_rays} rays, {ipe} steps an epoch "
@@ -3645,15 +3686,12 @@ def phase_cli(device, workdir: str, card: str):
     vals = [(round(r["val/psnr"], 3), round(r["val/ssim"], 4))
             for r in rows if "val/psnr" in r]
     print(f"[cli] straight: {steps} steps in {secs:.1f} s with the "
-          f"validations and checkpoints; epoch 1: "
-          f"{rps[-1] / (CLI_BATCH * TRAIN_GRIDS):.2f} steps/s, "
-          f"{rps[-1]:.0f} train rays/s (epoch 0, the first launches "
-          f"included: {rps[0]:.0f}); peak memory {peak:.2f} GiB; "
-          f"validation psnr/ssim {vals}, final {val} ({card})")
+          f"validations and checkpoints; {epoch_rates(rps)}; peak memory "
+          f"{peak:.2f} GiB; validation psnr/ssim {vals}, final {val} "
+          f"({card})")
     print(f"[cli] straight: launches {launches}: every stash forward, "
           f"chain and weight gradient on wgmma, none on mma.sync")
-    stats = dict(steps_per_s=rps[-1] / (CLI_BATCH * TRAIN_GRIDS),
-                 steps_per_s_epoch0=rps[0] / (CLI_BATCH * TRAIN_GRIDS),
+    stats = dict(steps_per_s_epoch0=rps[0] / (CLI_BATCH * TRAIN_GRIDS),
                  peak=peak)
 
     # the subprocesses below need the card's memory: a training run of
@@ -3682,9 +3720,14 @@ def phase_cli(device, workdir: str, card: str):
 
     # meanwhile: the val split, an empty split, and the apps with no card
     # to be seen (each with the default device and --device cuda)
-    beside = {"eval val": (eval_argv + ["--split", "val"], env),
+    # and the straight run's test_test split (the val split's PNG goes to
+    # a directory of its own, not over it)
+    beside = {"eval val": (eval_argv + ["--split", "val", "--save_dir",
+                                        os.path.join(workdir, "eval_val")],
+                           env),
               "eval empty": (eval_argv + ["--split", "test_test",
-                                          "--root_dir", empty_root], env)}
+                                          "--root_dir", empty_root], env),
+              "eval": (eval_argv + ["--split", "test_test"], env)}
     for cmd in ("prepare", "train", "eval"):
         for dev in ([], ["--device", "cuda"]):
             beside[f"{cmd} {' '.join(dev) or '(default device)'}"] = (
@@ -3709,10 +3752,9 @@ def phase_cli(device, workdir: str, card: str):
     print(f"[cli] without a card: {', '.join(refusals)}: exit codes "
           f"{sorted({out[t][0] for t in refusals})}, 'no CUDA device'")
 
-    # evaluate the straight run alone on the card; its PNGs against an
-    # in-process render of the same weights.npz
-    rc, text = finish(spawn(eval_argv + ["--split", "test_test"],
-                            log("eval"), env))
+    # the straight run's evaluation: its PNGs against an in-process render
+    # of the same weights.npz
+    rc, text = out["eval"]
     m = re.search(r"median (\S+) / p95 (\S+) s/frame", text)
     if rc != 0 or not m:
         raise PhaseError(f"eval: exit {rc}:\n{text[-4000:]}")
@@ -3744,19 +3786,20 @@ def phase_cli(device, workdir: str, card: str):
     print(f"[cli] eval test_test: {len(scene.test_images)} PNGs of "
           f"{CLI_TEST_WH}, the in-process render's bits; the app's median "
           f"{m.group(1)} / p95 {m.group(2)} s a frame (2 frames, the first "
-          f"with the process's first launches); warm in process "
+          f"with the process's first launches, beside the resumed run); "
+          f"warm in process "
           f"{warm:.3f} s a frame, fetch included ({card})")
     return launches, scene, stats
 
 
 # Phase 10: the apps that need an image codec, on phase 9's checkpoint and
 # scene at the flagship config. Camera paths at the demo's 320x240 and 256 +
-# 256 samples, bf16; 24 frames a path (the presets have 240); a Blender
-# scene of 4 train and 2 test RGBA frames of 800x800, trained at 400x400
-# for one epoch (640,000 rays, 39 steps of 16 grids of 1024 rays).
+# 256 samples, bf16; 12 frames a path (cut from 24; the presets have 240);
+# a Blender scene of 4 train and 2 test RGBA frames of 800x800, trained at
+# 400x400 for one epoch (640,000 rays, 39 steps of 16 grids of 1024 rays).
 APP_WH = (320, 240)
 APP_DTYPE = "bfloat16"
-APP_FRAMES = 24
+APP_FRAMES = 12
 APP_SERVE_FRAMES = 8
 APP_PATH_SCENE = "cli_brandenburg_gate"
 BLENDER_SRC_WH, BLENDER_WH = (800, 800), (400, 400)
@@ -3903,6 +3946,7 @@ def blender_scene(root: str, card: str):
           f"{max(times):.4f}) on this host ({os.cpu_count()} CPUs; {card})")
 
 
+@timed_phase
 def phase_apps(device, workdir: str, card: str, scene):
     """Phase 10: eval's camera path, the video app, metrics, serve's
     render_path and a Blender scene trained, evaluated and scored, on phase
@@ -3935,7 +3979,6 @@ def phase_apps(device, workdir: str, card: str, scene):
     root = os.path.join(workdir, "scene")
     save = os.path.join(workdir, "runs")
     ckpt = os.path.join(save, "ckpts", "straight")
-    t_phase = time.perf_counter()
     total = {}
 
     def add(launches):
@@ -4182,8 +4225,6 @@ def phase_apps(device, workdir: str, card: str, scene):
         raise PhaseError(f"blender metrics: exit {rc}:\n{text[-4000:]}")
     print(f"[apps] blender eval test_test and metrics in subprocesses: "
           f"{m.group(0)}")
-    print(f"[apps] phase 10 in {time.perf_counter() - t_phase:.1f} s "
-          f"({card})")
     return total
 
 
@@ -4317,18 +4358,17 @@ def spawn_ranks(job_path: str, n: int, worker: str, devices: bool,
                 when=None):
     """``n`` ranks of ``chip_smoke.<worker>(job_path)``, each started as
     ``torchrun`` starts one (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
-    MASTER_PORT), all on cuda:0 or (``devices``) rank r on cuda:r, output
-    to ``log_prefix``<r>.log; waits for them as ``finish_ranks`` does
-    (``when``'s action is given the jobs) and fails unless every rank
-    exits 0. -> [output]."""
+    MASTER_PORT) on a store that this process hosts as torchrun's agent
+    does (``mesh.host_store``), all on cuda:0 or (``devices``) rank r on
+    cuda:r, output to ``log_prefix``<r>.log; waits for them as
+    ``finish_ranks`` does (``when``'s action is given the jobs) and fails
+    unless every rank exits 0. -> [output]."""
     from crnerf_tpu_torch.parallel import mesh
 
-    port = mesh._free_port()
+    store = mesh.host_store()   # held here until the ranks have exited
     jobs = [spawn([job_path], f"{log_prefix}{r}.log",
-                  dict(os.environ, PYTHONPATH=REPO, RANK=str(r),
-                       WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n),
-                       LOCAL_RANK=str(r if devices else 0),
-                       MASTER_ADDR="localhost", MASTER_PORT=str(port)),
+                  dict(os.environ, PYTHONPATH=REPO, **mesh.rank_env(
+                      store, r, n, r if devices else 0)),
                   prog=("-c", f"import sys, chip_smoke; "
                               f"chip_smoke.{worker}(sys.argv[1])"))
             for r in range(n)]
@@ -4508,6 +4548,7 @@ def dp_mu_shares(rank_mu, single_mu, names):
     return sorted(out, reverse=True)
 
 
+@timed_phase
 def phase_dp(device, workdir: str, card: str):
     """Phase 11 on phase 9's cache (``workdir``/scene) and checkpoint. ->
     the launch counts of (b)'s timed two-rank run, both ranks' together."""
@@ -4541,8 +4582,8 @@ def phase_dp(device, workdir: str, card: str):
         alone = dp_state_tensors(tr.state)
         del tr
         dp_release()
-        with dp_env(RANK=0, WORLD_SIZE=1, LOCAL_RANK=device.index,
-                    MASTER_ADDR="localhost", MASTER_PORT=mesh._free_port()):
+        store = mesh.host_store()
+        with dp_env(**mesh.rank_env(store, 0, 1, device.index)):
             dev1, group = mesh.init_distributed(device, "nccl")
             try:
                 tr = Trainer(a_cfg.replace(exp_name="a_group"), scene,
@@ -4557,7 +4598,8 @@ def phase_dp(device, workdir: str, card: str):
     if a_steps != DP_A_STEPS:
         raise PhaseError(f"(a): {a_steps} steps, expected {DP_A_STEPS}")
     dp_same(grouped, alone, "(a) one rank over nccl")
-    print(f"[dp] (a) one rank over nccl (TCP store on localhost), the "
+    print(f"[dp] (a) one rank over nccl (on a TCP store this process "
+          f"hosts), the "
           f"Trainer for {DP_A_STEPS} steps: the same bits as without a "
           f"group over {len(alone)} tensors (parameters, buffers, Adam, the "
           f"cache, its validity, the generator); both runs in "
@@ -4632,7 +4674,6 @@ def phase_dp(device, workdir: str, card: str):
               f"{final_val(text, '(c) --num_devices 2')}, the last "
               f"checkpoint the bits of the torchrun-style ranks' and of "
               f"gloo's on one card ({card})")
-    print(f"[dp] phase 11 in {time.perf_counter() - t_phase:.1f} s ({card})")
     return launches
 
 
@@ -4718,7 +4759,7 @@ def dp_two_ranks(ctx, tag: str, backend: str, devices: bool):
         im.wh for im in scene.train_images)) // CLI_BATCH // TRAIN_GRIDS)
     vw, vh = scene.train_images[0].wh
     per_rank = -(-vw * vh // DP_RANKS)   # a validation's rays a rank
-    n_val = 3 * 2 * -(-per_rank // 2048)  # val_chunk tiles, two passes
+    n_val = (CLI_EPOCHS + 1) * 2 * -(-per_rank // 2048)  # as phase 9's
     for r, x in enumerate(res):
         if x["step"] != n_steps:
             raise PhaseError(f"({tag}) rank {r} ended at step {x['step']}, "
@@ -4737,11 +4778,9 @@ def dp_two_ranks(ctx, tag: str, backend: str, devices: bool):
     print(f"[dp] ({tag}) the train app on {DP_RANKS} ranks x {DP_GRIDS} grids "
           f"over {backend} on {where}, {n_steps} steps in "
           f"{res[0]['secs']['timed']:.1f} s with the validations and "
-          f"checkpoints; epoch 1: {rps[-1] / (CLI_BATCH * TRAIN_GRIDS):.2f} "
-          f"steps/s, {rps[-1]:.0f} global train rays/s (epoch 0: "
-          f"{rps[0]:.0f}); peak memory per rank "
-          f"{[round(x['peak_gib'], 2) for x in res]} GiB; final val {val} "
-          f"({card})")
+          f"checkpoints; over both ranks {epoch_rates(rps)}; peak memory per "
+          f"rank {[round(x['peak_gib'], 2) for x in res]} GiB; final val "
+          f"{val} ({card})")
     print(f"[dp] ({tag}) launches per rank {res[0]['launches']}: every stash "
           f"forward, chain and weight gradient on wgmma, none on mma.sync; "
           f"K1 in the sharded validations")
@@ -4806,7 +4845,7 @@ def dp_two_ranks(ctx, tag: str, backend: str, devices: bool):
 
 # Phase 12: the reference's own training command (``SURVEY.md``,
 # ``commands/train.sh``: --encode_a --encode_c --encode_random --use_mask)
-# on phase 9's cache at the flagship config, one epoch (72 steps) a run.
+# on phase 9's cache at the flagship config, one epoch (36 steps) a run.
 ENC_C_FLAGS = ["--encode_a", "--encode_c", "--encode_random", "--use_mask"]
 ENC_C_EPOCHS = 1
 RANGER_PREEMPT_AFTER = 20   # past the Lookahead syncs at steps 6, 12, 18
@@ -4815,6 +4854,7 @@ NDC_RAYS = 4096
 NDC_RTOL = 1e-6
 
 
+@timed_phase
 def phase_encode_c(device, workdir: str, card: str, cli_stats):
     """Phase 12: the reference's training command in this process, Ranger
     straight, stopped and resumed in subprocesses, the content heads'
@@ -4828,7 +4868,6 @@ def phase_encode_c(device, workdir: str, card: str, cli_stats):
 
     import torch
 
-    t0 = time.perf_counter()
     root = os.path.join(workdir, "scene")
     save = os.path.join(workdir, "runs_c")
     scene = (cli_scene(root, os.path.join(workdir, "empty"))
@@ -4864,8 +4903,7 @@ def phase_encode_c(device, workdir: str, card: str, cli_stats):
     print(f"[encode_c] {steps} steps of the reference's command "
           f"({' '.join(ENC_C_FLAGS)}) in {secs:.1f} s with the validations "
           f"and checkpoints; epoch 0: {sps:.2f} steps/s against phase 9's "
-          f"{cli_stats['steps_per_s_epoch0']:.2f} (its epoch 0) and "
-          f"{cli_stats['steps_per_s']:.2f} (its epoch 1); peak memory "
+          f"{cli_stats['steps_per_s_epoch0']:.2f} (its epoch 0); peak memory "
           f"{peak:.2f} GiB against {cli_stats['peak']:.2f}; "
           f"loss/content_constraint {terms[0]:.4e} -> {terms[-1]:.4e} over "
           f"{len(terms)} rows; final val {val} ({card})")
@@ -4954,7 +4992,6 @@ def phase_encode_c(device, workdir: str, card: str, cli_stats):
     del state, step, staged
     legacy_zoo(device, card)
     gn = group_norm_check(device, workdir, card)
-    print(f"[encode_c] phase 12: {time.perf_counter() - t0:.1f} s")
     return {k: launches[k] + gn[k] for k in launches}
 
 
@@ -5234,7 +5271,7 @@ def optimizer_times(system, card: str, n: int = 12, warm: int = 7):
 TP_MODEL = 2
 TP_GRIDS = 2         # the flagship's 16 grids cut to 2: on one card every
 #                      split layer's output columns cross the host
-TP_TIMED = 3
+TP_TIMED = 1         # cut from 3: a 2-rank step on one card takes ~15 s
 # (a): tests/test_tp.py's bounds on the small fp32 step's parameters and
 # statistics and on its loss. Not the one process's bits: a split layer's
 # product runs at another shape, for which cuDNN and cuBLAS may sum in
@@ -5438,7 +5475,7 @@ def tp_check_full(tag: str, job_path: str, res, ref, where: str,
           f"{-over_one[0]:.3e} at least ({over_one[1]}); the replicated "
           f"tensors the same bits on both ranks over {n_rep} tensors")
     gb = {k: v / 1e9 for k, v in a["bytes"].items()}
-    print(f"[tp] ({tag}) {TP_TIMED} timed steps: median {ms:.2f} ms a step, "
+    print(f"[tp] ({tag}) timed steps ({TP_TIMED}): median {ms:.2f} ms a step, "
           f"{1e3 / ms:.3f} steps/s (one process of {TP_GRIDS} grids: "
           f"{ref['ms']:.2f} ms, {1e3 / ref['ms']:.3f} steps/s); peak memory "
           f"a rank {[round(x['full']['peak_gib'], 2) for x in res]} GiB "
@@ -5456,6 +5493,7 @@ def tp_check_full(tag: str, job_path: str, res, ref, where: str,
         raise PhaseError(f"({tag}) non-finite timed losses {bad}")
 
 
+@timed_phase
 def phase_tp(device, workdir: str, card: str):
     """Phase 13: (a) and (b) on two ranks of the one card over gloo, (c)
     over NCCL where two cards are visible."""
@@ -5465,7 +5503,6 @@ def phase_tp(device, workdir: str, card: str):
 
     from crnerf_tpu_torch.train.step import make_train_step
 
-    t_phase = time.perf_counter()
     tp_dir = os.path.join(workdir, "tp")
     os.makedirs(tp_dir, exist_ok=True)
     small, small_draws, full = tp_configs()
@@ -5556,7 +5593,6 @@ def phase_tp(device, workdir: str, card: str):
         job_c, res_c = tp_ranks(tp_dir, "c", "nccl", True, False,
                                 draws_path)
         tp_check_full("c", job_c, res_c, ref, "two cards", "nccl", card)
-    print(f"[tp] phase 13 in {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
 def main(argv=None) -> int:

@@ -14,6 +14,12 @@ reference's D-rank DDP over NCCL (``--num_gpus``).
   CUDA process binds to ``cuda:LOCAL_RANK``; the backend is NCCL on CUDA
   and gloo on the CPU unless the caller names one. A failed rendezvous is
   an error.
+- ``host_store`` / ``rank_env``: the rendezvous of a launch from this
+  process, as torchrun's agent holds it. The launcher hosts the TCP store
+  on a port that the OS assigns while the store listens on it, and the
+  ranks join it as clients (``TORCHELASTIC_USE_AGENT_STORE``). No rank
+  binds a port that was chosen earlier and freed meanwhile, which another
+  process could take first.
 - ``rank``, ``world_size``, ``barrier``: 0, 1 and a no-op without a group.
 - ``all_reduce_mean_`` (``jax.lax.pmean``): one all-reduce of a flat buffer
   per dtype, then a divide by D.
@@ -23,7 +29,7 @@ reference's D-rank DDP over NCCL (``--num_gpus``).
 - ``AgreedFlag``: a flag that every rank reads the same (a MAX all-reduce),
   launched after one step and read after the next, so that agreeing adds
   no wait on the device.
-- ``spawn``: D local processes with a rendezvous on localhost; when one
+- ``spawn``: D local processes on a ``host_store`` rendezvous; when one
   fails the others are killed and the launcher exits non-zero.
 
 On gloo a CUDA tensor goes through the host: gloo is a host transport, and
@@ -36,15 +42,15 @@ import datetime
 import multiprocessing.connection
 import os
 import signal
-import socket
 import time
 import traceback
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 _ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
+TIMEOUT = datetime.timedelta(minutes=10)   # the rendezvous and collectives
 
 
 def launched() -> bool:
@@ -75,7 +81,11 @@ def resolve_world(num_devices: int, device) -> int:
 def init_distributed(device, backend: Optional[str] = None
                      ) -> Tuple[torch.device, dist.ProcessGroup]:
     """Join the launcher's process group -> (this rank's device, the
-    group). On CUDA the process binds to ``cuda:LOCAL_RANK``."""
+    group). On CUDA the process binds to ``cuda:LOCAL_RANK``. The store at
+    ``MASTER_ADDR:MASTER_PORT`` is the launcher's where
+    ``TORCHELASTIC_USE_AGENT_STORE=True`` (torchrun's agent, ``spawn``,
+    ``rank_env``): every rank joins it as a client. Otherwise rank 0 hosts
+    it on that port."""
     missing = [k for k in _ENV if k not in os.environ]
     if missing:
         raise RuntimeError(f"init_distributed: {missing} not set (launch "
@@ -104,7 +114,7 @@ def init_distributed(device, backend: Optional[str] = None
         backend=backend, rank=rank, world_size=world,
         init_method=(f"tcp://{os.environ['MASTER_ADDR']}:"
                      f"{os.environ['MASTER_PORT']}"),
-        timeout=datetime.timedelta(minutes=10), **kw)
+        timeout=TIMEOUT, **kw)
     return device, dist.group.WORLD
 
 
@@ -247,16 +257,30 @@ class AgreedFlag:
         return self.read()
 
 
-def _free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
+def host_store() -> dist.TCPStore:
+    """The TCP store of a group that this process launches, hosted here as
+    torchrun's agent hosts its own. It listens from the moment it is made,
+    on a port the OS assigns (``.port``), so no other process can take that
+    port before the ranks reach it. Keep it until the ranks have exited."""
+    return dist.TCPStore("localhost", 0, is_master=True,
+                         wait_for_workers=False, timeout=TIMEOUT)
 
 
-def _rank_entry(r: int, fn: Callable, n: int, port: int, args: tuple):
-    os.environ.update(RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(n),
-                      LOCAL_WORLD_SIZE=str(n), MASTER_ADDR="localhost",
-                      MASTER_PORT=str(port))
+def rank_env(store: dist.TCPStore, r: int, n: int,
+             local_rank: Optional[int] = None) -> Dict[str, str]:
+    """The environment under which ``init_distributed`` makes a process
+    rank ``r`` of ``n`` on ``store``: torchrun's variables, and
+    ``TORCHELASTIC_USE_AGENT_STORE`` so that every rank joins the store as
+    a client. ``local_rank`` (default ``r``): the rank's CUDA device."""
+    return dict(RANK=str(r), WORLD_SIZE=str(n), LOCAL_WORLD_SIZE=str(n),
+                LOCAL_RANK=str(r if local_rank is None else local_rank),
+                MASTER_ADDR="localhost", MASTER_PORT=str(store.port),
+                TORCHELASTIC_USE_AGENT_STORE="True")
+
+
+def _rank_entry(r: int, fn: Callable, envs: List[Dict[str, str]],
+                args: tuple):
+    os.environ.update(envs[r])
     try:
         fn(*args)
     except BaseException:
@@ -268,15 +292,17 @@ def _rank_entry(r: int, fn: Callable, n: int, port: int, args: tuple):
 def spawn(fn: Callable, n: int, args: tuple = (),
           timeout: Optional[float] = None) -> None:
     """Run ``fn(*args)`` in n new processes, ranks 0..n-1 of a group whose
-    rendezvous is on localhost (``init_distributed`` joins it). SIGTERM
-    and SIGINT to this process are passed on to every rank. Returns when
-    every rank has exited 0; when one exits otherwise, the others are
-    killed and ``SystemExit`` carries its code; past ``timeout`` seconds
-    every rank is killed and ``TimeoutError`` raised."""
+    store this process hosts (``host_store``; ``init_distributed`` joins
+    it). SIGTERM and SIGINT to this process are passed on to every rank.
+    Returns when every rank has exited 0; when one exits otherwise, the
+    others are killed and ``SystemExit`` carries its code; past
+    ``timeout`` seconds every rank is killed and ``TimeoutError`` raised."""
     import torch.multiprocessing as mp
 
-    ctx = mp.start_processes(_rank_entry, args=(fn, n, _free_port(), args),
-                             nprocs=n, join=False, start_method="spawn")
+    store = host_store()   # held until the ranks have exited (this frame)
+    envs = [rank_env(store, r, n) for r in range(n)]
+    ctx = mp.start_processes(_rank_entry, args=(fn, envs, args), nprocs=n,
+                             join=False, start_method="spawn")
     procs: List = ctx.processes
 
     def forward(signum, frame):

@@ -530,26 +530,31 @@ CLI = ["--dataset_name", "synthetic", "--batch_size", "64",
        "--val_chunk", "256", "--num_epochs", "1", "--log_every", "1",
        "--device", "cpu"]
 PREEMPT_AFTER = 3
+# the wait for a two-rank CLI run's steps and exit: an unstopped run took
+# 139 s where six copies of these tests ran beside a JAX-heavy test file
+# on 8 cores (120 s killed it)
+RUN_WAIT = 300
 
 
 def _rank_procs(argv, d: int, logs: str):
     """``python -m crnerf_tpu_torch`` on d ranks as torchrun starts them
-    (RANK / WORLD_SIZE / LOCAL_RANK / MASTER_ADDR / MASTER_PORT)."""
-    port = mesh._free_port()
+    (RANK / WORLD_SIZE / LOCAL_RANK / MASTER_ADDR / MASTER_PORT), on a
+    store that this process hosts as torchrun's agent does
+    (``mesh.host_store``) -> (the ranks, the store to hold until they
+    exit)."""
+    store = mesh.host_store()
     procs = []
     for r in range(d):
-        env = dict(os.environ, PYTHONPATH=REPO, RANK=str(r),
-                   LOCAL_RANK=str(r), WORLD_SIZE=str(d),
-                   LOCAL_WORLD_SIZE=str(d), MASTER_ADDR="localhost",
-                   MASTER_PORT=str(port), **RANK_ENV)
+        env = dict(os.environ, PYTHONPATH=REPO, **mesh.rank_env(store, r, d),
+                   **RANK_ENV)
         f = open(os.path.join(logs, f"rank{r}.log"), "w")
         procs.append((subprocess.Popen(
             [sys.executable, "-m", "crnerf_tpu_torch", *argv], cwd=REPO,
             env=env, stdout=f, stderr=subprocess.STDOUT), f))
-    return procs
+    return procs, store
 
 
-def _finish(procs, logs: str, timeout: float = 120):
+def _finish(procs, logs: str, timeout: float = RUN_WAIT):
     out = []
     try:
         for r, (p, f) in enumerate(procs):
@@ -579,33 +584,51 @@ def _ckpt(save, exp, step):
                       weights_only=False)
 
 
-def _same_state(a, b):
-    assert a["step"] == b["step"]
+def _same_state(a, b, what: str = ""):
+    """Two checkpoints hold the same bits; a failure names the first
+    tensor that differs, after ``what``."""
+    assert a["step"] == b["step"], (what, a["step"], b["step"])
     for k, v in a["system"].items():
-        assert torch.equal(v, b["system"][k]), k
+        assert torch.equal(v, b["system"][k]), (what, k)
     for i, st in a["optimizer"]["state"].items():
         for k, v in st.items():
             assert torch.equal(torch.as_tensor(v), torch.as_tensor(
-                b["optimizer"]["state"][i][k])), (i, k)
-    assert torch.equal(a["embedding_cache"], b["embedding_cache"])
-    assert torch.equal(a["embedding_valid"], b["embedding_valid"])
-    assert torch.equal(a["generator"], b["generator"])
+                b["optimizer"]["state"][i][k])), (what, i, k)
+    assert torch.equal(a["embedding_cache"], b["embedding_cache"]), \
+        (what, "embedding_cache")
+    assert torch.equal(a["embedding_valid"], b["embedding_valid"]), \
+        (what, "embedding_valid")
+    assert torch.equal(a["generator"], b["generator"]), (what, "generator")
+
+
+def _tails(out, names, n: int = 3000) -> str:
+    """The named runs' ranks' exit codes and the ends of their logs."""
+    return "\n".join(f"--- {name} rank {r}: exit {rc}\n{text[-n:]}"
+                     for name in names for r, (rc, text) in
+                     enumerate(out[name]))
+
+
+def _final_val(run):
+    return [ln for ln in run[0][1].splitlines() if ln.startswith("final val")]
 
 
 @pytest.fixture(scope="module")
 def cli_runs(tmp_path_factory):
     """Two ranks: an unstopped run, and a run whose rank 1 alone is sent
-    SIGTERM once step PREEMPT_AFTER is logged, then resumed."""
+    SIGTERM once step PREEMPT_AFTER is logged, then resumed. Records each
+    run's ranks' exit codes and output, and the step ``at`` that the
+    stopped run checkpointed (None when rank 0 printed none)."""
     root = tmp_path_factory.mktemp("cli")
     save = str(root / "runs")
     logs = {k: str(root / k) for k in ("whole", "stop", "resume")}
     for d in logs.values():
         os.makedirs(d)
-    whole = _rank_procs(["train", *CLI, "--save_dir", save, "--exp_name",
-                         "whole"], D, logs["whole"])
-    stop = _rank_procs(["train", *CLI, "--save_dir", save, "--exp_name",
-                        "stopped"], D, logs["stop"])
-    deadline = time.time() + 120
+    whole, whole_store = _rank_procs(["train", *CLI, "--save_dir", save,
+                                      "--exp_name", "whole"], D,
+                                     logs["whole"])
+    stop, stop_store = _rank_procs(["train", *CLI, "--save_dir", save,
+                                    "--exp_name", "stopped"], D, logs["stop"])
+    deadline = time.time() + RUN_WAIT
     while not any(r.get("step", 0) >= PREEMPT_AFTER and "train/loss" in r
                   for r in _rows(save, "stopped")):
         assert time.time() < deadline and stop[1][0].poll() is None, \
@@ -614,12 +637,19 @@ def cli_runs(tmp_path_factory):
     stop[1][0].send_signal(signal.SIGTERM)
     out = {"whole": _finish(whole, logs["whole"]),
            "stop": _finish(stop, logs["stop"])}
+    del whole_store, stop_store   # their ranks have exited
     ckpts = sorted(os.listdir(os.path.join(save, "ckpts", "stopped")))
-    resume = _rank_procs(["train", *CLI, "--save_dir", save, "--exp_name",
-                          "stopped", "--auto_resume"], D, logs["resume"])
+    resume, resume_store = _rank_procs(["train", *CLI, "--save_dir", save,
+                                        "--exp_name", "stopped",
+                                        "--auto_resume"], D, logs["resume"])
     out["resume"] = _finish(resume, logs["resume"])
+    del resume_store
     n_steps = max(r["step"] for r in _rows(save, "whole"))
-    return dict(save=save, out=out, ckpts_at_stop=ckpts, n_steps=n_steps)
+    m = [ln for ln in out["stop"][0][1].splitlines()
+         if ln.startswith("preempted")]
+    return dict(save=save, out=out, ckpts_at_stop=ckpts, n_steps=n_steps,
+                at=int(m[0].rsplit(" ", 1)[1]) if m else None,
+                rcs={k: [rc for rc, _ in v] for k, v in out.items()})
 
 
 def test_sigterm_to_one_rank_stops_both_at_one_step(cli_runs):
@@ -636,16 +666,22 @@ def test_sigterm_to_one_rank_stops_both_at_one_step(cli_runs):
 
 
 def test_resumed_two_rank_run_is_the_unstopped_run(cli_runs):
-    for rc, text in cli_runs["out"]["resume"] + cli_runs["out"]["whole"]:
-        assert rc == 0, text
-    whole_val = [ln for ln in cli_runs["out"]["whole"][0][1].splitlines()
-                 if ln.startswith("final val")]
-    resumed_val = [ln for ln in cli_runs["out"]["resume"][0][1].splitlines()
-                   if ln.startswith("final val")]
-    assert whole_val and whole_val == resumed_val
-    n = cli_runs["n_steps"]
+    out, n = cli_runs["out"], cli_runs["n_steps"]
+    why = (f"stopped at step {cli_runs['at']} of {n}; exit codes "
+           f"{cli_runs['rcs']}")
+    for name in ("resume", "whole"):
+        for r, (rc, _) in enumerate(out[name]):
+            assert rc == 0, (f"the {name} run's rank {r} exited {rc} "
+                             f"({why}):\n{_tails(out, [name])}")
+    whole_val, resumed_val = _final_val(out["whole"]), \
+        _final_val(out["resume"])
+    assert whole_val and whole_val == resumed_val, (
+        f"final val: whole {whole_val}, resume {resumed_val} ({why}):\n"
+        f"{_tails(out, ['whole', 'resume'])}")
     _same_state(_ckpt(cli_runs["save"], "stopped", n),
-                _ckpt(cli_runs["save"], "whole", n))
+                _ckpt(cli_runs["save"], "whole", n),
+                f"the resumed run's step-{n} checkpoint against the "
+                f"unstopped run's ({why})")
 
 
 def test_one_process_resumes_a_two_rank_checkpoint(cli_runs, tmp_path):
