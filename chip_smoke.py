@@ -4111,9 +4111,9 @@ def phase_apps(device, workdir: str, card: str, scene):
     add(launches)
     check_video(sdir, "brandenburg_gate", APP_SERVE_FRAMES, APP_WH,
                 "render_path")
-    ms = sorted(svc.render_ms)
+    stats = svc.handle({"op": "stats"})
     print(f"[apps] render_path: {APP_SERVE_FRAMES} frames in "
-          f"{r['ms_total']} ms, render p50 {ms[len(ms) // 2]:.1f} ms "
+          f"{r['ms_total']} ms, render p50 {stats['p50_ms']:.1f} ms "
           f"({card}); {launches['fused_render_fwd']} wgmma K1 launches")
     del svc
     rc, text = finish(job)

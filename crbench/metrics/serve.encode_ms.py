@@ -1,0 +1,13 @@
+"""serve.encode_ms: the reply's PNG encode and base64 (the span
+``serve.encode``), the mean a request over the window of the program's spans
+before the profiled stretch (``crbench/spans.py``), in ms.
+
+Layer: apps/serve.py RenderService. Moves: serve_p95_ms.
+"""
+
+from crbench.spans import window
+
+
+def read(d):
+    w = window(d, "serve")
+    return None if w is None else w.mean_ms("serve.encode")

@@ -25,7 +25,14 @@ replies ``frames``, ``out_dir``, ``gif`` and ``ms_total``, having written
 lock (one card), ``render_path`` a frame at a time. PNGs and the GIF are
 written by the standard-library encoders of ``utils/png.py`` and
 ``utils/visualization.py``; a PNG style image is decoded and resized
-without an image library, another format needs PIL.
+without an image library, another format needs PIL. ``stats`` replies
+``renders`` since the last warm-up, ``p50_ms`` and ``p95_ms`` of their
+``ms`` and ``lock_wait_p95_ms``.
+
+Each request line is a span of ``utils/tracing.py``, ``serve.request``,
+and a render's phases its children: ``serve.lock_wait``, ``serve.render``
+(with the Renderer's ``render.dispatch``) and ``serve.encode`` (PNG and
+base64).
 
 Trust model as in the JAX server: requests carry filesystem paths; the
 default bind is loopback, and a non-loopback bind requires ``--root DIR``,
@@ -38,8 +45,11 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import dataclasses
+import itertools
 import json
+import math
 import os
 import socket
 import socketserver
@@ -60,6 +70,7 @@ from crnerf_tpu_torch.render.camera_path import (
 )
 from crnerf_tpu_torch.render.inference import Renderer
 from crnerf_tpu_torch.render.system import CrNerfSystem
+from crnerf_tpu_torch.utils import tracing
 from crnerf_tpu_torch.utils.lanczos import resize_lanczos
 from crnerf_tpu_torch.utils.png import png_bytes, read_png
 from crnerf_tpu_torch.utils.visualization import write_video
@@ -100,10 +111,10 @@ class RenderService:
         self.renderer = Renderer(cfg, system)
         self.styles: Dict[str, np.ndarray] = {}
         self.lock = threading.Lock()
-        self.n_renders = 0
-        self.render_ms: list = []
+        self._requests = itertools.count()   # the rid of serve.request
         self._shutdown = threading.Event()
         self.root = os.path.realpath(root) if root else None
+        self.reset_stats()
 
     # ----------------------------------------------------------- helpers
     def _check_path(self, path: str) -> str:
@@ -155,14 +166,35 @@ class RenderService:
         return c2w, K, near, far, (h, w)
 
     def _render(self, cam, style, hw) -> Dict:
+        """Camera in, uint8 frame on the host: the span ``serve.render``,
+        whose duration is the reply's ``ms``."""
         c2w, K, near, far = cam
-        t0 = time.perf_counter()
-        out = self.renderer.fetch(self.renderer.render_frame_cam_async(
-            c2w, K, near, far, hw, style, outputs="rgb_u8"))
-        ms = (time.perf_counter() - t0) * 1e3
-        self.n_renders += 1
-        self.render_ms.append(ms)
-        return {"rgb": out["rgb_u8"], "ms": round(ms, 2)}
+        with tracing.span("serve.render") as rec:
+            out = self.renderer.fetch(self.renderer.render_frame_cam_async(
+                c2w, K, near, far, hw, style, outputs="rgb_u8"))
+        return {"rgb": out["rgb_u8"], "ms": round(rec.ms, 2)}
+
+    @contextlib.contextmanager
+    def _render_lock(self):
+        """Hold the render lock; the wait for it is ``serve.lock_wait``."""
+        with tracing.span("serve.lock_wait"):
+            self.lock.acquire()
+        try:
+            yield
+        finally:
+            self.lock.release()
+
+    def reset_stats(self):
+        """Start the ``stats`` op's count and percentiles afresh."""
+        self._stats_from = {n: len(tracing.records(n)) + tracing.dropped(n)
+                            for n in ("serve.render", "serve.lock_wait")}
+
+    def _since_reset(self, name: str):
+        """-> (records of ``name`` closed since ``reset_stats``, the
+        latest of them that its ring keeps)."""
+        recs = tracing.records(name)
+        n = len(recs) + tracing.dropped(name) - self._stats_from[name]
+        return n, recs[len(recs) - min(n, len(recs)):]
 
     # --------------------------------------------------------------- ops
     def op_ping(self, req):
@@ -183,12 +215,13 @@ class RenderService:
             raise ServeError("render needs inline:true and/or out_path")
         c2w, K, near, far, hw = self._cam_from(req)
         style = self._style_from(req)
-        with self.lock:
+        with self._render_lock():
             r = self._render((c2w, K, near, far), style, hw)
         resp = {"ms": r["ms"], "wh": [hw[1], hw[0]]}
-        png = png_bytes(r["rgb"])
-        if req.get("inline"):
-            resp["png_b64"] = base64.b64encode(png).decode("ascii")
+        with tracing.span("serve.encode"):
+            png = png_bytes(r["rgb"])
+            if req.get("inline"):
+                resp["png_b64"] = base64.b64encode(png).decode("ascii")
         if "out_path" in req:
             out_path = self._check_path(req["out_path"])
             os.makedirs(os.path.dirname(os.path.abspath(out_path)),
@@ -218,7 +251,7 @@ class RenderService:
         near = float(req.get("near", 0.0))
         far = float(req.get("far", 5.0))
         for i, c2w in enumerate(spec.poses(anchor)):
-            with self.lock:   # a frame at a time: renders interleave
+            with self._render_lock():   # a frame at a time, interleaved
                 r = self._render((c2w, K, near, far), style, (h, w))
             with open(os.path.join(out_dir, f"{i:03d}.png"), "wb") as f:
                 f.write(png_bytes(r["rgb"]))
@@ -228,12 +261,16 @@ class RenderService:
                 "ms_total": round((time.perf_counter() - t0) * 1e3, 1)}
 
     def op_stats(self, req):
-        ms = sorted(self.render_ms)
-        pct = (
-            lambda q: round(ms[min(len(ms) - 1, int(q * len(ms)))], 2)
-        ) if ms else (lambda q: None)
-        return {"renders": self.n_renders, "p50_ms": pct(0.50),
-                "p95_ms": pct(0.95), "styles": sorted(self.styles)}
+        """Renders since the last ``warmup`` (the process's ``serve.render``
+        records), and nearest-rank percentiles of the latest ``RING`` of
+        them and of the waits for the render lock."""
+        n, renders = self._since_reset("serve.render")
+        _, waits = self._since_reset("serve.lock_wait")
+        return {"renders": n,
+                "p50_ms": _nearest_rank([r.ms for r in renders], 50),
+                "p95_ms": _nearest_rank([r.ms for r in renders], 95),
+                "lock_wait_p95_ms": _nearest_rank([r.ms for r in waits], 95),
+                "styles": sorted(self.styles)}
 
     def op_shutdown(self, req):
         self._shutdown.set()
@@ -260,6 +297,15 @@ class RenderService:
         return resp
 
 
+def _nearest_rank(values, q: float) -> Optional[float]:
+    """The smallest value with at least ``q`` percent of ``values`` at or
+    below it, to 0.01; None without values."""
+    if not values:
+        return None
+    s = sorted(values)
+    return round(s[max(0, math.ceil(q / 100.0 * len(s)) - 1)], 2)
+
+
 class _Handler(socketserver.StreamRequestHandler):
     def handle(self):
         svc: RenderService = self.server.service  # type: ignore[attr-defined]
@@ -267,14 +313,16 @@ class _Handler(socketserver.StreamRequestHandler):
             raw = raw.strip()
             if not raw:
                 continue
-            try:
-                req = json.loads(raw)
-            except json.JSONDecodeError as e:
-                resp = {"ok": False, "error": f"bad json: {e}"}
-            else:
-                resp = svc.handle(req)
-            self.wfile.write((json.dumps(resp) + "\n").encode("utf-8"))
-            self.wfile.flush()
+            # one request line, parse to flush: the span serve.request
+            with tracing.span("serve.request", rid=next(svc._requests)):
+                try:
+                    req = json.loads(raw)
+                except json.JSONDecodeError as e:
+                    resp = {"ok": False, "error": f"bad json: {e}"}
+                else:
+                    resp = svc.handle(req)
+                self.wfile.write((json.dumps(resp) + "\n").encode("utf-8"))
+                self.wfile.flush()
             if svc._shutdown.is_set():
                 # shutdown() joins the serve loop: call it from another
                 # thread, never inline in a handler
@@ -295,8 +343,7 @@ def warmup(svc: RenderService, sizes: str) -> None:
             {"wh": [w, h], "c2w": np.eye(3, 4, dtype=np.float32).tolist()})
         svc._render((c2w, K, near, far), style, hw)
         print(f"warmup {w}x{h} done", flush=True)
-    svc.n_renders = 0
-    svc.render_ms.clear()
+    svc.reset_stats()
 
 
 class Server(socketserver.ThreadingTCPServer):

@@ -23,11 +23,12 @@ from typing import Dict, Tuple
 import torch
 
 from crnerf_tpu_torch.core.compositing import composite
+from crnerf_tpu_torch.utils import tracing
 
 MAX_C = 256         # channels the kernel takes (8 a lane)
 
 # launches of the kernel, counted by its wrapper where it launches
-LAUNCH_COUNTS: Dict[str, int] = {"composite": 0}
+LAUNCH_COUNTS: Dict[str, int] = tracing.register({"composite": 0})
 
 # Kernel against ``composite`` on the same inputs, max abs error of weights
 # and feature map (both in [0, 1]) and of depth (z up to ~6): the two take

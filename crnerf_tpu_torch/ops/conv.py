@@ -33,13 +33,14 @@ from typing import Dict
 import torch
 
 from crnerf_tpu_torch.models.common import reflect_pad  # noqa: F401
+from crnerf_tpu_torch.utils import tracing
 
 # launches of each kernel, counted by its wrapper where it launches: the
 # wgmma + TMA variant under the kernel's name, the mma.sync variant under
 # the name + "_mma"
-LAUNCH_COUNTS: Dict[str, int] = {"conv3x3_fwd": 0, "conv3x3_dw": 0,
-                                 "packed_conv": 0, "conv3x3_fwd_mma": 0,
-                                 "conv3x3_dw_mma": 0, "packed_conv_mma": 0}
+LAUNCH_COUNTS: Dict[str, int] = tracing.register({
+    "conv3x3_fwd": 0, "conv3x3_dw": 0, "packed_conv": 0,
+    "conv3x3_fwd_mma": 0, "conv3x3_dw_mma": 0, "packed_conv_mma": 0})
 
 # Kernel against its plain version on the same bf16 inputs, max abs error
 # over the plain version's largest |value|. fp32 outputs (the 3x3 forward

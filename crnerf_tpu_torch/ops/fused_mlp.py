@@ -89,14 +89,15 @@ from crnerf_tpu_torch.ops.fused_render import (
     wgmma_chain_weights,
     wgrad_variant,
 )
+from crnerf_tpu_torch.utils import tracing
 
 # launches of each kernel, counted by its wrapper where it launches
-LAUNCH_COUNTS: Dict[str, int] = {
+LAUNCH_COUNTS: Dict[str, int] = tracing.register({
     "fused_mlp_fwd": 0,      # forward, wgmma (the served widths, bf16)
     "fused_mlp_fwd_mma": 0,  # forward, mma.sync (fp32, other widths)
     "fused_mlp_bwd": 0,      # recompute backward, wgmma: every slab, one
     "fused_mlp_bwd_mma": 0,  # recompute backward, mma.sync
-}
+})
 
 # Scratch of the backward: the slab's stash and dz buffer together stay under
 # this many bytes (``slab_points_for``): ~212,000 points at 8x256 bf16

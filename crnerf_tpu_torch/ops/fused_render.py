@@ -81,6 +81,7 @@ import torch
 from crnerf_tpu_torch.core.compositing import DELTA_INF, composite
 from crnerf_tpu_torch.core.encoding import posenc
 from crnerf_tpu_torch.models.nerf_mlp import NerfMLP, softplus
+from crnerf_tpu_torch.utils import tracing
 
 LANE = 128          # ray-block width granule (JAX layout)
 ANCHOR_SPAN = 8     # exact sin/cos every 8 octaves in the recurrence
@@ -89,7 +90,7 @@ MAX_WIDTH = 256
 MAX_C = 128
 
 # launches of each kernel, counted by its wrapper where it launches
-LAUNCH_COUNTS: Dict[str, int] = {
+LAUNCH_COUNTS: Dict[str, int] = tracing.register({
     "fused_render_fwd": 0,          # forward, rays-in, no stash (wgmma)
     "fused_render_fwd_xyz": 0,      # forward, xyz-in, no stash (wgmma)
     "fused_render_fwd_mma": 0,      # the same on the mma.sync kernel
@@ -107,7 +108,7 @@ LAUNCH_COUNTS: Dict[str, int] = {
     "fused_render_bwd_recompute_xyz": 0,  # recompute backward, xyz-in
     "fused_render_bwd_recompute_mma": 0,  # the same on the mma.sync triple
     "fused_render_bwd_recompute_xyz_mma": 0,
-}
+})
 
 # Scratch of the recompute backward: the slab's stash and dz buffer together
 # stay under this many bytes (``slab_rays_for``). 2 GiB holds ~1,600 rays

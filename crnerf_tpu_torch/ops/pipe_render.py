@@ -42,10 +42,12 @@ from typing import Dict, Tuple
 import torch
 
 from crnerf_tpu_torch.ops import fused_render as fr
+from crnerf_tpu_torch.utils import tracing
 
 # launches of each kernel, counted where it launches
-LAUNCH_COUNTS: Dict[str, int] = {"pipe_render_fwd": 0,       # wgmma
-                                 "pipe_render_fwd_mma": 0}   # mma.sync
+LAUNCH_COUNTS: Dict[str, int] = tracing.register({
+    "pipe_render_fwd": 0,       # wgmma
+    "pipe_render_fwd_mma": 0})  # mma.sync
 
 PHASES = (1, 2, 4)   # rays per CTA the spike tool and the card checks run
 

@@ -20,9 +20,10 @@ from typing import Dict, Tuple
 import torch
 
 from crnerf_tpu_torch.ops import _build
+from crnerf_tpu_torch.utils import tracing
 
 # launches of the kernel (either variant), counted where it launches
-LAUNCH_COUNTS: Dict[str, int] = {"sincos": 0}
+LAUNCH_COUNTS: Dict[str, int] = tracing.register({"sincos": 0})
 
 # The accurate variant against float64 at the float32 argument: CUDA's
 # sinf / cosf are documented within 2 ulp, and |sin| <= 1, so 2 ulp of 1.0.

@@ -35,6 +35,7 @@ from typing import Dict
 import torch
 
 from crnerf_tpu_torch.ops.fused_render import pack_mma_b
+from crnerf_tpu_torch.utils import tracing
 
 T = 512        # columns of a tile
 ROWS = 96      # rows of a block
@@ -43,7 +44,7 @@ STEPS = 15     # double-angle steps of ``stores``
 MODES = ("base", "stores", "dmatrix")
 
 # launches of the kernel (any mode), counted where it launches
-LAUNCH_COUNTS: Dict[str, int] = {"sublane_stores": 0}
+LAUNCH_COUNTS: Dict[str, int] = tracing.register({"sublane_stores": 0})
 
 # Kernel against the plain version on the same inputs, per mode.
 # BLOCK_TOL: the kernel's bf16 blocks (``kernel_blocks``) against the plain

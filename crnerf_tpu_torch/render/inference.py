@@ -8,6 +8,10 @@ are measured on the card. The style statistics then run over all real
 pixels, which is what the bucketed masked statistics compute, and the mask
 is gathered at pixel centres as the bucketed route does.
 
+A frame's enqueue on the host (rays, uv, the forward's launches) is the
+span ``render.dispatch`` (``utils/tracing.py``); ``fetch`` waits for the
+device and copies the frame back.
+
 With a process group (``Renderer(group=)``) every rank renders its slice
 of a frame's rays and gets the whole frame (``forward_eval_sharded``): the
 bits of the single-process render. Every rank makes the same calls.
@@ -22,6 +26,7 @@ import torch
 
 from crnerf_tpu_torch.core.rays import cam_rays_uv
 from crnerf_tpu_torch.render.system import CrNerfSystem, pixel_uv
+from crnerf_tpu_torch.utils import tracing
 
 _KEEP_KEYS = ("rgb_fine", "rgb_coarse", "depth_fine", "depth_coarse",
               "out_mask")
@@ -76,9 +81,10 @@ class Renderer:
                            outputs: str = "full") -> Dict:
         """Host rays (h*w, 8) in; returns a handle without waiting for the
         device (``fetch`` completes it)."""
-        rays = self._as_tensor(rays)[:, :8].contiguous()
-        return self._dispatch(rays, pixel_uv(hw, self.device), whole_img,
-                              hw, outputs)
+        with tracing.span("render.dispatch"):
+            rays = self._as_tensor(rays)[:, :8].contiguous()
+            return self._dispatch(rays, pixel_uv(hw, self.device),
+                                  whole_img, hw, outputs)
 
     @torch.no_grad()
     def render_frame_cam_async(self, c2w, K, near: float, far: float,
@@ -87,10 +93,12 @@ class Renderer:
         """Camera in: c2w (3, 4), K (3, 3); rays and uv are made on the
         device. ``whole_img`` (1, Ha, Wa, 3) in [-1, 1] may already be a
         device tensor."""
-        K = np.asarray(K, np.float32)
-        intr = self._as_tensor([K[0][0], K[1][1], K[0][2], K[1][2]])
-        rays, uv = cam_rays_uv(self._as_tensor(c2w), intr, near, far, hw)
-        return self._dispatch(rays, uv, whole_img, hw, outputs)
+        with tracing.span("render.dispatch"):
+            K = np.asarray(K, np.float32)
+            intr = self._as_tensor([K[0][0], K[1][1], K[0][2], K[1][2]])
+            rays, uv = cam_rays_uv(self._as_tensor(c2w), intr, near, far,
+                                   hw)
+            return self._dispatch(rays, uv, whole_img, hw, outputs)
 
     def fetch(self, handle: Dict) -> Dict[str, np.ndarray]:
         """Copy a handle's results to the host, shaped (h, w, ...)."""

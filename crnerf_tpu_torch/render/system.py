@@ -40,6 +40,7 @@ from crnerf_tpu_torch.render.renderer import (
     render_rays_tiled,
     render_rays_train,
 )
+from crnerf_tpu_torch.utils import tracing
 
 
 def compute_dtype(cfg: Config) -> torch.dtype:
@@ -180,19 +181,20 @@ class CrNerfSystem(nn.Module):
         params = ((lambda m: mlp_params_from_module(m, detach=False))
                   if cfg.pallas_train else (lambda m: m))
         bf16 = cfg.compute_dtype == "bfloat16"
-        rr = render_rays_train(
-            params(self.nerf_coarse),
-            params(self.nerf_fine) if self.nerf_fine is not None else None,
-            batch["rays"].reshape(g * b, 8),
-            n_samples=cfg.N_samples, n_importance=cfg.N_importance,
-            n_emb_xyz=cfg.N_emb_xyz, n_emb_dir=cfg.N_emb_dir,
-            use_disp=cfg.use_disp, perturb=cfg.perturb,
-            noise_std=cfg.noise_std, compute_dtype=compute_dtype(cfg),
-            exact_encode=not (cfg.fast_sincos and bf16),
-            skips=self.nerf_coarse.skips, pertube_cord=cfg.pertube_cord,
-            stash=cfg.pallas_stash, full=cfg.pallas_render,
-            remat=cfg.remat, generator=generator, draws=draws,
-        )
+        with tracing.span("system.render"):
+            rr = render_rays_train(
+                params(self.nerf_coarse),
+                params(self.nerf_fine) if self.nerf_fine is not None else None,
+                batch["rays"].reshape(g * b, 8),
+                n_samples=cfg.N_samples, n_importance=cfg.N_importance,
+                n_emb_xyz=cfg.N_emb_xyz, n_emb_dir=cfg.N_emb_dir,
+                use_disp=cfg.use_disp, perturb=cfg.perturb,
+                noise_std=cfg.noise_std, compute_dtype=compute_dtype(cfg),
+                exact_encode=not (cfg.fast_sincos and bf16),
+                skips=self.nerf_coarse.skips, pertube_cord=cfg.pertube_cord,
+                stash=cfg.pallas_stash, full=cfg.pallas_render,
+                remat=cfg.remat, generator=generator, draws=draws,
+            )
         res.update({k: v.reshape(g, b, *v.shape[1:]) for k, v in rr.items()})
         has_fine = "feature_fine" in rr
         fc_map = rr["feature_coarse"].reshape(g, h, w, -1)

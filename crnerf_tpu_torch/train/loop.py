@@ -43,6 +43,7 @@ dispatch (for a TPU behind a high-latency link).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Dict, Optional
@@ -69,6 +70,7 @@ from crnerf_tpu_torch.utils.checkpoint import (
     restore_state,
     state_payload,
 )
+from crnerf_tpu_torch.utils import tracing
 from crnerf_tpu_torch.utils.logging import MetricLogger
 from crnerf_tpu_torch.utils.visualization import visualize_depth
 from crnerf_tpu_torch.utils.weights import flax_from_state_dict, save_npz
@@ -260,32 +262,41 @@ class Trainer:
         rays trained)."""
         cfg = self.cfg
         n_rays = 0
-        for batch in self.pipeline.epoch_batches(
+        # closed on the way out, so that the prefetch thread stops
+        with contextlib.closing(self.pipeline.epoch_batches(
                 epoch, self.grids, n_steps=self.iters_per_epoch,
                 start_step=global_step - epoch * self.iters_per_epoch,
-                rank=self.rank, world=self.n_ranks):
-            batch = {k: torch.from_numpy(v).to(self.device)
-                     for k, v in batch.items() if k != "image_idx"}
-            if (cfg.profile and self.rank == 0
-                    and global_step == cfg.profile_steps[0]):
-                self._start_profile()
-            self.state, metrics = self.step_fn(self.state, batch)
-            global_step += 1
-            self._progress_steps += 1
-            n_rays += cfg.batch_size * self.n_ranks * self.grids
-            if (self.logger and cfg.img_panel_every > 0
-                    and global_step % cfg.img_panel_every == 0):
-                self._log_train_panels(batch, global_step)
-            if global_step == cfg.profile_steps[1]:
-                self._stop_profile()
-            if global_step % cfg.log_every == 0 and (
-                    self.logger or self.group is not None):
-                vals = reduce_metrics(metrics, self.group)
-                if self.logger:
-                    self.logger.log({k if "/" in k else f"train/{k}": v
-                                     for k, v in vals.items()}, global_step)
-            if self._step_stop():
-                break
+                rank=self.rank, world=self.n_ranks)) as batches:
+            while True:
+                # the spans of a batch carry the global step it feeds
+                with tracing.span("train.batch_wait", rid=global_step):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
+                with tracing.span("train.batch_copy", rid=global_step):
+                    batch = {k: torch.from_numpy(v).to(self.device)
+                             for k, v in batch.items() if k != "image_idx"}
+                if (cfg.profile and self.rank == 0
+                        and global_step == cfg.profile_steps[0]):
+                    self._start_profile()
+                self.state, metrics = self.step_fn(self.state, batch)
+                global_step += 1
+                self._progress_steps += 1
+                n_rays += cfg.batch_size * self.n_ranks * self.grids
+                if (self.logger and cfg.img_panel_every > 0
+                        and global_step % cfg.img_panel_every == 0):
+                    self._log_train_panels(batch, global_step)
+                if global_step == cfg.profile_steps[1]:
+                    self._stop_profile()
+                if global_step % cfg.log_every == 0 and (
+                        self.logger or self.group is not None):
+                    vals = reduce_metrics(metrics, self.group)
+                    if self.logger:
+                        self.logger.log(
+                            {k if "/" in k else f"train/{k}": v
+                             for k, v in vals.items()}, global_step)
+                if self._step_stop():
+                    break
         if self._flag is not None and self._flag.pending:
             self._stopping |= self._flag.read()   # the epoch's last reduce
         return global_step, n_rays

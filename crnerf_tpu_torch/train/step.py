@@ -44,6 +44,7 @@ from crnerf_tpu_torch.render.system import CrNerfSystem
 from crnerf_tpu_torch.train.losses import crnerf_loss
 from crnerf_tpu_torch.train.metrics import psnr
 from crnerf_tpu_torch.train.state import TrainState
+from crnerf_tpu_torch.utils import tracing
 
 # injected draws that carry a leading G axis and reach the renderer as
 # per-ray rows of the chunk's grids
@@ -183,9 +184,9 @@ def make_train_step(system: CrNerfSystem, optimizer: torch.optim.Optimizer,
         for i, m in enumerate(norms):
             m.pending = (stats[2 * i], stats[2 * i + 1], 1)
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-                   draws: Optional[Dict[str, torch.Tensor]] = None
-                   ) -> Tuple[TrainState, Dict[str, object]]:
+    def step(state: TrainState, batch: Dict[str, torch.Tensor],
+             draws: Optional[Dict[str, torch.Tensor]]
+             ) -> Tuple[TrainState, Dict[str, object]]:
         nonlocal rank_gen
         draws = dict(draws or {})
         if batch["rays"].dim() == 2:
@@ -210,48 +211,57 @@ def make_train_step(system: CrNerfSystem, optimizer: torch.optim.Optimizer,
             b_c = {k: v[sl] for k, v in batch.items()}
             d_c = {k: draws[k][sl].flatten(0, 1)   # (gc, B, ...) rows
                    for k in _PER_RAY_DRAWS if k in draws}
-            total, sums, ps, aw, a_emb = chunk_loss(state, b_c, a_rand[sl],
-                                                    d_c, gen)
+            with tracing.span("train.forward"):
+                total, sums, ps, aw, a_emb = chunk_loss(
+                    state, b_c, a_rand[sl], d_c, gen)
             # d(mean over G grids) accumulates into .grad chunk by chunk
-            (total / g_total).backward()
+            with tracing.span("train.backward"):
+                (total / g_total).backward()
             for k, v in sums.items():
                 term_sums[k] = term_sums.get(k, 0.0) + v.detach()
             psnr_sum = psnr_sum + ps
             if a_emb is not None:
                 embeddings.append(a_emb.detach())
-        if group is not None:
-            pmean_(system)
-        lr = lr_sched(state.step)
-        for pg in optimizer.param_groups:
-            pg["lr"] = lr
-        optimizer.step()
+        with tracing.span("train.update"):
+            if group is not None:
+                pmean_(system)
+            lr = lr_sched(state.step)
+            for pg in optimizer.param_groups:
+                pg["lr"] = lr
+            optimizer.step()
 
-        with torch.no_grad():
-            if cfg.encode_a and cfg.encode_random:
-                # one batched row scatter; duplicate ts of one rank carry
-                # equal embeddings (same image, same parameters)
-                ts = batch["ts"][:, 0].to(torch.int64)
-                rows = torch.cat(embeddings, 0).reshape(g_total, -1)
-                if group is not None:
-                    ts = mesh.all_gather_rows(ts, group)
-                    rows = mesh.all_gather_rows(rows, group)
-                    if n_ranks > 1:
-                        rows = rows[last_occurrence(ts)]
-                state.embedding_cache[ts] = rows.to(
-                    state.embedding_cache.dtype)
-                state.embedding_valid[ts] = True
-                state.has_any = True
-            if system.implicit_mask is not None:
-                system.implicit_mask.update_running_stats()
-        metrics: Dict[str, object] = {
-            "loss": sum(term_sums.values()) / g_total,
-            "psnr": psnr_sum / g_total,
-            "annealing_weight": aw,
-            "lr": lr,
-        }
-        for k, v in term_sums.items():
-            metrics[f"loss/{k}"] = v / g_total
-        state.step += 1
+            with torch.no_grad():
+                if cfg.encode_a and cfg.encode_random:
+                    # one batched row scatter; duplicate ts of one rank carry
+                    # equal embeddings (same image, same parameters)
+                    ts = batch["ts"][:, 0].to(torch.int64)
+                    rows = torch.cat(embeddings, 0).reshape(g_total, -1)
+                    if group is not None:
+                        ts = mesh.all_gather_rows(ts, group)
+                        rows = mesh.all_gather_rows(rows, group)
+                        if n_ranks > 1:
+                            rows = rows[last_occurrence(ts)]
+                    state.embedding_cache[ts] = rows.to(
+                        state.embedding_cache.dtype)
+                    state.embedding_valid[ts] = True
+                    state.has_any = True
+                if system.implicit_mask is not None:
+                    system.implicit_mask.update_running_stats()
+            metrics: Dict[str, object] = {
+                "loss": sum(term_sums.values()) / g_total,
+                "psnr": psnr_sum / g_total,
+                "annealing_weight": aw,
+                "lr": lr,
+            }
+            for k, v in term_sums.items():
+                metrics[f"loss/{k}"] = v / g_total
+            state.step += 1
         return state, metrics
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+                   draws: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> Tuple[TrainState, Dict[str, object]]:
+        with tracing.span("train.step", rid=state.step):
+            return step(state, batch, draws)
 
     return train_step
